@@ -1,34 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's recommendation serving on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's recommendation template on one NVIDIA GPU:
+serving, ALS training through ``Engine.train``, and serving the trained
+model.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run on any error or mismatch:
 
-1. card   — requires CUDA; prints the card's name and power limit as
-            ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
-            gives them; turns TF32 off.
-2. build  — compiles the port's CUDA sources (``runtime.build_kernels``).
-3. kernel — the score+top-k kernel against its plain PyTorch version on the
-            card: the reference's four kernel test cases, duplicate-row ties,
-            the ML-20M width (26,744 items x rank 128) and a 1,048,576-item
-            rank-64 catalogue. Ids must agree except among near-ties (plain
-            scores within 1e-5 relative); scores to rtol 1e-5 and
-            atol 1e-5 * max|score|.
-4. path   — a planted ALSModel at ML-20M width (138,493 users x 26,744
-            items x rank 128), served by the port's PredictionServer: 32 HTTP
-            queries to /queries.json and one 64-body batch through
-            ``_handle_batch``, every answer checked against the plain version
-            on the same factors, and the kernel's launch count read.
-5. report — kernel, plain-version and ``torch.topk`` times (CUDA events,
-            median of 30 after warm-up) beside the bound, as one
-            ``{"kernels": [...]}`` line; then the last line,
-            ``{"ok": true, "device": {...}}``.
+1. card    — requires CUDA; prints the card's name and power limit as
+             ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+             gives them; turns TF32 off.
+2. build   — compiles the port's CUDA sources (``runtime.build_kernels``).
+3. kernel  — the score+top-k kernel against its plain PyTorch version on
+             the card: the reference's four kernel test cases, duplicate-row
+             ties, the ML-20M width (26,744 items x rank 128) and a
+             1,048,576-item rank-64 catalogue. Ids must agree except among
+             near-ties (plain scores within 1e-5 relative); scores to rtol
+             1e-5 and atol 1e-5 * max|score|.
+4. als-kernel — every ALS kernel entry against its plain version: the
+             reference tests' cases and ML-20M bucket shapes at rank 128,
+             f32 and bf16, cold and warm, R = 1 and 8, fused implicit with
+             YtY; tolerances in :func:`als_tolerance`, and the f32 systems
+             with fewer observations than the rank also against an f64
+             solve.
+5. path    — a planted ALSModel at ML-20M width (138,493 users x 26,744
+             items x rank 128), served by the port's PredictionServer: 32
+             HTTP queries to /queries.json and one 64-body batch through
+             ``_handle_batch``, every answer checked against the plain
+             version on the same factors, and the kernel's launch count read.
+6. train   — 20,000,000 planted ratings at ML-20M width trained through
+             ``Engine.train`` (rank 128, 4 sweeps, 2 in bf16), then from the
+             same initial state on the plain route (``use_kernel=False``):
+             both ALS kernels must launch, the fit RMSE must be within the
+             reference's parity bound of the plain route's and the heldout
+             RMSE below 0.8.
+7. serve-trained — the trained model behind PredictionServer, each answer
+             against the plain top-k on the trained factors.
+8. report  — kernel, plain-version and library times (CUDA events, median
+             after warm-up) beside the bound, as one ``{"kernels": [...]}``
+             line; then the last line, ``{"ok": true, "device": {...}}``.
 
-The bound is max(bytes / 3.35 TB/s, 2*B*I*K / 67 TFLOP/s): H100 SXM HBM3
-and f32 without tensor cores (the TPU kernel computes in full f32), from
-NVIDIA's data sheet at 700 W; bytes count each input read once and each
-output written once.
+The bound is max(bytes / 3.35 TB/s, operations / peak): H100 SXM HBM3, f32
+without tensor cores at 67 TFLOP/s and bf16 tensor-core products at 989
+TFLOP/s, from NVIDIA's data sheet at 700 W (``runtime.HBM_BYTES_PER_S``,
+``F32_FLOPS``, ``BF16_FLOPS``); bytes count each input read once and each
+output written once. The ALS entries' bound is
+``ops/als_kernels.bucket_bound``, the one the training profile uses.
 """
 
 from __future__ import annotations
@@ -43,8 +60,6 @@ import urllib.request
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 ML20M = dict(users=138_493, items=26_744, rank=128)
 MIPS_CATALOGUE = dict(items=1_048_576, rank=64)
 
@@ -319,10 +334,13 @@ def median_ms(fn, reps: int = 30, warm: int = 5) -> float:
 
 
 def bound(b: int, n_items: int, rank: int, k: int, masked: bool):
+    from incubator_predictionio_tpu_torch import runtime
+
     nbytes = 4 * n_items * rank + 4 * b * rank + 8 * b * k \
         + (n_items if masked else 0)
     flops = 2.0 * b * n_items * rank
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    t_bytes = nbytes / runtime.HBM_BYTES_PER_S
+    t_ops = flops / runtime.F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -342,17 +360,531 @@ def time_shape(kernels, planted, dev, b, n_items, rank, k) -> dict:
     }
 
 
+# -- ALS kernels against their plain versions ------------------------------------
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def als_problem(rng, m, k, b, d, density=None):
+    """(table, cols, vals, mask, x0) as numpy. ``density`` None fills each
+    row like a degree bucket, (d/2, d] observations from the left; a
+    density draws a random mask (the reference tests' cases). Row 3 (or
+    the last) is empty."""
+    table = rng.normal(0, 0.3, (m, k)).astype(np.float32)
+    cols = rng.integers(0, m, (b, d)).astype(np.int32)
+    vals = rng.normal(3.5, 1.0, (b, d)).astype(np.float32)
+    if density is None:
+        lens = rng.integers(d // 2 + 1, d + 1, b)
+        mask = (np.arange(d)[None, :] < lens[:, None]).astype(np.float32)
+    else:
+        mask = (rng.random((b, d)) < density).astype(np.float32)
+    mask[min(3, b - 1)] = 0.0
+    x0 = rng.normal(0, 0.3, (b, k)).astype(np.float32)
+    return table, cols, vals, mask, x0
+
+
+def two_stage_rows(d: int, k: int, chunk_elems: int) -> int:
+    """Rows of one chunk of the two-stage route (ops/als.py sizing)."""
+    return max(8, chunk_elems // (d * k))
+
+
+def fused_rows(d: int, k: int, chunk_elems: int) -> int:
+    """Rows of one chunk of the fused route (ops/als.py sizing)."""
+    return max(8, chunk_elems // (3 * d + 3 * k))
+
+
+def als_cases(chunk_elems: int, small: bool = False) -> list:
+    """(name, m_two, m_fused, k, b_two, b_fused, d, l2, reg_nnz, iters,
+    density, implicit_dtypes) of the ALS kernel phase."""
+    cases = [
+        # tests/test_pallas_kernels.py:156-212
+        ("solve_bucket", 400, 400, 64, 24, 24, 48, 0.1, True, 16, 0.8,
+         ("f32", "bf16")),
+        ("multi_tile_d_b13", 600, 600, 32, 13, 13, 1024, 0.05, False, 16,
+         0.8, ("f32", "bf16")),
+        # tests/test_fused_gram.py:51-122: the fold-in ladder at rank 24
+        *[(f"ladder_d{d}", 150, 150, 24, 9, 9, d, 0.05, True, 16, 0.8,
+           ("f32", "bf16")) for d in (8, 32, 128, 512)],
+        ("rank128_no_reg_nnz", 160, 160, 128, 8, 8, 32, 0.5, False, 32,
+         0.8, ()),
+    ]
+    # ML-20M buckets at rank 128: the item half-sweep (two-stage) gathers
+    # from the user table, the user half-sweep (fused) from the item table
+    for d in (64, 128, 1024, 8192):
+        m_two, m_fused = ML20M["users"], ML20M["items"]
+        b_two = two_stage_rows(d, 128, chunk_elems)
+        b_fused = fused_rows(d, 128, chunk_elems)
+        if small:
+            m_two, m_fused, b_two, b_fused = 3000, 2000, 16, 16
+            d = min(d, 256)
+        cases.append((f"ml20m_d{d}", m_two, m_fused, 128, b_two, b_fused, d,
+                      0.03, True, 16, None, ("f32",)))
+        if d < 128 and not small:
+            # the two-stage entry at the fused chunk's rows too, so both
+            # entries' D < K errors are read over as many rows
+            cases.append((f"ml20m_d{d}_b{b_fused}", m_two, m_fused, 128,
+                          b_fused, b_fused, d, 0.03, True, 16, None, ()))
+    return cases
+
+
+def _rel_err(got, ref):
+    err = float((got - ref).abs().max())
+    return err, err / max(float(ref.abs().max()), 1e-30)
+
+
+def als_tolerance(dtype, d: int, k: int, trained: bool = False) -> float:
+    """Bound on max|x − x_plain| / max|x_plain|: 1e-4 with an f32 table,
+    1e-3 with a bf16 one; the arithmetic is the same and only the order of
+    sums differs. Two kinds of system are held to 1e-3 in f32 as well,
+    because 16 CG steps leave them unconverged and the unconverged iterate
+    amplifies the order-of-sums difference:
+    - a row with fewer observations than the rank (D < K): its Gram is
+      singular and only the ridge conditions it;
+    - a main-path chunk (``trained``): the table is the trained factors,
+      rank 128 fitted to rank-16 ratings, whose Gram has a few large and
+      many small eigenvalues.
+    Both are also held to the f64 solve of the same system: a D < K kernel
+    result beyond 1e-4 of the plain version (:func:`als_kernel_phase`) and
+    every main-path chunk (:func:`time_als`) may be no more than 3x as far
+    from it as the plain version, so the looser bound holds only where the
+    plain version's own f32 sums are that far from exact."""
+    if trained or d < k or dtype == torch.bfloat16:
+        return 1e-3
+    return 1e-4
+
+
+def als_kernel_phase(dev, ak, chunk_elems: int, small: bool = False):
+    """Every ALS kernel entry against its plain version: each case in f32
+    and bf16, cold and warm, R = 1 and R = 8 and fused, plus the fused
+    implicit variant with YᵀY, each held to :func:`als_tolerance`; an f32
+    system with D < K is also compared with the f64 solve (``vs f64`` and
+    ``plain vs f64`` in the relative errors), which binds beyond 1e-4 of
+    the plain version. The fused entry must give exactly 0 on
+    an empty row. Returns ({entry: max abs error}, {entry dtype: max
+    relative error}, #checks); raises after the last case with every
+    failure."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rng = np.random.default_rng(5)
+    errs = {"als_solve_cg": 0.0, "als_solve_cg_rows8": 0.0,
+            "als_fused_solve_cg": 0.0}
+    worst = {}
+    failures = []
+    checks = 0
+
+    def check(entry, got, ref, tol, what, exact=None):
+        nonlocal checks
+        sync(dev)
+        checks += 1
+        if not bool(torch.isfinite(got).all()):
+            failures.append(f"{what}: non-finite output")
+            return
+        err, rel = _rel_err(got, ref)
+        errs[entry] = max(errs[entry], err)
+        dname = what.split()[2]
+        key = (f"{entry} {dname}{' implicit' if 'implicit' in what else ''}"
+               f"{' D<K' if exact is not None else ''}")
+        worst[key] = max(worst.get(key, 0.0), rel)
+        if rel > tol:
+            failures.append(f"{what}: max error {err:.3e} is {rel:.3e} of "
+                            f"max|x_plain|, above {tol}")
+        if exact is None:
+            return
+        # beyond the f32 bound, the looser D < K bound stands only as far
+        # as the plain version is itself that far from exact arithmetic
+        k_f64 = _rel_err(got.double(), exact)[1]
+        p_f64 = _rel_err(ref.double(), exact)[1]
+        worst[f"{key} vs f64"] = max(worst.get(f"{key} vs f64", 0.0), k_f64)
+        worst[f"{key} plain vs f64"] = max(
+            worst.get(f"{key} plain vs f64", 0.0), p_f64)
+        if rel > 1e-4 and k_f64 > 3 * p_f64 + 1e-6:
+            failures.append(f"{what}: {k_f64:.3e} of max|x_f64| from the f64 "
+                            f"solve, the plain version {p_f64:.3e}")
+
+    for (name, m_two, m_fused, k, b_two, b_fused, d, l2, reg_nnz, iters,
+         density, implicit_dtypes) in als_cases(chunk_elems, small):
+        for side, m, b in (("two", m_two, b_two), ("fused", m_fused,
+                                                   b_fused)):
+            table, cols, vals, mask, x0 = als_problem(rng, m, k, b, d,
+                                                      density)
+            table_f32, cols, vals, mask, x0 = (t(table), t(cols), t(vals),
+                                               t(mask), t(x0))
+            empty = mask.sum(-1) == 0
+            for dname, dtype in (("f32", torch.float32),
+                                 ("bf16", torch.bfloat16)):
+                tol = als_tolerance(dtype, d, k)
+                table_dt = table_f32.to(dtype)
+                # the f32 D < K systems, held to 1e-3, are also held to f64
+                loose = dtype == torch.float32 and tol > 1e-4
+                for warm in (None, x0):
+                    what = (f"{name} {side} {dname} "
+                            f"{'warm' if warm is not None else 'cold'}")
+                    if side == "two":
+                        ref = ak.als_solve_cg_plain(
+                            table_dt, cols, vals, mask, l2, reg_nnz, iters,
+                            x0=warm)
+                        exact = (f64_solve(ak, table_f32, cols, vals, mask,
+                                           l2, reg_nnz, iters, warm, False)
+                                 if loose else None)
+                        for rows, entry in ((1, "als_solve_cg"),
+                                            (8, "als_solve_cg_rows8")):
+                            got = ak.als_solve_cg(
+                                table_dt, cols, vals, mask, l2, reg_nnz,
+                                iters, rows_per_program=rows, x0=warm)
+                            check(entry, got, ref, tol, f"{what} R={rows}",
+                                  exact)
+                        continue
+                    variants = [(False, None, iters)]
+                    if dname in implicit_dtypes:
+                        yty = table_dt.float().T @ table_dt.float()
+                        variants.append((True, yty, 2 * iters))
+                    for implicit, yty, n_it in variants:
+                        kw = dict(implicit=implicit, alpha=2.0, yty=yty,
+                                  x0=warm)
+                        ref = ak.als_fused_solve_cg_plain(
+                            table_dt, cols, vals, mask, l2, reg_nnz, n_it,
+                            **kw)
+                        got = ak.als_fused_solve_cg(
+                            table_dt, cols, vals, mask, l2, reg_nnz, n_it,
+                            **kw)
+                        exact = (f64_solve(ak, table_f32, cols, vals, mask,
+                                           l2, reg_nnz, n_it, warm, True,
+                                           implicit, 2.0, yty)
+                                 if loose else None)
+                        w = f"{what}{' implicit' if implicit else ''}"
+                        check("als_fused_solve_cg", got, ref, tol, w, exact)
+                        if bool((got[empty] != 0).any()):
+                            failures.append(f"{w}: an empty row is not "
+                                            "exactly 0")
+    if failures:
+        raise AssertionError(f"{len(failures)} of {checks} ALS kernel checks "
+                             "failed:\n" + "\n".join(failures)
+                             + f"\nworst relative errors: {worst}")
+    return errs, worst, checks
+
+
+# -- ALS training: the second main path -----------------------------------------
+
+def planted_training_data(planted, base, interactions_mod, engine, small):
+    """The planted ratings as the template's columnar ``TrainingData``, and
+    the in-memory data source the engine reads them from."""
+    if small:
+        users, items, ratings, heldout = planted.planted_ratings(
+            n_users=400, n_items=300, nnz=20_000, n_holdout=2_000)
+        n_users, n_items = 400, 300
+    else:
+        users, items, ratings, heldout = planted.planted_ratings()
+        n_users, n_items = planted.ML20M_USERS, planted.ML20M_ITEMS
+    td = engine.TrainingData(interactions=interactions_mod.Interactions(
+        user_idx=users, item_idx=items, values=ratings,
+        user_ids=[f"u{i}" for i in range(n_users)],
+        item_ids=[f"i{i}" for i in range(n_items)]))
+
+    class PlantedDataSource(base.DataSource):
+        def read_training(self, ctx):
+            return td
+
+    return td, heldout, PlantedDataSource
+
+
+def heaviest_chunk(tree, rank: int, min_d: int, chunk_elems: int,
+                   fused: bool):
+    """(cols, vals, mask, row_ids) of the kernel-routed chunk with the
+    most observations on one side of the main path."""
+    best, best_nnz = None, -1.0
+    for row_ids, cols, vals, mask in tree:
+        d = cols.shape[1]
+        if d < min_d:
+            continue
+        n = (fused_rows if fused else two_stage_rows)(d, rank, chunk_elems)
+        nnz = float(mask[:n].sum())
+        if nnz > best_nnz:
+            best_nnz = nnz
+            best = (cols[:n], vals[:n], mask[:n], row_ids[:n])
+    return best
+
+
+def train_phase(dev, runtime, als, engine, base, params_mod, context,
+                interactions_mod, planted, small: bool = False,
+                sweeps: int = 4, bf16_sweeps: int = 2, seed: int = 3):
+    """Train the planted ratings through ``Engine.train`` (the kernels),
+    then the same prepared data from the same initial state with
+    ``use_kernel=False`` (the plain route). Returns (model, stats, pieces
+    for the timing of the heaviest buckets)."""
+    rank = 16 if small else ML20M["rank"]
+    t0 = time.perf_counter()
+    td, heldout, source = planted_training_data(planted, base,
+                                                interactions_mod, engine,
+                                                small)
+    gen_s = time.perf_counter() - t0
+    eng = base_engine(engine, source)
+    algo_params = engine.ALSAlgorithmParams(
+        rank=rank, num_iterations=sweeps, lambda_=0.03,
+        bf16_sweeps=bf16_sweeps, seed=seed)
+    ep = params_mod.EngineParams(algorithm_params_list=[("als",
+                                                         algo_params)])
+    ctx = context.RuntimeContext(device=dev)
+    runtime.reset_launch_counts()
+    [model] = eng.train(ctx, ep)
+    counts = runtime.launch_counts()
+    timings = dict(ctx.timings)
+
+    pd = engine.RecommendationPreparator().prepare(ctx, td)
+    t0 = time.perf_counter()
+    u_tree, i_tree, u_hv, i_hv = als.prepare_trees(
+        pd.users, pd.items, pd.ratings, len(pd.user_bimap),
+        len(pd.item_bimap), device=dev)
+    state0 = als.als_init(torch.Generator().manual_seed(seed),
+                          len(pd.user_bimap), len(pd.item_bimap), rank,
+                          device=dev)
+    plain_prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = als._mixed_run(state0, u_tree, i_tree, 0.03, sweeps,
+                           bf16_sweeps, True, torch.float32, u_hv, i_hv,
+                           use_kernel=False)
+    sync(dev)
+    plain_sweeps_s = time.perf_counter() - t0
+
+    trained = als.ALSState(user_factors=model.user_factors,
+                           item_factors=model.item_factors)
+    for what, st in (("kernel route", trained), ("plain route", plain)):
+        for f in (st.user_factors, st.item_factors):
+            if not bool(torch.isfinite(f).all()):
+                raise AssertionError(f"{what}: non-finite factors")
+    fit = als.rmse(trained, pd.users, pd.items, pd.ratings)
+    fit_plain = als.rmse(plain, pd.users, pd.items, pd.ratings)
+    ho_u, ho_i, ho_r = heldout
+    ho = als.rmse(trained, ho_u, ho_i, ho_r)
+    ho_plain = als.rmse(plain, ho_u, ho_i, ho_r)
+    stdev = float(np.std(pd.ratings))
+    fused_n = counts["als_fused_solve_cg"]
+    two_n = counts["als_solve_cg"]
+    if dev.type == "cuda" and (fused_n <= 0 or two_n <= 0):
+        raise AssertionError(f"training launched als_fused_solve_cg "
+                             f"{fused_n} and als_solve_cg {two_n} times; "
+                             "both must run on the path")
+    if not fit < max(1.15 * fit_plain, fit_plain + 0.02):
+        raise AssertionError(f"fit RMSE {fit:.4f} against the plain route's "
+                             f"{fit_plain:.4f}")
+    if not small and not ho < 0.8:
+        raise AssertionError(f"heldout RMSE {ho:.4f} is not below 0.8")
+    if not small and i_hv is None:
+        raise AssertionError("no item was split: the heavy path did not run")
+    stats = {
+        "users": len(pd.user_bimap), "items": len(pd.item_bimap),
+        "nnz": int(len(pd.ratings)), "rank": rank, "sweeps": sweeps,
+        "bf16_sweeps": bf16_sweeps, "generate_s": gen_s,
+        "engine_timings_s": timings, "plain_prep_s": plain_prep_s,
+        "plain_sweeps_s": plain_sweeps_s, "fit_rmse": fit,
+        "fit_rmse_plain": fit_plain, "heldout_rmse": ho,
+        "heldout_rmse_plain": ho_plain, "ratings_stdev": stdev,
+        "heavy_items": 0 if i_hv is None else int(i_hv[1].shape[0]),
+        "heavy_users": 0 if u_hv is None else int(u_hv[1].shape[0]),
+        "launches": {k: counts[k] for k in
+                     ("als_fused_solve_cg", "als_solve_cg",
+                      "als_solve_cg_rows8")},
+    }
+    return model, pd, eng, ep, stats, (u_tree, i_tree, plain)
+
+
+def base_engine(engine, source):
+    """The template's engine with an in-memory data source in its slot."""
+    from incubator_predictionio_tpu_torch.core.engine import Engine
+
+    return Engine(source, engine.RecommendationPreparator,
+                  {"als": engine.ALSAlgorithm}, engine.RecommendationServing)
+
+
+def serve_trained_phase(dev, runtime, kernels, server_mod, model, pd, eng,
+                        ep):
+    """The trained model behind ``PredictionServer``: a few /queries.json
+    answers, each against the plain top-k on the trained factors."""
+    n_users, n_items = len(pd.user_bimap), len(pd.item_bimap)
+    rng = np.random.default_rng(6)
+    pick = rng.choice(n_users, 10, replace=False)
+    docs = [({"user": f"u{u}", "num": 10}, None) for u in pick[:4]]
+    docs += [({"user": f"u{u}", "num": 100}, None) for u in pick[4:6]]
+    for u in pick[6:9]:
+        mask = np.ones(n_items, bool)
+        mask[model.user_seen[int(u)]] = False
+        docs.append(({"user": f"u{u}", "num": 20, "excludeSeen": True}, mask))
+    docs.append(({"user": "nosuch-1", "num": 10}, None))
+    srv = server_mod.PredictionServer(eng, ep, [model], device=dev)
+    port = srv.start_background()
+    try:
+        runtime.reset_launch_counts()
+        answers = [post(port, doc) for doc, _m in docs]
+        launches = runtime.launch_counts()["score_topk"]
+    finally:
+        srv.stop()
+    err = 0.0
+    for i, ((doc, mask), body) in enumerate(zip(docs, answers)):
+        err = max(err, check_answer(kernels, dev, model.user_factors,
+                                    model.item_factors, doc, mask, body,
+                                    f"trained query {i} {list(doc)}"))
+    device_queries = len(docs) - 1
+    if dev.type == "cuda" and launches < device_queries:
+        raise AssertionError(f"score_topk launched {launches} times for "
+                             f"{device_queries} device queries")
+    return launches, err, {"queries": len(docs), "launches": launches}
+
+
+def f64_solve(ak, table, cols, vals, mask, l2, reg_nnz, iters, x0,
+              fused: bool, implicit: bool = False, alpha: float = 1.0,
+              yty=None):
+    """The bucket solve of an f32 table in f64 arithmetic: the same CG,
+    with order-of-sums differences pushed below f32 rounding. Weights as
+    the kernels take them: explicit, Gram weight the mask and rhs weight
+    vals·mask; implicit, (α·vals, 1 + α·vals) on the mask, the shared YᵀY
+    in the matvec and a plain λ."""
+    maskd = mask.double()
+    gw = alpha * vals.double() * maskd if implicit else maskd
+    rw = maskd + gw if implicit else vals.double() * maskd
+    t = table.double()[cols]
+    gram = torch.einsum("bdk,bdl->bkl", t * gw[..., None], t)
+    rhs = torch.einsum("bd,bdk->bk", rw, t)
+    nnz = maskd.sum(-1)
+    lam = l2 * (nnz.clamp(min=1.0) if reg_nnz and not implicit
+                else torch.ones_like(nnz))
+    x = ak.cg_plain(gram, rhs, lam, iters,
+                    None if x0 is None else x0.double(),
+                    yty.double() if implicit else None)
+    return torch.where(nnz[:, None] > 0, x, torch.zeros_like(x)) if fused \
+        else x
+
+
+def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True):
+    """ms of one kernel call and of its plain version on a chunk (warm
+    start from ``prev``), with its bound. With an f32 table and ``exact``,
+    also each one's distance from the f64 solve on the chunk's first
+    1,024 rows (``f64_rel_err``, ``plain_f64_rel_err``): the kernel must be
+    no more than 3x as far from it as the plain version."""
+    cols, vals, mask, row_ids = chunk
+    x0 = als._gather_x0(prev, row_ids)
+    iters = als.CG_ITERS if table.dtype == torch.float32 \
+        else als.CG_ITERS_BF16
+    if entry == "als_fused_solve_cg":
+        def fn():
+            return ak.als_fused_solve_cg(table, cols, vals, mask, 0.03,
+                                         iters=iters, x0=x0)
+
+        def plain():
+            return ak.als_fused_solve_cg_plain(table, cols, vals, mask,
+                                               0.03, iters=iters, x0=x0)
+    else:
+        rows = 8 if entry == "als_solve_cg_rows8" else 1
+
+        def fn():
+            return ak.als_solve_cg(table, cols, vals, mask, 0.03,
+                                   iters=iters, rows_per_program=rows,
+                                   x0=x0)
+
+        def plain():
+            return ak.als_solve_cg_plain(table, cols, vals, mask, 0.03,
+                                         iters=iters, x0=x0)
+    got, ref = fn(), plain()
+    err, rel = _rel_err(got, ref)
+    if rel > als_tolerance(table.dtype, cols.shape[1], table.shape[1],
+                           trained=True):
+        raise AssertionError(f"{entry} on the main path's chunk: max error "
+                             f"{err:.3e} is {rel:.3e} of max|x_plain|")
+    f64 = {}
+    if exact and table.dtype == torch.float32:
+        n = 1024
+        exact = f64_solve(ak, table, cols[:n], vals[:n], mask[:n], 0.03,
+                          True, iters, x0[:n], entry == "als_fused_solve_cg")
+        f64 = {"f64_rel_err": _rel_err(got[:n].double(), exact)[1],
+               "plain_f64_rel_err": _rel_err(ref[:n].double(), exact)[1]}
+        if f64["f64_rel_err"] > 3 * f64["plain_f64_rel_err"] + 1e-6:
+            raise AssertionError(f"{entry} on the main path's chunk is "
+                                 f"further from the f64 solve than the "
+                                 f"plain version: {f64}")
+    b, d = cols.shape
+    k = table.shape[1]
+    bound_ms, bound_by = ak.bucket_bound(cols, mask, k, iters, True,
+                                         table.dtype)
+    return {"dtype": str(table.dtype).replace("torch.", ""), "B": b, "D": d,
+            "K": k, "nnz": int(mask.sum()), "iters": iters,
+            "ms": median_ms(fn, reps=reps, warm=2),
+            "plain_ms": median_ms(plain, reps=reps, warm=2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "max_rel_err": rel, **f64}
+
+
+def als_timings(ak, als, trees, model, plain, chunk_elems):
+    """Each ALS entry timed at the heaviest kernel-routed chunk of its side
+    of the main path, in f32 and bf16: the fused kernel on the user
+    half-sweep (gathering the item table), the two-stage kernel (R = 1 as
+    on the path, and R = 8) on the item half-sweep (the user table)."""
+    u_tree, i_tree = trees
+    rank = model.item_factors.shape[1]
+    user_chunk = heaviest_chunk(u_tree, rank, als.KERNEL_MIN_D, chunk_elems,
+                                fused=True)
+    item_chunk = heaviest_chunk(i_tree, rank, als.KERNEL_MIN_D, chunk_elems,
+                                fused=False)
+    out = {}
+    for entry, table, chunk, prev in (
+            ("als_fused_solve_cg", model.item_factors, user_chunk,
+             plain.user_factors),
+            ("als_solve_cg", model.user_factors, item_chunk,
+             plain.item_factors),
+            ("als_solve_cg_rows8", model.user_factors, item_chunk,
+             plain.item_factors)):
+        if chunk is None:
+            raise AssertionError(f"no kernel-routed bucket for {entry}")
+        out[entry] = [time_als(ak, als, entry, table.to(dt), chunk, prev)
+                      for dt in (torch.float32, torch.bfloat16)]
+    return out
+
+
+def als_shape_timings(ak, als, dev, chunk_elems):
+    """Each ALS entry timed in f32 at the ML-20M bucket shapes of the
+    als-kernel phase (D = 64, 128, 1,024 and 8,192, rank 128, one chunk of
+    rows, tables of ML-20M height), warm."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rng = np.random.default_rng(8)
+    out = {"als_fused_solve_cg": [], "als_solve_cg": [],
+           "als_solve_cg_rows8": []}
+    k = ML20M["rank"]
+    for d in (64, 128, 1024, 8192):
+        for entry, m, b in (
+                ("als_fused_solve_cg", ML20M["items"],
+                 fused_rows(d, k, chunk_elems)),
+                ("als_solve_cg", ML20M["users"],
+                 two_stage_rows(d, k, chunk_elems)),
+                ("als_solve_cg_rows8", ML20M["users"],
+                 two_stage_rows(d, k, chunk_elems))):
+            table, cols, vals, mask, prev = als_problem(rng, m, k, b, d)
+            chunk = (t(cols), t(vals), t(mask),
+                     torch.arange(b, device=dev))
+            row = time_als(ak, als, entry, t(table), chunk, t(prev),
+                           exact=False)
+            out[entry].append(dict(shape=f"ml20m_d{d}", **row))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from incubator_predictionio_tpu_torch import runtime
+    from incubator_predictionio_tpu_torch.core import base
     from incubator_predictionio_tpu_torch.core import params as params_mod
+    from incubator_predictionio_tpu_torch.data import (
+        interactions as interactions_mod,
+    )
     from incubator_predictionio_tpu_torch.models.recommendation import (
         convert,
         engine,
     )
-    from incubator_predictionio_tpu_torch.ops import kernels
+    from incubator_predictionio_tpu_torch.ops import als, kernels
+    from incubator_predictionio_tpu_torch.ops import als_kernels as ak
+    from incubator_predictionio_tpu_torch.parallel import context
     from incubator_predictionio_tpu_torch.servers import (
         prediction_server as server_mod,
     )
@@ -372,10 +904,27 @@ def main() -> int:
     print(f"kernel: {n_cases} cases agree with the plain version, max score "
           f"error {err_k:.3e}", flush=True)
 
+    t0 = time.perf_counter()
+    als_errs, als_worst, als_checks = als_kernel_phase(dev, ak,
+                                                       als.CHUNK_ELEMS)
+    print(f"als-kernel: {als_checks} checks agree with the plain versions, "
+          f"max abs error {json.dumps(als_errs)}, max relative error "
+          f"{json.dumps(als_worst)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
     launches, err_p, stats = path_phase(
         dev, runtime, kernels, planted, convert, engine, params_mod,
         server_mod, ML20M["users"], ML20M["items"], ML20M["rank"])
     print(f"path: {json.dumps(stats)}", flush=True)
+
+    model, pd, eng, ep, train_stats, (u_tree, i_tree, plain) = train_phase(
+        dev, runtime, als, engine, base, params_mod, context,
+        interactions_mod, planted)
+    print(f"train: {json.dumps(train_stats)}", flush=True)
+
+    trained_launches, err_t, serve_stats = serve_trained_phase(
+        dev, runtime, kernels, server_mod, model, pd, eng, ep)
+    print(f"serve-trained: {json.dumps(serve_stats)}", flush=True)
 
     shapes = [time_shape(kernels, planted, dev, b, n, r, k)
               for b, n, r, k in (
@@ -388,23 +937,55 @@ def main() -> int:
               )]
     for s in shapes:
         print(f"time: {json.dumps(s)}", flush=True)
+    als_times = als_timings(ak, als, (u_tree, i_tree), model, plain,
+                            als.CHUNK_ELEMS)
+    for entry, rows in als_shape_timings(ak, als, dev,
+                                         als.CHUNK_ELEMS).items():
+        als_times[entry] += rows
+    for entry, rows in als_times.items():
+        for row in rows:
+            print(f"time: {json.dumps(dict(name=entry, **row))}", flush=True)
     head = shapes[0]
-    report = {"kernels": [{
+    entries = [{
         "name": "score_topk",
         "route": "cuda",
         "source": "incubator_predictionio_tpu_torch/csrc/score_topk.cu",
         "replaces": kernels.REPLACES,
-        "launches": launches,
-        "max_abs_err": max(err_k, err_p),
+        "launches": launches + trained_launches,
+        "max_abs_err": max(err_k, err_p, err_t),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "shapes": shapes,
-    }]}
+    }]
+    for entry, rows in als_times.items():
+        first = rows[0]  # f32, the polish sweeps' dtype
+        entries.append({
+            "name": entry,
+            "route": "cuda",
+            "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
+            "replaces": ak.REPLACES[entry],
+            "launches": train_stats["launches"][entry],
+            "max_abs_err": max([als_errs[entry]]
+                               + [r["max_abs_err"] for r in rows]),
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a Gram and "
+                            "its CG solve",
+            "shapes": rows,
+        })
+        if entry == "als_solve_cg_rows8":
+            entries[-1]["path_note"] = (
+                "the main path runs R = 1 (ops/als.py KERNEL_ROWS, the JAX "
+                "default); R = 8 is launched by the als-kernel phase and "
+                "timed here on the main path's heaviest item chunk")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps(report))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

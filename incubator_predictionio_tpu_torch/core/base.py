@@ -1,17 +1,22 @@
-"""Serving half of the DASE contracts: ``Params``, ``Algorithm`` and
-``Serving`` (port of incubator_predictionio_tpu/core/base.py; reference
-core/BaseAlgorithm.scala, core/BaseServing.scala and the controller
-bases). Data sources, preparators and evaluators come with training.
+"""The DASE contracts: ``Params``, ``DataSource``, ``Preparator``,
+``Algorithm`` and ``Serving`` (port of incubator_predictionio_tpu/core/
+base.py; reference core/Base{DataSource,Preparator,Algorithm,Serving}.scala
+and the controller bases). Evaluators come with evaluation.
 """
 
 from __future__ import annotations
 
+import abc
 import dataclasses
 import inspect
 from typing import Any, Generic, List, Optional, Sequence, Tuple, Type, TypeVar
 
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
 
+TD = TypeVar("TD")  # training data
+EI = TypeVar("EI")  # evaluation info
+PD = TypeVar("PD")  # prepared data
+A = TypeVar("A")    # actual result
 Q = TypeVar("Q")    # query
 P = TypeVar("P")    # predicted result
 M = TypeVar("M")    # model
@@ -25,6 +30,23 @@ class Params:
 @dataclasses.dataclass(frozen=True)
 class EmptyParams(Params):
     """controller/Params.scala EmptyParams."""
+
+
+class SanityCheck(abc.ABC):
+    """Data classes may implement this to take part in the train-time
+    sanity check (core/SanityCheck.scala; Engine.scala:652-708)."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None:
+        """Raise if the data is invalid."""
+
+
+class StopAfterReadInterruption(Exception):
+    """Engine.scala:668 — raised when WorkflowParams.stop_after_read."""
+
+
+class StopAfterPrepareInterruption(Exception):
+    """Engine.scala:689 — raised when WorkflowParams.stop_after_prepare."""
 
 
 def doer(cls: Type[Any], params: Params) -> Any:
@@ -47,6 +69,36 @@ class _Component:
 
     def __init__(self, params: Params = EmptyParams()):
         self.params = params
+
+
+class DataSource(_Component, Generic[TD, EI, Q, A]):
+    """Reads training and evaluation data (core/BaseDataSource.scala:43-54,
+    controller/{P,L}DataSource.scala)."""
+
+    def read_training(self, ctx: RuntimeContext) -> TD:
+        raise NotImplementedError
+
+    def read_eval(
+        self, ctx: RuntimeContext
+    ) -> List[Tuple[TD, EI, List[Tuple[Q, A]]]]:
+        """(training set, eval info, (query, actual) pairs) per fold
+        (PDataSource.readEval:55). Default: no eval data."""
+        return []
+
+
+class Preparator(_Component, Generic[TD, PD]):
+    """Transforms training data into algorithm input
+    (core/BasePreparator.scala:44, controller/{P,L}Preparator.scala)."""
+
+    def prepare(self, ctx: RuntimeContext, training_data: TD) -> PD:
+        raise NotImplementedError
+
+
+class IdentityPreparator(Preparator[TD, TD]):
+    """Pass-through (controller/IdentityPreparator.scala:34,59)."""
+
+    def prepare(self, ctx: RuntimeContext, training_data: TD) -> TD:
+        return training_data
 
 
 class Algorithm(_Component, Generic[M, Q, P]):

@@ -1,21 +1,37 @@
-"""Engine — the serving half of the DASE composition (port of
+"""Engine — the DASE composition and its training run (port of
 incubator_predictionio_tpu/core/engine.py; reference
-controller/Engine.scala). The Engine holds class maps for the algorithm and
-serving slots and instantiates components through :func:`doer`; the data
-source and preparator slots come with training.
+controller/Engine.scala:83-712). The Engine holds class maps for the data
+source, preparator, algorithm and serving slots and instantiates components
+through :func:`doer`. ``train`` is read → sanity → prepare → sanity →
+per-algorithm train → sanity; ``components`` gives the server its
+algorithms and serving component.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import contextlib
+import logging
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 from incubator_predictionio_tpu_torch.core.base import (
     Algorithm,
+    DataSource,
     EmptyParams,
+    Preparator,
+    SanityCheck,
     Serving,
+    StopAfterPrepareInterruption,
+    StopAfterReadInterruption,
     doer,
 )
-from incubator_predictionio_tpu_torch.core.params import EngineParams
+from incubator_predictionio_tpu_torch.core.params import (
+    EngineParams,
+    WorkflowParams,
+)
+from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
+
+logger = logging.getLogger(__name__)
 
 
 def _as_class_map(spec: Any) -> Dict[str, type]:
@@ -35,25 +51,85 @@ def _select(class_map: Dict[str, type], name: str, slot: str) -> type:
     )
 
 
-class Engine:
-    """The DASE engine's serving slots (controller/Engine.scala:83)."""
+@contextlib.contextmanager
+def _phase(ctx: RuntimeContext, name: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        ctx.timings[name] = time.perf_counter() - t0
 
-    def __init__(self, algorithm_class_map: Any, serving_class_map: Any):
+
+def _sanity(obj: Any, skip: bool) -> None:
+    if not skip and isinstance(obj, SanityCheck):
+        obj.sanity_check()
+
+
+class Engine:
+    """The DASE engine (controller/Engine.scala:83)."""
+
+    def __init__(self, data_source_class_map: Any, preparator_class_map: Any,
+                 algorithm_class_map: Any, serving_class_map: Any):
+        self.data_source_class_map = _as_class_map(data_source_class_map)
+        self.preparator_class_map = _as_class_map(preparator_class_map)
         self.algorithm_class_map = _as_class_map(algorithm_class_map)
         self.serving_class_map = _as_class_map(serving_class_map)
 
-    def components(self, engine_params: EngineParams
-                   ) -> Tuple[List[Algorithm], Serving]:
-        """Instantiate the algorithms and the serving component once."""
-        algorithms = [
+    def _algorithms(self, engine_params: EngineParams) -> List[Algorithm]:
+        return [
             doer(_select(self.algorithm_class_map, name, "algorithm"), params)
             for name, params in (engine_params.algorithm_params_list
                                  or [("", EmptyParams())])
         ]
+
+    def components(self, engine_params: EngineParams
+                   ) -> Tuple[List[Algorithm], Serving]:
+        """Instantiate the algorithms and the serving component once (what
+        the prediction server uses)."""
         serv_name, serv_params = engine_params.serving_params
         serving = doer(
             _select(self.serving_class_map, serv_name, "serving"), serv_params)
-        return algorithms, serving
+        return self._algorithms(engine_params), serving
+
+    def train(self, ctx: RuntimeContext, engine_params: EngineParams,
+              params: Optional[WorkflowParams] = None) -> List[Any]:
+        """Read, prepare and train every algorithm → one model each
+        (Engine.scala:625-712). The wall of each phase lands in
+        ``ctx.timings`` (the JAX package's ``tracing.phase`` names)."""
+        params = params or WorkflowParams()
+        ctx.timings.clear()
+        ds_name, ds_params = engine_params.data_source_params
+        prep_name, prep_params = engine_params.preparator_params
+        data_source: DataSource = doer(
+            _select(self.data_source_class_map, ds_name, "dataSource"),
+            ds_params)
+        preparator: Preparator = doer(
+            _select(self.preparator_class_map, prep_name, "preparator"),
+            prep_params)
+        algorithms = self._algorithms(engine_params)
+        logger.info("Engine.train: ds=%s prep=%s algos=%s",
+                    type(data_source).__name__, type(preparator).__name__,
+                    [type(a).__name__ for a in algorithms])
+
+        with _phase(ctx, "read"):
+            td = data_source.read_training(ctx)
+        _sanity(td, params.skip_sanity_check)
+        if params.stop_after_read:
+            raise StopAfterReadInterruption()
+
+        with _phase(ctx, "prepare"):
+            pd = preparator.prepare(ctx, td)
+        _sanity(pd, params.skip_sanity_check)
+        if params.stop_after_prepare:
+            raise StopAfterPrepareInterruption()
+
+        models = []
+        for i, algo in enumerate(algorithms):
+            with _phase(ctx, f"train.algo{i}"):
+                models.append(algo.train(ctx, pd))
+        for model in models:
+            _sanity(model, params.skip_sanity_check)
+        return models
 
 
 class EngineFactory:

@@ -1,7 +1,9 @@
-"""Weights carried across: an ``ALSModel`` of this package from the numpy
-fields of the JAX package's ``ALSModel``
+"""Weights carried across from numpy: an ``ALSModel`` of this package from
+the fields of the JAX package's ``ALSModel``
 (incubator_predictionio_tpu/models/recommendation/engine.py:347), so both
-packages serve from the same factors.
+packages serve from the same factors, and an ``ALSState`` from numpy
+factors, so both packages (and both routes on the card) train from one
+initial state: the JAX PRNG and torch's generators draw different numbers.
 """
 
 from __future__ import annotations
@@ -15,7 +17,21 @@ from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.models.recommendation.engine import (
     ALSModel,
 )
+from incubator_predictionio_tpu_torch.ops.als import ALSState
 from incubator_predictionio_tpu_torch.runtime import default_device
+
+
+def als_state_from_numpy(user_factors: np.ndarray, item_factors: np.ndarray,
+                         device=None) -> ALSState:
+    """An ``ALSState`` of f32 tensors on ``device`` (CUDA by default)."""
+    dev = default_device(device)
+    uf = np.ascontiguousarray(user_factors, np.float32)
+    vf = np.ascontiguousarray(item_factors, np.float32)
+    if uf.ndim != 2 or vf.ndim != 2 or uf.shape[1] != vf.shape[1]:
+        raise ValueError(f"factor shapes {uf.shape} and {vf.shape} differ "
+                         "in rank")
+    return ALSState(user_factors=torch.from_numpy(uf).to(dev),
+                    item_factors=torch.from_numpy(vf).to(dev))
 
 
 def als_model_from_numpy(

@@ -1,17 +1,23 @@
-"""The recommendation engine's serving half: ALS factors on the device,
-every query scored against the whole catalogue by the score+top-k kernel.
+"""The recommendation engine: ratings → BiMap reindex → ALS training on the
+card → every query scored against the whole catalogue by the score+top-k
+kernel.
 
 Port of incubator_predictionio_tpu/models/recommendation/engine.py
-(:54-85 query model, :333-919 algorithm, serving and factory). Reference
-parity (examples/scala-parallel-recommendation/custom-query/):
+(:54-85 query model, :107-143 training data, :252-313 preparator, :333-494
+ALS training, :496-919 serving and factory). Reference parity
+(examples/scala-parallel-recommendation/custom-query/):
 ``Query(user, num, creationYear?)`` / ``PredictedResult(itemScores)``
-(Engine.scala:23-28); the model keeps String↔Int BiMaps next to the
-factors (ALSModel.scala); serving returns the first algorithm's result.
+(Engine.scala:23-28); ALSAlgorithm trains with (rank, numIterations,
+lambda, seed) (ALSAlgorithm.scala:25-31); the model keeps String↔Int
+BiMaps next to the factors (ALSModel.scala); serving returns the first
+algorithm's result.
 
-Not ported yet: training (``train`` raises), the speed-layer overlay, the
-host-mirror serving of small models, and the MIPS index. The host mirror
-is left out on purpose: on the card it would hide the kernel for small
-models, and on the CPU the plain version already is the path.
+Not ported yet: the event-store data source (``RecommendationDataSource``
+raises until the storage slice), continuation retrain, the sharded trainer,
+evaluation reads, the speed-layer overlay, the host-mirror serving of small
+models and the MIPS index. The host mirror is left out on purpose: on the
+card it would hide the kernel for small models, and on the CPU the plain
+version already is the path.
 """
 
 from __future__ import annotations
@@ -24,9 +30,18 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from incubator_predictionio_tpu_torch.core.base import Algorithm, Params, Serving
+from incubator_predictionio_tpu_torch.core.base import (
+    Algorithm,
+    DataSource,
+    Params,
+    Preparator,
+    SanityCheck,
+    Serving,
+)
 from incubator_predictionio_tpu_torch.core.engine import Engine, EngineFactory
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
+from incubator_predictionio_tpu_torch.data.interactions import Interactions
+from incubator_predictionio_tpu_torch.ops import als
 from incubator_predictionio_tpu_torch.ops.topk import (
     batch_score_top_k,
     ladder_rungs,
@@ -69,8 +84,108 @@ class PredictedResult:
     item_scores: Tuple[ItemScore, ...]
 
 
+@dataclasses.dataclass(frozen=True)
+class Rating:
+    user: str
+    item: str
+    rating: float
+
+
 # ---------------------------------------------------------------------------
-# ALS algorithm (ALSAlgorithm.scala:25-31)
+# Training data and data source (DataSource.scala:55-90)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainingData(SanityCheck):
+    """Training set in columnar form (``interactions``) or, for hand-built
+    fixtures, a ``ratings`` list."""
+
+    ratings: Optional[List[Rating]] = None
+    item_years: Dict[str, int] = dataclasses.field(default_factory=dict)
+    item_categories: Dict[str, Tuple[str, ...]] = dataclasses.field(
+        default_factory=dict)
+    interactions: Optional[Interactions] = None
+
+    def __len__(self) -> int:
+        if self.interactions is not None:
+            return len(self.interactions)
+        return len(self.ratings or [])
+
+    def sanity_check(self) -> None:
+        if not len(self):
+            raise ValueError(
+                "TrainingData has no ratings — ingest rate/buy events first")
+
+
+class RecommendationDataSource(DataSource):
+    """The template's data source reads rate/buy events from the event
+    store, which comes with the storage slice of the port. Until then an
+    engine is given a ``DataSource`` of its own in ``Engine(...)``."""
+
+    def read_training(self, ctx: RuntimeContext) -> TrainingData:
+        raise NotImplementedError(
+            "the event-store data source comes with the port's storage "
+            "slice; register an in-memory DataSource in Engine(...)")
+
+
+# ---------------------------------------------------------------------------
+# Preparator (Preparator.scala — reindex to dense COO)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PreparedData:
+    users: np.ndarray           # [nnz] int32
+    items: np.ndarray           # [nnz] int32
+    ratings: np.ndarray         # [nnz] float32
+    user_bimap: BiMap
+    item_bimap: BiMap
+    item_years: Dict[str, int]
+    item_categories: Dict[str, Tuple[str, ...]]
+
+
+class RecommendationPreparator(Preparator):
+    """BiMap reindex + COO assembly. Duplicate (user, item) pairs keep the
+    latest occurrence (the newest rating), the template's convention."""
+
+    def prepare(self, ctx: RuntimeContext, td: TrainingData) -> PreparedData:
+        if td.interactions is not None:
+            return self._prepare_columnar(td)
+        user_bimap = BiMap.string_int(r.user for r in td.ratings)
+        item_bimap = BiMap.string_int(r.item for r in td.ratings)
+        latest: Dict[Tuple[int, int], float] = {}
+        for r in td.ratings:
+            latest[(user_bimap[r.user], item_bimap[r.item])] = r.rating
+        coo = np.array(
+            [(u, i, v) for (u, i), v in latest.items()], dtype=np.float64
+        ).reshape(-1, 3)
+        return PreparedData(
+            users=coo[:, 0].astype(np.int32),
+            items=coo[:, 1].astype(np.int32),
+            ratings=coo[:, 2].astype(np.float32),
+            user_bimap=user_bimap, item_bimap=item_bimap,
+            item_years=td.item_years, item_categories=td.item_categories)
+
+    def _prepare_columnar(self, td: TrainingData) -> PreparedData:
+        """Vectorized reindex: the ids are already interned, so the BiMaps
+        are table views and the latest-wins dedup is one np.unique over
+        packed (user, item) keys."""
+        inter = td.interactions
+        user_bimap = BiMap({u: i for i, u in enumerate(inter.user_ids)})
+        item_bimap = BiMap({t: i for i, t in enumerate(inter.item_ids)})
+        n_items = max(len(inter.item_ids), 1)
+        keys = inter.user_idx.astype(np.int64) * n_items \
+            + inter.item_idx.astype(np.int64)
+        _, first_in_rev = np.unique(keys[::-1], return_index=True)
+        keep = np.sort(len(keys) - 1 - first_in_rev)
+        return PreparedData(
+            users=inter.user_idx[keep], items=inter.item_idx[keep],
+            ratings=inter.values[keep],
+            user_bimap=user_bimap, item_bimap=item_bimap,
+            item_years=td.item_years, item_categories=td.item_categories)
+
+
+# ---------------------------------------------------------------------------
+# ALS algorithm (ALSAlgorithm.scala:25-31 → ops/als.py)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +196,10 @@ class ALSAlgorithmParams(Params):
     num_iterations: int = 20
     lambda_: float = 0.01
     seed: Optional[int] = None
+    #: mixed-precision schedule: this many early sweeps gather from a bf16
+    #: table before the f32 polish sweeps (ops/als.py ``_mixed_run``);
+    #: 0 = all f32 (MLlib parity)
+    bf16_sweeps: int = 0
 
 
 @dataclasses.dataclass
@@ -101,8 +220,39 @@ class ALSAlgorithm(Algorithm):
     def __init__(self, params: ALSAlgorithmParams = ALSAlgorithmParams()):
         super().__init__(params)
 
-    def train(self, ctx: RuntimeContext, pd: Any) -> ALSModel:
-        raise NotImplementedError("ALS training is not ported yet")
+    def train(self, ctx: RuntimeContext, pd: PreparedData) -> ALSModel:
+        """ALS on ``ctx.device`` (ops/als.py ``als_train``), seeded by the
+        params' seed or else the context's."""
+        n_users, n_items = len(pd.user_bimap), len(pd.item_bimap)
+        if n_users == 0 or n_items == 0:
+            raise ValueError("No ratings to train on")
+        seed = self.params.seed if self.params.seed is not None else ctx.seed
+        state, _ = als.als_train(
+            pd.users, pd.items, pd.ratings, n_users=n_users, n_items=n_items,
+            rank=self.params.rank, iterations=self.params.num_iterations,
+            l2=self.params.lambda_, seed=seed,
+            bf16_sweeps=self.params.bf16_sweeps, device=ctx.device,
+            stats=ctx.timings)
+        return self._assemble_model(pd, state)
+
+    @staticmethod
+    def _assemble_model(pd: PreparedData, state: als.ALSState) -> ALSModel:
+        """The model: factors, BiMaps, item metadata, and each user's
+        sorted seen items (for ``exclude_seen``). One sort of packed
+        (user, item) keys orders the pairs by user, then item."""
+        n_items = max(len(pd.item_bimap), 1)
+        keys = np.sort(np.asarray(pd.users, np.int64) * n_items
+                       + np.asarray(pd.items, np.int64))
+        users, items = keys // n_items, (keys % n_items).astype(np.int32)
+        starts = np.flatnonzero(np.r_[True, users[1:] != users[:-1]]) \
+            if len(users) else np.empty(0, np.int64)
+        user_seen = {int(u): s for u, s in
+                     zip(users[starts], np.split(items, starts[1:]))}
+        return ALSModel(
+            user_factors=state.user_factors, item_factors=state.item_factors,
+            user_bimap=pd.user_bimap, item_bimap=pd.item_bimap,
+            item_years=pd.item_years, item_categories=pd.item_categories,
+            user_seen=user_seen)
 
     def prepare_model(self, ctx: RuntimeContext, model: ALSModel) -> ALSModel:
         """Put the factors on ``ctx.device``, as contiguous f32."""
@@ -303,7 +453,8 @@ class RecommendationServing(Serving):
 
 
 class RecommendationEngine(EngineFactory):
-    """EngineFactory (Engine.scala:30-40 of the template), serving slots."""
+    """EngineFactory (Engine.scala:30-40 of the template)."""
 
     def apply(self) -> Engine:
-        return Engine({"als": ALSAlgorithm}, RecommendationServing)
+        return Engine(RecommendationDataSource, RecommendationPreparator,
+                      {"als": ALSAlgorithm}, RecommendationServing)

@@ -1,0 +1,517 @@
+"""Alternating least squares for explicit feedback on one CUDA device: the
+port of incubator_predictionio_tpu/ops/als.py (single-device training).
+
+Each half-sweep solves every row of one side against the other side's
+factors, bucket by bucket (ops/sparse.py): buckets of width ≥
+``KERNEL_MIN_D`` go to a hand-written kernel (ops/als_kernels.py), the
+fused gather kernel when the other side's table is small enough to stay in
+L2, the two-stage kernel otherwise; narrower buckets and the split (heavy)
+rows are assembled with plain PyTorch (gather → batched Gram → CG), as the
+JAX package assembles them with XLA outside any Pallas kernel. Factors are
+dense f32 tensors; the ``bf16_sweeps`` early sweeps gather from a bf16 copy
+of the table and run a loose CG, then f32 sweeps polish (``_mixed_run``).
+
+``use_kernel=False`` is the JAX package's XLA route, all in PyTorch: the
+chip smoke trains through it as the plain route of the whole training.
+
+Not ported yet: continuation retrain and the convergence early stop
+(ops/retrain.py, ``_converge_impl`` :1841), implicit-feedback training
+(``als_train_implicit`` :987), the sharded trainer (``als_train_placed``
+:1566), the CG ``tol`` early exit (``_cg_tol_env`` :242), and the Cholesky
+solver (``PIO_ALS_SOLVER``): the solver is Jacobi-PCG.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from incubator_predictionio_tpu_torch.ops import als_kernels
+from incubator_predictionio_tpu_torch.ops.sparse import (
+    HeavySegments,
+    PaddedRows,
+    build_both_sides,
+)
+from incubator_predictionio_tpu_torch.runtime import default_device
+
+#: CG steps of an f32 sweep (als.py:196)
+CG_ITERS = 16
+#: warm-start every bucket CG from the previous sweep's factors (als.py:220)
+CG_WARMSTART = True
+#: CG steps of a bf16 sweep: 3 with warm start, 6 cold (als.py:339)
+CG_ITERS_BF16 = 3 if CG_WARMSTART else 6
+#: narrowest bucket routed to a kernel. Measured on a TPU (als.py:212: the
+#: Pallas kernel padded every row to 128 lanes); still to be measured on
+#: the H100, whose kernels do not pad D.
+KERNEL_MIN_D = 64
+#: a half-sweep takes the fused gather kernel when the other side's table,
+#: in the sweep's dtype, fits in this many bytes: half the H100's 50 MB L2,
+#: so the gathered rows are served from L2. A placeholder until measured.
+FUSED_TABLE_BYTES = 25_000_000
+#: rows per block of the two-stage kernel (1 or 8)
+KERNEL_ROWS = 1
+#: element budget of one chunk's [rows, D, K] gather (als.py:602, 64 MB f32)
+CHUNK_ELEMS = 1 << 24
+
+
+@dataclasses.dataclass
+class ALSState:
+    user_factors: torch.Tensor  # [n_users, rank] f32
+    item_factors: torch.Tensor  # [n_items, rank] f32
+
+
+def als_init(generator: torch.Generator, n_users: int, n_items: int,
+             rank: int, scale: float = 0.1, device=None) -> ALSState:
+    """Gaussian factors × ``scale``, drawn from ``generator`` (a CPU
+    generator gives the same state on every device) and put on ``device``
+    (CUDA by default)."""
+    dev = default_device(device)
+    uf = scale * torch.randn((n_users, rank), generator=generator)
+    vf = scale * torch.randn((n_items, rank), generator=generator)
+    return ALSState(user_factors=uf.to(dev), item_factors=vf.to(dev))
+
+
+def _gram_rhs_nnz(other_factors, cols, vals, mask, compute_dtype,
+                  implicit: bool, alpha: float,
+                  gram_dtype=torch.float32):
+    """Normal-equation pieces for a batch of padded rows → (gram, rhs,
+    nnz), summed in f32; explicit uses mask² == mask, implicit builds
+    Yᵤᵀ(Cᵤ−I)Yᵤ with c = 1 + α·r. The gather source is cast to
+    ``compute_dtype`` first (explicit only) and its values widened to f32
+    for the products, so bf16 products are exact."""
+    src = (other_factors
+           if implicit or other_factors.dtype == compute_dtype
+           else other_factors.to(compute_dtype))
+    gathered = src[cols]                                  # [..., D, K]
+    masked = gathered * mask[..., None].to(gathered.dtype)
+    gf, mf = gathered.float(), masked.float()
+    if implicit:
+        conf_minus1 = alpha * vals * mask
+        gram = torch.einsum("...dk,...dl->...kl",
+                            conf_minus1[..., None] * mf, gf)
+        rhs = torch.einsum("...d,...dk->...k", (1.0 + conf_minus1) * mask,
+                           mf)
+    else:
+        gram = torch.einsum("...dk,...dl->...kl", mf, gf)
+        rhs = torch.einsum("...d,...dk->...k",
+                           (vals * mask).to(gathered.dtype).float(), mf)
+    return gram.to(gram_dtype), rhs, mask.sum(-1)
+
+
+def _cg_solve_spd(a, b, iters: int, matvec_dtype=torch.float32, lam=None,
+                  shared=None, x0=None):
+    """Batched Jacobi-PCG → x ≈ (a [+ shared] [+ diag(lam)])⁻¹ b, [B, K].
+
+    ``matvec_dtype=bfloat16`` runs the matvec on a bf16 Gram and a bf16
+    copy of p, summed in f32; x, r, p and every reduction stay f32.
+    ``lam`` [B] applies the ridge inside the matvec in f32, ``shared``
+    [K, K] adds a batch-shared term there, ``x0`` warm-starts. The
+    division guards make converged and all-zero systems fixed points."""
+    diag = torch.diagonal(a, dim1=-2, dim2=-1).float()
+    if shared is not None:
+        diag = diag + torch.diagonal(shared)[None, :]
+    if lam is not None:
+        diag = diag + lam[:, None]
+    minv = torch.where(diag > 0, 1.0 / diag, torch.zeros_like(diag))
+    a_mv = a if a.dtype == matvec_dtype else a.to(matvec_dtype)
+    a_f = a_mv.float()
+
+    def matvec(p):
+        ap = torch.bmm(a_f, p.to(a_mv.dtype).float()[:, :, None])[:, :, 0]
+        if shared is not None:
+            ap = ap + p @ shared.T
+        if lam is not None:
+            ap = ap + lam[:, None] * p
+        return ap
+
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        x = x0.float()
+        r = b - matvec(x)
+    z = minv * r
+    rz = (r * z).sum(-1)
+    p = z
+    zero = torch.zeros_like(rz)
+    for _ in range(int(iters)):
+        ap = matvec(p)
+        pap = (p * ap).sum(-1)
+        alpha = torch.where(pap > 0, rz / pap, zero)
+        x = x + alpha[:, None] * p
+        r = r - alpha[:, None] * ap
+        z = minv * r
+        rz2 = (r * z).sum(-1)
+        beta = torch.where(rz > 0, rz2 / rz, zero)
+        p = z + beta[:, None] * p
+        rz = rz2
+    return x
+
+
+def _reg_solve(gram, rhs, nnz, l2: float, reg_nnz: bool, implicit: bool,
+               yty, cg_iters: int = CG_ITERS,
+               cg_matvec_dtype=torch.float32, x0=None):
+    """Regularize + batched CG solve; zero factors for empty rows. Explicit
+    is MLlib's ALS-WR (λ·nnz with ``reg_nnz``); implicit keeps YᵀY out of
+    the matrix and runs twice the CG budget (worse conditioned)."""
+    if implicit:
+        lam = torch.full_like(nnz, float(l2))
+        shared = yty
+    else:
+        lam = l2 * (nnz.clamp(min=1.0) if reg_nnz else torch.ones_like(nnz))
+        shared = None
+    sol = _cg_solve_spd(gram, rhs, cg_iters * (2 if implicit else 1),
+                        matvec_dtype=cg_matvec_dtype, lam=lam, shared=shared,
+                        x0=x0)
+    return torch.where(nnz[:, None] > 0, sol, torch.zeros_like(sol))
+
+
+def _solve_bucket(other_factors, cols, vals, mask, l2: float,
+                  reg_nnz: bool = True, compute_dtype=torch.float32,
+                  cg_iters: int = CG_ITERS, x0=None):
+    """Batched normal-equation solve of one degree bucket → [B, K], plain
+    PyTorch. A bf16 sweep keeps its Gram batch in bf16 and runs the CG
+    matvec on it, with the ridge in f32."""
+    gram, rhs, nnz = _gram_rhs_nnz(
+        other_factors, cols, vals, mask, compute_dtype, implicit=False,
+        alpha=0.0, gram_dtype=compute_dtype)
+    return _reg_solve(gram, rhs, nnz, l2, reg_nnz, implicit=False, yty=None,
+                      cg_iters=cg_iters, cg_matvec_dtype=compute_dtype, x0=x0)
+
+
+def _solve_bucket_kernel(gsrc, cols, vals, mask, l2: float, reg_nnz: bool,
+                         cg_iters: int, kernel_rows: int = 1, x0=None):
+    """Bucket solve through the two-stage kernel; ``gsrc`` is already in
+    the sweep's dtype."""
+    return als_kernels.als_solve_cg(
+        gsrc, cols, vals, mask, l2, reg_nnz=reg_nnz, iters=cg_iters,
+        rows_per_program=kernel_rows, x0=x0)
+
+
+def _solve_bucket_fused(gsrc, yty, cols, vals, mask, l2: float,
+                        reg_nnz: bool, cg_iters: int, implicit: bool = False,
+                        alpha: float = 0.0, x0=None):
+    """Bucket solve through the fused gather kernel; the caller passes the
+    implicit path's doubled CG budget itself."""
+    return als_kernels.als_fused_solve_cg(
+        gsrc, cols, vals, mask, l2, reg_nnz=reg_nnz, iters=cg_iters,
+        implicit=implicit, alpha=alpha, yty=yty, x0=x0)
+
+
+def _solve_bucket_chunked(solver_fn, cols, vals, mask, rank: int,
+                          row_elems: Optional[int] = None, x0=None):
+    """Apply ``solver_fn((cols, vals, mask[, x0])) -> sol`` in row chunks
+    of at most ``CHUNK_ELEMS`` gathered elements (``row_elems`` per row,
+    default D·rank), so a bucket's temporaries stay bounded."""
+    b, d = cols.shape
+    chunk = max(8, CHUNK_ELEMS // max(row_elems or (d * rank), 1))
+    parts = []
+    for s in range(0, max(b, 1), chunk):
+        t = (cols[s:s + chunk], vals[s:s + chunk], mask[s:s + chunk])
+        if x0 is not None:
+            t = t + (x0[s:s + chunk],)
+        parts.append(solver_fn(t))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _gram_rhs_nnz_chunked(other_factors, cols, vals, mask, compute_dtype,
+                          implicit: bool, alpha: float):
+    """:func:`_gram_rhs_nnz` in row chunks of at most ``CHUNK_ELEMS``
+    gathered elements (the split segments are ``max_width`` wide)."""
+    s_rows, d = cols.shape
+    chunk = max(1, CHUNK_ELEMS // max(d * other_factors.shape[1], 1))
+    parts = [_gram_rhs_nnz(other_factors, cols[s:s + chunk],
+                           vals[s:s + chunk], mask[s:s + chunk],
+                           compute_dtype, implicit, alpha)
+             for s in range(0, s_rows, chunk)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _gather_x0(prev_factors, row_ids):
+    """Warm start of a padded row batch → [rows, K] f32; padding rows
+    (row_id -1) start from 0 instead of wrapping to the last row."""
+    safe = prev_factors[row_ids.clamp(min=0)].float()
+    return torch.where(row_ids[:, None] >= 0, safe, torch.zeros_like(safe))
+
+
+def _scatter_rows_impl(out, row_ids, sol):
+    """Write ``sol`` into ``out`` [n_rows + 1, K] in place; padding rows
+    (row_id -1) go to the spare last row, which the caller slices off."""
+    spare = out.shape[0] - 1
+    out[torch.where(row_ids < 0, spare, row_ids)] = sol
+    return out
+
+
+def _fused_fits(table_rows: int, rank: int, dtype) -> bool:
+    """The fused-routing rule: the gather table in the sweep's dtype fits
+    in ``FUSED_TABLE_BYTES``."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return table_rows * rank * itemsize <= FUSED_TABLE_BYTES
+
+
+def _solve_heavy(other_factors, heavy, l2: float, alpha: float,
+                 reg_nnz: bool, compute_dtype, implicit: bool, yty,
+                 cg_iters: int = CG_ITERS, prev_factors=None):
+    """Partial-Gram combining solve for split rows → (row_ids, sol[H, K]):
+    per-segment pieces as in a bucket, summed per row (``index_add_``,
+    whose order of atomic sums varies on CUDA), then one solve per row."""
+    seg_ids, row_ids, cols, vals, mask = heavy
+    n_heavy = row_ids.shape[0]
+    rank = other_factors.shape[1]
+    pg, prhs, pnnz = _gram_rhs_nnz_chunked(
+        other_factors, cols, vals, mask, compute_dtype, implicit, alpha)
+    dev = pg.device
+    gram = torch.zeros((n_heavy, rank, rank), device=dev).index_add_(
+        0, seg_ids, pg)
+    rhs = torch.zeros((n_heavy, rank), device=dev).index_add_(0, seg_ids,
+                                                              prhs)
+    nnz = torch.zeros(n_heavy, device=dev).index_add_(0, seg_ids, pnnz)
+    x0 = (_gather_x0(prev_factors, row_ids)
+          if prev_factors is not None else None)
+    return row_ids, _reg_solve(
+        gram, rhs, nnz, l2, reg_nnz, implicit, yty, cg_iters=cg_iters,
+        cg_matvec_dtype=torch.float32 if implicit else compute_dtype, x0=x0)
+
+
+def _sweep_side(n_rows: int, other_factors, tree, heavy, l2: float,
+                reg_nnz: bool, compute_dtype, cg_iters: int = CG_ITERS,
+                use_kernel: bool = False, kernel_min_d: int = 0,
+                prev_factors=None, use_fused: bool = False):
+    """One half-sweep: solve every bucket and the split rows → the side's
+    new factors [n_rows, K] f32. Buckets of width ≥ ``kernel_min_d`` go to
+    the fused kernel (``use_fused``) or the two-stage kernel when
+    ``use_kernel``; the rest to :func:`_solve_bucket`."""
+    rank = other_factors.shape[1]
+    out = torch.zeros((n_rows + 1, rank), dtype=torch.float32,
+                      device=other_factors.device)
+    gsrc = (other_factors if other_factors.dtype == compute_dtype
+            else other_factors.to(compute_dtype))
+    for row_ids, cols, vals, mask in tree:
+        d = cols.shape[1]
+        x0 = (_gather_x0(prev_factors, row_ids)
+              if prev_factors is not None else None)
+        row_elems = None
+        if use_kernel and use_fused and d >= kernel_min_d:
+            row_elems = 3 * d + 3 * rank
+
+            def solver(t):
+                return _solve_bucket_fused(
+                    gsrc, None, t[0], t[1], t[2], l2, reg_nnz=reg_nnz,
+                    cg_iters=cg_iters, x0=t[3] if len(t) > 3 else None)
+        elif use_kernel and d >= kernel_min_d:
+            def solver(t):
+                return _solve_bucket_kernel(
+                    gsrc, t[0], t[1], t[2], l2, reg_nnz=reg_nnz,
+                    cg_iters=cg_iters, kernel_rows=KERNEL_ROWS,
+                    x0=t[3] if len(t) > 3 else None)
+        else:
+            def solver(t):
+                return _solve_bucket(
+                    gsrc, t[0], t[1], t[2], l2, reg_nnz=reg_nnz,
+                    compute_dtype=compute_dtype, cg_iters=cg_iters,
+                    x0=t[3] if len(t) > 3 else None)
+        sol = _solve_bucket_chunked(solver, cols, vals, mask, rank,
+                                    row_elems=row_elems, x0=x0)
+        _scatter_rows_impl(out, row_ids, sol)
+    if heavy is not None:
+        h_ids, h_sol = _solve_heavy(
+            gsrc, heavy, l2, 0.0, reg_nnz, compute_dtype, False, None,
+            cg_iters=cg_iters, prev_factors=prev_factors)
+        _scatter_rows_impl(out, h_ids, h_sol)
+    return out[:n_rows]
+
+
+def _buckets_tree(buckets: Sequence[PaddedRows], device) -> tuple:
+    return tuple(
+        (torch.from_numpy(b.row_ids.astype(np.int64)).to(device),
+         torch.from_numpy(b.cols).to(device),
+         torch.from_numpy(b.vals).to(device),
+         torch.from_numpy(b.mask).to(device))
+        for b in buckets)
+
+
+def _heavy_tree(heavy: Optional[HeavySegments], device):
+    if heavy is None:
+        return None
+    return (torch.from_numpy(heavy.seg_ids.astype(np.int64)).to(device),
+            torch.from_numpy(heavy.row_ids.astype(np.int64)).to(device),
+            torch.from_numpy(heavy.cols).to(device),
+            torch.from_numpy(heavy.vals).to(device),
+            torch.from_numpy(heavy.mask).to(device))
+
+
+def _als_run_fused(state: ALSState, user_tree, item_tree, l2: float,
+                   iterations: int, reg_nnz: bool, compute_dtype,
+                   user_heavy=None, item_heavy=None,
+                   cg_iters: int = CG_ITERS, use_kernel: bool = False,
+                   kernel_min_d: int = 0,
+                   use_fused: Tuple[bool, bool] = (False, False)
+                   ) -> ALSState:
+    """``iterations`` sweeps: users against items, then items against the
+    new users, each CG warm-started from the side's previous factors when
+    ``CG_WARMSTART`` (the JAX package runs the sweeps in one jit; here a
+    Python loop of kernel launches)."""
+    st = state
+    for _ in range(int(iterations)):
+        new_users = _sweep_side(
+            st.user_factors.shape[0], st.item_factors, user_tree,
+            user_heavy, l2, reg_nnz, compute_dtype, cg_iters=cg_iters,
+            use_kernel=use_kernel, kernel_min_d=kernel_min_d,
+            prev_factors=st.user_factors if CG_WARMSTART else None,
+            use_fused=use_fused[0])
+        new_items = _sweep_side(
+            st.item_factors.shape[0], new_users, item_tree, item_heavy, l2,
+            reg_nnz, compute_dtype, cg_iters=cg_iters, use_kernel=use_kernel,
+            kernel_min_d=kernel_min_d,
+            prev_factors=st.item_factors if CG_WARMSTART else None,
+            use_fused=use_fused[1])
+        st = ALSState(user_factors=new_users, item_factors=new_items)
+    return st
+
+
+def _check_kernel_rank(rank: int, device: torch.device) -> None:
+    """On CUDA the kernel route launches the kernels or raises: above
+    their rank it raises here, before any work."""
+    if device.type == "cuda" and rank > als_kernels.MAX_RANK:
+        raise ValueError(
+            f"the ALS kernels take rank 1..{als_kernels.MAX_RANK}, got "
+            f"{rank}; use_kernel=False is the plain route")
+
+
+def _mixed_run(state: ALSState, u_tree, i_tree, l2: float, iterations: int,
+               bf16_sweeps: int, reg_nnz: bool, compute_dtype, user_heavy,
+               item_heavy, use_kernel: bool = True,
+               kernel_min_d: int = KERNEL_MIN_D,
+               use_fused: Optional[Tuple[bool, bool]] = None) -> ALSState:
+    """Mixed-precision schedule: ``bf16_sweeps`` early sweeps gathering
+    from a bf16 table with ``CG_ITERS_BF16`` CG steps, then the rest at
+    ``compute_dtype`` with ``CG_ITERS``. ALS re-solves every row each
+    half-sweep, so the bf16 sweeps only move the polish's starting point.
+
+    ``use_kernel`` routes buckets of width ≥
+    ``kernel_min_d`` to the kernels (on CPU tensors their plain versions
+    run); False is the plain-PyTorch route throughout. ``use_fused``
+    (user side, item side) defaults to the L2 rule per sweep dtype. The
+    kernels take rank ≤ ``als_kernels.MAX_RANK``: above it, ``use_kernel``
+    with factors on CUDA raises before any sweep."""
+    lo = min(max(int(bf16_sweeps), 0), int(iterations))
+    n_u, rank = state.user_factors.shape
+    n_i = state.item_factors.shape[0]
+    if use_kernel:
+        _check_kernel_rank(rank, state.user_factors.device)
+
+    def fused_for(dtype):
+        if use_fused is not None:
+            return tuple(use_fused)
+        if not use_kernel:
+            return (False, False)
+        return (_fused_fits(n_i, rank, dtype), _fused_fits(n_u, rank, dtype))
+
+    common = dict(user_heavy=user_heavy, item_heavy=item_heavy,
+                  use_kernel=use_kernel, kernel_min_d=kernel_min_d)
+    if lo:
+        state = _als_run_fused(
+            state, u_tree, i_tree, l2, lo, reg_nnz, torch.bfloat16,
+            cg_iters=min(CG_ITERS_BF16, CG_ITERS),
+            use_fused=fused_for(torch.bfloat16), **common)
+    if iterations - lo:
+        state = _als_run_fused(
+            state, u_tree, i_tree, l2, iterations - lo, reg_nnz,
+            compute_dtype, use_fused=fused_for(compute_dtype), **common)
+    return state
+
+
+def train_flops(nnz: int, n_users: int, n_items: int, rank: int,
+                iterations: int, bf16_sweeps: int = 0) -> float:
+    """Analytic FLOPs of one training run (als.py:1955): per half-sweep
+    the Gram 4·nnz·K², the rhs 2·nnz·K, and per row iters·2·K² of CG
+    (warm starts add one matvec); useful work only."""
+    k, nnz = float(rank), float(nnz)
+    bf16 = min(max(int(bf16_sweeps), 0), int(iterations))
+    iters = (bf16 * min(CG_ITERS_BF16, CG_ITERS)
+             + (int(iterations) - bf16) * CG_ITERS) / max(int(iterations), 1)
+    if CG_WARMSTART:
+        iters += 1.0
+    per_side_gram = 2.0 * nnz * k * k * 2.0
+    per_side_rhs = 2.0 * nnz * k
+    solves = (int(n_users) + int(n_items)) * iters * 2.0 * k * k
+    return (2.0 * per_side_gram + 2.0 * per_side_rhs + solves) * int(iterations)
+
+
+def rmse(state: ALSState, users, items, ratings, chunk: int = 1 << 20
+         ) -> float:
+    """Root-mean-square error over COO ratings, on the factors' device."""
+    dev = state.user_factors.device
+    users = np.asarray(users, np.int64)
+    items = np.asarray(items, np.int64)
+    ratings = np.asarray(ratings, np.float32)
+    total, n = 0.0, len(ratings)
+    for s in range(0, n, chunk):
+        u = torch.from_numpy(users[s:s + chunk]).to(dev)
+        i = torch.from_numpy(items[s:s + chunk]).to(dev)
+        r = torch.from_numpy(ratings[s:s + chunk]).to(dev)
+        pred = (state.user_factors[u] * state.item_factors[i]).sum(-1)
+        total += float(((pred - r) ** 2).double().sum())
+    return float(np.sqrt(total / max(n, 1)))
+
+
+def prepare_trees(users, items, ratings, n_users: int, n_items: int,
+                  max_width: int = 1 << 16, device=None):
+    """Both sides' buckets and split rows, on ``device`` →
+    (u_tree, i_tree, user_heavy, item_heavy)."""
+    dev = default_device(device)
+    (user_light, user_heavy), (item_light, item_heavy) = build_both_sides(
+        users, items, ratings, n_users, n_items, max_width=max_width)
+    return (_buckets_tree(user_light, dev), _buckets_tree(item_light, dev),
+            _heavy_tree(user_heavy, dev), _heavy_tree(item_heavy, dev))
+
+
+def als_train(users: np.ndarray, items: np.ndarray, ratings: np.ndarray,
+              n_users: int, n_items: int, rank: int = 64,
+              iterations: int = 10, l2: float = 0.1, seed: int = 0,
+              reg_nnz: bool = True, compute_dtype: Any = torch.float32,
+              max_width: int = 1 << 16, track_rmse: bool = False,
+              bf16_sweeps: int = 0, device=None,
+              stats: Optional[Dict[str, float]] = None
+              ) -> Tuple[ALSState, List[float]]:
+    """Full training on ``device`` (CUDA by default): build the padded
+    buckets once, start from :func:`als_init` with a CPU generator seeded
+    by ``seed``, run ``iterations`` sweeps of the mixed schedule. Rows of
+    degree above ``max_width`` go through the partial-Gram combining
+    solve. ``track_rmse`` records the fit RMSE after every sweep.
+    ``stats`` receives the walls "als.prep" (buckets built and put on the
+    device) and "als.sweeps" (every sweep, to the device's last step).
+    Trains through the kernels, so on CUDA ``rank`` is at most
+    ``als_kernels.MAX_RANK``."""
+    dev = default_device(device)
+    _check_kernel_rank(rank, dev)
+    t0 = time.perf_counter()
+    u_tree, i_tree, u_hv, i_hv = prepare_trees(
+        users, items, ratings, n_users, n_items, max_width, dev)
+    state = als_init(torch.Generator().manual_seed(int(seed)), n_users,
+                     n_items, rank, device=dev)
+    _sync(dev)
+    t1 = time.perf_counter()
+    history: List[float] = []
+    if track_rmse:
+        for sweep in range(iterations):
+            state = _mixed_run(state, u_tree, i_tree, l2, 1,
+                               1 if sweep < bf16_sweeps else 0, reg_nnz,
+                               compute_dtype, u_hv, i_hv)
+            history.append(rmse(state, users, items, ratings))
+    else:
+        state = _mixed_run(state, u_tree, i_tree, l2, iterations,
+                           bf16_sweeps, reg_nnz, compute_dtype, u_hv, i_hv)
+    _sync(dev)
+    if stats is not None:
+        stats["als.prep"] = t1 - t0
+        stats["als.sweeps"] = time.perf_counter() - t1
+    return state, history
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -1,0 +1,196 @@
+"""Host-side sparse → degree-bucketed padded rows: the port's own copy of
+incubator_predictionio_tpu/ops/sparse.py:22-277 (numpy path).
+
+Rows (users or items) are grouped into buckets by degree ceiling (powers of
+two from ``min_width``), each bucket padded to its ceiling: padding waste
+stays under 2× and the number of distinct bucket widths is
+O(log max_degree). Rows of degree above ``max_width`` are split into
+segments; :func:`split_heavy` moves them out of the buckets for the
+partial-Gram combining solve (ops/als.py ``_solve_heavy``).
+
+:func:`build_padded_rows` gives the same buckets as the JAX package's numpy
+path, with the per-segment Python loops replaced by array operations (the
+ML-20M-width training builds 20M triples per side).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class PaddedRows:
+    """One degree bucket of padded neighbour lists.
+
+    ``row_ids[i]`` is the original row of padded row ``i`` (-1 for a
+    padding row); ``cols[i]`` / ``vals[i]`` are its neighbour columns and
+    values, valid where ``mask[i] > 0``. Padding columns point at index 0
+    with mask 0, so gathers stay in bounds."""
+
+    row_ids: np.ndarray  # [B] int32
+    cols: np.ndarray     # [B, D] int32
+    vals: np.ndarray     # [B, D] float32
+    mask: np.ndarray     # [B, D] float32
+
+    @property
+    def width(self) -> int:
+        return int(self.cols.shape[1])
+
+    def pad_rows_to(self, multiple: int) -> "PaddedRows":
+        """Pad the batch dimension to a multiple with row_id -1 and zero
+        mask; the ALS scatter drops those rows."""
+        b = self.row_ids.shape[0]
+        target = ((b + multiple - 1) // multiple) * multiple
+        if target == b:
+            return self
+        pad = target - b
+        return PaddedRows(
+            row_ids=np.concatenate([self.row_ids, np.full(pad, -1, np.int32)]),
+            cols=np.concatenate(
+                [self.cols, np.zeros((pad, self.width), np.int32)]),
+            vals=np.concatenate(
+                [self.vals, np.zeros((pad, self.width), np.float32)]),
+            mask=np.concatenate(
+                [self.mask, np.zeros((pad, self.width), np.float32)]),
+        )
+
+
+@dataclasses.dataclass
+class HeavySegments:
+    """Every split row's segments, for the partial-Gram combining solve:
+    per-segment Grams and right-hand sides are summed by ``seg_ids``
+    before one solve per heavy row."""
+
+    seg_ids: np.ndarray  # [S] int32 → index into row_ids
+    row_ids: np.ndarray  # [H] int32 original rows, ascending
+    cols: np.ndarray     # [S, W] int32
+    vals: np.ndarray     # [S, W] float32
+    mask: np.ndarray     # [S, W] float32
+
+
+def split_heavy(
+    buckets: Sequence[PaddedRows],
+    row_multiple: int = 8,
+) -> Tuple[List[PaddedRows], Optional[HeavySegments]]:
+    """Separate split rows (row ids that occur more than once) from the
+    light buckets → (light buckets re-padded to ``row_multiple``,
+    :class:`HeavySegments` or None when no row was split)."""
+    all_ids = np.concatenate(
+        [np.asarray(b.row_ids) for b in buckets]
+    ) if buckets else np.empty(0, np.int32)
+    live = all_ids[all_ids >= 0]
+    uniq, counts = np.unique(live, return_counts=True)
+    heavy_ids = uniq[counts > 1]
+    if not len(heavy_ids):
+        return list(buckets), None
+
+    light: List[PaddedRows] = []
+    seg_rows = []
+    for b in buckets:
+        ids = np.asarray(b.row_ids)
+        is_heavy = np.isin(ids, heavy_ids) & (ids >= 0)
+        for i in np.nonzero(is_heavy)[0]:
+            seg_rows.append((int(ids[i]), b.cols[i], b.vals[i], b.mask[i]))
+        keep = ~is_heavy & (ids >= 0)
+        if keep.any():
+            light.append(PaddedRows(
+                row_ids=ids[keep], cols=b.cols[keep], vals=b.vals[keep],
+                mask=b.mask[keep]).pad_rows_to(row_multiple))
+
+    width = max(seg[1].shape[0] for seg in seg_rows)
+    s = len(seg_rows)
+    cols = np.zeros((s, width), np.int32)
+    vals = np.zeros((s, width), np.float32)
+    mask = np.zeros((s, width), np.float32)
+    row_ids = np.asarray(heavy_ids, np.int32)
+    index = {int(r): i for i, r in enumerate(row_ids)}
+    seg_ids = np.empty(s, np.int32)
+    for i, (rid, c, v, m) in enumerate(seg_rows):
+        w = c.shape[0]
+        cols[i, :w], vals[i, :w], mask[i, :w] = c, v, m
+        seg_ids[i] = index[rid]
+    return light, HeavySegments(
+        seg_ids=seg_ids, row_ids=row_ids, cols=cols, vals=vals, mask=mask)
+
+
+def build_padded_rows(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_rows: int,
+    min_width: int = 8,
+    max_width: int = 4096,
+    row_multiple: int = 8,
+) -> List[PaddedRows]:
+    """COO triplets → degree-bucketed :class:`PaddedRows`, in ascending
+    width; within a bucket, segments in row order. Rows of degree above
+    ``max_width`` are split into ``max_width``-wide segments, so nothing
+    is dropped. ``n_rows`` is the row space (kept for the JAX signature;
+    rows without triples get no padded row)."""
+    del n_rows
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int32)
+    vals = np.asarray(vals, np.float32)
+    order = np.argsort(rows, kind="stable")
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    row_ids_present, starts, counts = np.unique(
+        rows, return_index=True, return_counts=True)
+
+    # (row, start, length) of every segment, heavy rows split
+    n_seg = -(-counts // max_width)
+    seg_row = np.repeat(row_ids_present, n_seg)
+    first = np.cumsum(n_seg) - n_seg
+    seg_k = np.arange(int(n_seg.sum())) - np.repeat(first, n_seg)
+    seg_start = np.repeat(starts, n_seg) + seg_k * max_width
+    seg_len = np.minimum(np.repeat(counts, n_seg) - seg_k * max_width,
+                         max_width)
+    # bucket by power-of-two ceiling from min_width
+    seg_width = np.full(len(seg_len), min_width, np.int64)
+    while (seg_width < seg_len).any():
+        seg_width = np.where(seg_width < seg_len, seg_width * 2, seg_width)
+
+    out: List[PaddedRows] = []
+    for width in np.unique(seg_width):
+        sel = np.nonzero(seg_width == width)[0]
+        b, lens = len(sel), seg_len[sel]
+        slot = np.repeat(np.arange(b), lens)
+        off = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
+                                                     lens)
+        src = np.repeat(seg_start[sel], lens) + off
+        c = np.zeros((b, int(width)), np.int32)
+        v = np.zeros((b, int(width)), np.float32)
+        m = np.zeros((b, int(width)), np.float32)
+        c[slot, off] = cols[src]
+        v[slot, off] = vals[src]
+        m[slot, off] = 1.0
+        out.append(PaddedRows(row_ids=seg_row[sel].astype(np.int32), cols=c,
+                              vals=v, mask=m).pad_rows_to(row_multiple))
+    return out
+
+
+def build_both_sides(
+    users: np.ndarray,
+    items: np.ndarray,
+    vals: np.ndarray,
+    n_users: int,
+    n_items: int,
+    max_width: int = 4096,
+    row_multiple: int = 8,
+    split_row_multiple: int = 8,
+):
+    """Both training orientations, built in two threads →
+    ((user_light, user_heavy), (item_light, item_heavy))."""
+    def side(rows, cols, n_rows):
+        return split_heavy(
+            build_padded_rows(rows, cols, vals, n_rows, max_width=max_width,
+                              row_multiple=row_multiple),
+            row_multiple=split_row_multiple)
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        fu = pool.submit(side, users, items, n_users)
+        fi = pool.submit(side, items, users, n_items)
+        return fu.result(), fi.result()

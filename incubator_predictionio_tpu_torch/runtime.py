@@ -30,6 +30,13 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
+#: the H100 SXM's peak rates at 700 W (NVIDIA data sheet), the yardstick of
+#: every kernel bound: HBM3 bytes/s, f32 FMA-unit FLOP/s (no tensor cores),
+#: dense bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
 
 def default_device(device: Union[None, str, torch.device] = None
                    ) -> torch.device:
@@ -109,6 +116,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pio_score_topk.restype = ctypes.c_int
     lib.pio_score_topk_workspace_bytes.argtypes = [i, i, i]
     lib.pio_score_topk_workspace_bytes.restype = ctypes.c_size_t
+    lib.pio_als_solve_cg.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p]
+    lib.pio_als_solve_cg.restype = ctypes.c_int
+    lib.pio_als_fused_solve_cg.argtypes = [p, i, i, p, p, p, p, p, p, p, p,
+                                           i, i, i, i, p]
+    lib.pio_als_fused_solve_cg.restype = ctypes.c_int
 
 
 def build_kernels() -> ctypes.CDLL:

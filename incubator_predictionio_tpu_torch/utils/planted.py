@@ -1,6 +1,7 @@
 """Seeded planted-factor catalogue generator and its exhaustive host
 oracle: the port's own copy of incubator_predictionio_tpu/utils/planted.py,
-used by the tests and ``chip_smoke.py``.
+used by the tests and ``chip_smoke.py``; and the planted ratings of the
+JAX bench (bench.py:206-249), the training workload at ML-20M shape.
 
 The table has the geometry trained factor tables have: cluster structure
 (genres), bounded relative within-cluster noise, and a log-normal
@@ -10,7 +11,15 @@ function of the seed.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+#: ML-20M's shape (ratings.csv: 138,493 users, 26,744 movies, 20,000,263
+#: ratings), the JAX bench's training workload (bench.py:59-65)
+ML20M_USERS = 138_493
+ML20M_ITEMS = 26_744
+ML20M_NNZ = 20_000_000
 
 
 def planted_item_factors(
@@ -69,3 +78,66 @@ def exhaustive_top_k(
     ps = np.take_along_axis(scores, part, axis=1)
     order = np.argsort(-ps, axis=1, kind="stable")
     return np.take_along_axis(part, order, axis=1)
+
+
+def _sample_pairs(rng, n: int, n_users: int, n_items: int):
+    """Power-law marginals as in bench.py:217-228: items i^-0.55 (the top
+    item gets ≈92k of 20M draws), users i^-0.3."""
+    iw = (np.arange(n_items) + 1.0) ** -0.55
+    items = rng.choice(n_items, n, p=iw / iw.sum()).astype(np.int32)
+    uw = (np.arange(n_users) + 1.0) ** -0.3
+    users = rng.choice(n_users, n, p=uw / uw.sum()).astype(np.int32)
+    return users, items
+
+
+def _distinct_pairs(rng, nnz: int, n_users: int, n_items: int):
+    """The first ``nnz`` distinct (user, item) pairs of a stream of draws
+    with the marginals of :func:`_sample_pairs`, in draw order."""
+    users = np.empty(0, np.int32)
+    items = np.empty(0, np.int32)
+    while True:
+        need = nnz - len(users)
+        more_u, more_i = _sample_pairs(rng, need + need // 20 + 1024,
+                                       n_users, n_items)
+        users = np.concatenate([users, more_u])
+        items = np.concatenate([items, more_i])
+        keys = users.astype(np.int64) * n_items + items
+        _, first = np.unique(keys, return_index=True)
+        keep = np.sort(first)
+        users, items = users[keep], items[keep]
+        if len(users) >= nnz:
+            return users[:nnz], items[:nnz]
+
+
+def planted_ratings(
+    n_users: int = ML20M_USERS,
+    n_items: int = ML20M_ITEMS,
+    nnz: int = ML20M_NNZ,
+    seed: int = 7,
+    plant_rank: int = 16,
+    noise_sigma: float = 0.35,
+    n_holdout: int = 200_000,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+           Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """→ (users, items, ratings, heldout (u, i, r)): ratings = 3.5 + U·Vᵀ
+    + N(0, ``noise_sigma``) with a rank-``plant_rank`` U, V (bench.py:
+    231-249). The heldout pairs are fresh draws from the same ground
+    truth. Unlike the bench's, the training pairs are distinct: the draws
+    go on until ``nnz`` distinct pairs are in hand, as ML-20M holds one
+    rating per (user, item) and a template trains on the latest rating of
+    each pair. So the most popular item keeps more than 65,536 raters
+    (the bench comment's ≈67k for ML-20M's most-rated movie): at seed 7
+    and ML-20M shape it holds 65,764, and its row is split in two."""
+    rng = np.random.default_rng(seed)
+    u_true = rng.normal(0, 1.0 / np.sqrt(plant_rank),
+                        (n_users, plant_rank)).astype(np.float32)
+    v_true = rng.normal(0, 1.0, (n_items, plant_rank)).astype(np.float32)
+
+    def rate(users, items):
+        signal = np.einsum("nk,nk->n", u_true[users], v_true[items])
+        return (3.5 + signal
+                + rng.normal(0, noise_sigma, len(users))).astype(np.float32)
+
+    users, items = _distinct_pairs(rng, nnz, n_users, n_items)
+    ho_u, ho_i = _sample_pairs(rng, n_holdout, n_users, n_items)
+    return users, items, rate(users, items), (ho_u, ho_i, rate(ho_u, ho_i))

@@ -1,0 +1,218 @@
+"""The port's ALS bucket-solve kernels (their plain versions, on the CPU)
+against the JAX package's Pallas kernels in interpret mode, on one seeded
+numpy problem.
+
+The problem is the reference tests' shape family (tests/
+test_pallas_kernels.py:156-212, tests/test_fused_gram.py:51-122): rank 24,
+which is no multiple of 128, so the TPU kernels pad it; B = 13 rows, no
+multiple of 8, so the R = 8 form pads its last row group; D = 300, which
+the TPU kernels stream in three 128-wide tiles; row 3 empty. Tolerances
+are the reference's own: rel 1e-4 with an f32 table, rel 2e-2 with a bf16
+table (the TPU kernel's bf16 matmul passes against the port's exact
+products summed in f32).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from incubator_predictionio_tpu.ops import pallas_kernels as pk
+from incubator_predictionio_tpu_torch.ops import als_kernels as ak
+
+M, K, B, D = 200, 24, 13, 300
+L2, ALPHA, ITERS = 0.05, 2.0, 16
+EMPTY = 3
+TOL = {"f32": 1e-4, "bf16": 2e-2}
+JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _problem():
+    rng = np.random.default_rng(11)
+    table = rng.normal(0, 0.3, (M, K)).astype(np.float32)
+    cols = rng.integers(0, M, (B, D)).astype(np.int32)
+    vals = rng.normal(3.5, 1.0, (B, D)).astype(np.float32)
+    mask = (rng.random((B, D)) < 0.8).astype(np.float32)
+    mask[EMPTY] = 0.0
+    x0 = rng.normal(0, 0.3, (B, K)).astype(np.float32)
+    return table, cols, vals, mask, x0
+
+
+PROBLEM = _problem()
+
+
+@pytest.fixture(scope="module")
+def jax_out():
+    """The JAX kernels' outputs, computed once per (entry, dtype, warm)."""
+    table, cols, vals, mask, x0 = PROBLEM
+    cache = {}
+
+    def get(entry, dt, warm):
+        key = (entry, dt, warm)
+        if key not in cache:
+            tab = jnp.asarray(table).astype(JDT[dt])
+            args = (tab, jnp.asarray(cols), jnp.asarray(vals),
+                    jnp.asarray(mask), L2)
+            x = jnp.asarray(x0) if warm else None
+            if entry in ("rows1", "rows8"):
+                out = pk.als_solve_cg_pallas(
+                    *args, reg_nnz=True, iters=ITERS, interpret=True,
+                    rows_per_program=1 if entry == "rows1" else 8, x0=x)
+            else:
+                implicit = entry == "implicit"
+                yty = (jnp.asarray(table).T @ jnp.asarray(table)
+                       if implicit else None)
+                out = pk.als_fused_solve_cg_pallas(
+                    *args, reg_nnz=True,
+                    iters=ITERS * (2 if implicit else 1), implicit=implicit,
+                    alpha=ALPHA, yty=yty, x0=x, interpret=True)
+            cache[key] = np.asarray(out, np.float32)
+        return cache[key]
+
+    return get
+
+
+def _port(entry, dt, warm):
+    table, cols, vals, mask, x0 = PROBLEM
+    tab = torch.from_numpy(table).to(TDT[dt])
+    args = (tab, torch.from_numpy(cols), torch.from_numpy(vals),
+            torch.from_numpy(mask), L2)
+    x = torch.from_numpy(x0) if warm else None
+    if entry in ("rows1", "rows8"):
+        out = ak.als_solve_cg(*args, reg_nnz=True, iters=ITERS,
+                              rows_per_program=1 if entry == "rows1" else 8,
+                              x0=x)
+    else:
+        implicit = entry == "implicit"
+        yty = torch.from_numpy(table).T @ torch.from_numpy(table) \
+            if implicit else None
+        out = ak.als_fused_solve_cg(*args, reg_nnz=True,
+                                    iters=ITERS * (2 if implicit else 1),
+                                    implicit=implicit, alpha=ALPHA, yty=yty,
+                                    x0=x)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (B, K)
+    return out.numpy()
+
+
+def _rel(got, ref):
+    return float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-9))
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("entry", ["rows1", "rows8"])
+def test_two_stage_matches_jax_kernel(jax_out, entry, dt, warm):
+    got, ref = _port(entry, dt, warm), jax_out(entry, dt, warm)
+    rel = _rel(got, ref)
+    assert rel < TOL[dt], (entry, dt, warm, rel)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_fused_matches_jax_kernel(jax_out, dt, warm):
+    got, ref = _port("fused", dt, warm), jax_out("fused", dt, warm)
+    rel = _rel(got, ref)
+    assert rel < TOL[dt], (dt, warm, rel)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_fused_implicit_matches_jax_kernel(jax_out, warm):
+    got, ref = _port("implicit", "f32", warm), jax_out("implicit", "f32",
+                                                       warm)
+    rel = _rel(got, ref)
+    assert rel < TOL["f32"], (warm, rel)
+
+
+@pytest.mark.parametrize("entry", ["fused", "implicit"])
+def test_fused_empty_row_is_exactly_zero(jax_out, entry):
+    """The fused entry zeroes rows without observations, warm or cold
+    (pallas_kernels.py:1318), in both packages."""
+    for warm in (False, True):
+        assert (_port(entry, "f32", warm)[EMPTY] == 0.0).all()
+        assert (jax_out(entry, "f32", warm)[EMPTY] == 0.0).all()
+
+
+def test_two_stage_empty_row_keeps_the_kernels_rule(jax_out):
+    """The two-stage entry has no guard: cold, an empty row is the CG's
+    fixed point 0; warm, it is whatever the CG makes of λ·x = 0 from x0,
+    which the port reproduces instead of zeroing."""
+    assert (_port("rows1", "f32", False)[EMPTY] == 0.0).all()
+    for entry in ("rows1", "rows8"):
+        got = _port(entry, "f32", True)[EMPTY]
+        ref = jax_out(entry, "f32", True)[EMPTY]
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_row_groups_do_not_change_the_arithmetic():
+    """R = 8 changes the layout of the kernel, not what it computes."""
+    for dt in ("f32", "bf16"):
+        np.testing.assert_array_equal(_port("rows1", dt, True),
+                                      _port("rows8", dt, True))
+
+
+def test_cpu_wrapper_is_the_plain_version():
+    table, cols, vals, mask, x0 = (torch.from_numpy(a) for a in PROBLEM)
+    for dt in (torch.float32, torch.bfloat16):
+        tab = table.to(dt)
+        assert torch.equal(
+            ak.als_solve_cg(tab, cols, vals, mask, L2, x0=x0),
+            ak.als_solve_cg_plain(tab, cols, vals, mask, L2, x0=x0))
+        assert torch.equal(
+            ak.als_fused_solve_cg(tab, cols, vals, mask, L2, x0=x0),
+            ak.als_fused_solve_cg_plain(tab, cols, vals, mask, L2, x0=x0))
+    assert ak.ALS_SOLVE_CG_LAUNCHES.value == 0
+    assert ak.ALS_FUSED_SOLVE_CG_LAUNCHES.value == 0
+
+
+def test_wrapper_rejects_bad_arguments():
+    table, cols, vals, mask, _ = (torch.from_numpy(a) for a in PROBLEM)
+    with pytest.raises(ValueError, match="rows_per_program"):
+        ak.als_solve_cg(table, cols, vals, mask, L2, rows_per_program=4)
+    with pytest.raises(ValueError, match="yty"):
+        ak.als_fused_solve_cg(table, cols, vals, mask, L2, implicit=True)
+
+
+def test_bound_counts_the_symmetric_gram():
+    """One bound for both entries: the Gram's nnz·K·(K + 1) and the rhs's
+    2·nnz·K at the table dtype's peak, (iters + warm)·2·B·K² of f32 CG;
+    bytes of the referenced rows, cols/vals/mask, x0 and the output."""
+    nnz, distinct, b, d, k, iters = 5_000_000, 26_000, 20_000, 512, 128, 16
+    for dt, peak in ((torch.float32, 67e12), (torch.bfloat16, 989e12)):
+        ms, by = ak.als_bound(nnz, distinct, b, d, k, iters, True, dt)
+        ops_s = (nnz * k * (k + 1) + 2 * nnz * k) / peak \
+            + (iters + 1) * 2 * b * k * k / 67e12
+        bytes_s = (distinct * k * (4 if dt == torch.float32 else 2)
+                   + 12 * b * d + 8 * b * k) / 3.35e12
+        assert ms == pytest.approx(1e3 * max(ops_s, bytes_s))
+        assert by == ("operations" if ops_s > bytes_s else "bytes")
+    # a bucket's bound counts its observations and the distinct rows they
+    # reference, not the padding
+    cols = torch.tensor([[3, 3, 7, 0], [7, 1, 0, 0]], dtype=torch.int32)
+    mask = torch.tensor([[1, 1, 1, 0], [1, 1, 0, 0]], dtype=torch.float32)
+    assert ak.bucket_bound(cols, mask, 8, 3, False, torch.float32) \
+        == ak.als_bound(5.0, 3, 2, 4, 8, 3, False, torch.float32)
+
+
+def test_replaces_names_the_tpu_kernels():
+    src = open(pk.__file__).read().splitlines()
+    for entry, body in (("als_solve_cg", "_als_cg_kernel("),
+                        ("als_solve_cg_rows8", "_als_cg_kernel_rows("),
+                        ("als_fused_solve_cg", "_als_fused_kernel(")):
+        path, line = ak.REPLACES[entry].rsplit(":", 1)
+        assert path.endswith("ops/pallas_kernels.py")
+        assert src[int(line) - 1].startswith(f"def {body}"), entry
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    """Given a tensor off the CPU, a wrapper launches or raises; here (no
+    card) the meta device stands in for one it cannot launch on."""
+    table, cols, vals, mask, _ = (torch.from_numpy(a).to("meta")
+                                  for a in PROBLEM)
+    with pytest.raises(ValueError, match="CUDA"):
+        ak.als_solve_cg(table, cols, vals, mask, L2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ak.als_fused_solve_cg(table, cols, vals, mask, L2)
+    assert ak.ALS_SOLVE_CG_LAUNCHES.value == 0
+    assert ak.ALS_FUSED_SOLVE_CG_LAUNCHES.value == 0

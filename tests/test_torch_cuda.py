@@ -7,7 +7,8 @@ machine with one (and without JAX, which tests/conftest.py imports):
 
 Tolerances as in chip_smoke.py: both sides are f32 but sum the rank in
 different orders, so scores agree to rtol 1e-5 and ids except among
-near-ties.
+near-ties; ALS solves agree to 1e-4 of max|x| with an f32 table and 1e-3
+with a bf16 one (same arithmetic, other order of sums).
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from incubator_predictionio_tpu_torch import runtime
-from incubator_predictionio_tpu_torch.ops import kernels, topk
+from incubator_predictionio_tpu_torch.ops import als, als_kernels, kernels, topk
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +81,144 @@ def test_launch_on_mixed_devices_raises(dev):
         kernels.score_topk(torch.zeros((1, 8), dtype=torch.float64,
                                        device=dev), items.double(), None, 5)
     assert runtime.build_kernels() is runtime.build_kernels()
+
+
+# -- ALS bucket solves (ops/als_kernels.py → csrc/als_solve.cu) ---------------
+
+def _als_problem(dev, m, k, b, d, seed):
+    rng = np.random.default_rng(seed)
+    table = rng.normal(0, 0.3, (m, k)).astype(np.float32)
+    cols = rng.integers(0, m, (b, d)).astype(np.int32)
+    vals = rng.normal(3.5, 1.0, (b, d)).astype(np.float32)
+    mask = (rng.random((b, d)) < 0.8).astype(np.float32)
+    mask[min(3, b - 1)] = 0.0
+    x0 = rng.normal(0, 0.3, (b, k)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (table, cols, vals, mask, x0))
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+# rank no multiple of 16, of 32, and the full 128; B = 13 pads a row group
+ALS_SHAPES = [(150, 24, 13, 300), (400, 64, 24, 48), (600, 32, 13, 1024),
+              (500, 128, 9, 200), (90, 10, 5, 40)]
+
+
+@pytest.mark.parametrize("m,k,b,d", ALS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_als_two_stage_matches_plain(dev, m, k, b, d, dtype):
+    table, cols, vals, mask, x0 = _als_problem(dev, m, k, b, d, k + d)
+    table = table.to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    for warm in (None, x0):
+        ref = als_kernels.als_solve_cg_plain(table, cols, vals, mask, 0.05,
+                                             x0=warm)
+        for rows in (1, 8):
+            got = als_kernels.als_solve_cg(table, cols, vals, mask, 0.05,
+                                           rows_per_program=rows, x0=warm)
+            torch.cuda.synchronize()
+            assert _rel(got, ref) < tol, (rows, warm is None)
+
+
+@pytest.mark.parametrize("m,k,b,d", ALS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_als_fused_matches_plain(dev, m, k, b, d, dtype, implicit):
+    table, cols, vals, mask, x0 = _als_problem(dev, m, k, b, d, k + d)
+    table = table.to(dtype)
+    yty = table.float().T @ table.float() if implicit else None
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    for warm in (None, x0):
+        kw = dict(iters=32 if implicit else 16, implicit=implicit,
+                  alpha=2.0, yty=yty, x0=warm)
+        ref = als_kernels.als_fused_solve_cg_plain(table, cols, vals, mask,
+                                                   0.05, **kw)
+        got = als_kernels.als_fused_solve_cg(table, cols, vals, mask, 0.05,
+                                             **kw)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) < tol, warm is None
+        assert (got[mask.sum(-1) == 0] == 0).all()
+
+
+def test_als_launch_counts(dev):
+    table, cols, vals, mask, x0 = _als_problem(dev, 150, 24, 13, 300, 1)
+    counters = (als_kernels.ALS_SOLVE_CG_LAUNCHES,
+                als_kernels.ALS_SOLVE_CG_ROWS8_LAUNCHES,
+                als_kernels.ALS_FUSED_SOLVE_CG_LAUNCHES)
+    before = [c.value for c in counters]
+    als_kernels.als_solve_cg(table, cols, vals, mask, 0.05)
+    als_kernels.als_solve_cg(table, cols, vals, mask, 0.05,
+                             rows_per_program=8, x0=x0)
+    als_kernels.als_fused_solve_cg(table, cols, vals, mask, 0.05)
+    als_kernels.als_solve_cg_plain(table, cols, vals, mask, 0.05)
+    als_kernels.als_fused_solve_cg_plain(table, cols, vals, mask, 0.05)
+    assert [c.value - v for c, v in zip(counters, before)] == [1, 1, 1]
+
+
+def test_als_wrong_dtype_or_device_raises(dev):
+    table, cols, vals, mask, x0 = _als_problem(dev, 150, 24, 13, 300, 2)
+    with pytest.raises(ValueError):  # one tensor on the CPU
+        als_kernels.als_solve_cg(table, cols.cpu(), vals, mask, 0.05)
+    with pytest.raises(ValueError):
+        als_kernels.als_fused_solve_cg(table, cols, vals, mask, 0.05,
+                                       x0=x0.cpu())
+    with pytest.raises(TypeError):
+        als_kernels.als_solve_cg(table.double(), cols, vals, mask, 0.05)
+    with pytest.raises(TypeError):
+        als_kernels.als_fused_solve_cg(table, cols.long(), vals, mask, 0.05)
+    with pytest.raises(ValueError):  # rank above the kernels' 128
+        als_kernels.als_fused_solve_cg(
+            torch.zeros((150, 129), device=dev), cols, vals, mask, 0.05)
+
+
+def test_als_above_the_kernels_rank_raises(dev):
+    """Above the kernels' rank the kernel route raises on the card; it
+    never hands a bucket to the plain version."""
+    rng = np.random.default_rng(4)
+    users, items = np.nonzero(rng.random((40, 30)) < 0.5)
+    ratings = rng.normal(3.5, 1.0, users.shape[0]).astype(np.float32)
+    rank = als_kernels.MAX_RANK + 1
+    runtime.reset_launch_counts()
+    with pytest.raises(ValueError, match="rank"):
+        als.als_train(users, items, ratings, 40, 30, rank=rank, iterations=1,
+                      device=dev)
+    trees = als.prepare_trees(users, items, ratings, 40, 30, device=dev)
+    init = als.als_init(torch.Generator().manual_seed(0), 40, 30, rank,
+                        device=dev)
+    with pytest.raises(ValueError, match="rank"):
+        als._mixed_run(init, trees[0], trees[1], 0.05, 1, 0, True,
+                       torch.float32, trees[2], trees[3], use_kernel=True,
+                       kernel_min_d=0)
+    assert sum(runtime.launch_counts().values()) == 0
+    st = als._mixed_run(init, trees[0], trees[1], 0.05, 1, 0, True,
+                        torch.float32, trees[2], trees[3], use_kernel=False)
+    assert torch.isfinite(st.user_factors).all()
+
+
+def test_als_train_on_the_card_matches_plain_route(dev):
+    """A small training through the kernels (every bucket routed to them)
+    fits as well as the plain route from the same initial state."""
+    rng = np.random.default_rng(3)
+    n_u, n_i = 300, 200
+    u = rng.normal(size=(n_u, 4)) / 2
+    v = rng.normal(size=(n_i, 4)) / 2
+    users, items = np.nonzero(rng.random((n_u, n_i)) < 0.4)
+    ratings = (u @ v.T + 3.0)[users, items].astype(np.float32)
+    trees = als.prepare_trees(users, items, ratings, n_u, n_i, device=dev)
+    init = als.als_init(torch.Generator().manual_seed(0), n_u, n_i, 16,
+                        device=dev)
+    fits = []
+    for use_kernel in (True, False):
+        runtime.reset_launch_counts()
+        st = als._mixed_run(init, trees[0], trees[1], 0.02, 6, 3, True,
+                            torch.float32, trees[2], trees[3],
+                            use_kernel=use_kernel, kernel_min_d=0,
+                            use_fused=(True, False))
+        counts = runtime.launch_counts()
+        launched = counts["als_fused_solve_cg"] + counts["als_solve_cg"]
+        assert (launched > 0) == use_kernel
+        fits.append(als.rmse(st, users, items, ratings))
+    assert fits[0] < max(1.15 * fits[1], fits[1] + 0.02), fits
+    assert fits[0] < 0.1, fits
