@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's recommendation template on one NVIDIA GPU:
-serving, ALS training through ``Engine.train``, and serving the trained
-model.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the recommendation
+template (serving, ALS training through ``Engine.train``, serving the
+trained model) and the sequence engine (SASRec served and trained through
+the flash-attention kernel).
 
     python3 chip_smoke.py
 
@@ -23,29 +24,53 @@ Phases, each of which fails the run on any error or mismatch:
              YtY; tolerances in :func:`als_tolerance`, and the f32 systems
              with fewer observations than the rank also against an f64
              solve.
-5. path    — a planted ALSModel at ML-20M width (138,493 users x 26,744
+5. flash-kernel — the flash-attention kernel against its plain version
+             (the blockwise online softmax) on the card: the reference
+             tests' cases (causal and not, ragged validity, fully masked
+             rows exactly 0, the Sq = 1 decode row), Sq != Skv, head widths
+             8 to 128, the engine's windows (B 1 and 8, H 2, D 32, S 8192,
+             left-padded) and the JAX bench's shapes (B 1, H 8, D 64, S
+             4096 / 8192 / 32768, f32 and bf16); :func:`flash_tolerance`.
+6. path    — a planted ALSModel at ML-20M width (138,493 users x 26,744
              items x rank 128), served by the port's PredictionServer: 32
              HTTP queries to /queries.json and one 64-body batch through
              ``_handle_batch``, every answer checked against the plain
              version on the same factors, and the kernel's launch count read.
-6. train   — 20,000,000 planted ratings at ML-20M width trained through
+7. train   — 20,000,000 planted ratings at ML-20M width trained through
              ``Engine.train`` (rank 128, 4 sweeps, 2 in bf16), then from the
              same initial state on the plain route (``use_kernel=False``):
              both ALS kernels must launch, the fit RMSE must be within the
              reference's parity bound of the plain route's and the heldout
              RMSE below 0.8.
-7. serve-trained — the trained model behind PredictionServer, each answer
+8. serve-trained — the trained model behind PredictionServer, each answer
              against the plain top-k on the trained factors.
-8. report  — kernel, plain-version and library times (CUDA events, median
+9. seq-path — a SeqRecModel at the slice's width (d_model 64, 2 heads, 2
+             layers, window 8192, 26,744 items; weights from numpy and a
+             seed) behind PredictionServer: 17 HTTP queries with
+             ``recentItems`` histories of 1 to 8,292 items, each answer
+             against the same scoring of ``transformer_apply`` with the
+             plain attention (ids equal except near-ties, scores rtol
+             1e-4), and ``n_layers`` kernel launches per query.
+10. seq-train — 64 planted sessions of 8,193 items through ``Engine.train``
+             (batch 8, 1 epoch: 8 steps), then from the same initial weights
+             with ``attn_fn=flash_attention_plain``: ``n_layers`` launches a
+             step, each step's loss within 1e-3 relative of the plain
+             route's, a falling loss; the trained model served as in
+             seq-path.
+11. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
-             line; then the last line, ``{"ok": true, "device": {...}}``.
+             line; the flash kernel, plain dense and plain blockwise at the
+             engine's head for S = 1,024 to 8,192 (``crossover:`` lines);
+             then the last line, ``{"ok": true, "device": {...}}``.
 
 The bound is max(bytes / 3.35 TB/s, operations / peak): H100 SXM HBM3, f32
 without tensor cores at 67 TFLOP/s and bf16 tensor-core products at 989
 TFLOP/s, from NVIDIA's data sheet at 700 W (``runtime.HBM_BYTES_PER_S``,
 ``F32_FLOPS``, ``BF16_FLOPS``); bytes count each input read once and each
 output written once. The ALS entries' bound is
-``ops/als_kernels.bucket_bound``, the one the training profile uses.
+``ops/als_kernels.bucket_bound``, the one the training profile uses; the
+flash entry's is ``ops/attention_kernels.flash_bound``, 4·D FLOP per live
+(query, key) pair and head of the run's inputs.
 """
 
 from __future__ import annotations
@@ -74,10 +99,12 @@ def card_line() -> str:
 
 # -- comparison with the plain version ---------------------------------------
 
-def check_topk(got_s, got_i, ref_s, ref_i, k: int, what: str) -> float:
+def check_topk(got_s, got_i, ref_s, ref_i, k: int, what: str,
+               rtol: float = 1e-5) -> float:
     """Kernel (got, [B, k]) against the plain version (ref, [B, >= k]; one
-    extra column shows a near-tie at the cut). Returns the largest score
-    error over live slots."""
+    extra column shows a near-tie at the cut), scores to ``rtol`` with atol
+    ``rtol`` * max|score|. Returns the largest score error over live
+    slots."""
     got_s, got_i = np.asarray(got_s, np.float64), np.asarray(got_i)
     ref_s, ref_i = np.asarray(ref_s, np.float64), np.asarray(ref_i)
     live = ref_s[:, :k] > -1e37
@@ -87,14 +114,14 @@ def check_topk(got_s, got_i, ref_s, ref_i, k: int, what: str) -> float:
         raise AssertionError(f"{what}: a filler slot carries an id")
     if not live.any():
         return 0.0
-    atol = 1e-5 * np.abs(ref_s[:, :k][live]).max()
+    atol = rtol * np.abs(ref_s[:, :k][live]).max()
     err = np.abs(got_s - ref_s[:, :k])[live]
-    if (err > 1e-5 * np.abs(ref_s[:, :k][live]) + atol).any():
+    if (err > rtol * np.abs(ref_s[:, :k][live]) + atol).any():
         raise AssertionError(f"{what}: scores differ by up to {err.max()}")
     for b, p in zip(*np.nonzero((got_i != ref_i[:, :k]) & live)):
         near = [q for q in (p - 1, p + 1) if 0 <= q < ref_s.shape[1]
                 and abs(ref_s[b, q] - ref_s[b, p])
-                <= 1e-5 * abs(ref_s[b, p]) + atol]
+                <= rtol * abs(ref_s[b, p]) + atol]
         if not near:
             raise AssertionError(
                 f"{what}: row {b} slot {p}: id {got_i[b, p]} against "
@@ -868,6 +895,473 @@ def als_shape_timings(ak, als, dev, chunk_elems):
     return out
 
 
+# -- flash attention against its plain version ----------------------------------
+
+#: the sequence engine's attention at the slice's width (d_model 64, 2 heads,
+#: window 8192: SeqRecAlgorithmParams defaults, max_len 8193) and the JAX
+#: bench's attention shapes (bench.py:4502-4530)
+SEQ = dict(n_items=26_744, d_model=64, n_heads=2, n_layers=2, max_len=8193)
+FLASH_BENCH = dict(b=1, h=8, d=64, seqs=(4096, 8192, 32768))
+
+
+def left_padded(b: int, s: int, lengths) -> np.ndarray:
+    """[b, s] bool: row r's last ``lengths[r]`` keys valid (a SASRec
+    window, PAD on the left)."""
+    valid = np.zeros((b, s), bool)
+    for r, n in enumerate(lengths):
+        if n:
+            valid[r, s - n:] = True
+    return valid
+
+
+def flash_cases(small: bool = False) -> list:
+    """(name, b, s_q, s_kv, h, d, dtype, causal, valid [b, s_kv] or None)."""
+    cases = [
+        # tests/test_pallas_kernels.py:79-150
+        ("jax_causal", 2, 100, 100, 2, 32, torch.float32, True, None),
+        ("jax_not_causal", 2, 100, 100, 2, 32, torch.float32, False, None),
+        ("jax_ragged", 2, 40, 40, 2, 16, torch.float32, True,
+         np.arange(40)[None, :] < np.array([[17], [33]])),
+        ("jax_fully_masked", 1, 8, 8, 1, 16, torch.float32, True,
+         np.zeros((1, 8), bool)),
+        ("jax_decode", 1, 1, 64, 2, 32, torch.float32, False, None),
+        # the decode row under the causal mask, Sq != Skv both ways, ragged
+        # tiles, and head widths that pad to each of the kernel's widths
+        ("decode_causal", 1, 1, 64, 2, 32, torch.float32, True, None),
+        ("sq_lt_skv", 2, 100, 300, 2, 24, torch.float32, True,
+         np.arange(300)[None, :] < np.array([[250], [77]])),
+        ("sq_gt_skv", 2, 300, 100, 2, 8, torch.float32, True, None),
+        ("d128_bf16", 2, 200, 200, 3, 128, torch.bfloat16, True,
+         left_padded(2, 200, [150, 0])),
+        ("d80_not_causal", 1, 130, 130, 2, 80, torch.float32, False,
+         left_padded(1, 130, [65])),
+    ]
+    s = 700 if small else SEQ["max_len"] - 1
+    dh = SEQ["d_model"] // SEQ["n_heads"]
+    # the engine's windows: histories of 1 to 8192 items, and a PAD-only row
+    cases.append(("engine_b1", 1, s, s, SEQ["n_heads"], dh, torch.float32,
+                  True, left_padded(1, s, [s // 3])))
+    cases.append(("engine_b8", 8, s, s, SEQ["n_heads"], dh, torch.float32,
+                  True, left_padded(8, s, [0, 1, 63, 64, 65, s // 2, s - 1,
+                                           s])))
+    for n in FLASH_BENCH["seqs"]:
+        n = n // 64 if small else n
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((f"bench_s{n}_{str(dt)[6:]}", FLASH_BENCH["b"], n, n,
+                          FLASH_BENCH["h"], FLASH_BENCH["d"], dt, True, None))
+    return cases
+
+
+def flash_inputs(rng, b, s_q, s_kv, h, d, dtype, dev):
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev).to(dtype)
+
+    return t((b, s_q, h, d)), t((b, s_kv, h, d)), t((b, s_kv, h, d))
+
+
+def flash_tolerance(dtype) -> float:
+    """Bound on max|out − out_plain| / max|out_plain|. f32: 1e-4, since the
+    two sum over up to 32,768 keys in different orders. bf16 inputs and
+    output: 8e-3, one bf16 ulp of max|ref|, since both round the same f32
+    value to bf16."""
+    return 8e-3 if dtype == torch.bfloat16 else 1e-4
+
+
+def check_flash(got, ref, valid_np, causal, s_q, dtype, what) -> float:
+    """The kernel's output against the plain version's; a query with no
+    live key must be exactly 0. Returns the largest absolute error."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} against "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    g, r = got.float(), ref.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = float((g - r).abs().max()) if g.numel() else 0.0
+    top = float(r.abs().max()) if r.numel() else 0.0
+    if err > flash_tolerance(dtype) * top:
+        raise AssertionError(f"{what}: max error {err:.3e} is {err / top:.3e} "
+                             f"of max|ref| {top:.3e}")
+    if valid_np is not None:
+        b, s_kv = valid_np.shape
+        pos = np.arange(s_q)[:, None]
+        keys = np.arange(s_kv)[None, :]
+        live = valid_np[:, None, :] & ((pos >= keys)[None] if causal
+                                       else True)
+        dead = torch.from_numpy(~live.any(-1)).to(got.device)  # [b, s_q]
+        if bool(dead.any()) and bool((g[dead] != 0).any()):
+            raise AssertionError(f"{what}: a query with no live key is not "
+                                 "exactly 0")
+    return err
+
+
+def flash_phase(dev, fa, small: bool = False):
+    """The flash kernel against its plain version at every case of
+    :func:`flash_cases`. Returns (max abs error, {case: relative error})."""
+    rng = np.random.default_rng(9)
+    err, rel = 0.0, {}
+    for name, b, s_q, s_kv, h, d, dt, causal, valid in flash_cases(small):
+        q, k, v = flash_inputs(rng, b, s_q, s_kv, h, d, dt, dev)
+        kv_valid = None if valid is None else torch.from_numpy(valid).to(dev)
+        got = fa.flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+        ref = fa.flash_attention_plain(q, k, v, causal=causal,
+                                       kv_valid=kv_valid)
+        sync(dev)
+        e = check_flash(got, ref, valid, causal, s_q, dt, name)
+        err = max(err, e)
+        rel[name] = e / max(float(ref.float().abs().max()), 1e-30)
+    return err, rel
+
+
+# -- the sequence engine: serving and training ---------------------------------
+
+def seq_docs(rng, n_items: int, window: int) -> list:
+    """The query bodies of the sequence phases: ``recentItems`` histories
+    of 1 to ``window`` items (and one past it, cut to the window), cyclic
+    runs as the planted sessions have them and random picks, and one
+    history of unknown items only (no device work)."""
+    docs = []
+    lengths = [1, 2, 7, 63, 64, 65, 500, 1000, 2047, 4096, 6000, 8000,
+               window - 1, window, window, window + 100]
+    for j, n in enumerate(lengths):
+        if j % 2:
+            start = int(rng.integers(0, n_items))
+            items = (start + np.arange(n)) % n_items
+        else:
+            items = rng.integers(0, n_items, n)
+        docs.append({"user": f"u{j}", "num": (10, 50, 100)[j % 3],
+                     "recentItems": [f"i{i}" for i in items]})
+    docs[3]["recentItems"] += ["nosuch-item"]
+    docs.append({"user": "u-unknown", "num": 10,
+                 "recentItems": ["nosuch-1", "nosuch-2"]})
+    return docs
+
+
+def seq_reference(tr, fa, model, doc, window: int):
+    """(scores, token ids, whether the query reaches the device) of one
+    query: the window scored through ``transformer_apply`` with the plain
+    attention, the history and PAD set to -inf, a stable descending sort
+    (``lax.top_k``'s ties), the first ``min(num, n_items)`` + 1 kept and
+    non-finite or PAD slots dropped."""
+    inv = model.item_bimap
+    hist = [inv[n] + 1 for n in doc["recentItems"] if n in inv][-window:]
+    k = min(doc["num"], len(inv))
+    if not hist or k <= 0:
+        return np.zeros(0), np.zeros(0, np.int64), False
+    dev = model.weights.item_emb.device
+    tokens = torch.zeros((1, window), dtype=torch.int32, device=dev)
+    tokens[0, window - len(hist):] = torch.tensor(hist, device=dev)
+    with torch.no_grad():
+        h = tr.transformer_apply(model.weights, tokens, model.n_heads,
+                                 attn_fn=fa.flash_attention_plain)
+        scores = (h[:, -1] @ model.weights.item_emb.T)[0]
+        scores[tokens[0].long()] = float("-inf")
+        scores[tr.PAD] = float("-inf")
+        top_s, top_i = torch.sort(scores, descending=True, stable=True)
+    top_s, top_i = top_s[:k + 1].cpu().numpy(), top_i[:k + 1].cpu().numpy()
+    keep = np.isfinite(top_s) & (top_i != tr.PAD)
+    return top_s[keep], top_i[keep], True
+
+
+def check_seq_answer(body, ref_s, ref_i, num, item_bimap, what) -> float:
+    """A served answer against :func:`seq_reference` (which holds one slot
+    past the cut, to show a near-tie there): ids equal except among
+    near-ties, scores to rtol 1e-4 with atol 1e-4 * max|score|."""
+    got = body["itemScores"]
+    n = min(num, len(ref_s))
+    if len(got) != n:
+        raise AssertionError(f"{what}: {len(got)} items, expected {n}")
+    if not n:
+        return 0.0
+    got_s = np.array([[x["score"] for x in got]])
+    got_i = np.array([[item_bimap[x["item"]] + 1 for x in got]])
+    return check_topk(got_s, got_i, ref_s[None, :], ref_i[None, :], n, what,
+                      rtol=1e-4)
+
+
+def serve_seq(dev, runtime, tr, fa, server_mod, eng, ep, model, docs,
+              window: int, what: str):
+    """``model`` behind ``PredictionServer``: every doc POSTed to
+    /queries.json, each answer held to :func:`seq_reference`, and the flash
+    launches of the served queries counted: ``n_layers`` per query with
+    device work. Returns (launches, max score error, stats)."""
+    n_layers = model.weights.wq.shape[0]
+    srv = server_mod.PredictionServer(eng, ep, [model], device=dev)
+    port = srv.start_background()
+    try:
+        runtime.reset_launch_counts()
+        walls, answers = [], []
+        for doc in docs:
+            t0 = time.perf_counter()
+            answers.append(post(port, doc))
+            walls.append(time.perf_counter() - t0)
+        launches = runtime.launch_counts()["flash_attention"]
+    finally:
+        srv.stop()
+    served = srv.models[0]
+    err, device_queries = 0.0, 0
+    for i, (doc, body) in enumerate(zip(docs, answers)):
+        ref_s, ref_i, on_device = seq_reference(tr, fa, served, doc, window)
+        device_queries += on_device
+        err = max(err, check_seq_answer(body, ref_s, ref_i, doc["num"],
+                                        served.item_bimap,
+                                        f"{what} query {i}"))
+    if dev.type == "cuda" and launches != n_layers * device_queries:
+        raise AssertionError(
+            f"{what}: flash_attention launched {launches} times for "
+            f"{device_queries} queries of {n_layers} layers")
+    stats = {"queries": len(docs), "device_queries": device_queries,
+             "launches": launches, "http_p50_ms": 1e3 * statistics.median(
+                 walls), "http_max_ms": 1e3 * max(walls)}
+    return launches, err, stats
+
+
+def seq_params(seq_engine, params_mod, max_len: int, **algo):
+    return params_mod.EngineParams(
+        preparator_params=("", seq_engine.PreparatorParams(max_len=max_len)),
+        algorithm_params_list=[("sasrec", seq_engine.SeqRecAlgorithmParams(
+            app_name="chip_smoke", **algo))])
+
+
+def seq_path_phase(dev, runtime, tr, fa, seq_engine, seq_convert, planted,
+                   params_mod, server_mod, small: bool = False):
+    """A ``SeqRecModel`` at the slice's width (d_model 64, 2 heads, 2
+    layers, window 8,192, 26,744 items) with weights from numpy and a seed,
+    served over HTTP."""
+    n_items = 500 if small else SEQ["n_items"]
+    max_len = 701 if small else SEQ["max_len"]
+    fields = planted.random_transformer_fields(
+        n_items, max_len, SEQ["d_model"], SEQ["n_layers"], seed=13)
+    model = seq_convert.seqrec_model_from_numpy(
+        fields, [f"i{i}" for i in range(n_items)], SEQ["n_heads"], max_len,
+        device=dev)
+    docs = seq_docs(np.random.default_rng(14), n_items, max_len - 1)
+    launches, err, stats = serve_seq(
+        dev, runtime, tr, fa, server_mod, seq_engine.SequenceEngine().apply(),
+        seq_params(seq_engine, params_mod, max_len), model, docs,
+        max_len - 1, "seq-path")
+    if dev.type == "cuda":
+        stats.update(seq_serving_split(tr, seq_engine, model, docs[-3]))
+    return launches, err, stats
+
+
+def seq_serving_split(tr, seq_engine, model, doc) -> dict:
+    """Where a full-window query's time goes, past HTTP: the host wall of
+    ``SeqRecAlgorithm.predict`` (JSON-free; it ends in a device-to-host
+    copy) and the device time of its ``sasrec_topk`` (CUDA events), each
+    a median of 10 after warm-up."""
+    algo = seq_engine.SeqRecAlgorithm(
+        seq_engine.SeqRecAlgorithmParams(app_name="chip_smoke"))
+    query = seq_engine.Query(user=doc["user"], num=doc["num"],
+                             recent_items=tuple(doc["recentItems"]))
+    hist = [model.item_bimap[n] + 1 for n in doc["recentItems"]
+            if n in model.item_bimap][-(model.max_len - 1):]
+    tokens = torch.zeros((1, model.max_len - 1), dtype=torch.int32,
+                         device=model.weights.item_emb.device)
+    tokens[0, -len(hist):] = torch.tensor(hist, device=tokens.device)
+    walls = []
+    for i in range(13):
+        t0 = time.perf_counter()
+        algo.predict(model, query)
+        if i >= 3:
+            walls.append(time.perf_counter() - t0)
+    return {"history": len(hist),
+            "predict_ms": 1e3 * statistics.median(walls),
+            "topk_device_ms": median_ms(
+                lambda: tr.sasrec_topk(model.weights, tokens, model.n_heads,
+                                       k=doc["num"]), reps=10, warm=3)}
+
+
+def seq_train_phase(dev, runtime, tr, fa, seq_engine, base, params_mod,
+                    context, planted, server_mod, small: bool = False,
+                    seed: int = 3):
+    """Planted sessions (64 of 8,193 items; item i followed by i + 1)
+    through ``Engine.train`` → ``SequencePreparator`` →
+    ``SeqRecAlgorithm.train`` (batch 8, 1 epoch: 8 steps), then the same
+    prepared data from the same initial weights with
+    ``attn_fn=flash_attention_plain``. The kernel must launch ``n_layers``
+    times a step, each step's loss lie within 1e-3 relative of the plain
+    route's and the last below the first; the trained model is then
+    served and checked as in the seq-path phase."""
+    n_items = 500 if small else SEQ["n_items"]
+    max_len = 701 if small else SEQ["max_len"]
+    n_sessions, batch = 64, 8
+    t0 = time.perf_counter()
+    rows = planted.planted_sessions(n_items, n_sessions, max_len, seed=17)
+    td = seq_engine.TrainingData(
+        sessions=[[f"i{t - 1}" for t in row] for row in rows.tolist()])
+    gen_s = time.perf_counter() - t0
+
+    class PlantedSessions(base.DataSource):
+        def read_training(self, ctx):
+            return td
+
+    from incubator_predictionio_tpu_torch.core.engine import Engine
+
+    eng = Engine(PlantedSessions, seq_engine.SequencePreparator,
+                 {"sasrec": seq_engine.SeqRecAlgorithm}, base.FirstServing)
+    algo = dict(d_model=SEQ["d_model"], n_heads=SEQ["n_heads"],
+                n_layers=SEQ["n_layers"], epochs=1, batch_size=batch,
+                seed=seed)
+    ep = seq_params(seq_engine, params_mod, max_len, **algo)
+    ctx = context.RuntimeContext(device=dev)
+    runtime.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    [model] = eng.train(ctx, ep)
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    launches = runtime.launch_counts()["flash_attention"]
+    timings = dict(ctx.timings)
+
+    pd = seq_engine.SequencePreparator(
+        seq_engine.PreparatorParams(max_len=max_len)).prepare(ctx, td)
+    plain_stats: dict = {}
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    _w, _ = tr.sasrec_fit(pd.sequences, n_items=len(pd.item_bimap),
+                          epochs=1, batch_size=batch, seed=seed,
+                          d_model=SEQ["d_model"], n_heads=SEQ["n_heads"],
+                          n_layers=SEQ["n_layers"],
+                          attn_fn=fa.flash_attention_plain, device=dev,
+                          stats=plain_stats)
+    sync(dev)
+    plain_s = time.perf_counter() - t0
+    if runtime.launch_counts()["flash_attention"]:
+        raise AssertionError("the plain route launched the flash kernel")
+    # both routes again, warm and in turns, for the time of a step
+    fit_s = {}
+    for route, fn in (("kernel", None), ("plain", fa.flash_attention_plain),
+                      ("plain", fa.flash_attention_plain), ("kernel", None)):
+        sync(dev)
+        t0 = time.perf_counter()
+        tr.sasrec_fit(pd.sequences, n_items=len(pd.item_bimap), epochs=1,
+                      batch_size=batch, seed=seed, d_model=SEQ["d_model"],
+                      n_heads=SEQ["n_heads"], n_layers=SEQ["n_layers"],
+                      attn_fn=fn, device=dev)
+        sync(dev)
+        fit_s.setdefault(route, []).append(time.perf_counter() - t0)
+    got = np.asarray(model.step_losses, np.float64).ravel()
+    ref = np.asarray(plain_stats["step_losses"], np.float64).ravel()
+    steps = -(-n_sessions // batch)
+    if got.shape != (steps,) or not np.isfinite(got).all():
+        raise AssertionError(f"seq-train: step losses {got}")
+    rel = np.abs(got - ref) / np.abs(ref)
+    if (rel > 1e-3).any():
+        raise AssertionError(f"seq-train: step losses {got.tolist()} against "
+                             f"the plain route's {ref.tolist()}")
+    if not got[-1] < got[0]:
+        raise AssertionError(f"seq-train: the loss did not fall: {got}")
+    if dev.type == "cuda" and launches != SEQ["n_layers"] * steps:
+        raise AssertionError(f"seq-train: flash_attention launched {launches} "
+                             f"times in {steps} steps of {SEQ['n_layers']} "
+                             "layers")
+    if len(model.item_bimap) != n_items:
+        raise AssertionError(f"seq-train: {len(model.item_bimap)} items in "
+                             f"the catalogue, expected {n_items}")
+    docs = seq_docs(np.random.default_rng(18), n_items, max_len - 1)
+    s_launches, err, serve_stats = serve_seq(
+        dev, runtime, tr, fa, server_mod, eng, ep, model, docs, max_len - 1,
+        "seq-train serving")
+    stats = {"sessions": n_sessions, "length": max_len, "batch": batch,
+             "steps": steps, "items": len(model.item_bimap),
+             "generate_s": gen_s, "train_s": train_s,
+             "engine_timings_s": timings, "plain_fit_s": plain_s,
+             "warm_fit_s": fit_s,
+             "step_losses": got.tolist(), "plain_step_losses": ref.tolist(),
+             "max_step_rel_err": float(rel.max()), "launches": launches,
+             "serve": serve_stats}
+    return launches + s_launches, err, stats
+
+
+def sdpa_call(q, k, v, kv_valid):
+    """One ``F.scaled_dot_product_attention`` call on the same inputs, for
+    its time only (the port never calls it): BHSD copies made outside the
+    timed call; causal, and with a [B, 1, S, S] boolean mask where keys are
+    invalid (it gives NaN, not 0, on a query with no live key)."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if kv_valid is None or bool(kv_valid.all()):
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+    s_q, s_kv = q.shape[1], k.shape[1]
+    causal = torch.ones((s_q, s_kv), dtype=torch.bool,
+                        device=q.device).tril()
+    mask = (causal[None] & kv_valid.bool()[:, None, :])[:, None]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask)
+
+
+def time_flash(fa, dev, rng, name, b, s, h, d, dtype, valid_np) -> dict:
+    """ms of the kernel, its plain version and the library call at one
+    causal shape, with the bound of this input's live pairs."""
+    q, k, v = flash_inputs(rng, b, s, s, h, d, dtype, dev)
+    kv_valid = None if valid_np is None else torch.from_numpy(valid_np).to(
+        dev)
+    reps, warm = (10, 2) if s >= 8192 else (30, 5)
+    pairs = fa.live_pairs(s, torch.ones((b, s)) if valid_np is None
+                          else torch.from_numpy(valid_np), causal=True)
+    bound_ms, bound_by = fa.flash_bound(b, h, s, s, d, dtype, pairs)
+    return {
+        "shape": name, "B": b, "S": s, "H": h, "D": d,
+        "dtype": str(dtype).replace("torch.", ""), "live_pairs": pairs,
+        "ms": median_ms(lambda: fa.flash_attention(q, k, v,
+                                                   kv_valid=kv_valid),
+                        reps=reps, warm=warm),
+        "plain_ms": median_ms(lambda: fa.flash_attention_plain(
+            q, k, v, kv_valid=kv_valid), reps=reps, warm=warm),
+        "library_ms": median_ms(sdpa_call(q, k, v, kv_valid), reps=reps,
+                                warm=warm),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def flash_timings(fa, dev) -> list:
+    """The kernel at the engine's shapes (first: one served query with a
+    full window; the training step's B 8; a half-full window) and the JAX
+    bench's."""
+    rng = np.random.default_rng(10)
+    s, h = SEQ["max_len"] - 1, SEQ["n_heads"]
+    dh = SEQ["d_model"] // h
+    rows = [
+        time_flash(fa, dev, rng, "engine_b1", 1, s, h, dh, torch.float32,
+                   np.ones((1, s), bool)),
+        time_flash(fa, dev, rng, "engine_b8", 8, s, h, dh, torch.float32,
+                   np.ones((8, s), bool)),
+        time_flash(fa, dev, rng, "engine_b1_half", 1, s, h, dh,
+                   torch.float32, left_padded(1, s, [s // 2])),
+    ]
+    for n in FLASH_BENCH["seqs"]:
+        for dt in (torch.float32, torch.bfloat16):
+            rows.append(time_flash(fa, dev, rng, f"bench_s{n}", FLASH_BENCH[
+                "b"], n, FLASH_BENCH["h"], FLASH_BENCH["d"], dt, None))
+    return rows
+
+
+def flash_crossover(fa, att, dev) -> list:
+    """The kernel, the plain dense product and the plain blockwise scan at
+    the engine's head (H 2, D 32, f32, every key valid) for S = 1,024 to
+    8,192 at B 1 and 8: where the H100 would put ``FLASH_MIN_SEQ``."""
+    rng = np.random.default_rng(11)
+    h, dh = SEQ["n_heads"], SEQ["d_model"] // SEQ["n_heads"]
+    out = []
+    for b in (1, 8):
+        for s in (1024, 2048, 4096, 8192):
+            q, k, v = flash_inputs(rng, b, s, s, h, dh, torch.float32, dev)
+            valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+            reps, warm = (10, 2) if s * b >= 8192 * 8 else (30, 5)
+            row = {"B": b, "S": s}
+            for name, fn in (
+                    ("kernel_ms", fa.flash_attention),
+                    ("dense_ms", att.dot_product_attention),
+                    ("blockwise_ms", att.blockwise_attention)):
+                row[name] = median_ms(
+                    lambda fn=fn: fn(q, k, v, causal=True, kv_valid=valid),
+                    reps=reps, warm=warm)
+            out.append(row)
+            del q, k, v
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -882,8 +1376,17 @@ def main() -> int:
         convert,
         engine,
     )
+    from incubator_predictionio_tpu_torch.models.sequence import (
+        convert as seq_convert,
+    )
+    from incubator_predictionio_tpu_torch.models.sequence import (
+        engine as seq_engine,
+    )
     from incubator_predictionio_tpu_torch.ops import als, kernels
     from incubator_predictionio_tpu_torch.ops import als_kernels as ak
+    from incubator_predictionio_tpu_torch.ops import attention as att
+    from incubator_predictionio_tpu_torch.ops import attention_kernels as fa
+    from incubator_predictionio_tpu_torch.ops import transformer as tr
     from incubator_predictionio_tpu_torch.parallel import context
     from incubator_predictionio_tpu_torch.servers import (
         prediction_server as server_mod,
@@ -912,6 +1415,13 @@ def main() -> int:
           f"{json.dumps(als_worst)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
+    t0 = time.perf_counter()
+    err_f, flash_rel = flash_phase(dev, fa)
+    print(f"flash-kernel: {len(flash_rel)} cases agree with the plain "
+          f"version, max abs error {err_f:.3e}, relative "
+          f"{json.dumps(flash_rel)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
     launches, err_p, stats = path_phase(
         dev, runtime, kernels, planted, convert, engine, params_mod,
         server_mod, ML20M["users"], ML20M["items"], ML20M["rank"])
@@ -925,6 +1435,20 @@ def main() -> int:
     trained_launches, err_t, serve_stats = serve_trained_phase(
         dev, runtime, kernels, server_mod, model, pd, eng, ep)
     print(f"serve-trained: {json.dumps(serve_stats)}", flush=True)
+
+    t0 = time.perf_counter()
+    seq_launches, err_sp, seq_stats = seq_path_phase(
+        dev, runtime, tr, fa, seq_engine, seq_convert, planted, params_mod,
+        server_mod)
+    print(f"seq-path: {json.dumps(seq_stats)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    seq_train_launches, err_st, seq_train_stats = seq_train_phase(
+        dev, runtime, tr, fa, seq_engine, base, params_mod, context, planted,
+        server_mod)
+    print(f"seq-train: {json.dumps(seq_train_stats)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     shapes = [time_shape(kernels, planted, dev, b, n, r, k)
               for b, n, r, k in (
@@ -984,6 +1508,28 @@ def main() -> int:
                 "the main path runs R = 1 (ops/als.py KERNEL_ROWS, the JAX "
                 "default); R = 8 is launched by the als-kernel phase and "
                 "timed here on the main path's heaviest item chunk")
+    flash_rows = flash_timings(fa, dev)
+    for row in flash_rows:
+        print(f"time: {json.dumps(dict(name='flash_attention', **row))}",
+              flush=True)
+    for row in flash_crossover(fa, att, dev):
+        print(f"crossover: {json.dumps(row)}", flush=True)
+    head = flash_rows[0]  # one served query with a full 8,192 window
+    entries.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "incubator_predictionio_tpu_torch/csrc/flash_attention.cu",
+        "replaces": fa.REPLACES,
+        "launches": seq_launches + seq_train_launches,
+        "max_abs_err": err_f,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "max_score_err": max(err_sp, err_st),
+        "shapes": flash_rows,
+    })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,11 @@ nothing from it and nothing of JAX. Its entry points run on the CUDA device
 unless the caller passes ``device="cpu"``; a kernel wrapper given a CUDA
 tensor launches its hand-written kernel (``csrc/``) or raises.
 
-Ported so far: recommendation serving — a model carried across from numpy
-(``models/recommendation/convert.py``) served over HTTP
-(``servers/prediction_server.py``) through the score+top-k kernel
-(``ops/kernels.py``, ``csrc/score_topk.cu``).
+Ported so far: the recommendation template — ALS training through the
+Gram+CG kernels (``ops/als.py``, ``ops/als_kernels.py``,
+``csrc/als_solve.cu``) and serving over HTTP (``servers/
+prediction_server.py``) through the score+top-k kernel (``ops/kernels.py``,
+``csrc/score_topk.cu``); and the sequence engine (``models/sequence/``,
+SASRec), served and trained with its long-window attention in the flash
+kernel (``ops/attention_kernels.py``, ``csrc/flash_attention.cu``).
 """

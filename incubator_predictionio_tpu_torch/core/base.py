@@ -166,3 +166,12 @@ class Serving(_Component, Generic[Q, P]):
 
     def serve(self, query: Q, predictions: Sequence[P]) -> P:
         raise NotImplementedError
+
+
+class FirstServing(Serving[Q, P]):
+    """Serve the first algorithm's prediction (controller/LFirstServing.scala)."""
+
+    FIRST_PREDICTION_ONLY = True
+
+    def serve(self, query: Q, predictions: Sequence[P]) -> P:
+        return predictions[0]

@@ -121,6 +121,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pio_als_fused_solve_cg.argtypes = [p, i, i, p, p, p, p, p, p, p, p,
                                            i, i, i, i, p]
     lib.pio_als_fused_solve_cg.restype = ctypes.c_int
+    ll = ctypes.c_longlong
+    lib.pio_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                        ll, ll, ll, ll, ll, ll, ll, ll, ll,
+                                        i, ctypes.c_float, i, p]
+    lib.pio_flash_attention.restype = ctypes.c_int
 
 
 def build_kernels() -> ctypes.CDLL:

@@ -1,7 +1,8 @@
 """Seeded planted-factor catalogue generator and its exhaustive host
 oracle: the port's own copy of incubator_predictionio_tpu/utils/planted.py,
-used by the tests and ``chip_smoke.py``; and the planted ratings of the
-JAX bench (bench.py:206-249), the training workload at ML-20M shape.
+used by the tests and ``chip_smoke.py``; the planted ratings of the JAX
+bench (bench.py:206-249), the training workload at ML-20M shape; and, for
+the sequence engine, cyclic sessions and seeded transformer weights.
 
 The table has the geometry trained factor tables have: cluster structure
 (genres), bounded relative within-cluster noise, and a log-normal
@@ -11,7 +12,7 @@ function of the seed.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -141,3 +142,41 @@ def planted_ratings(
     users, items = _distinct_pairs(rng, nnz, n_users, n_items)
     ho_u, ho_i = _sample_pairs(rng, n_holdout, n_users, n_items)
     return users, items, rate(users, items), (ho_u, ho_i, rate(ho_u, ho_i))
+
+
+def planted_sessions(n_items: int, n_sessions: int, length: int,
+                     seed: int = 0) -> np.ndarray:
+    """[n_sessions, length] int32 cyclic sessions of item ids 1..n_items:
+    item i is always followed by i + 1 (mod n_items), each session from a
+    seeded random start (tests/test_sequence_template.py:13-20)."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(1, n_items + 1, n_sessions)
+    rows = (starts[:, None] - 1 + np.arange(length)[None, :]) % n_items + 1
+    return rows.astype(np.int32)
+
+
+def random_transformer_fields(n_items: int, max_len: int, d_model: int = 64,
+                              n_layers: int = 2, seed: int = 0
+                              ) -> Dict[str, np.ndarray]:
+    """The fields of a sequence model's ``TransformerWeights`` as f32 numpy
+    arrays, drawn from ``seed`` with the scales of ``transformer_init``
+    (normal × d^-0.5, positions × 0.02, unit norm scales)."""
+    rng = np.random.default_rng(seed)
+    v, d, h = n_items + 1, d_model, 4 * d_model
+
+    def init(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return {
+        "item_emb": init((v, d), d ** -0.5),
+        "pos_emb": init((max_len, d), 0.02),
+        "ln1_scale": np.ones((n_layers, d), np.float32),
+        "ln2_scale": np.ones((n_layers, d), np.float32),
+        "wq": init((n_layers, d, d), d ** -0.5),
+        "wk": init((n_layers, d, d), d ** -0.5),
+        "wv": init((n_layers, d, d), d ** -0.5),
+        "wo": init((n_layers, d, d), d ** -0.5),
+        "w_up": init((n_layers, d, h), d ** -0.5),
+        "w_down": init((n_layers, h, d), h ** -0.5),
+        "lnf_scale": np.ones((d,), np.float32),
+    }

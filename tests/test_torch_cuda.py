@@ -8,7 +8,9 @@ machine with one (and without JAX, which tests/conftest.py imports):
 Tolerances as in chip_smoke.py: both sides are f32 but sum the rank in
 different orders, so scores agree to rtol 1e-5 and ids except among
 near-ties; ALS solves agree to 1e-4 of max|x| with an f32 table and 1e-3
-with a bf16 one (same arithmetic, other order of sums).
+with a bf16 one (same arithmetic, other order of sums); flash attention to
+1e-4 of max|out| in f32 (sums over the keys in other orders) and 8e-3, one
+bf16 ulp, in bf16 (both round the same f32 value).
 """
 
 import numpy as np
@@ -16,7 +18,13 @@ import pytest
 import torch
 
 from incubator_predictionio_tpu_torch import runtime
-from incubator_predictionio_tpu_torch.ops import als, als_kernels, kernels, topk
+from incubator_predictionio_tpu_torch.ops import (
+    als,
+    als_kernels,
+    attention_kernels,
+    kernels,
+    topk,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +230,133 @@ def test_als_train_on_the_card_matches_plain_route(dev):
         fits.append(als.rmse(st, users, items, ratings))
     assert fits[0] < max(1.15 * fits[1], fits[1] + 0.02), fits
     assert fits[0] < 0.1, fits
+
+
+# -- flash attention (ops/attention_kernels.py → csrc/flash_attention.cu) -----
+
+# (b, s_q, s_kv, h, d, causal, valid lengths or None, dtype)
+FLASH_SHAPES = [
+    (2, 100, 100, 2, 32, True, None, torch.float32),
+    (2, 100, 100, 2, 32, False, None, torch.float32),
+    (2, 40, 40, 2, 16, True, (17, 33), torch.float32),
+    (1, 1, 64, 2, 32, False, None, torch.float32),
+    (1, 1, 64, 2, 32, True, None, torch.float32),
+    (2, 300, 100, 2, 8, True, None, torch.float32),
+    (2, 100, 300, 3, 24, True, (250, 0), torch.float32),
+    (2, 200, 200, 2, 128, True, (150, 7), torch.bfloat16),
+    (1, 2048, 2048, 2, 64, True, (1000,), torch.bfloat16),
+]
+
+
+def _flash_inputs(dev, b, s_q, s_kv, h, d, lengths, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(dev).to(dtype)
+               for shape in ((b, s_q, h, d), (b, s_kv, h, d),
+                             (b, s_kv, h, d)))
+    valid = None
+    if lengths is not None:
+        valid = torch.zeros((b, s_kv), dtype=torch.bool, device=dev)
+        for r, n in enumerate(lengths):
+            if n:
+                valid[r, s_kv - n:] = True   # left padding, as SASRec
+    return q, k, v, valid
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_matches_plain(dev, shape):
+    b, s_q, s_kv, h, d, causal, lengths, dtype = shape
+    q, k, v, valid = _flash_inputs(dev, b, s_q, s_kv, h, d, lengths, dtype,
+                                   s_q + d)
+    before = attention_kernels.FLASH_LAUNCHES.value
+    got = attention_kernels.flash_attention(q, k, v, causal=causal,
+                                            kv_valid=valid)
+    assert attention_kernels.FLASH_LAUNCHES.value == before + 1
+    ref = attention_kernels.flash_attention_plain(q, k, v, causal=causal,
+                                                  kv_valid=valid)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s_q, h, d)
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-4
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= tol * ref.float().abs().max()
+    if valid is not None:
+        pos = torch.arange(s_q, device=dev)[:, None]
+        keys = torch.arange(s_kv, device=dev)[None, :]
+        live = valid[:, None, :] & ((pos >= keys) if causal else True)
+        dead = ~live.any(-1)
+        assert (got[dead] == 0).all()
+
+
+def test_flash_strided_views_match_contiguous(dev):
+    """BSHD read through strides: q, k, v as views of one fused [B, S,
+    3, H, D] projection."""
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.standard_normal((2, 300, 3, 2, 32),
+                                               np.float32)).to(dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    got = attention_kernels.flash_attention(q, k, v)
+    ref = attention_kernels.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_flash_gradient_matches_plain_autograd(dev):
+    q, k, v, valid = _flash_inputs(dev, 2, 300, 300, 2, 32, (250, 40),
+                                   torch.float32, 5)
+    grads = []
+    for fn in (attention_kernels.flash_attention,
+               attention_kernels.flash_attention_plain):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        (fn(qq, kk, vv, kv_valid=valid) ** 2).sum().backward()
+        grads.append((qq.grad, kk.grad, vv.grad))
+    for got, ref in zip(*grads):
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_flash_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.zeros((1, 16, 2, 32), device=dev)
+    with pytest.raises(ValueError):   # k on the CPU
+        attention_kernels.flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError):
+        attention_kernels.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError):
+        attention_kernels.flash_attention(q, q.half(), q)
+    wide = torch.zeros((1, 16, 1, 160), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_kernels.flash_attention(wide, wide, wide)
+
+
+def test_sequence_model_serves_through_the_kernel(dev):
+    """At a window of FLASH_MIN_SEQ the served forward launches the kernel
+    once per layer and matches the plain route."""
+    from incubator_predictionio_tpu_torch.models.sequence import (
+        convert,
+        engine,
+    )
+    from incubator_predictionio_tpu_torch.ops import transformer
+    from incubator_predictionio_tpu_torch.utils import planted
+
+    window = transformer.FLASH_MIN_SEQ
+    fields = planted.random_transformer_fields(300, window + 1, 32, 2,
+                                               seed=1)
+    model = convert.seqrec_model_from_numpy(
+        fields, [f"i{i}" for i in range(300)], 2, window + 1, device=dev)
+    algo = engine.SeqRecAlgorithm(engine.SeqRecAlgorithmParams(app_name="a"))
+    before = attention_kernels.FLASH_LAUNCHES.value
+    got = algo.predict(model, engine.Query(
+        user="u", num=5, recent_items=tuple(f"i{i}" for i in range(40))))
+    assert attention_kernels.FLASH_LAUNCHES.value == before + 2
+    tokens = torch.zeros((1, window), dtype=torch.int32, device=dev)
+    tokens[0, -40:] = torch.arange(1, 41, device=dev)
+    h = transformer.transformer_apply(
+        model.weights, tokens, 2,
+        attn_fn=attention_kernels.flash_attention_plain)
+    scores = (h[0, -1] @ model.weights.item_emb.T).cpu()
+    scores[:41] = float("-inf")
+    top = torch.sort(scores, descending=True, stable=True)
+    assert [s.item for s in got.item_scores] == \
+        [f"i{int(i) - 1}" for i in top.indices[:5]]
+    np.testing.assert_allclose([s.score for s in got.item_scores],
+                               top.values[:5].numpy(), rtol=1e-4)

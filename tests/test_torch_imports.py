@@ -12,7 +12,14 @@ from incubator_predictionio_tpu_torch import runtime
 from incubator_predictionio_tpu_torch.models.recommendation.convert import (
     als_model_from_numpy,
 )
+from incubator_predictionio_tpu_torch.models.sequence.convert import (
+    seqrec_model_from_numpy,
+)
+from incubator_predictionio_tpu_torch.ops.transformer import transformer_init
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
+from incubator_predictionio_tpu_torch.utils.planted import (
+    random_transformer_fields,
+)
 
 _ISOLATED = textwrap.dedent('''
     import importlib, importlib.abc, json, pkgutil, sys
@@ -56,10 +63,33 @@ _ISOLATED = textwrap.dedent('''
             body = json.loads(resp.read())
     finally:
         srv.stop()
+    from incubator_predictionio_tpu_torch.models.sequence import (
+        convert as seq_convert, engine as seq_engine)
+    from incubator_predictionio_tpu_torch.utils.planted import (
+        random_transformer_fields)
+    seq_model = seq_convert.seqrec_model_from_numpy(
+        random_transformer_fields(9, 9, 8, 1, seed=0),
+        [f"i{i}" for i in range(9)], 2, 9, device="cpu")
+    srv = PredictionServer(
+        seq_engine.SequenceEngine().apply(),
+        EngineParams(algorithm_params_list=[
+            ("sasrec", seq_engine.SeqRecAlgorithmParams(app_name="a"))]),
+        [seq_model], device="cpu")
+    port = srv.start_background()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/queries.json",
+            data=b'{"user": "u", "num": 4, "recentItems": ["i1", "i2"]}',
+            method="POST")
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            seq_body = json.loads(resp.read())
+    finally:
+        srv.stop()
     leaked = sorted(m for m in sys.modules
                     if m == "incubator_predictionio_tpu"
                     or m.startswith("incubator_predictionio_tpu."))
     print(json.dumps({"modules": len(names), "items": len(body["itemScores"]),
+                      "seq_items": len(seq_body["itemScores"]),
                       "leaked": leaked}))
 ''')
 
@@ -71,8 +101,9 @@ def test_port_imports_and_serves_without_jax_or_the_jax_package():
     import json
 
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["modules"] >= 15
+    assert out["modules"] >= 22
     assert out["items"] == 3
+    assert out["seq_items"] == 4
     assert out["leaked"] == []
 
 
@@ -84,13 +115,18 @@ def test_default_device_refuses_cpu_fallback(monkeypatch):
         RuntimeContext()
     with pytest.raises(RuntimeError):
         als_model_from_numpy([[1.0]], [[1.0]], ["u"], ["i"])
+    fields = random_transformer_fields(3, 4, 8, 1)
+    with pytest.raises(RuntimeError):
+        seqrec_model_from_numpy(fields, ["a", "b", "c"], 2, 4)
+    with pytest.raises(RuntimeError):
+        transformer_init(torch.Generator(), 3, 4, 8, 1)
     assert runtime.default_device("cpu") == torch.device("cpu")
 
 
 def test_cuda_tensor_never_takes_the_plain_version():
     """A kernel wrapper given a non-CPU tensor launches or raises; here
     (no card) the meta device stands in for one it cannot launch on."""
-    from incubator_predictionio_tpu_torch.ops import kernels
+    from incubator_predictionio_tpu_torch.ops import attention_kernels, kernels
 
     runtime.reset_launch_counts()
     q = torch.empty((1, 8), device="meta")
@@ -98,3 +134,10 @@ def test_cuda_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.score_topk(q, items, None, 5)
     assert kernels.SCORE_TOPK_LAUNCHES.value == 0
+    x = torch.empty((1, 64, 2, 32), device="meta")
+    valid = torch.ones((1, 64), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_kernels.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):   # mixed devices
+        attention_kernels.flash_attention(x, x, x, kv_valid=valid)
+    assert sum(runtime.launch_counts().values()) == 0
