@@ -29,8 +29,13 @@ Phases, each of which fails the run on any error or mismatch:
              tests' cases (causal and not, ragged validity, fully masked
              rows exactly 0, the Sq = 1 decode row), Sq != Skv, head widths
              8 to 128, the engine's windows (B 1 and 8, H 2, D 32, S 8192,
-             left-padded) and the JAX bench's shapes (B 1, H 8, D 64, S
-             4096 / 8192 / 32768, f32 and bf16); :func:`flash_tolerance`.
+             left-padded), the JAX bench's shapes (B 1, H 8, D 64, S
+             4096 / 8192 / 32768, f32 and bf16) and, in both dtypes, the
+             cases of :func:`skip_cases` (dead key tiles between live ones,
+             one live key at a tile's edge, rows padded 0 to 8,192, dead
+             query tiles, Sq != Skv with padding, D 8 / 24 / 80 / 128);
+             :func:`flash_tolerance`. The build's ``ptxas -v`` report of
+             each flash instantiation is printed (``ptxas:`` lines).
 6. path    — a planted ALSModel at ML-20M width (138,493 users x 26,744
              items x rank 128), served by the port's PredictionServer: 32
              HTTP queries to /queries.json and one 64-body batch through
@@ -59,23 +64,32 @@ Phases, each of which fails the run on any error or mismatch:
              seq-path.
 11. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
-             line; the flash kernel, plain dense and plain blockwise at the
-             engine's head for S = 1,024 to 8,192 (``crossover:`` lines);
-             then the last line, ``{"ok": true, "device": {...}}``.
+             line (flash: the engine's windows, also left-padded with 1 to
+             4,096 live keys, and the bench's shapes); the flash kernel,
+             plain dense and plain blockwise at the engine's head for S =
+             1,024 to 8,192 (``crossover:`` lines); then the last line,
+             ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --flash`` runs only the build, the flash-kernel
+phase and the flash timings: run it from the root and from a directory
+holding ``chip_smoke.py`` and another version of the package, in turns,
+to compare two flash kernels on one card.
 
 The bound is max(bytes / 3.35 TB/s, operations / peak): H100 SXM HBM3, f32
-without tensor cores at 67 TFLOP/s and bf16 tensor-core products at 989
-TFLOP/s, from NVIDIA's data sheet at 700 W (``runtime.HBM_BYTES_PER_S``,
-``F32_FLOPS``, ``BF16_FLOPS``); bytes count each input read once and each
-output written once. The ALS entries' bound is
-``ops/als_kernels.bucket_bound``, the one the training profile uses; the
-flash entry's is ``ops/attention_kernels.flash_bound``, 4·D FLOP per live
-(query, key) pair and head of the run's inputs.
+without tensor cores at 67 TFLOP/s, TF32 and bf16 tensor-core products at
+495 and 989 TFLOP/s, from NVIDIA's data sheet at 700 W
+(``runtime.HBM_BYTES_PER_S``, ``F32_FLOPS``, ``TF32_FLOPS``,
+``BF16_FLOPS``); bytes count each input read once and each output written
+once. The ALS entries' bound is ``ops/als_kernels.bucket_bound``, the one
+the training profile uses; the flash entry's is
+``ops/attention_kernels.flash_bound``, 4·D FLOP per live (query, key) pair
+and head of the run's inputs, f32 at 495/3 TFLOP/s (3xTF32).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -358,6 +372,26 @@ def median_ms(fn, reps: int = 30, warm: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device ms of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, its replay timed as :func:`median_ms` times it, divided by
+    ``calls``. What :func:`median_ms` adds to it is the host's share of a
+    call (Python, the wrapper, the launches), which bounds a call whose
+    device work is shorter."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # outside the capture: first-use allocations and attributes
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = median_ms(graph.replay, reps=reps, warm=2) / calls
+    del graph
+    return ms
 
 
 def bound(b: int, n_items: int, rank: int, k: int, masked: bool):
@@ -914,6 +948,57 @@ def left_padded(b: int, s: int, lengths) -> np.ndarray:
     return valid
 
 
+def holes(b: int, s: int) -> np.ndarray:
+    """[b, s] bool with holes: of every three 64-key tiles only the first
+    has valid keys (so live tiles are separated by two wholly dead ones),
+    and within it every fifth key (from 1 + row) is invalid."""
+    key = np.arange(s)[None, :]
+    row = np.arange(b)[:, None]
+    return ((key // 64) % 3 == 0) & ((key - 1 - row) % 5 != 0)
+
+
+def one_key(b: int, s: int, keys) -> np.ndarray:
+    """[b, s] bool: row r has the single valid key ``keys[r]``."""
+    valid = np.zeros((b, s), bool)
+    valid[np.arange(b), list(keys)] = True
+    return valid
+
+
+def skip_cases(small: bool = False) -> list:
+    """The cases the tile skip and the tensor-core fragments can get wrong,
+    in f32 and bf16: holes (live tiles between wholly dead ones), a single
+    live key in a tile's first and last column, rows with different left
+    padding, dead query tiles before live ones, Sq != Skv with padding,
+    and head widths 8, 24, 80 and 128."""
+    s = 700 if small else SEQ["max_len"] - 1
+    dh = SEQ["d_model"] // SEQ["n_heads"]
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        n = str(dt)[6:]
+        cases += [
+            (f"holes_{n}", 2, 1024, 1024, 2, 32, dt, True, holes(2, 1024)),
+            (f"holes_not_causal_{n}", 1, 640, 640, 2, 64, dt, False,
+             holes(1, 640)),
+            (f"one_key_{n}", 2, 512, 512, 2, 32, dt, True,
+             one_key(2, 512, (192, 255))),
+            (f"one_key_not_causal_{n}", 2, 512, 512, 2, 32, dt, False,
+             one_key(2, 512, (192, 255))),
+            (f"left_pads_{n}", 10, s, s, 2, dh, dt, True,
+             left_padded(10, s, [0, 1, 63, 64, 65, s - 65, s - 64, s - 63,
+                                 s - 1, s])),
+            (f"dead_q_tiles_{n}", 1, 1000, 1000, 2, 32, dt, True,
+             left_padded(1, 1000, [360])),
+            (f"sq_lt_skv_pad_{n}", 2, 130, 700, 2, 32, dt, True,
+             holes(2, 700)),
+            (f"sq_gt_skv_pad_{n}", 2, 700, 130, 2, 32, dt, True,
+             left_padded(2, 130, [100, 0])),
+        ]
+        for d in (8, 24, 80, 128):
+            cases.append((f"d{d}_holes_{n}", 2, 333, 333, 2, d, dt, True,
+                           holes(2, 333)))
+    return cases
+
+
 def flash_cases(small: bool = False) -> list:
     """(name, b, s_q, s_kv, h, d, dtype, causal, valid [b, s_kv] or None)."""
     cases = [
@@ -949,7 +1034,7 @@ def flash_cases(small: bool = False) -> list:
         for dt in (torch.float32, torch.bfloat16):
             cases.append((f"bench_s{n}_{str(dt)[6:]}", FLASH_BENCH["b"], n, n,
                           FLASH_BENCH["h"], FLASH_BENCH["d"], dt, True, None))
-    return cases
+    return cases + skip_cases(small)
 
 
 def flash_inputs(rng, b, s_q, s_kv, h, d, dtype, dev):
@@ -1292,7 +1377,8 @@ def sdpa_call(q, k, v, kv_valid):
 
 
 def time_flash(fa, dev, rng, name, b, s, h, d, dtype, valid_np) -> dict:
-    """ms of the kernel, its plain version and the library call at one
+    """ms of the kernel (one call, and its device time from a CUDA graph:
+    :func:`graph_ms`), its plain version and the library call at one
     causal shape, with the bound of this input's live pairs."""
     q, k, v = flash_inputs(rng, b, s, s, h, d, dtype, dev)
     kv_valid = None if valid_np is None else torch.from_numpy(valid_np).to(
@@ -1301,12 +1387,14 @@ def time_flash(fa, dev, rng, name, b, s, h, d, dtype, valid_np) -> dict:
     pairs = fa.live_pairs(s, torch.ones((b, s)) if valid_np is None
                           else torch.from_numpy(valid_np), causal=True)
     bound_ms, bound_by = fa.flash_bound(b, h, s, s, d, dtype, pairs)
+    def kernel():
+        return fa.flash_attention(q, k, v, kv_valid=kv_valid)
+
     return {
         "shape": name, "B": b, "S": s, "H": h, "D": d,
         "dtype": str(dtype).replace("torch.", ""), "live_pairs": pairs,
-        "ms": median_ms(lambda: fa.flash_attention(q, k, v,
-                                                   kv_valid=kv_valid),
-                        reps=reps, warm=warm),
+        "ms": median_ms(kernel, reps=reps, warm=warm),
+        "graph_ms": graph_ms(kernel, calls=10 if s <= 8192 else 2),
         "plain_ms": median_ms(lambda: fa.flash_attention_plain(
             q, k, v, kv_valid=kv_valid), reps=reps, warm=warm),
         "library_ms": median_ms(sdpa_call(q, k, v, kv_valid), reps=reps,
@@ -1315,10 +1403,14 @@ def time_flash(fa, dev, rng, name, b, s, h, d, dtype, valid_np) -> dict:
     }
 
 
+#: live keys of the timed left-padded engine windows (B 1, S 8192, f32)
+WINDOW_LIVE = (1, 64, 512, 2048, 4096)
+
+
 def flash_timings(fa, dev) -> list:
     """The kernel at the engine's shapes (first: one served query with a
-    full window; the training step's B 8; a half-full window) and the JAX
-    bench's."""
+    full window; the training step's B 8; a half-full window; then windows
+    with :data:`WINDOW_LIVE` live keys) and the JAX bench's."""
     rng = np.random.default_rng(10)
     s, h = SEQ["max_len"] - 1, SEQ["n_heads"]
     dh = SEQ["d_model"] // h
@@ -1330,6 +1422,9 @@ def flash_timings(fa, dev) -> list:
         time_flash(fa, dev, rng, "engine_b1_half", 1, s, h, dh,
                    torch.float32, left_padded(1, s, [s // 2])),
     ]
+    rows += [time_flash(fa, dev, rng, f"engine_b1_live{n}", 1, s, h, dh,
+                        torch.float32, left_padded(1, s, [n]))
+             for n in WINDOW_LIVE]
     for n in FLASH_BENCH["seqs"]:
         for dt in (torch.float32, torch.bfloat16):
             rows.append(time_flash(fa, dev, rng, f"bench_s{n}", FLASH_BENCH[
@@ -1360,6 +1455,44 @@ def flash_crossover(fa, att, dev) -> list:
             out.append(row)
             del q, k, v
     return out
+
+
+def flash_resources(runtime) -> list:
+    """What ``ptxas -v`` reported for each instantiation of the flash
+    kernel (registers, spills), with its dynamic shared memory."""
+    if not hasattr(runtime, "kernel_resources"):
+        return []  # a package from before the report (an A/B copy)
+    lib = runtime.build_kernels()
+    rows = []
+    for r in runtime.kernel_resources("flash_attention"):
+        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                      str(r["function"]))
+        if not m:
+            continue
+        bf16 = m.group(1) != "f"
+        dp = int(m.group(2))
+        rows.append(dict(dtype="bfloat16" if bf16 else "float32",
+                         head_pad=dp,
+                         dynamic_smem=lib.pio_flash_smem_bytes(dp, int(bf16)),
+                         **{k: v for k, v in r.items() if k != "function"}))
+    return rows
+
+
+def flash_only(dev, runtime, fa) -> int:
+    """``--flash``: the flash kernel alone (cases, then timings), for an A/B
+    of two copies of the package on one card."""
+    t0 = time.perf_counter()
+    err_f, flash_rel = flash_phase(dev, fa)
+    print(f"flash-kernel: {len(flash_rel)} cases agree with the plain "
+          f"version, max abs error {err_f:.3e}, relative "
+          f"{json.dumps(flash_rel)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    for row in flash_timings(fa, dev):
+        print(f"time: {json.dumps(dict(name='flash_attention', **row))}",
+              flush=True)
+    print(json.dumps({"flash_ok": True,
+                      "kind": torch.cuda.get_device_name(0)}))
+    return 0
 
 
 def main() -> int:
@@ -1402,6 +1535,11 @@ def main() -> int:
     t0 = time.perf_counter()
     runtime.build_kernels()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for row in flash_resources(runtime):
+        print(f"ptxas: {json.dumps(dict(name='flash_attention', **row))}",
+              flush=True)
+    if sys.argv[1:] == ["--flash"]:
+        return flash_only(dev, runtime, fa)
 
     err_k, n_cases = kernel_phase(dev, kernels, planted)
     print(f"kernel: {n_cases} cases agree with the plain version, max score "

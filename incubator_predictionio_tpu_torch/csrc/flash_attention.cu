@@ -1,55 +1,258 @@
-// Forward flash attention (online softmax) on BSHD tensors, for Hopper (sm_90a).
+// Forward flash attention (online softmax) on BSHD tensors, for Hopper
+// (sm_90a), with its products on the tensor cores.
 //
 // Replaces the TPU kernel incubator_predictionio_tpu/ops/pallas_kernels.py
 // flash_attention (:582) -> _flash_with_vjp (:483) -> _flash_bhsd (:425,
 // pallas_call :450), body _flash_kernel (:350). Same contract:
 //   * q [B, Sq, H, D], k and v [B, Skv, H, D], f32 or bf16, read through their
 //     strides (no transposes); out [B, Sq, H, D] contiguous, in q's dtype;
-//   * f32 arithmetic throughout: q is scaled on load (q * scale, as the TPU
-//     kernel does), scores, running max m, sum l and accumulator are f32;
+//   * f32 softmax state: the running max m, sum l and the accumulator are f32;
+//     f32 q is scaled on load (q * scale, as the TPU kernel does); bf16 q
+//     enters the product as it is and its f32 scores are scaled, since q *
+//     scale is not a bf16 value;
 //   * a key is live when valid[b, key] > 0 and, if causal, key <= query, with
 //     positions counted from 0 for both q and kv, also when Sq != Skv;
-//   * a masked score is -1e30 (MASK_VALUE), and its probability is set to 0
-//     explicitly: if a query's first live tile is fully masked, m = -1e30 and
-//     exp(s - m) would be 1;
+//   * a masked score is -1e30 (MASK_VALUE) in the max, and its probability is
+//     set to 0 explicitly: if a query's first live tile is fully masked, m =
+//     -1e30 and exp(s - m) would be 1;
 //   * a query with no live key (the left padding of a SASRec window) gives
-//     exactly 0: l == 0 is divided as 1;
-//   * causal: key tiles wholly in the future of the query tile are skipped.
+//     exactly 0: l == 0 is divided as 1.
 //
 // What bounds it on this card: the QK^T and PV products, 4*D FLOP per live
-// (query, key) pair, run here on the f32 FMA units (67 TFLOP/s); the bytes
-// (q, k, v read once, out written once) are far smaller at S >= 1024. The
-// design keeps the [Sq, Skv] score matrix out of device memory, as the TPU
-// kernel kept it in VMEM, but does not carry its grid: one block per
-// (query tile of 64, batch*head); the KV scan is a loop inside the block over
-// 64-key tiles staged in shared memory (converted to f32 on load). 256
-// threads as 16 x 16: thread (ty, tx) owns query rows ty + 16i (i < 4), the
-// score columns tx + 16j (j < 4) and the output columns tx + 16c. The 16
-// threads of a row are one half-warp, so the row max and sum are shuffles
-// and the row state (m, l) stays in registers; the probabilities go to
-// shared memory for the PV product, read back by the same warp. It is the
-// simple form: tensor-core products (mma.sync / wgmma) fed by TMA are later
-// work.
+// (query, key) pair and head; the bytes (q, k, v read once, out written once)
+// are far smaller at S >= 1024. So the products run on the tensor cores:
+//   * bf16: mma.sync m16n8k16 with f32 accumulation. QK^T is exact in its
+//     products, as JAX's upcast-then-dot is; P is rounded to bf16 for PV
+//     (FlashAttention-2's choice), held to chip_smoke's 8e-3 tolerance.
+//   * f32: 3xTF32. Each operand is split a = hi + lo, hi rounded to TF32,
+//     and mma.sync m16n8k8 TF32 takes lo*hi + hi*lo + hi*hi, which keeps f32
+//     accuracy (1e-4 of max|out|) at three times the TF32 work; the card's
+//     least time for that is at 495/3 TFLOP/s (runtime.TF32_FLOPS). The
+//     split is two integer ops and a subtraction: cvt.rna.tf32 would issue
+//     at a quarter of the rate, and ~350 of them a warp and tile made the
+//     conversions, not the tensor cores, the limit.
+// Past the products, what costs is per element of S (mask, exp2, the online
+// softmax): interior tiles whose 64 keys are all valid and wholly in the
+// causal past skip the per-element mask, and exp2 is one ex2.approx.
+//
+// Design (FlashAttention-2's layout): one block of 4 warps per (query tile of
+// 64, batch*head), 16 query rows a warp. The warp's Q fragments stay in
+// registers for the whole KV scan; S = QK^T of a 64-key tile accumulates in
+// registers; the online softmax runs on those accumulator fragments (row max
+// and sum across the lane quad with two __shfl_xor_sync); P is repacked from
+// the S accumulators straight into the A operand of the PV product (f32:
+// the keys of an 8-key step are taken in the order 0,2,4,6,1,3,5,7, the order
+// the accumulator holds them, and V's rows are read in the same order); O
+// accumulates in registers. K and V tiles are double-buffered in shared
+// memory and filled by cp.async, tile t+1's copy in flight while tile t's
+// products run; fragments of K (and of bf16 V, transposed) are read with
+// ldmatrix. Every shared-memory row is padded by 16 bytes, which puts the 8
+// rows of an ldmatrix (and the f32 V reads, rows 2t and 2t+1 of lane t) on
+// distinct banks. Head widths pad to 16/32/64/128 with zeros in shared memory.
+// Unaligned inputs (a head width or stride not a multiple of 16 bytes) take
+// plain loads into the same layout, without the overlap.
+//
+// Tiles that are wholly padding are skipped: a first small kernel
+// (flash_tiles_kernel) reads the validity once and marks, for each batch row
+// and 64-key tile, whether it holds a live key and whether all 64 keys are
+// valid (one ballot each), in bitmasks in the workspace. The attention block
+// visits only marked tiles, below the causal limit (key tiles wholly in the
+// future of the query tile): a dead tile is neither copied nor computed, so a
+// left-padded window costs in proportion to its live tiles, holes included.
+// A query tile with no live tile writes exactly 0 and does no products.
+// Within a live tile the mask is per element. Query tiles start longest-first.
+//
+// A small grid (fewer than 4 blocks an SM: the engine's one served window
+// is 128 query tiles x 2 heads) would leave each query tile's key tiles as
+// one serial chain on one SM, and a window half padded would take half the
+// full window's time. There a query tile's live tiles are cut into chunks of
+// 8 (by rank, so padding makes no empty chunks), one block each (grid z,
+// last chunks first); a query tile with more than one chunk writes f32
+// partials (o unnormalised, m, l) to the workspace, and
+// flash_combine_kernel merges them, one warp a row.
 //
 // Plain C interface, bound from Python with ctypes; launches on the caller's
 // stream, allocates nothing, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kRows = kBQ / 16;
-constexpr int kCols = kBK / 16;
+constexpr int kBQ = 64;         // query rows per block
+constexpr int kBK = 64;         // keys per tile
+constexpr int kWarps = 4;       // 16 query rows each
+constexpr int kThreads = 32 * kWarps;
 constexpr float kMaskValue = -1e30f;  // ops/attention.py MASK_VALUE
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+struct Strides {
+  long long b, s, h;  // in elements; the head_dim stride is 1
+};
+
+// Which 64-key tiles of each batch row hold a live key (live) and have all
+// 64 keys valid (full), one bit a tile, [B][words] each; written by
+// flash_tiles_kernel before the attention reads it.
+struct Tiles {
+  uint32_t *live, *full;
+  int words;
+};
+
+// A query tile's live key tiles cut into chunks of `chunk` live tiles, one
+// block each, when the grid of query tiles is too small to fill the card
+// (n > 1: the most chunks a query tile can have). A query tile with more
+// than one chunk writes f32 partials (unnormalised o, max m in log2 units,
+// sum l) for each, [n][B*H][Sq]([D]), and flash_combine_kernel merges them.
+struct Split {
+  int n, chunk;
+  float *o, *m, *l;
+};
+
+constexpr int kSplitTiles = 8;   // live tiles a chunk: 512 keys
+constexpr int kMaxDevices = 64;  // devices whose attributes are cached
+
+// key tiles a query tile can see: below the causal limit, if causal
+__host__ __device__ __forceinline__ int q_tile_kv(int qt, int Sq, int Skv,
+                                                  int causal) {
+  int n = (Skv + kBK - 1) / kBK;
+  if (causal) {
+    // live only if tile_start <= the tile's last real query position
+    const int last = (qt * kBQ + kBQ < Sq ? qt * kBQ + kBQ : Sq) - 1;
+    n = n < last / kBK + 1 ? n : last / kBK + 1;
+  }
+  return n;
+}
+
+// marked tiles below n
+__device__ __forceinline__ int count_live(const uint32_t* bits, int n) {
+  int c = 0;
+  for (int w = 0; w < (n >> 5); ++w) c += __popc(__ldg(bits + w));
+  if (n & 31) c += __popc(__ldg(bits + (n >> 5)) & ((1u << (n & 31)) - 1u));
+  return c;
+}
+
+// chunks of a query tile with n_live live tiles (1: not split)
+__device__ __forceinline__ int q_tile_chunks(int n_live, const Split& sp) {
+  if (sp.n <= 1 || n_live <= sp.chunk) return 1;
+  return (n_live + sp.chunk - 1) / sp.chunk;
+}
+
+// elements of one shared-memory row: the padded head and 16 bytes
+template <typename T, int DP>
+__host__ __device__ constexpr int row_elems() {
+  return DP + 16 / (int)sizeof(T);
+}
+
+template <typename T, int DP>
+__host__ __device__ constexpr size_t tile_bytes() {
+  return (size_t)kBK * row_elems<T, DP>() * sizeof(T);
+}
+
+// Qs, then Ks[2], Vs[2], Val[2][kBK] f32
+template <typename T, int DP>
+__host__ __device__ constexpr size_t fixed_smem_bytes() {
+  return 5 * tile_bytes<T, DP>() + 2 * kBK * sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; the bytes past src_bytes (0 or 16) are zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// 2^x in one MUFU op (ex2.approx: relative error ~2^-22; 2^-1e30 is 0)
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo: hi is x rounded to TF32's 10 mantissa bits (integer ops, at
+// full rate, where cvt.rna.tf32 issues at a quarter of it), lo = x - hi
+// exactly; the tensor core reads lo's top 10 mantissa bits, an error of at
+// most 2^-22 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a * b, m16n8k8, TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in 3xTF32: a and b split into TF32 halves, lo*lo dropped
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// c += a * b, m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <typename T>
@@ -63,15 +266,110 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
-struct Strides {
-  long long b, s, h;  // in elements; the head_dim stride is 1
-};
+// 64 rows [row0, row0 + 64) of a [rows, D] slab with row stride `stride`
+// into a shared tile of padded rows; rows >= limit and columns >= D are
+// zero. vec: 16-byte cp.async (D and the strides multiples of 16 bytes);
+// else plain loads.
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          long long stride, int row0,
+                                          int limit, int D, bool vec) {
+  constexpr int kRow = row_elems<T, DP>();
+  constexpr int kPer = 16 / (int)sizeof(T);  // elements per 16 bytes
+  constexpr int kChunks = DP / kPer;         // per row
+  const int tid = threadIdx.x;
+  if (vec) {
+#pragma unroll
+    for (int c = tid; c < kBK * kChunks; c += kThreads) {
+      const int r = c / kChunks, col = (c % kChunks) * kPer;
+      const int row = row0 + r;
+      const bool in = row < limit && col < D;
+      cp_async16(dst + r * kRow + col,
+                 in ? src + (long long)row * stride + col : src, in ? 16 : 0);
+    }
+  } else {
+    for (int c = tid; c < kBK * DP; c += kThreads) {
+      const int r = c / DP, col = c % DP;
+      const int row = row0 + r;
+      dst[r * kRow + col] = (row < limit && col < D)
+                                ? src[(long long)row * stride + col]
+                                : from_f32<T>(0.f);
+    }
+  }
+}
 
-template <int DP>
-constexpr size_t smem_floats() {
-  // Qs [kBQ][DP+1], Ks [kBK][DP+1], Vs [kBK][DP], Ps [kBQ][kBK+1], Val [kBK]
-  return (size_t)kBQ * (DP + 1) + (size_t)kBK * (DP + 1) + (size_t)kBK * DP +
-         (size_t)kBQ * (kBK + 1) + kBK;
+// the validity of keys [k0, k0 + 64) as f32 in shared memory (0 past Skv)
+__device__ __forceinline__ void load_valid(float* dst, const float* valb,
+                                           int k0, int Skv) {
+  const int tid = threadIdx.x;
+  if (tid < kBK) {
+    const int key = k0 + tid;
+    if (valb == nullptr)
+      dst[tid] = key < Skv ? 1.f : 0.f;
+    else
+      cp_async4(dst + tid, key < Skv ? valb + key : valb, key < Skv ? 4 : 0);
+  }
+}
+
+// first marked tile at or after t, or n
+__device__ __forceinline__ int next_live(const uint32_t* bits, int t, int n) {
+  while (t < n) {
+    const uint32_t w = __ldg(bits + (t >> 5)) >> (t & 31);
+    if (w) return min(t + __ffs(w) - 1, n);
+    t = (t | 31) + 1;
+  }
+  return n;
+}
+
+// the marked tile of rank r (from 0), or n
+__device__ __forceinline__ int nth_live(const uint32_t* bits, int r, int n) {
+  for (int w = 0; w < ((n + 31) >> 5); ++w) {
+    uint32_t x = __ldg(bits + w);
+    const int c = __popc(x);
+    if (r < c) {
+      for (int i = 0; i < r; ++i) x &= x - 1u;  // drop the r lowest
+      return min(w * 32 + __ffs(x) - 1, n);
+    }
+    r -= c;
+  }
+  return n;
+}
+
+// Tiles of batch row blockIdx.y, word blockIdx.x (32 tiles): warp w reads
+// tiles 8w..8w+7, all 16 of a lane's loads in flight together, one ballot
+// a tile for live and one for full
+__global__ void __launch_bounds__(kThreads)
+    flash_tiles_kernel(const float* __restrict__ valid, int Skv, Tiles tiles) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.y, t0 = blockIdx.x * 32 + warp * 8;
+  const float* valb = valid == nullptr ? nullptr : valid + (long long)b * Skv;
+  float x[8][2];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = (t0 + u) * kBK + 32 * half + lane;
+      x[u][half] =
+          key >= Skv ? 0.f : valb == nullptr ? 1.f : __ldg(valb + key);
+    }
+  uint32_t live = 0u, full = 0u;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const bool l0 = x[u][0] > 0.f, l1 = x[u][1] > 0.f;
+    live |= (__any_sync(0xffffffffu, l0 || l1) ? 1u : 0u) << u;
+    full |= (__all_sync(0xffffffffu, l0 && l1) ? 1u : 0u) << u;
+  }
+  __shared__ uint32_t part[2][kWarps];
+  if (lane == 0) {
+    part[0][warp] = live << (8 * warp);
+    part[1][warp] = full << (8 * warp);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const long long w = (long long)b * tiles.words + blockIdx.x;
+    tiles.live[w] = part[0][0] | part[0][1] | part[0][2] | part[0][3];
+    tiles.full[w] = part[1][0] | part[1][1] | part[1][2] | part[1][3];
+  }
 }
 
 template <typename T, int DP>
@@ -80,14 +378,15 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, const float* __restrict__ valid,
                      T* __restrict__ out, int H, int Sq, int Skv, int D,
                      Strides qs, Strides ks, Strides vs, int causal,
-                     float scale) {
-  constexpr int kNC = DP / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * (DP + 1);
-  float* Vs = Ks + kBK * (DP + 1);
-  float* Ps = Vs + kBK * DP;
-  float* Val = Ps + kBQ * (kBK + 1);
+                     float scale, int vec, Tiles tiles, Split split) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kRow = row_elems<T, DP>();
+  constexpr int kND = DP / 8;  // 8-wide output column tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + kBK * kRow;  // [2] tiles
+  T* Vs = Ks + 2 * kBK * kRow;
+  float* Val = reinterpret_cast<float*>(Vs + 2 * kBK * kRow);  // [2][kBK]
 
   // the last query tiles have the most live key tiles under the causal
   // mask: they start first
@@ -96,200 +395,498 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / H, h = bh - (bh / H) * H;
   const int q0 = qt * kBQ;
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // mma group and thread in group
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
   const float* valb = valid == nullptr ? nullptr : valid + (long long)b * Skv;
 
-  for (int idx = tid; idx < kBQ * DP; idx += kThreads) {
-    const int r = idx / DP, d = idx % DP;
-    const int row = q0 + r;
-    float x = 0.f;
-    if (row < Sq && d < D) x = to_f32(qb[row * qs.s + d]) * scale;
-    Qs[r * (DP + 1) + d] = x;
+  // the query tile's live key tiles below its causal limit, and this
+  // block's chunk of them: ranks [chunk * C, chunk * C + todo). The last
+  // chunks start first (a left-padded window's live keys are there).
+  const uint32_t* live_bits = tiles.live + (long long)b * tiles.words;
+  const uint32_t* full_bits = tiles.full + (long long)b * tiles.words;
+  const int n_kv = q_tile_kv(qt, Sq, Skv, causal);
+  const int n_live = count_live(live_bits, n_kv);
+  const int chunks = q_tile_chunks(n_live, split);
+  const int chunk = gridDim.z - 1 - blockIdx.z;
+  if (chunk >= chunks) return;  // past this query tile's live tiles
+  const bool partial = chunks > 1;
+  int todo = partial ? min(split.chunk, n_live - chunk * split.chunk)
+                     : n_live;
+
+  // with no live tile the scan below is empty: the rows give exactly 0, and
+  // no products run
+  int t = partial ? nth_live(live_bits, chunk * split.chunk, n_kv)
+                  : next_live(live_bits, 0, n_kv);
+  const bool vec_ok = vec != 0;
+  if (todo > 0) {
+    load_tile<T, DP>(Qs, qb, qs.s, q0, Sq, D, vec_ok);
+    load_tile<T, DP>(Ks, kb, ks.s, t * kBK, Skv, D, vec_ok);
+    load_tile<T, DP>(Vs, vb, vs.s, t * kBK, Skv, D, vec_ok);
+    load_valid(Val, valb, t * kBK, Skv);
+    cp_async_commit();
   }
 
-  int n_kv = (Skv + kBK - 1) / kBK;
-  if (causal) {
-    // live only if tile_start <= the tile's last real query position
-    const int last = min(q0 + kBQ, Sq) - 1;
-    n_kv = min(n_kv, last / kBK + 1);
-  }
-
-  float m_i[kRows], l_i[kRows], acc[kRows][kNC];
+  // f32 state of rows g and g + 8 of this warp's 16
+  float m_r[2] = {kMaskValue, kMaskValue};
+  float l_r[2] = {0.f, 0.f};  // this thread's part of the row sums
+  float o[kND][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_i[i] = -CUDART_INF_F;
-    l_i[i] = 0.f;
+  for (int n = 0; n < kND; ++n)
 #pragma unroll
-    for (int c = 0; c < kNC; ++c) acc[i][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // Qs staged; the previous tile's Ks, Vs, Val consumed
-    for (int idx = tid; idx < kBK * DP; idx += kThreads) {
-      const int r = idx / DP, d = idx % DP;
-      const int key = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (key < Skv && d < D) {
-        kx = to_f32(kb[key * ks.s + d]);
-        vx = to_f32(vb[key * vs.s + d]);
-      }
-      Ks[r * (DP + 1) + d] = kx;
-      Vs[r * DP + d] = vx;
+  // Q fragments (A operands), loaded from Qs once the first group lands
+  constexpr int kQF = kBf16 ? DP / 16 : DP / 8;
+  uint32_t qa[kBf16 ? kQF : 1][4];  // bf16: m16n8k16 A fragments
+  float qf[kBf16 ? 1 : kQF][4];     // f32: scaled q, split per use
+  // bf16 scores are scaled here; f32 q is scaled on load
+  const float s_mul = kBf16 ? scale * kLog2e : kLog2e;
+  const int r_lo = q0 + warp * 16 + g;  // query rows of c0/c1 and c2/c3
+
+  int buf = 0;
+  bool first = true;
+  while (todo > 0) {
+    const int tn = todo > 1 ? next_live(live_bits, t + 1, n_kv) : n_kv;
+    if (tn < n_kv) {
+      const int nb = buf ^ 1;
+      load_tile<T, DP>(Ks + nb * kBK * kRow, kb, ks.s, tn * kBK, Skv, D,
+                       vec_ok);
+      load_tile<T, DP>(Vs + nb * kBK * kRow, vb, vs.s, tn * kBK, Skv, D,
+                       vec_ok);
+      load_valid(Val + nb * kBK, valb, tn * kBK, Skv);
     }
-    if (tid < kBK) {
-      const int key = k0 + tid;
-      Val[tid] =
-          (key < Skv && (valb == nullptr || valb[key] > 0.f)) ? 1.f : 0.f;
-    }
+    cp_async_commit();  // an empty group past the last tile
+    cp_async_wait_1();  // tile t (and Q) landed
     __syncthreads();
 
-    float s[kRows][kCols];
+    if (first) {
+      first = false;
+      const T* qw = Qs + warp * 16 * kRow;
+      if constexpr (kBf16) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+        for (int kk = 0; kk < kQF; ++kk) {
+          const int j = lane >> 3, r = lane & 7;
+          ldsm_x4(qa[kk],
+                  qw + ((j & 1) * 8 + r) * kRow + kk * 16 + (j >> 1) * 8);
+        }
+      } else {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty + 16 * i) * (DP + 1) + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = Ks[(tx + 16 * j) * (DP + 1) + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int kk = 0; kk < kQF; ++kk) {
+          const float* q0p = reinterpret_cast<const float*>(qw);
+          qf[kk][0] = q0p[g * kRow + kk * 8 + t4] * scale;
+          qf[kk][1] = q0p[(g + 8) * kRow + kk * 8 + t4] * scale;
+          qf[kk][2] = q0p[g * kRow + kk * 8 + t4 + 4] * scale;
+          qf[kk][3] = q0p[(g + 8) * kRow + kk * 8 + t4 + 4] * scale;
+        }
+      }
     }
 
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool live[kCols];
-      float mx = kMaskValue;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = tx + 16 * j;
-        live[j] = Val[col] > 0.f && (!causal || row >= k0 + col);
-        if (!live[j]) s[i][j] = kMaskValue;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the row's 16 threads are one half-warp: lanes differ in bits 0-3
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float corr = expf(m_i[i] - m_new);  // 0 on the first tile
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = live[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        Ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * corr + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) acc[i][c] *= corr;
-    }
-    __syncwarp();  // a row's probabilities are read by the warp that wrote them
+    const T* Kt = Ks + buf * kBK * kRow;
+    const T* Vt = Vs + buf * kBK * kRow;
+    const float* Vl = Val + buf * kBK;
+    const int k0 = t * kBK;
+    // per-key masking only where a key may be invalid or in the future
+    const bool masked = (causal && k0 + kBK - 1 > q0) ||
+                        !((__ldg(full_bits + (t >> 5)) >> (t & 31)) & 1u);
 
-#pragma unroll 4
-    for (int jj = 0; jj < kBK; ++jj) {
-      float pv[kRows], vv[kNC];
+    // S = Q K^T over the tile: 8 column tiles of 8 keys
+    float s[8][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty + 16 * i) * (kBK + 1) + jj];
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int c = 0; c < kNC; ++c) vv[c] = Vs[jj * DP + tx + 16 * c];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    {
+      const int j = lane >> 3, r = lane & 7;
+      if constexpr (kBf16) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+        for (int kk = 0; kk < kQF; ++kk)
 #pragma unroll
-        for (int c = 0; c < kNC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+          for (int np = 0; np < 4; ++np) {
+            uint32_t bfr[4];
+            ldsm_x4(bfr, Kt + (np * 16 + (j >> 1) * 8 + r) * kRow + kk * 16 +
+                             (j & 1) * 8);
+            mma_bf16(s[2 * np], qa[kk], bfr[0], bfr[1]);
+            mma_bf16(s[2 * np + 1], qa[kk], bfr[2], bfr[3]);
+          }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kQF; ++kk) {
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(qf[kk][e], ah[e], al[e]);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t bfr[4], bh[4], bl[4];
+            ldsm_x4(bfr, reinterpret_cast<const float*>(Kt) +
+                             (np * 16 + (j >> 1) * 8 + r) * kRow + kk * 8 +
+                             (j & 1) * 4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              split_tf32(__uint_as_float(bfr[e]), bh[e], bl[e]);
+            mma_3xtf32(s[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+            mma_3xtf32(s[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+          }
+        }
+      }
     }
+
+    // mask, then the online softmax on the fragments (log2 units)
+    float mx[2] = {kMaskValue, kMaskValue};
+    if (masked) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n * 8 + 2 * t4 + (e & 1);
+          const int row = r_lo + (e >> 1) * 8;
+          const bool live = Vl[col] > 0.f && (!causal || row >= k0 + col);
+          s[n][e] = live ? s[n][e] * s_mul : kMaskValue;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] *= s_mul;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i]);
+      corr[i] = ex2(m_r[i] - m_new);  // 0 after a fully masked start
+      m_r[i] = m_new;
+      l_r[i] *= corr[i];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = s[n][e];
+        const float p =
+            masked && sv == kMaskValue ? 0.f : ex2(sv - m_r[e >> 1]);
+        s[n][e] = p;
+        l_r[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < kND; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P V: P from the S accumulators as the A operand
+    if constexpr (kBf16) {
+      const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // 16 keys: S tiles 2kk and 2kk + 1
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int dp = 0; dp < kND / 2; ++dp) {
+          uint32_t bfr[4];
+          ldsm_x4_trans(bfr, Vt + (kk * 16 + (j & 1) * 8 + r) * kRow +
+                                 (2 * dp + (j >> 1)) * 8);
+          mma_bf16(o[2 * dp], pa, bfr[0], bfr[1]);
+          mma_bf16(o[2 * dp + 1], pa, bfr[2], bfr[3]);
+        }
+      }
+    } else {
+      const float* Vf = reinterpret_cast<const float*>(Vt);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {  // 8 keys, in the order 0,2,4,6,1,...
+        uint32_t ph[4], pl[4];
+        split_tf32(s[kk][0], ph[0], pl[0]);  // row g,     key 2t
+        split_tf32(s[kk][2], ph[1], pl[1]);  // row g + 8, key 2t
+        split_tf32(s[kk][1], ph[2], pl[2]);  // row g,     key 2t + 1
+        split_tf32(s[kk][3], ph[3], pl[3]);  // row g + 8, key 2t + 1
+        const float* v0 = Vf + (kk * 8 + 2 * t4) * kRow + g;
+#pragma unroll
+        for (int n = 0; n < kND; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(v0[n * 8], bh0, bl0);         // key 2t
+          split_tf32(v0[kRow + n * 8], bh1, bl1);  // key 2t + 1
+          mma_3xtf32(o[n], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+
+    __syncthreads();  // tile t's buffers are free for the copy of tile t + 2
+    t = tn;
+    buf ^= 1;
+    --todo;
   }
 
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    inv[i] = 1.f / (l_r[i] == 0.f ? 1.f : l_r[i]);  // fully masked row -> 0
+  }
+  if (partial) {
+    const long long base = ((long long)chunk * gridDim.y + bh) * Sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r_lo + 8 * i;
+      if (row >= Sq) continue;
+      if (t4 == 0) {
+        split.m[base + row] = m_r[i];
+        split.l[base + row] = l_r[i];
+      }
+      float* orow = split.o + (base + row) * D;
+#pragma unroll
+      for (int n = 0; n < kND; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = n * 8 + 2 * t4 + e;
+          if (d < D) orow[d] = o[n][2 * i + e];
+        }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
     if (row >= Sq) continue;
-    const float l = l_i[i] == 0.f ? 1.f : l_i[i];  // fully masked row -> 0
-    T* o = out + (((long long)b * Sq + row) * H + h) * D;
+    T* orow = out + (((long long)b * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < kNC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) o[d] = from_f32<T>(acc[i][c] / l);
-    }
+    for (int n = 0; n < kND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * t4 + e;
+        if (d < D) orow[d] = from_f32<T>(o[n][2 * i + e] * inv[i]);
+      }
   }
+}
+
+// out = sum_c o_c 2^(m_c - M) / sum_c l_c 2^(m_c - M), M = max_c m_c, over
+// the chunks c of query rows whose live tiles were split, one warp a row; a
+// chunk where the row has no live key has l_c = 0 and o_c = 0 and is
+// skipped, and a row with none in any chunk gives exactly 0
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_combine_kernel(T* __restrict__ out, int H, int Sq, int Skv, int D,
+                         int causal, Tiles tiles, Split split) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, bh = blockIdx.y;
+  if (row >= Sq) return;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int chunks = q_tile_chunks(
+      count_live(tiles.live + (long long)b * tiles.words,
+                 q_tile_kv(row / kBQ, Sq, Skv, causal)),
+      split);
+  if (chunks <= 1) return;  // written by its one block
+  const long long stride = (long long)gridDim.y * Sq;  // between chunks
+  const long long r0 = (long long)bh * Sq + row;
+  float mx = kMaskValue;
+  for (int c = lane; c < chunks; c += 32)
+    mx = fmaxf(mx, split.m[c * stride + r0]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float l = 0.f;
+  for (int c = lane; c < chunks; c += 32)
+    l += split.l[c * stride + r0] * ex2(split.m[c * stride + r0] - mx);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+  const float inv = 1.f / (l == 0.f ? 1.f : l);
+  T* orow = out + (((long long)b * Sq + row) * H + h) * D;
+  for (int d = lane; d < D; d += 32) {
+    float acc = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      if (split.l[c * stride + r0] == 0.f) continue;  // o_c is 0
+      acc += split.o[(c * stride + r0) * D + d] *
+             ex2(split.m[c * stride + r0] - mx);
+    }
+    orow[d] = from_f32<T>(acc * inv);
+  }
+}
+
+// how the key tiles are cut: chunks of kSplitTiles live tiles when the
+// query tiles and heads give fewer blocks than 4 per SM (the kernel's
+// occupancy at the engine's head width), else no cut
+Split split_plan(int B, int H, int Sq, int Skv) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  const long long blocks = (long long)((Sq + kBQ - 1) / kBQ) * B * H;
+  const int n_kv = (Skv + kBK - 1) / kBK;
+  Split sp{1, n_kv, nullptr, nullptr, nullptr};
+  if (blocks < 4LL * sms && n_kv > kSplitTiles) {
+    sp.n = (n_kv + kSplitTiles - 1) / kSplitTiles;
+    sp.chunk = kSplitTiles;
+  }
+  return sp;
+}
+
+// the workspace: the tile bitmasks (16-byte aligned), then the partials
+size_t tiles_bytes(int B, int Skv) {
+  const size_t words = ((size_t)(Skv + kBK - 1) / kBK + 31) / 32;
+  return (2 * sizeof(uint32_t) * B * words + 15) / 16 * 16;
+}
+
+size_t workspace_bytes(int B, int H, int Sq, int Skv, int D) {
+  const Split sp = split_plan(B, H, Sq, Skv);
+  const size_t partials =
+      sp.n <= 1 ? 0 : sizeof(float) * (size_t)sp.n * B * H * Sq * (D + 2);
+  return tiles_bytes(B, Skv) + partials;
 }
 
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, const float* valid,
            void* out, int B, int H, int Sq, int Skv, int D, Strides qs,
-           Strides ks, Strides vs, int causal, float scale,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats<DP>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+           Strides ks, Strides vs, int causal, float scale, int vec,
+           void* workspace, cudaStream_t stream) {
+  if (workspace == nullptr && workspace_bytes(B, H, Sq, Skv, D) > 0)
+    return (int)cudaErrorInvalidValue;
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  Tiles tiles{nullptr, nullptr, ((Skv + kBK - 1) / kBK + 31) / 32};
+  if (tiles.words > 0) {
+    tiles.live = reinterpret_cast<uint32_t*>(ws);
+    tiles.full = tiles.live + (size_t)B * tiles.words;
+  }
+  Split sp = split_plan(B, H, Sq, Skv);
+  if (sp.n > 1) {
+    const size_t rows = (size_t)sp.n * B * H * Sq;
+    sp.o = reinterpret_cast<float*>(ws + tiles_bytes(B, Skv));
+    sp.m = sp.o + rows * D;
+    sp.l = sp.m + rows;
+  }
+  const int smem = (int)fixed_smem_bytes<T, DP>();
+  static bool smem_set[kMaxDevices] = {};  // attribute set, by device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)(B * H));
-  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), valid, static_cast<T*>(out), H, Sq, Skv, D,
-      qs, ks, vs, causal, scale);
+  if (dev >= kMaxDevices || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) smem_set[dev] = true;
+  }
+  if (tiles.words > 0) {
+    flash_tiles_kernel<<<dim3((unsigned)tiles.words, (unsigned)B), kThreads,
+                         0, stream>>>(valid, Skv, tiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned nq = (unsigned)((Sq + kBQ - 1) / kBQ);
+  flash_fwd_kernel<T, DP>
+      <<<dim3(nq, (unsigned)(B * H), (unsigned)sp.n), kThreads, smem,
+         stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                   static_cast<const T*>(v), valid, static_cast<T*>(out), H,
+                   Sq, Skv, D, qs, ks, vs, causal, scale, vec, tiles, sp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || sp.n <= 1) return (int)err;
+  flash_combine_kernel<T>
+      <<<dim3((unsigned)((Sq + kWarps - 1) / kWarps), (unsigned)(B * H)),
+         kThreads, 0, stream>>>(static_cast<T*>(out), H, Sq, Skv, D, causal,
+                                tiles, sp);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const float* valid,
              void* out, int B, int H, int Sq, int Skv, int D, Strides qs,
-             Strides ks, Strides vs, int causal, float scale,
+             Strides ks, Strides vs, int causal, float scale, void* workspace,
              cudaStream_t stream) {
+  // 16-byte copies need 16-byte aligned rows: pointers, strides and D
+  constexpr long long kPer = 16 / sizeof(T);
+  const auto al = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int vec = al(q) && al(k) && al(v) && D % kPer == 0 &&
+                  qs.b % kPer == 0 && qs.s % kPer == 0 && qs.h % kPer == 0 &&
+                  ks.b % kPer == 0 && ks.s % kPer == 0 && ks.h % kPer == 0 &&
+                  vs.b % kPer == 0 && vs.s % kPer == 0 && vs.h % kPer == 0;
   if (D <= 16)
     return launch<T, 16>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                         causal, scale, stream);
+                         causal, scale, vec, workspace, stream);
   if (D <= 32)
     return launch<T, 32>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                         causal, scale, stream);
+                         causal, scale, vec, workspace, stream);
   if (D <= 64)
     return launch<T, 64>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                         causal, scale, stream);
+                         causal, scale, vec, workspace, stream);
   return launch<T, 128>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                        causal, scale, stream);
+                        causal, scale, vec, workspace, stream);
+}
+
+bool bad_shape(int B, int H, int Sq, int Skv, int D) {
+  return B <= 0 || H <= 0 || Sq <= 0 || Skv < 0 || D <= 0 || D > 128 ||
+         (long long)B * H > 65535;
 }
 
 }  // namespace
 
 extern "C" {
 
+// dynamic shared memory of one attention block at head width D (the
+// build report's complement: ptxas prints only static shared memory)
+size_t pio_flash_smem_bytes(int D, int dtype) {
+  if (D <= 0 || D > 128 || (dtype != 0 && dtype != 1)) return 0;
+  const int dp = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+  if (dtype == 1) {
+    return dp == 16   ? fixed_smem_bytes<__nv_bfloat16, 16>()
+           : dp == 32 ? fixed_smem_bytes<__nv_bfloat16, 32>()
+           : dp == 64 ? fixed_smem_bytes<__nv_bfloat16, 64>()
+                      : fixed_smem_bytes<__nv_bfloat16, 128>();
+  }
+  return dp == 16   ? fixed_smem_bytes<float, 16>()
+         : dp == 32 ? fixed_smem_bytes<float, 32>()
+         : dp == 64 ? fixed_smem_bytes<float, 64>()
+                    : fixed_smem_bytes<float, 128>();
+}
+
+// scratch the call with these sizes needs (the tile bitmasks, and f32
+// partials when the key tiles are cut), on the current device; the caller
+// allocates it and passes it as `workspace`
+size_t pio_flash_workspace_bytes(int B, int H, int Sq, int Skv, int D) {
+  if (bad_shape(B, H, Sq, Skv, D)) return 0;
+  return workspace_bytes(B, H, Sq, Skv, D);
+}
+
 // q, k, v: BSHD with head_dim stride 1 and the given (batch, seq, head)
 // element strides; valid [B, Skv] f32 contiguous (nullptr: every key valid);
 // out [B, Sq, H, D] contiguous. dtype 0 = f32, 1 = bf16 (q, k, v and out).
+// workspace: pio_flash_workspace_bytes() bytes, 16-byte aligned (nullptr
+// when that is 0); its contents need no initialisation.
 int pio_flash_attention(const void* q, const void* k, const void* v,
                         const float* valid, void* out, int B, int H, int Sq,
                         int Skv, int D, long long q_sb, long long q_ss,
                         long long q_sh, long long k_sb, long long k_ss,
                         long long k_sh, long long v_sb, long long v_ss,
                         long long v_sh, int causal, float scale, int dtype,
-                        void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Skv < 0 || D <= 0 || D > 128 ||
-      (long long)B * H > 65535 || (dtype != 0 && dtype != 1))
+                        void* workspace, void* stream) {
+  if (bad_shape(B, H, Sq, Skv, D) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh};
   if (dtype == 0)
     return dispatch<float>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                           causal, scale, st);
+                           causal, scale, workspace, st);
   return dispatch<__nv_bfloat16>(q, k, v, valid, out, B, H, Sq, Skv, D, qs,
-                                 ks, vs, causal, scale, st);
+                                 ks, vs, causal, scale, workspace, st);
 }
 
 }  // extern "C"

@@ -5,8 +5,9 @@ version and its gradient.
 (incubator_predictionio_tpu/ops/pallas_kernels.py:582 → ``_flash_with_vjp``
 :483 → ``_flash_bhsd`` :425, body ``_flash_kernel`` :350): forward
 attention on BSHD tensors with online softmax, a per-key validity mask, an
-optional causal mask whose future key tiles are skipped, and 0 for a query
-with no live key. The kernel is ``csrc/flash_attention.cu``, whose note
+optional causal mask, and 0 for a query with no live key. The kernel is
+``csrc/flash_attention.cu`` (tensor-core products, 3xTF32 for f32; key
+tiles in the causal future or with no valid key are skipped), whose note
 says what bounds it on the card and what its design does about that.
 
 The JAX custom VJP becomes a ``torch.autograd.Function``: the forward is
@@ -24,6 +25,8 @@ the backward (``kv_block``; ``q_block`` is accepted for the JAX signature).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,6 +44,7 @@ DEFAULT_KV_BLOCK = 512
 FLASH_LAUNCHES = runtime.LaunchCounter("flash_attention")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SAME_DEVICE = contextlib.nullcontext()
 
 
 def _valid_f32(kv_valid: Optional[torch.Tensor], b: int, s_kv: int,
@@ -81,23 +85,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_kv = k.shape[1]
     sc = float(scale) if scale is not None else d ** -0.5
     valid = _valid_f32(kv_valid, b, s_kv, q.device)
-    return _Flash.apply(q, k, v, valid, bool(causal), sc,
-                        int(kv_block or DEFAULT_KV_BLOCK))
+    kb = int(kv_block or DEFAULT_KV_BLOCK)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, valid, bool(causal), sc, kb)
+    # no gradient to record (serving): the forward without the Function
+    return _forward(q, k, v, valid, bool(causal), sc, kb)
+
+
+def _forward(q, k, v, valid, causal: bool, scale: float, kv_block: int):
+    """The kernel, or the plain version when every tensor is on the CPU."""
+    if all(t.device.type == "cpu" for t in (q, k, v, valid)):
+        return blockwise_attention(q, k, v, causal=causal,
+                                   block_size=kv_block, scale=scale,
+                                   kv_valid=valid > 0.0)
+    return _launch(q, k, v, valid, causal, scale)
 
 
 class _Flash(torch.autograd.Function):
-    """Forward: the kernel (or the plain version on the CPU); backward:
-    the gradients of the plain blockwise version, recomputed."""
+    """Forward: :func:`_forward`; backward: the gradients of the plain
+    blockwise version, recomputed."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, causal, scale, kv_block):
         ctx.save_for_backward(q, k, v, valid)
         ctx.causal, ctx.scale, ctx.kv_block = causal, scale, kv_block
-        if all(t.device.type == "cpu" for t in (q, k, v, valid)):
-            return blockwise_attention(q, k, v, causal=causal,
-                                       block_size=kv_block, scale=scale,
-                                       kv_valid=valid > 0.0)
-        return _launch(q, k, v, valid, causal, scale)
+        return _forward(q, k, v, valid, causal, scale, kv_block)
 
     @staticmethod
     def backward(ctx, g):
@@ -113,7 +126,8 @@ class _Flash(torch.autograd.Function):
 
 def _launch(q, k, v, valid, causal: bool, scale: float) -> torch.Tensor:
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in (k, v, valid)):
+    if dev.type != "cuda" or k.device != dev or v.device != dev \
+            or valid.device != dev:
         raise ValueError("flash_attention: q, k, v and kv_valid must lie on "
                          f"one CUDA device (got {q.device}, {k.device}, "
                          f"{v.device}, {valid.device})")
@@ -136,22 +150,45 @@ def _launch(q, k, v, valid, causal: bool, scale: float) -> torch.Tensor:
     if b * h > 65535:
         raise ValueError(f"flash_attention takes batch*heads <= 65535, got "
                          f"{b * h}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    if k.stride(-1) != 1:
+        k = k.contiguous()
+    if v.stride(-1) != 1:
+        v = v.contiguous()
     valid = valid.contiguous()
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=dev)
     if s_q == 0:
         return out
     lib = runtime.build_kernels()
-    with torch.cuda.device(dev):
+    # the launch goes to the current device: switch only when q is elsewhere
+    on_dev = (_SAME_DEVICE if dev.index == torch.cuda.current_device()
+              else torch.cuda.device(dev))
+    with on_dev:
+        # the kernel's tile bitmasks, and f32 partials when a query tile's
+        # key tiles are cut into chunks (see its Tiles and Split)
+        nbytes = _workspace_bytes(lib, b, h, s_q, s_kv, d, dev.index)
+        work = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+                if nbytes else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pio_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
             out.data_ptr(), b, h, s_q, s_kv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), scale, _DTYPES[q.dtype], stream)
+            int(causal), scale, _DTYPES[q.dtype],
+            None if work is None else work.data_ptr(), stream)
     runtime.check_launch(rc, "flash_attention")
     FLASH_LAUNCHES.add()
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace_bytes(lib, b: int, h: int, s_q: int, s_kv: int, d: int,
+                     device_index) -> int:
+    """The kernel's scratch for these sizes on this device (its plan
+    depends on the device's SM count), asked once per shape."""
+    del device_index  # a key only: the call runs on the current device
+    return lib.pio_flash_workspace_bytes(b, h, s_q, s_kv, d)
 
 
 def live_pairs(s_q: int, valid: torch.Tensor, causal: bool) -> int:
@@ -172,12 +209,14 @@ def flash_bound(b: int, h: int, s_q: int, s_kv: int, d: int, dtype,
     for one forward call. Bytes: q, k, v and the f32 validity read once,
     the output written once. Operations: 4·D per live (query, key) pair
     and head (QKᵀ and PV, a multiply and an add each), ``pairs`` summed
-    over the batch (:func:`live_pairs`), at the f32 FMA peak for f32
-    inputs and the bf16 tensor-core peak for bf16."""
+    over the batch (:func:`live_pairs`), at the bf16 tensor-core peak for
+    bf16 inputs and, for f32, at a third of the TF32 peak: an f32-accurate
+    product on the tensor cores takes three TF32 products (3xTF32)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = itemsize * (2 * b * s_q * h * d + 2 * b * s_kv * h * d) \
         + 4 * b * s_kv
-    peak = runtime.BF16_FLOPS if dtype == torch.bfloat16 else runtime.F32_FLOPS
+    peak = (runtime.BF16_FLOPS if dtype == torch.bfloat16
+            else runtime.TF32_FLOPS / 3)
     t_bytes = nbytes / runtime.HBM_BYTES_PER_S
     t_ops = 4.0 * d * float(pairs) * h / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops

@@ -17,10 +17,11 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -28,13 +29,14 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: the H100 SXM's peak rates at 700 W (NVIDIA data sheet), the yardstick of
 #: every kernel bound: HBM3 bytes/s, f32 FMA-unit FLOP/s (no tensor cores),
-#: dense bf16 tensor-core FLOP/s
+#: dense TF32 and bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 
 
@@ -88,6 +90,7 @@ def reset_launch_counts() -> None:
 
 
 _lib: Optional[ctypes.CDLL] = None
+_tag: Optional[str] = None
 _lib_lock = threading.Lock()
 
 
@@ -102,12 +105,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def _run(cmd) -> None:
+def _run(cmd) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"kernel build failed ({' '.join(map(str, cmd))}):\n"
             f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -124,15 +128,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     ll = ctypes.c_longlong
     lib.pio_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                         ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                                        i, ctypes.c_float, i, p]
+                                        i, ctypes.c_float, i, p, p]
     lib.pio_flash_attention.restype = ctypes.c_int
+    lib.pio_flash_workspace_bytes.argtypes = [i, i, i, i, i]
+    lib.pio_flash_workspace_bytes.restype = ctypes.c_size_t
+    lib.pio_flash_smem_bytes.argtypes = [i, i]
+    lib.pio_flash_smem_bytes.restype = ctypes.c_size_t
 
 
 def build_kernels() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library. Each
     source compiles in its own ``nvcc``, all started together, then one
     link. Raises on any failure."""
-    global _lib
+    global _lib, _tag
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -146,6 +154,7 @@ def build_kernels() -> ctypes.CDLL:
         digest.update(" ".join(NVCC_FLAGS).encode())
         tag = digest.hexdigest()[:16]
         target = BUILD_DIR / f"libpio_kernels_{tag}.so"
+        _tag = tag
         if not target.exists():
             nvcc = _nvcc()
             work = BUILD_DIR / f"tmp_{tag}_{os.getpid()}"
@@ -156,8 +165,9 @@ def build_kernels() -> ctypes.CDLL:
                     futs = [ex.submit(_run, [nvcc, *NVCC_FLAGS, "-c", str(s),
                                              "-o", str(o)])
                             for s, o in zip(sources, objs)]
-                    for f in futs:
-                        f.result()
+                    for s, f in zip(sources, futs):
+                        (BUILD_DIR / f"{s.stem}_{tag}.ptxas").write_text(
+                            f.result())
                 tmp = work / target.name
                 _run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                       "-shared", "-o", str(tmp), *map(str, objs)])
@@ -168,6 +178,37 @@ def build_kernels() -> ctypes.CDLL:
         _declare(lib)
         _lib = lib
         return lib
+
+
+def kernel_resources(stem: str) -> List[Dict[str, object]]:
+    """What ``ptxas -v`` reported for each kernel of ``csrc/<stem>.cu`` in
+    the loaded build: the mangled name, registers a thread, spill stores
+    and loads (bytes) and static shared memory (bytes; the flash kernel's
+    is dynamic). Empty when the build directory holds no report."""
+    if _tag is None:
+        raise RuntimeError("build_kernels() has not run")
+    path = BUILD_DIR / f"{stem}_{_tag}.ptxas"
+    if not path.exists():
+        return []
+    out: List[Dict[str, object]] = []
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append({"function": m.group(1)})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[-1]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def check_launch(rc: int, what: str) -> None:

@@ -9,8 +9,9 @@ Tolerances as in chip_smoke.py: both sides are f32 but sum the rank in
 different orders, so scores agree to rtol 1e-5 and ids except among
 near-ties; ALS solves agree to 1e-4 of max|x| with an f32 table and 1e-3
 with a bf16 one (same arithmetic, other order of sums); flash attention to
-1e-4 of max|out| in f32 (sums over the keys in other orders) and 8e-3, one
-bf16 ulp, in bf16 (both round the same f32 value).
+1e-4 of max|out| in f32 (sums over the keys in other orders, the kernel's
+products in 3xTF32) and 8e-3, one bf16 ulp, in bf16 (both round the same
+f32 value; the kernel's P enters the PV product in bf16).
 """
 
 import numpy as np
@@ -285,6 +286,78 @@ def test_flash_matches_plain(dev, shape):
         live = valid[:, None, :] & ((pos >= keys) if causal else True)
         dead = ~live.any(-1)
         assert (got[dead] == 0).all()
+
+
+def _holes(b, s):
+    """Of every three 64-key tiles only the first has valid keys, every
+    fifth of them invalid: live tiles with whole dead ones between."""
+    key = np.arange(s)[None, :]
+    return ((key // 64) % 3 == 0) & ((key - 1 - np.arange(b)[:, None]) % 5
+                                     != 0)
+
+
+def _one_key(b, s, keys):
+    valid = np.zeros((b, s), bool)
+    valid[np.arange(b), list(keys)] = True
+    return valid
+
+
+def _left(b, s, lengths):
+    valid = np.zeros((b, s), bool)
+    for r, n in enumerate(lengths):
+        if n:
+            valid[r, s - n:] = True
+    return valid
+
+
+_W = 8192
+# (name, b, s_q, s_kv, h, d, causal, valid [b, s_kv]): the cases the tile
+# skip and the tensor-core fragments can get wrong
+SKIP_SHAPES = [
+    ("holes", 2, 1024, 1024, 2, 32, True, _holes(2, 1024)),
+    ("holes_not_causal", 1, 640, 640, 2, 64, False, _holes(1, 640)),
+    ("one_key", 2, 512, 512, 2, 32, True, _one_key(2, 512, (192, 255))),
+    ("one_key_not_causal", 2, 512, 512, 2, 32, False,
+     _one_key(2, 512, (192, 255))),
+    ("left_pads", 10, _W, _W, 2, 32, True,
+     _left(10, _W, (0, 1, 63, 64, 65, _W - 65, _W - 64, _W - 63, _W - 1,
+                    _W))),
+    ("dead_q_tiles", 1, 1000, 1000, 2, 32, True, _left(1, 1000, (360,))),
+    ("sq_lt_skv_pad", 2, 130, 700, 2, 32, True, _holes(2, 700)),
+    ("sq_gt_skv_pad", 2, 700, 130, 2, 32, True, _left(2, 130, (100, 0))),
+] + [(f"d{d}_holes", 2, 333, 333, 2, d, True, _holes(2, 333))
+     for d in (8, 24, 80, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SKIP_SHAPES, ids=[c[0] for c in SKIP_SHAPES])
+def test_flash_skip_cases_match_plain(dev, case, dtype):
+    """Whole dead key tiles (skipped), holes, single live keys at a tile's
+    edges, different left padding per row, dead query tiles, Sq != Skv
+    with padding and head widths 8 to 128: the kernel against its plain
+    version, and a query with no live key exactly 0."""
+    name, b, s_q, s_kv, h, d, causal, valid_np = case
+    rng = np.random.default_rng(len(name) + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(dev).to(dtype)
+               for shape in ((b, s_q, h, d), (b, s_kv, h, d),
+                             (b, s_kv, h, d)))
+    valid = torch.from_numpy(valid_np).to(dev)
+    got = attention_kernels.flash_attention(q, k, v, causal=causal,
+                                            kv_valid=valid)
+    ref = attention_kernels.flash_attention_plain(q, k, v, causal=causal,
+                                                  kv_valid=valid)
+    torch.cuda.synchronize()
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-4
+    assert (got.float() - ref.float()).abs().max() \
+        <= tol * ref.float().abs().max()
+    pos = torch.arange(s_q, device=dev)[:, None]
+    keys = torch.arange(s_kv, device=dev)[None, :]
+    live = (valid[:, None, :] & ((pos >= keys) if causal else True)).any(-1)
+    live = live.expand(b, s_q)
+    assert (got[~live] == 0).all()
+    assert (got[live].float().abs().sum(-1) > 0).all()
 
 
 def test_flash_strided_views_match_contiguous(dev):

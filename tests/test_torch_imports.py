@@ -141,3 +141,26 @@ def test_cuda_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):   # mixed devices
         attention_kernels.flash_attention(x, x, x, kv_valid=valid)
     assert sum(runtime.launch_counts().values()) == 0
+
+
+def test_kernel_resources_reads_the_ptxas_report(tmp_path, monkeypatch):
+    """The build keeps each source's ``ptxas -v`` output; the report gives
+    registers, spills and static shared memory for each kernel."""
+    (tmp_path / "flash_attention_abc.ptxas").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1kIfLi32EEv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1kIfLi32EEv\n"
+        "    0 bytes stack frame, 24 bytes spill stores, 16 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 127 registers, used 1 barriers, 1024 bytes "
+        "smem, 552 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'\n"
+        "ptxas info    : Used 8 registers, 368 bytes cmem[0]\n")
+    monkeypatch.setattr(runtime, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(runtime, "_tag", "abc")
+    assert runtime.kernel_resources("flash_attention") == [
+        {"function": "_Z1kIfLi32EEv", "spill_stores": 24, "spill_loads": 16,
+         "registers": 127, "static_smem": 1024},
+        {"function": "_Z1gv", "registers": 8, "static_smem": 0}]
+    assert runtime.kernel_resources("score_topk") == []
