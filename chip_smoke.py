@@ -15,15 +15,23 @@ Phases, each of which fails the run on any error or mismatch:
 3. kernel  — the score+top-k kernel against its plain PyTorch version on
              the card: the reference's four kernel test cases, duplicate-row
              ties, the ML-20M width (26,744 items x rank 128) and a
-             1,048,576-item rank-64 catalogue. Ids must agree except among
-             near-ties (plain scores within 1e-5 relative); scores to rtol
+             1,048,576-item rank-64 catalogue, then the edges of its design
+             (:func:`topk_edge_cases`: ties either side of a tile and of a
+             block's item range, threshold ties in later tiles, catalogues
+             no multiple of the tile, k 1 and 128, fewer or no allowed
+             items, B 1 / 3 / 8 / 9 / 64, K 8 / 10 / 64 / 128 / 256). Ids
+             must agree except among near-ties (plain scores within 1e-5
+             relative; integer-factor cases slot for slot); scores to rtol
              1e-5 and atol 1e-5 * max|score|.
 4. als-kernel — every ALS kernel entry against its plain version: the
              reference tests' cases and ML-20M bucket shapes at rank 128,
              f32 and bf16, cold and warm, R = 1 and 8, fused implicit with
              YtY; tolerances in :func:`als_tolerance`, and the f32 systems
              with fewer observations than the rank also against an f64
-             solve.
+             solve; then the one-row two-stage kernel's split-D edges
+             (:func:`als_edge_phase`: D 1, D no multiple of a slab, ranks
+             10-128, an empty row, one slice against many on the same
+             rows).
 5. flash-kernel — the flash-attention kernel against its plain version
              (the blockwise online softmax) on the card: the reference
              tests' cases (causal and not, ragged validity, fully masked
@@ -71,19 +79,27 @@ Phases, each of which fails the run on any error or mismatch:
              ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --flash`` runs only the build, the flash-kernel
-phase and the flash timings: run it from the root and from a directory
-holding ``chip_smoke.py`` and another version of the package, in turns,
-to compare two flash kernels on one card.
+phase and the flash timings; ``--topk`` the score+top-k cases and timings;
+``--als`` the ALS cases and every ALS entry timed at the ML-20M bucket
+shapes up to D 32,768, f32 and bf16. Run one from the root and from a
+directory holding ``chip_smoke.py`` and another version of the package,
+in turns, to compare two versions of a kernel on one card. Timing rows
+carry ``ms`` (one call, CUDA events) and ``graph_ms`` (the call replayed
+from a CUDA graph: device time); ALS rows the Gram alone as
+``library_ms``.
 
-The bound is max(bytes / 3.35 TB/s, operations / peak): H100 SXM HBM3, f32
-without tensor cores at 67 TFLOP/s, TF32 and bf16 tensor-core products at
-495 and 989 TFLOP/s, from NVIDIA's data sheet at 700 W
-(``runtime.HBM_BYTES_PER_S``, ``F32_FLOPS``, ``TF32_FLOPS``,
-``BF16_FLOPS``); bytes count each input read once and each output written
-once. The ALS entries' bound is ``ops/als_kernels.bucket_bound``, the one
-the training profile uses; the flash entry's is
-``ops/attention_kernels.flash_bound``, 4·D FLOP per live (query, key) pair
-and head of the run's inputs, f32 at 495/3 TFLOP/s (3xTF32).
+The bound is max(bytes / 3.35 TB/s, operations / peak): H100 SXM HBM3,
+bf16 tensor-core products at 989 TFLOP/s and f32 products at 495/3
+TFLOP/s, the TF32 rate over three (3xTF32, the fastest f32-accurate
+products the card has), from NVIDIA's data sheet at 700 W
+(``runtime.HBM_BYTES_PER_S``, ``BF16_FLOPS``, ``F32_3XTF32_FLOPS``);
+bytes count each input read once and each output written once. Where the
+products are f32, ``bound_fma_ms`` beside it is the same bound with them
+on the FMA units (67 TFLOP/s, ``runtime.F32_FLOPS``), the yardstick of
+the first designs. The ALS entries' bound is
+``ops/als_kernels.bucket_bound``, the one the training profile uses; the
+flash entry's is ``ops/attention_kernels.flash_bound``, 4·D FLOP per live
+(query, key) pair and head of the run's inputs.
 """
 
 from __future__ import annotations
@@ -147,13 +163,75 @@ def check_topk(got_s, got_i, ref_s, ref_i, k: int, what: str,
     return float(err.max())
 
 
-def _kernel_vs_plain(kernels, q, items, allowed, k, what) -> float:
+def _kernel_vs_plain(kernels, q, items, allowed, k, what,
+                     exact: bool = False) -> float:
+    """One kernel call against the plain version; ``exact`` (integer
+    factors, whose scores are exact in any order of sums) demands the same
+    scores and ids slot for slot, ties included."""
     got_s, got_i = kernels.score_topk(q, items, allowed, k)
     ref_s, ref_i = kernels.score_topk_plain(
         q, items, allowed, min(k + 1, items.shape[0]))
     torch.cuda.synchronize()
+    if exact and not (torch.equal(got_s.cpu(), ref_s[:, :k].cpu())
+                      and torch.equal(got_i.cpu(), ref_i[:, :k].cpu())):
+        raise AssertionError(f"{what}: not slot for slot the plain version")
     return check_topk(got_s.cpu(), got_i.cpu(), ref_s.cpu(), ref_i.cpu(), k,
                       what)
+
+
+def topk_edge_cases(small: bool = False) -> list:
+    """(name, q, items, mask, k, exact) at the edges of the kernel's
+    design: ties either side of a 256-item tile and of a block's item
+    range (the best row planted there; integer factors, so ids must match
+    exactly), scores equal to the running threshold in later tiles and
+    blocks, catalogues that are no multiple of the tile, k 1 and 128,
+    fewer allowed items than k, none allowed, B 1 / 3 / 8 / 9 / 64 (one
+    row group of exactly B rows, and partial groups of 8) and K 8 / 10 /
+    64 / 128 / 256."""
+    rng = np.random.default_rng(13)
+    cases = []
+    for n_items, b in ((26_744, 1), (5_000 if small else 1_048_576, 1),
+                       (40_000 if small else 1_048_576, 64)):
+        items = rng.integers(-2, 3, (n_items, 16)).astype(np.float32)
+        # tile edges (256), a block's range at B 1 on 1M items (16 tiles)
+        # and at B 64 (125 tiles), the last item
+        ids = [i for i in (255, 256, 511, 512, 4095, 4096, 31_999, 32_000)
+               if i < n_items] + [n_items - 1]
+        items[ids] = 3.0
+        q = rng.integers(1, 3, (b, 16)).astype(np.float32)
+        for k in (1, 4, len(ids), 128):
+            cases.append((f"tie_edges_i{n_items}_b{b}_k{k}", q, items, None,
+                          k, True))
+    items = rng.integers(-1, 2, (100_000, 8)).astype(np.float32)
+    for b in (1, 3):
+        q = rng.integers(-1, 2, (b, 8)).astype(np.float32)
+        for k in (1, 128):
+            cases.append((f"threshold_ties_b{b}_k{k}", q, items, None, k,
+                          True))
+    for n_items in (257, 1000, 2049):
+        items = rng.standard_normal((n_items, 32), np.float32)
+        for b, k in ((1, 1), (3, 128), (9, 128)):
+            cases.append((f"odd_catalogue_i{n_items}_b{b}_k{k}",
+                          rng.standard_normal((b, 32), np.float32), items,
+                          None, k, False))
+    items = rng.standard_normal((5000, 24), np.float32)
+    few = np.zeros(5000, bool)
+    few[rng.choice(5000, 50, replace=False)] = True
+    for b in (1, 9):
+        q = rng.standard_normal((b, 24), np.float32)
+        cases.append((f"fewer_allowed_than_k_b{b}", q, items, few, 128,
+                      False))
+        for k in (1, 128):
+            cases.append((f"none_allowed_b{b}_k{k}", q, items,
+                          np.zeros(5000, bool), k, False))
+    for rank in (8, 10, 64, 128, 256):
+        items = rng.standard_normal((3000, rank), np.float32)
+        mask = rng.random(3000) > 0.1
+        for b in (1, 3, 8, 9, 64):
+            cases.append((f"b{b}_rank{rank}",
+                          rng.standard_normal((b, rank), np.float32), items,
+                          mask, 128, False))
+    return cases
 
 
 def kernel_phase(dev, kernels, planted, small: bool = False):
@@ -212,11 +290,12 @@ def kernel_phase(dev, kernels, planted, small: bool = False):
         cases.append((f"mips1m_b{b}_k128",
                       planted.planted_queries(items, b, seed=22 + b), items,
                       None, 128))
+    cases = [c + (False,) for c in cases] + topk_edge_cases(small)
     err = 0.0
-    for what, q, items, mask, k in cases:
+    for what, q, items, mask, k, exact in cases:
         err = max(err, _kernel_vs_plain(
             kernels, t(q), t(items), None if mask is None else t(mask), k,
-            what))
+            what, exact))
     return err, len(cases)
 
 
@@ -394,14 +473,17 @@ def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
     return ms
 
 
-def bound(b: int, n_items: int, rank: int, k: int, masked: bool):
+def bound(b: int, n_items: int, rank: int, k: int, masked: bool,
+          fma: bool = False):
+    """(ms, "bytes" or "operations") of one score+top-k call: the products
+    at the 3xTF32 rate, or on the FMA units with ``fma``."""
     from incubator_predictionio_tpu_torch import runtime
 
     nbytes = 4 * n_items * rank + 4 * b * rank + 8 * b * k \
         + (n_items if masked else 0)
     flops = 2.0 * b * n_items * rank
     t_bytes = nbytes / runtime.HBM_BYTES_PER_S
-    t_ops = flops / runtime.F32_FLOPS
+    t_ops = flops / (runtime.F32_FLOPS if fma else runtime.F32_3XTF32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -411,14 +493,41 @@ def time_shape(kernels, planted, dev, b, n_items, rank, k) -> dict:
     q = torch.from_numpy(planted.planted_queries(items_np, b, seed=32)).to(dev)
     items = torch.from_numpy(items_np).to(dev)
     bound_ms, bound_by = bound(b, n_items, rank, k, masked=False)
+
+    def kernel():
+        return kernels.score_topk(q, items, None, k)
+
+    def library():
+        return torch.topk(items @ q.T, k, dim=0)
+
     return {
         "B": b, "I": n_items, "K": rank, "k": k,
-        "ms": median_ms(lambda: kernels.score_topk(q, items, None, k)),
+        "ms": median_ms(kernel),
+        "graph_ms": graph_ms(kernel),
         "plain_ms": median_ms(
             lambda: kernels.score_topk_plain(q, items, None, k)),
-        "library_ms": median_ms(lambda: torch.topk(items @ q.T, k, dim=0)),
+        "library_ms": median_ms(library),
+        "library_graph_ms": graph_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_fma_ms": bound(b, n_items, rank, k, masked=False, fma=True)[0],
     }
+
+
+#: the timed score+top-k shapes (B, I, K, k): the 64-body batch, one query
+#: at k 10 and 128, B 64 at k 128 (ML-20M width), then 1,048,576 items
+TOPK_SHAPES = (
+    (64, ML20M["items"], ML20M["rank"], 16),
+    (1, ML20M["items"], ML20M["rank"], 10),
+    (1, ML20M["items"], ML20M["rank"], 128),
+    (64, ML20M["items"], ML20M["rank"], 128),
+    (1, MIPS_CATALOGUE["items"], MIPS_CATALOGUE["rank"], 128),
+    (64, MIPS_CATALOGUE["items"], MIPS_CATALOGUE["rank"], 128),
+)
+
+
+def topk_timings(kernels, planted, dev) -> list:
+    return [time_shape(kernels, planted, dev, b, n, r, k)
+            for b, n, r, k in TOPK_SHAPES]
 
 
 # -- ALS kernels against their plain versions ------------------------------------
@@ -627,6 +736,96 @@ def als_kernel_phase(dev, ak, chunk_elems: int, small: bool = False):
     return errs, worst, checks
 
 
+def als_edge_phase(dev, ak):
+    """The one-row two-stage kernel at the edges of its split-D design, f32
+    and bf16, cold and warm, each against the plain version at
+    :func:`als_tolerance`: D = 1, D no multiple of a slab or of the
+    slices, ranks 10 / 16 / 24 / 32 / 64 / 128, a row with no observation
+    (row 3 of every problem), and the same rows under a one-slice plan and
+    a many-slice plan (``n_sms`` 1 and 1,000 in ``two_stage_plan``), held
+    to the plain version and to each other. A system with D < K beyond
+    the tolerance (a singular Gram, which 16 CG steps iterate on past
+    convergence, amplifying the order of sums) is held instead to the f64
+    solve of the same system: no more than 3x as far from it as the plain
+    version, the rule of :func:`als_tolerance`. Returns (#checks, max
+    relative error by case kind); raises with every failure."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rng = np.random.default_rng(9)
+    cases = [("d1", 60, 32, 5, 1, None), ("d1_k128", 60, 128, 4, 1, None),
+             ("d1000_k64", 400, 64, 5, 1000, None),
+             ("d700_k24", 300, 24, 6, 700, 0.7),
+             ("d333_k10", 200, 10, 6, 333, 0.8)]
+    cases += [(f"d{d}_k{k}", 500, k, 6, d, None)
+              for k in (16, 32, 64, 128) for d in (130, 2500)]
+    # the plans run on the card only; an older A/B copy has none
+    split = dev.type == "cuda" and hasattr(ak, "two_stage_plan")
+    failures, checks, worst = [], 0, {}
+    for name, m, k, b, d, density in cases:
+        table, cols, vals, mask, x0 = (t(a) for a in als_problem(
+            rng, m, k, b, d, density))
+        empty = int(torch.nonzero(mask.sum(-1) == 0)[0, 0])
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = als_tolerance(dtype, d, k)
+            tab = table.to(dtype)
+            for warm in (None, x0):
+                what = (f"{name} {str(dtype)[6:]} "
+                        f"{'warm' if warm is not None else 'cold'}")
+                ref = ak.als_solve_cg_plain(tab, cols, vals, mask, 0.05,
+                                            x0=warm)
+                # the system the kernel solves, in f64: the table's and
+                # the rhs weights' values rounded to the table's dtype
+                exact = (f64_solve(ak, tab.float(), cols,
+                                   vals.to(dtype).float(), mask, 0.05, True,
+                                   16, warm, False) if d < k else None)
+                outs = {"plan": ak.als_solve_cg(tab, cols, vals, mask, 0.05,
+                                                x0=warm)}
+                if split:
+                    for n_sms in (1, 1000):
+                        outs[f"n_sms={n_sms}"] = ak._two_stage(
+                            tab, cols, vals, mask, 0.05, True, 16, 1, warm,
+                            n_sms=n_sms)
+                sync(dev)
+                for tag, got in outs.items():
+                    checks += 1
+                    err, rel = _rel_err(got, ref)
+                    worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0),
+                                                rel)
+                    row_err = float((got[empty] - ref[empty]).abs().max())
+                    far = rel > tol or row_err > tol * max(
+                        float(ref.abs().max()), 1e-30)
+                    if far and exact is not None:
+                        k_f64 = _rel_err(got.double(), exact)[1]
+                        p_f64 = _rel_err(ref.double(), exact)[1]
+                        for key, v in ((f"{str(dtype)[6:]} D<K vs f64", k_f64),
+                                       (f"{str(dtype)[6:]} D<K plain vs f64",
+                                        p_f64)):
+                            worst[key] = max(worst.get(key, 0.0), v)
+                        far = k_f64 > 3 * p_f64 + 1e-6
+                        if far:
+                            failures.append(f"{what} {tag}: {k_f64:.3e} "
+                                            "from the f64 solve, the plain "
+                                            f"version {p_f64:.3e}")
+                    elif not bool(torch.isfinite(got).all()) or rel > tol:
+                        failures.append(f"{what} {tag}: {rel:.3e} of "
+                                        f"max|x_plain|, above {tol}")
+                    elif far:
+                        failures.append(f"{what} {tag}: the empty row is "
+                                        f"{row_err:.3e} from the plain one")
+                if split and exact is None:  # D < K: both held to f64
+                    checks += 1
+                    rel = _rel_err(outs["n_sms=1000"], outs["n_sms=1"])[1]
+                    worst["slices"] = max(worst.get("slices", 0.0), rel)
+                    if rel > tol:
+                        failures.append(f"{what}: one slice and many differ "
+                                        f"by {rel:.3e} of max|x|")
+    if failures:
+        raise AssertionError(f"{len(failures)} of {checks} ALS edge checks "
+                             "failed:\n" + "\n".join(failures))
+    return checks, worst
+
+
 # -- ALS training: the second main path -----------------------------------------
 
 def planted_training_data(planted, base, interactions_mod, engine, small):
@@ -818,11 +1017,16 @@ def f64_solve(ak, table, cols, vals, mask, l2, reg_nnz, iters, x0,
 
 
 def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True):
-    """ms of one kernel call and of its plain version on a chunk (warm
-    start from ``prev``), with its bound. With an f32 table and ``exact``,
-    also each one's distance from the f64 solve on the chunk's first
+    """ms of one kernel call (and its device time, ``graph_ms``), of its
+    plain version and of the Gram alone as one ``torch.bmm(g.mT, g)`` on
+    the same gathered block (``library_ms``, TF32 off), on a chunk (warm
+    start from ``prev``), with its bound (and, with an f32 table, the bound
+    on the FMA units beside it). With an f32 table and ``exact``, also
+    each one's distance from the f64 solve on the chunk's first
     1,024 rows (``f64_rel_err``, ``plain_f64_rel_err``): the kernel must be
     no more than 3x as far from it as the plain version."""
+    from incubator_predictionio_tpu_torch import runtime
+
     cols, vals, mask, row_ids = chunk
     x0 = als._gather_x0(prev, row_ids)
     iters = als.CG_ITERS if table.dtype == torch.float32 \
@@ -867,12 +1071,28 @@ def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True):
     k = table.shape[1]
     bound_ms, bound_by = ak.bucket_bound(cols, mask, k, iters, True,
                                          table.dtype)
+    fma = {}
+    if table.dtype == torch.float32:
+        fma_ms, fma_by = ak.bucket_bound(cols, mask, k, iters, True,
+                                         table.dtype,
+                                         f32_flops=runtime.F32_FLOPS)
+        fma = {"bound_fma_ms": fma_ms, "bound_fma_by": fma_by}
+    # the library yardstick: the Gram alone, one bmm on the gathered block
+    g = table[cols] * mask[..., None].to(table.dtype)
+
+    def gram():
+        return torch.bmm(g.mT, g)
+
+    calls = max(1, min(10, int(2e8 // max(g.numel(), 1))))
     return {"dtype": str(table.dtype).replace("torch.", ""), "B": b, "D": d,
             "K": k, "nnz": int(mask.sum()), "iters": iters,
             "ms": median_ms(fn, reps=reps, warm=2),
+            "graph_ms": graph_ms(fn, calls=calls, reps=reps),
             "plain_ms": median_ms(plain, reps=reps, warm=2),
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-            "max_rel_err": rel, **f64}
+            "library_ms": median_ms(gram, reps=reps, warm=2),
+            "library_graph_ms": graph_ms(gram, calls=calls, reps=reps),
+            "bound_ms": bound_ms, "bound_by": bound_by, **fma,
+            "max_abs_err": err, "max_rel_err": rel, **f64}
 
 
 def als_timings(ak, als, trees, model, plain, chunk_elems):
@@ -901,10 +1121,11 @@ def als_timings(ak, als, trees, model, plain, chunk_elems):
     return out
 
 
-def als_shape_timings(ak, als, dev, chunk_elems):
-    """Each ALS entry timed in f32 at the ML-20M bucket shapes of the
-    als-kernel phase (D = 64, 128, 1,024 and 8,192, rank 128, one chunk of
-    rows, tables of ML-20M height), warm."""
+def als_shape_timings(ak, als, dev, chunk_elems, ds=(64, 128, 1024, 8192),
+                      dtypes=(torch.float32,)):
+    """Each ALS entry timed at the ML-20M bucket shapes of the als-kernel
+    phase (D = 64, 128, 1,024 and 8,192, rank 128, one chunk of rows,
+    tables of ML-20M height), warm, in each of ``dtypes``."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -912,7 +1133,7 @@ def als_shape_timings(ak, als, dev, chunk_elems):
     out = {"als_fused_solve_cg": [], "als_solve_cg": [],
            "als_solve_cg_rows8": []}
     k = ML20M["rank"]
-    for d in (64, 128, 1024, 8192):
+    for d in ds:
         for entry, m, b in (
                 ("als_fused_solve_cg", ML20M["items"],
                  fused_rows(d, k, chunk_elems)),
@@ -923,9 +1144,10 @@ def als_shape_timings(ak, als, dev, chunk_elems):
             table, cols, vals, mask, prev = als_problem(rng, m, k, b, d)
             chunk = (t(cols), t(vals), t(mask),
                      torch.arange(b, device=dev))
-            row = time_als(ak, als, entry, t(table), chunk, t(prev),
-                           exact=False)
-            out[entry].append(dict(shape=f"ml20m_d{d}", **row))
+            for dt in dtypes:
+                row = time_als(ak, als, entry, t(table).to(dt), chunk,
+                               t(prev), exact=False)
+                out[entry].append(dict(shape=f"ml20m_d{d}", **row))
     return out
 
 
@@ -1478,6 +1700,50 @@ def flash_resources(runtime) -> list:
     return rows
 
 
+def kernel_resources(runtime, stem: str) -> list:
+    """What ``ptxas -v`` reported for each kernel of ``csrc/<stem>.cu``
+    (mangled name, registers, spills, static shared memory)."""
+    if not hasattr(runtime, "kernel_resources"):
+        return []  # a package from before the report (an A/B copy)
+    runtime.build_kernels()
+    return runtime.kernel_resources(stem)
+
+
+def topk_only(dev, kernels, planted) -> int:
+    """``--topk``: the score+top-k kernel alone (its cases, the edge cases,
+    then its timings), for an A/B of two copies of the package."""
+    t0 = time.perf_counter()
+    err, n_cases = kernel_phase(dev, kernels, planted)
+    print(f"kernel: {n_cases} cases agree with the plain version, max score "
+          f"error {err:.3e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for row in topk_timings(kernels, planted, dev):
+        print(f"time: {json.dumps(dict(name='score_topk', **row))}",
+              flush=True)
+    print(json.dumps({"topk_ok": True, "kind": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+def als_only(dev, ak, als) -> int:
+    """``--als``: the ALS kernels alone (the als-kernel and edge cases,
+    then every entry timed at the ML-20M bucket shapes and at the width of
+    the main path's heaviest item chunk, D 32,768, in f32 and bf16)."""
+    t0 = time.perf_counter()
+    errs, worst, checks = als_kernel_phase(dev, ak, als.CHUNK_ELEMS)
+    edge_checks, edge_worst = als_edge_phase(dev, ak)
+    print(f"als-kernel: {checks} + {edge_checks} checks agree with the plain "
+          f"versions, max abs error {json.dumps(errs)}, max relative error "
+          f"{json.dumps(worst)}, edges {json.dumps(edge_worst)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    times = als_shape_timings(ak, als, dev, als.CHUNK_ELEMS,
+                              ds=(64, 128, 1024, 8192, 32768),
+                              dtypes=(torch.float32, torch.bfloat16))
+    for entry, rows in times.items():
+        for row in rows:
+            print(f"time: {json.dumps(dict(name=entry, **row))}", flush=True)
+    print(json.dumps({"als_ok": True, "kind": torch.cuda.get_device_name(0)}))
+    return 0
+
+
 def flash_only(dev, runtime, fa) -> int:
     """``--flash``: the flash kernel alone (cases, then timings), for an A/B
     of two copies of the package on one card."""
@@ -1535,11 +1801,25 @@ def main() -> int:
     t0 = time.perf_counter()
     runtime.build_kernels()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for row in flash_resources(runtime):
-        print(f"ptxas: {json.dumps(dict(name='flash_attention', **row))}",
-              flush=True)
-    if sys.argv[1:] == ["--flash"]:
+    mode = sys.argv[1:]
+    if mode not in ([], ["--flash"], ["--topk"], ["--als"]):
+        print(f"chip_smoke: unknown arguments {mode}", file=sys.stderr)
+        return 2
+    if mode in ([], ["--flash"]):
+        for row in flash_resources(runtime):
+            print(f"ptxas: {json.dumps(dict(name='flash_attention', **row))}",
+                  flush=True)
+    for stem, flag in (("score_topk", "--topk"), ("als_solve", "--als")):
+        if mode in ([], [flag]):
+            for row in kernel_resources(runtime, stem):
+                print(f"ptxas: {json.dumps(dict(source=stem, **row))}",
+                      flush=True)
+    if mode == ["--flash"]:
         return flash_only(dev, runtime, fa)
+    if mode == ["--topk"]:
+        return topk_only(dev, kernels, planted)
+    if mode == ["--als"]:
+        return als_only(dev, ak, als)
 
     err_k, n_cases = kernel_phase(dev, kernels, planted)
     print(f"kernel: {n_cases} cases agree with the plain version, max score "
@@ -1548,9 +1828,11 @@ def main() -> int:
     t0 = time.perf_counter()
     als_errs, als_worst, als_checks = als_kernel_phase(dev, ak,
                                                        als.CHUNK_ELEMS)
-    print(f"als-kernel: {als_checks} checks agree with the plain versions, "
-          f"max abs error {json.dumps(als_errs)}, max relative error "
-          f"{json.dumps(als_worst)} ({time.perf_counter() - t0:.1f} s)",
+    edge_checks, edge_worst = als_edge_phase(dev, ak)
+    print(f"als-kernel: {als_checks} + {edge_checks} checks agree with the "
+          f"plain versions, max abs error {json.dumps(als_errs)}, max "
+          f"relative error {json.dumps(als_worst)}, edges "
+          f"{json.dumps(edge_worst)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
     t0 = time.perf_counter()
@@ -1588,15 +1870,7 @@ def main() -> int:
     print(f"seq-train: {json.dumps(seq_train_stats)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    shapes = [time_shape(kernels, planted, dev, b, n, r, k)
-              for b, n, r, k in (
-                  (64, ML20M["items"], ML20M["rank"], 16),  # 64-body batch
-                  (1, ML20M["items"], ML20M["rank"], 10),   # one query
-                  (1, ML20M["items"], ML20M["rank"], 128),
-                  (64, ML20M["items"], ML20M["rank"], 128),
-                  (1, MIPS_CATALOGUE["items"], MIPS_CATALOGUE["rank"], 128),
-                  (64, MIPS_CATALOGUE["items"], MIPS_CATALOGUE["rank"], 128),
-              )]
+    shapes = topk_timings(kernels, planted, dev)
     for s in shapes:
         print(f"time: {json.dumps(s)}", flush=True)
     als_times = als_timings(ak, als, (u_tree, i_tree), model, plain,
@@ -1616,9 +1890,11 @@ def main() -> int:
         "launches": launches + trained_launches,
         "max_abs_err": max(err_k, err_p, err_t),
         "ms": head["ms"],
+        "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
+        "bound_fma_ms": head["bound_fma_ms"],
         "library_ms": head["library_ms"],
         "shapes": shapes,
     }]
@@ -1633,12 +1909,15 @@ def main() -> int:
             "max_abs_err": max([als_errs[entry]]
                                + [r["max_abs_err"] for r in rows]),
             "ms": first["ms"],
+            "graph_ms": first["graph_ms"],
             "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
-            "library_ms": None,
-            "library_note": "no single PyTorch call computes a Gram and "
-                            "its CG solve",
+            "bound_fma_ms": first["bound_fma_ms"],
+            "library_ms": first["library_ms"],
+            "library_note": "the Gram alone: one torch.bmm(g.mT, g) on the "
+                            "gathered block, TF32 off (no single PyTorch "
+                            "call computes a Gram and its CG solve)",
             "shapes": rows,
         })
         if entry == "als_solve_cg_rows8":

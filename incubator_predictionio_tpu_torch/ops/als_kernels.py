@@ -19,7 +19,9 @@ then ``iters`` steps of Jacobi-preconditioned CG on
   body with the shared YᵀY term in the matvec. Empty rows give exactly 0.
 
 The kernels are in ``csrc/als_solve.cu``, whose note says what bounds them
-on the card. For CUDA tensors a wrapper launches its kernel or raises; for
+on the card. The one-row two-stage form splits each row's d range over
+blocks (:func:`two_stage_plan`, its launch plan, is computed here and
+checked by the C entry) and sums the Gram on the tensor cores. For CUDA tensors a wrapper launches its kernel or raises; for
 CPU tensors it runs its plain version, which does the same arithmetic in
 PyTorch (bf16 values widened to f32 before f32 products, the rhs weights
 and the gw-weighted rows rounded to bf16 where the TPU kernel rounds them)
@@ -28,7 +30,7 @@ and which the chip smoke compares the kernel with.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,26 +55,72 @@ ALS_SOLVE_CG_ROWS8_LAUNCHES = runtime.LaunchCounter("als_solve_cg_rows8")
 ALS_FUSED_SOLVE_CG_LAUNCHES = runtime.LaunchCounter("als_fused_solve_cg")
 
 
+#: stage-1 blocks of the one-row two-stage solve the plan aims at per SM
+TWO_STAGE_BLOCKS_PER_SM = 2
+
+
+_GEOMETRY = runtime.csrc_constants("als_solve.cu")
+
+
 def padded_rank(k: int) -> int:
     """The rank the kernels compute at: 16, 32, 64 or 128 (padding
-    coordinates solve to exactly 0)."""
+    coordinates solve to exactly 0; ``padded_rank`` of the source)."""
     return next(kp for kp in (16, 32, 64, 128) if k <= kp)
 
 
+def slab_rows(kp: int) -> int:
+    """Rows of d in one staged slab of the split-D Gram kernel
+    (``slab_rows`` of the source, whose constants these are)."""
+    return _GEOMETRY["kSlabRowsWide" if kp >= 64 else "kSlabRowsNarrow"]
+
+
+class TwoStagePlan(NamedTuple):
+    """Launch plan of the one-row two-stage solve: each bucket row's d
+    range is cut into ``slices`` slices of ``slice_rows`` rows (the last
+    fewer), one stage-1 block each, which stages them in slabs of
+    :func:`slab_rows`; ``workspace_bytes`` holds their partial Grams and
+    rhs and the summed ones (0 for one slice, where the stage-1 block
+    solves the row itself)."""
+    kp: int
+    slices: int
+    slice_rows: int
+    workspace_bytes: int
+
+
+def two_stage_plan(b: int, d: int, k: int, n_sms: int) -> TwoStagePlan:
+    """The split of a [b, d, k] bucket chunk on a card of ``n_sms`` SMs:
+    enough slices that b·slices reaches ``TWO_STAGE_BLOCKS_PER_SM``
+    blocks per SM where d allows (no more slices than slabs), of equal
+    length, so that b = 8 fills the card in one wave exactly."""
+    kp = padded_rank(k)
+    want = min(max(1, -(-TWO_STAGE_BLOCKS_PER_SM * n_sms // b)),
+               -(-d // slab_rows(kp)))
+    rows = -(-d // want)
+    slices = -(-d // rows)
+    rec = kp * kp + kp
+    work = 4 * b * rec * (slices + 1) if slices > 1 else 0
+    return TwoStagePlan(kp=kp, slices=slices, slice_rows=rows,
+                        workspace_bytes=work)
+
+
 def als_bound(nnz: float, distinct_rows: int, b: int, d: int, k: int,
-              iters: int, warm: bool, dtype) -> Tuple[float, str]:
+              iters: int, warm: bool, dtype,
+              f32_flops: float = runtime.F32_3XTF32_FLOPS
+              ) -> Tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take
     for one explicit bucket solve, either entry, with a ``dtype`` table.
     Bytes: the ``distinct_rows`` table rows the bucket references,
     cols/vals/mask [b, d], x0 when ``warm`` and the [b, k] output, each
     once. Operations: the symmetric Gram, nnz·K·(K + 1) (its K(K + 1)/2
     entries, a multiply and an add each), and the rhs, 2·nnz·K, at the
-    table dtype's peak (bf16 on the tensor cores, f32 on the FMA units);
-    then (iters + warm) matvecs of 2·b·K² in f32 for the CG."""
+    table dtype's peak: bf16 on the tensor cores, f32 at ``f32_flops``,
+    by default the 3xTF32 rate (the fastest f32-accurate products);
+    ``runtime.F32_FLOPS`` gives the FMA units' bound beside it. Then
+    (iters + warm) matvecs of 2·b·K² in f32 for the CG."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = (distinct_rows * k * itemsize + 3 * 4 * b * d
               + 4 * b * k * (2 if warm else 1))
-    peak = runtime.BF16_FLOPS if dtype == torch.bfloat16 else runtime.F32_FLOPS
+    peak = runtime.BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
     t_bytes = nbytes / runtime.HBM_BYTES_PER_S
     t_ops = (float(nnz) * k * (k + 1) + 2.0 * nnz * k) / peak \
         + (iters + int(warm)) * 2.0 * b * k * k / runtime.F32_FLOPS
@@ -80,13 +128,15 @@ def als_bound(nnz: float, distinct_rows: int, b: int, d: int, k: int,
                                        else "operations")
 
 
-def bucket_bound(cols, mask, k: int, iters: int, warm: bool, dtype
+def bucket_bound(cols, mask, k: int, iters: int, warm: bool, dtype,
+                 f32_flops: float = runtime.F32_3XTF32_FLOPS
                  ) -> Tuple[float, str]:
     """:func:`als_bound` of one bucket (or chunk) as the data holds it:
     its observations and the distinct table rows they reference."""
     b, d = cols.shape
     distinct = int(torch.unique(cols[mask > 0]).numel())
-    return als_bound(float(mask.sum()), distinct, b, d, k, iters, warm, dtype)
+    return als_bound(float(mask.sum()), distinct, b, d, k, iters, warm, dtype,
+                     f32_flops)
 
 
 def _ridge(mask: torch.Tensor, l2: float, reg_nnz: bool
@@ -246,6 +296,17 @@ def als_solve_cg(table, cols, vals, mask, l2: float, reg_nnz: bool = True,
     if _on_cpu(table, cols, vals, mask, x0):
         return als_solve_cg_plain(table, cols, vals, mask, l2, reg_nnz,
                                   iters, rows_per_program, x0)
+    return _two_stage(table, cols, vals, mask, l2, reg_nnz, iters,
+                      rows_per_program, x0)
+
+
+def _two_stage(table, cols, vals, mask, l2: float, reg_nnz: bool,
+               iters: int, rows_per_program: int,
+               x0: Optional[torch.Tensor], n_sms: Optional[int] = None
+               ) -> torch.Tensor:
+    """:func:`als_solve_cg` on CUDA tensors; ``n_sms`` sizes the R = 1
+    launch plan (None: the card's SM count; the card tests pass others to
+    force one slice or many on the same rows)."""
     _check("als_solve_cg", table, cols, vals, mask, x0)
     dev = table.device
     b, d = cols.shape
@@ -253,21 +314,37 @@ def als_solve_cg(table, cols, vals, mask, l2: float, reg_nnz: bool = True,
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    g = (table[cols] * mask[..., None].to(table.dtype)).contiguous()
+    tab, colsc, maskc = table.contiguous(), cols.contiguous(), \
+        mask.contiguous()
+    g = torch.empty((b, d, k), dtype=table.dtype, device=dev)
     wv = (vals * mask).contiguous()
     _, lam = _ridge(mask, l2, reg_nnz)
     x0c = None if x0 is None else x0.contiguous()
-    scratch = None
+    scratch = work = None
     if rows_per_program == 8:
         kp = padded_rank(k)
         scratch = torch.empty(-(-b // 8) * 8 * kp * kp, dtype=torch.float32,
                               device=dev)
+        plan = TwoStagePlan(kp, 1, d, 0)  # read only by the R = 1 form
+    else:
+        plan = two_stage_plan(b, d, k, n_sms or runtime.sm_count(dev))
+        if plan.workspace_bytes:
+            # stream-ordered: concurrent calls on other streams never share
+            work = torch.empty(plan.workspace_bytes, dtype=torch.uint8,
+                               device=dev)
     lib = runtime.build_kernels()
+    bf16 = int(table.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
+        # the masked rows, table[cols] * mask, in one hand-written pass
+        rc = lib.pio_als_gather_rows(
+            tab.data_ptr(), bf16, tab.shape[0], colsc.data_ptr(),
+            maskc.data_ptr(), b * d, k, g.data_ptr(), _stream(dev))
+        runtime.check_launch(rc, "als_solve_cg gather")
         rc = lib.pio_als_solve_cg(
-            g.data_ptr(), int(table.dtype == torch.bfloat16), wv.data_ptr(),
+            g.data_ptr(), bf16, wv.data_ptr(),
             lam.contiguous().data_ptr(), _ptr(x0c), out.data_ptr(),
             _ptr(scratch), b, d, k, int(iters), int(rows_per_program),
+            plan.slices, plan.slice_rows, _ptr(work), plan.workspace_bytes,
             _stream(dev))
     runtime.check_launch(rc, "als_solve_cg")
     (ALS_SOLVE_CG_ROWS8_LAUNCHES if rows_per_program == 8

@@ -216,7 +216,7 @@ def flash_bound(b: int, h: int, s_q: int, s_kv: int, d: int, dtype,
     nbytes = itemsize * (2 * b * s_q * h * d + 2 * b * s_kv * h * d) \
         + 4 * b * s_kv
     peak = (runtime.BF16_FLOPS if dtype == torch.bfloat16
-            else runtime.TF32_FLOPS / 3)
+            else runtime.F32_3XTF32_FLOPS)
     t_bytes = nbytes / runtime.HBM_BYTES_PER_S
     t_ops = 4.0 * d * float(pairs) * h / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops

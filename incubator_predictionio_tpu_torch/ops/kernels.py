@@ -7,7 +7,9 @@ vectors against the item table, the serve-time allow mask applied in the
 kernel, and a top-k per query with ties to the lowest item id. Its source is
 ``csrc/score_topk.cu``, which says what bounds it on the card (the item
 table read at one query, f32 FMAs at 64) and what its design does about
-that (the [B, I] score matrix never reaches device memory).
+that (a card-filling grid over coalesced item tiles, selection by a
+running per-row threshold, one parallel merge). :func:`topk_plan` is its
+launch plan, computed here and checked by the C entry.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it runs :func:`score_topk_plain`, which the CPU tests use and the
@@ -16,7 +18,7 @@ chip smoke compares the kernel with.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,6 +32,48 @@ MAX_K = 128
 REPLACES = "incubator_predictionio_tpu/ops/pallas_kernels.py:317"
 
 SCORE_TOPK_LAUNCHES = runtime.LaunchCounter("score_topk")
+
+_GEOMETRY = runtime.csrc_constants("score_topk.cu")
+#: items per tile of pass 1 (one per thread of a block)
+TOPK_TILE = _GEOMETRY["kTile"]
+#: query rows per block of pass 1
+TOPK_ROWS = _GEOMETRY["kMaxRows"]
+#: pass-1 blocks per SM (its launch bounds: shared memory and registers)
+TOPK_BLOCKS_PER_SM = _GEOMETRY["kBlocksPerSm"]
+#: most per-block lists pass 2 merges per row (its key buffer less k)
+TOPK_MAX_LISTS = _GEOMETRY["kMaxLists"]
+
+
+class TopkPlan(NamedTuple):
+    """Launch plan of :func:`score_topk`: pass 1 runs ``item_blocks`` x
+    ``row_groups`` blocks of up to ``TOPK_ROWS`` query rows, each walking
+    ``tiles_per_block`` tiles of ``TOPK_TILE`` items (the last block
+    fewer), and writes ``item_blocks`` sorted lists of ``k`` 8-byte keys
+    per row into a workspace of ``workspace_bytes``; pass 2 merges them,
+    one block per row."""
+    row_groups: int
+    n_tiles: int
+    tiles_per_block: int
+    item_blocks: int
+    workspace_bytes: int
+
+
+def topk_plan(b: int, n_items: int, rank: int, k: int,
+              n_sms: int) -> TopkPlan:
+    """The grid of :func:`score_topk` for ``b`` queries over ``n_items``
+    items on a card of ``n_sms`` SMs: at most ``TOPK_BLOCKS_PER_SM``
+    blocks per SM, all resident in one wave (a second, partial wave would
+    double the time), each block a run of equally many whole tiles
+    (``rank`` does not change the grid)."""
+    del rank
+    n_tiles = -(-n_items // TOPK_TILE)
+    row_groups = -(-b // TOPK_ROWS)
+    want = max(1, TOPK_BLOCKS_PER_SM * n_sms // row_groups)
+    per = -(-n_tiles // min(n_tiles, want, TOPK_MAX_LISTS))
+    blocks = -(-n_tiles // per)
+    return TopkPlan(row_groups=row_groups, n_tiles=n_tiles,
+                    tiles_per_block=per, item_blocks=blocks,
+                    workspace_bytes=8 * b * blocks * k)
 
 
 def score_topk_plain(queries: torch.Tensor, items: torch.Tensor,
@@ -90,17 +134,19 @@ def _launch(queries, items, allowed, k):
         allowed = (allowed.view(torch.uint8) if allowed.dtype == torch.bool
                    else allowed.to(torch.uint8)).contiguous()
     lib = runtime.build_kernels()
+    plan = topk_plan(b, n_items, rank, k, runtime.sm_count(dev))
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    work = torch.empty(lib.pio_score_topk_workspace_bytes(b, n_items, k),
-                       dtype=torch.uint8, device=dev)
+    # stream-ordered, so concurrent calls on other streams never share it
+    work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pio_score_topk(
             queries.data_ptr(), items.data_ptr(),
             None if allowed is None else allowed.data_ptr(),
-            b, n_items, rank, k, out_s.data_ptr(), out_i.data_ptr(),
-            work.data_ptr(), stream)
+            b, n_items, rank, k, plan.item_blocks, plan.tiles_per_block,
+            out_s.data_ptr(), out_i.data_ptr(), work.data_ptr(),
+            plan.workspace_bytes, stream)
     runtime.check_launch(rc, "score_topk")
     SCORE_TOPK_LAUNCHES.add()
     return out_s, out_i

@@ -11,7 +11,9 @@ sweep and an f32 sweep through the kernels, and an f32 sweep of the plain
 route (``use_kernel=False``). For each it prints one JSON line with the
 host wall, the device time by kernel name, the device's idle share, and
 the kernel route's bound per half-sweep: the sum of
-``ops/als_kernels.bucket_bound`` over its kernel-routed buckets. Then one
+``ops/als_kernels.bucket_bound`` over its kernel-routed buckets (f32
+products at the 3xTF32 rate; in f32 also on the FMA units,
+``bound_fma_ms``). Then one
 ``{"bucket": ...}`` line for each kernel-routed bucket of an f32 sweep: its
 device ms against its bound. The first line is the card's name and power
 limit from nvidia-smi. Needs a CUDA device; fails without one.
@@ -40,9 +42,12 @@ def _short(name: str) -> str:
     profiler gives them mangled or demangled)."""
     if "group_solve_kernel" in name:
         return "als_solve_cg_rows8"
+    if "gather_rows" in name:  # the two-stage entries' gathered block
+        return "als_solve_cg gather"
+    if "gram_" in name:  # the one-row two-stage kernel's three passes
+        return "als_solve_cg"
     if "row_solve_kernel" in name:
-        fused = "Lb1E" in name or ", true>" in name
-        return "als_fused_solve_cg" if fused else "als_solve_cg"
+        return "als_fused_solve_cg"
     return name[:70]
 
 
@@ -70,16 +75,25 @@ def side_work(tree, min_d: int) -> dict:
 
 def side_bound(tree, bf16: bool, iters: int) -> dict:
     """The least time of one side's kernel-routed solves in one sweep: the
-    sum of each bucket's bound."""
+    sum of each bucket's bound (f32 products at the 3xTF32 rate), and in
+    f32 the same with them on the FMA units (``bound_fma_ms``)."""
     dtype = torch.bfloat16 if bf16 else torch.float32
     by_ms = {"bytes": 0.0, "operations": 0.0}
+    fma_ms = 0.0
     for _row_ids, cols, _vals, mask in tree:
         if cols.shape[1] >= als.KERNEL_MIN_D:
             ms, by = ak.bucket_bound(cols, mask, RANK, iters,
                                      als.CG_WARMSTART, dtype)
             by_ms[by] += ms
-    return {"bound_ms": sum(by_ms.values()),
-            "bound_by": max(by_ms, key=by_ms.get)}
+            if not bf16:
+                fma_ms += ak.bucket_bound(cols, mask, RANK, iters,
+                                          als.CG_WARMSTART, dtype,
+                                          f32_flops=runtime.F32_FLOPS)[0]
+    out = {"bound_ms": sum(by_ms.values()),
+           "bound_by": max(by_ms, key=by_ms.get)}
+    if not bf16:
+        out["bound_fma_ms"] = fma_ms
+    return out
 
 
 def bucket_times(state, trees) -> list:
@@ -121,12 +135,15 @@ def bucket_times(state, trees) -> list:
             bound_ms, bound_by = ak.bucket_bound(cols, mask, RANK,
                                                  als.CG_ITERS, True,
                                                  torch.float32)
+            fma_ms = ak.bucket_bound(cols, mask, RANK, als.CG_ITERS, True,
+                                     torch.float32,
+                                     f32_flops=runtime.F32_FLOPS)[0]
             out.append({
                 "side": side, "entry": ("als_fused_solve_cg" if fused
                                         else "als_solve_cg"),
                 "D": d, "rows": rows, "nnz": nnz,
                 "ms": sorted(times[1:])[1], "bound_ms": bound_ms,
-                "bound_by": bound_by})
+                "bound_by": bound_by, "bound_fma_ms": fma_ms})
     return out
 
 
@@ -146,7 +163,9 @@ def profile_sweep(state, trees, bf16: bool, use_kernel: bool) -> dict:
         wall = 1e3 * (time.perf_counter() - t0)
     by_name = device_ms(prof)
     busy = sum(by_name.values())
+    # the ten largest, and every ALS kernel of the port however small
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+    top.update({k: v for k, v in by_name.items() if k.startswith("als_")})
     return {"sweep": "bf16" if bf16 else "f32",
             "route": "kernel" if use_kernel else "plain",
             "wall_ms": wall, "device_ms": busy,

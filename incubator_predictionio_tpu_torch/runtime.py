@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -38,6 +39,30 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+#: the fastest f32-accurate products: 3xTF32 on the tensor cores, three TF32
+#: products each (the bound of every f32 product; ``F32_FLOPS`` is kept
+#: beside it as the FMA units' rate)
+F32_3XTF32_FLOPS = TF32_FLOPS / 3
+
+
+_CONSTEXPR = re.compile(r"^constexpr\s+int\s+(\w+)\s*=\s*([^;]+);",
+                        re.MULTILINE)
+
+
+@functools.lru_cache(maxsize=None)
+def csrc_constants(source: str) -> Dict[str, int]:
+    """The namespace-scope integer constants (``constexpr int NAME =
+    EXPR;`` at the start of a line) of ``csrc/<source>`` whose expression
+    reduces to integer literals and earlier such constants, by name. The
+    launch plans read their tile sizes here, so that the kernel source is
+    their only owner. Read only, never changed."""
+    found: Dict[str, int] = {}
+    for name, expr in _CONSTEXPR.findall((CSRC_DIR / source).read_text()):
+        expr = re.sub(r"\b[A-Za-z_]\w*\b",
+                      lambda m: str(found.get(m.group(0), m.group(0))), expr)
+        if re.fullmatch(r"[\d\s+\-*/()]+", expr):  # literals only: safe
+            found[name] = int(eval(expr.replace("/", "//")))
+    return found
 
 
 def default_device(device: Union[None, str, torch.device] = None
@@ -51,6 +76,20 @@ def default_device(device: Union[None, str, torch.device] = None
                 "the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached): the launch
+    plans size their grids from it."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
 
 
 class LaunchCounter:
@@ -116,12 +155,19 @@ def _run(cmd) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pio_score_topk.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
+    sz = ctypes.c_size_t
+    lib.pio_score_topk.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, sz, p]
     lib.pio_score_topk.restype = ctypes.c_int
     lib.pio_score_topk_workspace_bytes.argtypes = [i, i, i]
-    lib.pio_score_topk_workspace_bytes.restype = ctypes.c_size_t
-    lib.pio_als_solve_cg.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p]
+    lib.pio_score_topk_workspace_bytes.restype = sz
+    lib.pio_als_solve_cg.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i,
+                                     i, i, p, sz, p]
     lib.pio_als_solve_cg.restype = ctypes.c_int
+    lib.pio_als_gather_rows.argtypes = [p, i, i, p, p, ctypes.c_longlong, i,
+                                        p, p]
+    lib.pio_als_gather_rows.restype = ctypes.c_int
+    lib.pio_als_two_stage_workspace_bytes.argtypes = [i, i, i]
+    lib.pio_als_two_stage_workspace_bytes.restype = sz
     lib.pio_als_fused_solve_cg.argtypes = [p, i, i, p, p, p, p, p, p, p, p,
                                            i, i, i, i, p]
     lib.pio_als_fused_solve_cg.restype = ctypes.c_int

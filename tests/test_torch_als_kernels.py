@@ -19,6 +19,7 @@ import torch
 import jax.numpy as jnp
 
 from incubator_predictionio_tpu.ops import pallas_kernels as pk
+from incubator_predictionio_tpu_torch import runtime
 from incubator_predictionio_tpu_torch.ops import als_kernels as ak
 
 M, K, B, D = 200, 24, 13, 300
@@ -176,11 +177,14 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_bound_counts_the_symmetric_gram():
     """One bound for both entries: the Gram's nnz·K·(K + 1) and the rhs's
-    2·nnz·K at the table dtype's peak, (iters + warm)·2·B·K² of f32 CG;
-    bytes of the referenced rows, cols/vals/mask, x0 and the output."""
+    2·nnz·K at the table dtype's peak (f32 at the 3xTF32 rate, or on the
+    FMA units when asked), (iters + warm)·2·B·K² of f32 CG; bytes of the
+    referenced rows, cols/vals/mask, x0 and the output."""
     nnz, distinct, b, d, k, iters = 5_000_000, 26_000, 20_000, 512, 128, 16
-    for dt, peak in ((torch.float32, 67e12), (torch.bfloat16, 989e12)):
-        ms, by = ak.als_bound(nnz, distinct, b, d, k, iters, True, dt)
+    for dt, peak, kw in ((torch.float32, 495e12 / 3, {}),
+                         (torch.float32, 67e12, {"f32_flops": 67e12}),
+                         (torch.bfloat16, 989e12, {})):
+        ms, by = ak.als_bound(nnz, distinct, b, d, k, iters, True, dt, **kw)
         ops_s = (nnz * k * (k + 1) + 2 * nnz * k) / peak \
             + (iters + 1) * 2 * b * k * k / 67e12
         bytes_s = (distinct * k * (4 if dt == torch.float32 else 2)
@@ -216,3 +220,58 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         ak.als_fused_solve_cg(table, cols, vals, mask, L2)
     assert ak.ALS_SOLVE_CG_LAUNCHES.value == 0
     assert ak.ALS_FUSED_SOLVE_CG_LAUNCHES.value == 0
+
+
+# -- the one-row two-stage kernel's launch plan (two_stage_plan), on the CPU ---
+
+PLAN_SHAPES = [(8, 32_768, 128), (16, 8192, 128), (128, 1024, 128),
+               (1024, 128, 128), (2048, 64, 128), (13, 300, 24),
+               (5, 1, 32), (1, 100, 10), (3, 1000, 64), (9, 130, 16)]
+
+
+@pytest.mark.parametrize("n_sms", [1, 132, 1000])
+@pytest.mark.parametrize("b,d,k", PLAN_SHAPES)
+def test_two_stage_plan_puts_every_d_row_in_one_slice(b, d, k, n_sms):
+    plan = ak.two_stage_plan(b, d, k, n_sms)
+    assert plan.kp == ak.padded_rank(k)
+    starts = [s * plan.slice_rows for s in range(plan.slices)]
+    ends = [min(d, s + plan.slice_rows) for s in starts]
+    assert starts[0] == 0 and ends[-1] == d
+    assert all(e > s for s, e in zip(starts, ends))
+    assert all(a == b for a, b in zip(ends[:-1], starts[1:]))
+
+
+@pytest.mark.parametrize("b,d,k", PLAN_SHAPES)
+def test_two_stage_plan_fills_the_card_where_d_allows(b, d, k):
+    n_sms = 132
+    plan = ak.two_stage_plan(b, d, k, n_sms)
+    most = -(-d // ak.slab_rows(plan.kp))  # one slab per slice
+    assert b * plan.slices >= min(ak.TWO_STAGE_BLOCKS_PER_SM * n_sms,
+                                  b * most)
+
+
+@pytest.mark.parametrize("n_sms", [1, 132, 1000])
+@pytest.mark.parametrize("b,d,k", PLAN_SHAPES)
+def test_two_stage_plan_has_no_more_slices_than_slabs(b, d, k, n_sms):
+    """The C entry refuses a plan with more slices than slabs of d."""
+    plan = ak.two_stage_plan(b, d, k, n_sms)
+    assert plan.slices <= -(-d // ak.slab_rows(plan.kp))
+
+
+def test_slab_rows_are_the_kernel_sources():
+    """The plan's slab rows are read from the kernel source, their one
+    owner, which sizes the kernel's slabs with them."""
+    src = (runtime.CSRC_DIR / "als_solve.cu").read_text()
+    assert f"constexpr int kSlabRowsWide = {ak.slab_rows(64)};" in src
+    assert f"constexpr int kSlabRowsNarrow = {ak.slab_rows(16)};" in src
+    assert ak.slab_rows(128) == ak.slab_rows(64)
+    assert ak.slab_rows(32) == ak.slab_rows(16)
+    assert "static constexpr int TD = slab_rows(KP);" in src
+
+
+@pytest.mark.parametrize("b,d,k", PLAN_SHAPES)
+def test_two_stage_plan_workspace_bytes(b, d, k):
+    plan = ak.two_stage_plan(b, d, k, 132)
+    rec = plan.kp * plan.kp + plan.kp  # a Gram and its rhs, f32
+    want = 4 * b * rec * (plan.slices + 1) if plan.slices > 1 else 0
+    assert plan.workspace_bytes == want

@@ -92,6 +92,107 @@ def test_launch_on_mixed_devices_raises(dev):
     assert runtime.build_kernels() is runtime.build_kernels()
 
 
+def _topk_exact(dev, q, items, allowed, k):
+    """Kernel against the plain version slot for slot: integer factors
+    make every score exact in any order of sums, ties included."""
+    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    got_s, got_i = kernels.score_topk(t(q), t(items), t(allowed), k)
+    ref_s, ref_i = kernels.score_topk_plain(t(q), t(items), t(allowed), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s.cpu(), ref_s.cpu())
+    assert torch.equal(got_i.cpu(), ref_i.cpu())
+
+
+@pytest.mark.parametrize("n_items,b", [(26_744, 1), (1_048_576, 1),
+                                       (1_048_576, 64)])
+@pytest.mark.parametrize("k", [1, 4, 128])
+def test_topk_ties_across_tiles_and_blocks(dev, n_items, b, k):
+    """The best row planted either side of a 256-item tile's edge and of a
+    block's item range (16 tiles at B 1 on 1M items, 125 at B 64 on a card
+    of 132 SMs): ties go to the lowest id whichever block holds it."""
+    rng = np.random.default_rng(k + b)
+    items = rng.integers(-2, 3, (n_items, 16)).astype(np.float32)
+    ids = [i for i in (255, 256, 511, 512, 4095, 4096, 31_999, 32_000)
+           if i < n_items] + [n_items - 1]
+    items[ids] = 3.0
+    q = rng.integers(1, 3, (b, 16)).astype(np.float32)
+    _topk_exact(dev, q, items, None, k)
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (1, 128), (3, 128), (9, 64)])
+def test_topk_threshold_ties_in_later_tiles(dev, b, k):
+    """Three score values over 100,000 items: the running threshold's
+    score recurs in every later tile and block."""
+    rng = np.random.default_rng(b * k)
+    items = rng.integers(-1, 2, (100_000, 8)).astype(np.float32)
+    q = rng.integers(-1, 2, (b, 8)).astype(np.float32)
+    _topk_exact(dev, q, items, None, k)
+
+
+@pytest.mark.parametrize("rank", [8, 10, 64, 128, 256])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 64])
+def test_topk_row_groups_and_ranks(dev, b, rank):
+    """One row group of exactly B rows (B ≤ 8), partial groups of 8 (9,
+    and 64's last), ranks below, at and above a 32-column chunk, one not a
+    multiple of 4 (the 4-byte copies)."""
+    rng = np.random.default_rng(b * rank)
+    items = torch.from_numpy(
+        rng.standard_normal((3000, rank), np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, rank), np.float32)).to(dev)
+    allowed = torch.from_numpy(rng.random(3000) > 0.1).to(dev)
+    for k in (1, 128):
+        got_s, got_i = kernels.score_topk(q, items, allowed, k)
+        ref_s, ref_i = kernels.score_topk_plain(q, items, allowed, k + 1)
+        torch.cuda.synchronize()
+        _near_tie_equal(got_s.cpu().numpy(), got_i.cpu().numpy(),
+                        ref_s.cpu().numpy(), ref_i.cpu().numpy())
+
+
+@pytest.mark.parametrize("n_items", [257, 1000, 2049])
+def test_topk_catalogue_not_a_multiple_of_the_tile(dev, n_items):
+    rng = np.random.default_rng(n_items)
+    items = rng.integers(-3, 4, (n_items, 12)).astype(np.float32)
+    for b, k in ((1, 1), (3, 128), (9, 128)):
+        _topk_exact(dev, rng.integers(-3, 4, (b, 12)).astype(np.float32),
+                    items, None, k)
+
+
+@pytest.mark.parametrize("n_allowed", [0, 1, 50])
+def test_topk_fewer_allowed_items_than_k(dev, n_allowed):
+    """Fewer allowed items than k (none: an all-disallowed catalogue):
+    the allowed ones first, then (NEG_INF, -1) fillers."""
+    rng = np.random.default_rng(n_allowed)
+    items = rng.integers(-3, 4, (5000, 24)).astype(np.float32)
+    allowed = np.zeros(5000, bool)
+    allowed[rng.choice(5000, n_allowed, replace=False)] = True
+    for b in (1, 9):
+        q = rng.integers(-3, 4, (b, 24)).astype(np.float32)
+        for k in (1, 128):
+            _topk_exact(dev, q, items, allowed, k)
+
+
+def test_topk_plan_matches_the_c_entry(dev):
+    """The Python plan's workspace is what the C entry asks for, and the C
+    entry refuses a plan that leaves items out."""
+    lib = runtime.build_kernels()
+    for b, n, k in ((1, 26_744, 128), (64, 1_048_576, 128), (9, 257, 1)):
+        plan = kernels.topk_plan(b, n, 64, k, runtime.sm_count(dev))
+        assert plan.workspace_bytes == lib.pio_score_topk_workspace_bytes(
+            b, k, plan.item_blocks)
+    q = torch.zeros((1, 8), device=dev)
+    items = torch.zeros((3000, 8), device=dev)
+    out_s = torch.empty((1, 5), device=dev)
+    out_i = torch.empty((1, 5), dtype=torch.int32, device=dev)
+    work = torch.empty(1 << 16, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for blocks, per in ((1, 11), (3, 3), (13, 1)):  # 12 tiles hold 3,000
+        rc = lib.pio_score_topk(q.data_ptr(), items.data_ptr(), None, 1,
+                                3000, 8, 5, blocks, per, out_s.data_ptr(),
+                                out_i.data_ptr(), work.data_ptr(),
+                                work.numel(), stream)
+        assert rc != 0, (blocks, per)
+
+
 # -- ALS bucket solves (ops/als_kernels.py → csrc/als_solve.cu) ---------------
 
 def _als_problem(dev, m, k, b, d, seed):
@@ -149,6 +250,73 @@ def test_als_fused_matches_plain(dev, m, k, b, d, dtype, implicit):
         torch.cuda.synchronize()
         assert _rel(got, ref) < tol, warm is None
         assert (got[mask.sum(-1) == 0] == 0).all()
+
+
+# (m, k, b, d): D = 1, D no multiple of a slab or of the slices, every
+# padded rank; row 3 (or the last) has no observation
+ALS_EDGE_SHAPES = [(60, 32, 5, 1), (60, 128, 4, 1), (400, 64, 5, 1000),
+                   (300, 24, 6, 700), (200, 10, 6, 333), (500, 16, 6, 130),
+                   (500, 32, 6, 2500), (500, 64, 6, 2500),
+                   (500, 128, 6, 2500), (2000, 128, 3, 9000)]
+
+
+@pytest.mark.parametrize("m,k,b,d", ALS_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_als_two_stage_one_slice_and_many(dev, m, k, b, d, dtype):
+    """The one-row two-stage kernel under a one-slice plan (the stage-1
+    block solves) and a many-slice plan (partial Grams, a fixed-order
+    sum, then the solve) on the same rows, cold and warm: each within the
+    tolerance of the plain version (1e-3 where D < K, whose Gram is
+    singular and 16 CG steps leave it unconverged), of each other, and on
+    the row with no observation. Beyond that tolerance a D < K system is
+    held to its f64 solve instead: no more than 3x as far from it as the
+    plain version (chip_smoke.als_tolerance's rule)."""
+    table, cols, vals, mask, x0 = _als_problem(dev, m, k, b, d, k + d)
+    table = table.to(dtype)
+    tol = 1e-4 if dtype == torch.float32 and d >= k else 1e-3
+    empty = min(3, b - 1)
+    for warm in (None, x0):
+        ref = als_kernels.als_solve_cg_plain(table, cols, vals, mask, 0.05,
+                                             x0=warm)
+        outs = [als_kernels._two_stage(table, cols, vals, mask, 0.05, True,
+                                       16, 1, warm, n_sms=n)
+                for n in (1, 1000)]
+        torch.cuda.synchronize()
+        slices = [als_kernels.two_stage_plan(b, d, k, n).slices
+                  for n in (1, 1000)]
+        assert slices[0] == 1 and (slices[1] > 1 or d <= 128), slices
+        for got in outs:
+            far = _rel(got, ref) >= tol or float(
+                (got[empty] - ref[empty]).abs().max()) > \
+                tol * float(ref.abs().max())
+            if far and d < k:
+                exact = _f64_two_stage(table, cols, vals.to(dtype).float(),
+                                       mask, 0.05, 16, warm)
+                assert _rel(got.double(), exact) <= \
+                    3 * _rel(ref.double(), exact) + 1e-6
+            else:
+                assert not far, (slices, warm is None)
+        if d >= k:
+            assert _rel(outs[1], outs[0]) < tol
+
+
+def _f64_two_stage(table, cols, vals, mask, l2, iters, x0):
+    """The two-stage bucket solve in f64 (the plain version's Gram, rhs and
+    CG with sums pushed below f32 rounding)."""
+    t = table.double()[cols] * mask.double()[..., None]
+    gram = torch.einsum("bdk,bdl->bkl", t, t)
+    rhs = torch.einsum("bd,bdk->bk", vals.double() * mask.double(), t)
+    lam = l2 * mask.double().sum(-1).clamp(min=1.0)
+    return als_kernels.cg_plain(gram, rhs, lam, iters,
+                                None if x0 is None else x0.double())
+
+
+def test_als_two_stage_plan_matches_the_c_entry(dev):
+    lib = runtime.build_kernels()
+    for b, d, k in ((8, 32_768, 128), (13, 300, 24), (5, 1, 32)):
+        plan = als_kernels.two_stage_plan(b, d, k, runtime.sm_count(dev))
+        assert plan.workspace_bytes == \
+            lib.pio_als_two_stage_workspace_bytes(b, k, plan.slices)
 
 
 def test_als_launch_counts(dev):

@@ -215,3 +215,60 @@ def test_kernel_wrapper_rejects_bad_k():
     for k in (0, 129):
         with pytest.raises(ValueError):
             kernels.score_topk(_t(user)[None], _t(items), None, k)
+
+
+# -- the kernel's launch plan (ops/kernels.topk_plan), checked on the CPU ------
+
+PLAN_SHAPES = [(1, 26_744, 128, 10), (1, 26_744, 128, 128),
+               (64, 26_744, 128, 128), (1, 1_048_576, 64, 128),
+               (64, 1_048_576, 64, 128), (9, 257, 8, 1), (3, 1, 10, 1),
+               (524_280, 300, 16, 5), (2, 1_100_000, 8, 64)]
+
+
+@pytest.mark.parametrize("n_sms", [1, 132])
+@pytest.mark.parametrize("b,n_items,rank,k", PLAN_SHAPES)
+def test_topk_plan_puts_every_item_in_one_block(b, n_items, rank, k, n_sms):
+    plan = kernels.topk_plan(b, n_items, rank, k, n_sms)
+    span = plan.tiles_per_block * kernels.TOPK_TILE
+    starts = [i * span for i in range(plan.item_blocks)]
+    ends = [min(n_items, s + span) for s in starts]
+    assert starts[0] == 0 and ends[-1] == n_items
+    assert all(e > s for s, e in zip(starts, ends))  # no empty block
+    assert all(a == b for a, b in zip(ends[:-1], starts[1:]))
+    assert plan.n_tiles == -(-n_items // kernels.TOPK_TILE)
+    assert plan.item_blocks <= kernels.TOPK_MAX_LISTS
+    assert plan.row_groups * kernels.TOPK_ROWS >= b
+    assert plan.row_groups <= 65_535
+
+
+@pytest.mark.parametrize("b,n_items,rank,k", PLAN_SHAPES)
+def test_topk_plan_fills_the_card_in_one_wave(b, n_items, rank, k):
+    """At most two blocks per SM (one wave), and at least half of that
+    where the catalogue has the tiles: blocks of equally many whole
+    tiles lose at most half to the rounding."""
+    n_sms = 132
+    plan = kernels.topk_plan(b, n_items, rank, k, n_sms)
+    wave = kernels.TOPK_BLOCKS_PER_SM * n_sms
+    assert plan.item_blocks * plan.row_groups <= max(wave, plan.row_groups)
+    want = max(1, wave // plan.row_groups)
+    assert 2 * plan.item_blocks >= min(plan.n_tiles, want)
+
+
+def test_topk_plan_geometry_is_the_kernel_sources():
+    """The plan's tile, rows per block, blocks per SM and list limit are
+    read from the kernel source, their one owner, which builds with them."""
+    src = (runtime.CSRC_DIR / "score_topk.cu").read_text()
+    for name, value in (("kTile", kernels.TOPK_TILE),
+                        ("kMaxRows", kernels.TOPK_ROWS),
+                        ("kBlocksPerSm", kernels.TOPK_BLOCKS_PER_SM)):
+        assert f"\nconstexpr int {name} = {value};" in src
+    consts = runtime.csrc_constants("score_topk.cu")
+    assert kernels.TOPK_MAX_LISTS == consts["kMergeBuf"] - consts["kMaxK"]
+    assert "__launch_bounds__(kThreads, kBlocksPerSm)" in src
+
+
+@pytest.mark.parametrize("b,n_items,rank,k", PLAN_SHAPES)
+def test_topk_plan_workspace_bytes(b, n_items, rank, k):
+    plan = kernels.topk_plan(b, n_items, rank, k, 132)
+    # item_blocks sorted lists of k keys (f32 score and i32 id in 8 bytes)
+    assert plan.workspace_bytes == 8 * b * plan.item_blocks * k
