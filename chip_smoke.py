@@ -19,19 +19,22 @@ Phases, each of which fails the run on any error or mismatch:
              (:func:`topk_edge_cases`: ties either side of a tile and of a
              block's item range, threshold ties in later tiles, catalogues
              no multiple of the tile, k 1 and 128, fewer or no allowed
-             items, B 1 / 3 / 8 / 9 / 64, K 8 / 10 / 64 / 128 / 256). Ids
+             items, B 1 / 3 / 8 / 9 / 64, K 8 / 10 / 64 / 128 / 256, and
+             257 / 300 / 512, above which the reference pads too). Ids
              must agree except among near-ties (plain scores within 1e-5
              relative; integer-factor cases slot for slot); scores to rtol
              1e-5 and atol 1e-5 * max|score|.
 4. als-kernel — every ALS kernel entry against its plain version: the
-             reference tests' cases and ML-20M bucket shapes at rank 128,
-             f32 and bf16, cold and warm, R = 1 and 8, fused implicit with
-             YtY; tolerances in :func:`als_tolerance`, and the f32 systems
+             reference tests' cases, ML-20M bucket shapes at rank 128 and
+             ranks 129-300 (the Gram in 128 x 128 tiles), f32 and bf16,
+             cold and warm, R = 1 and 8, fused implicit with YtY;
+             tolerances in :func:`als_tolerance`, and the f32 systems
              with fewer observations than the rank also against an f64
-             solve; then the one-row two-stage kernel's split-D edges
-             (:func:`als_edge_phase`: D 1, D no multiple of a slab, ranks
-             10-128, an empty row, one slice against many on the same
-             rows).
+             solve; then both entries' split-D edges (:func:`als_edge_phase`:
+             D 1, D no multiple of a slab, ranks 10-256, an empty row, one
+             slice against many on the same rows); then training at rank
+             160 and 256 through the kernels against the plain route
+             (:func:`rank_train_phase`, ``als-rank``).
 5. flash-kernel — the flash-attention kernel against its plain version
              (the blockwise online softmax) on the card: the reference
              tests' cases (causal and not, ragged validity, fully masked
@@ -41,7 +44,8 @@ Phases, each of which fails the run on any error or mismatch:
              4096 / 8192 / 32768, f32 and bf16) and, in both dtypes, the
              cases of :func:`skip_cases` (dead key tiles between live ones,
              one live key at a tile's edge, rows padded 0 to 8,192, dead
-             query tiles, Sq != Skv with padding, D 8 / 24 / 80 / 128);
+             query tiles, Sq != Skv with padding, D 8 / 24 / 80 / 128),
+             heads of 160 / 200 / 256 and B x H 65,536;
              :func:`flash_tolerance`. The build's ``ptxas -v`` report of
              each flash instantiation is printed (``ptxas:`` lines).
 6. path    — a planted ALSModel at ML-20M width (138,493 users x 26,744
@@ -52,7 +56,8 @@ Phases, each of which fails the run on any error or mismatch:
 7. train   — 20,000,000 planted ratings at ML-20M width trained through
              ``Engine.train`` (rank 128, 4 sweeps, 2 in bf16), then from the
              same initial state on the plain route (``use_kernel=False``):
-             both ALS kernels must launch, the fit RMSE must be within the
+             the fused ALS entry (both half-sweeps) must launch, the fit
+             RMSE must be within the
              reference's parity bound of the plain route's and the heldout
              RMSE below 0.8.
 8. serve-trained — the trained model behind PredictionServer, each answer
@@ -73,7 +78,11 @@ Phases, each of which fails the run on any error or mismatch:
 11. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
              line (flash: the engine's windows, also left-padded with 1 to
-             4,096 live keys, and the bench's shapes); the flash kernel,
+             4,096 live keys, and the bench's shapes; the repaired limits'
+             shapes); ``cg:`` lines (the heaviest fused chunk at 0 and 16
+             CG steps), ``fused-rule:`` lines (one item half-sweep through
+             either ALS entry: why both sides take the fused one); the
+             flash kernel,
              plain dense and plain blockwise at the engine's head for S =
              1,024 to 8,192 (``crossover:`` lines); then the last line,
              ``{"ok": true, "device": {...}}``.
@@ -187,7 +196,9 @@ def topk_edge_cases(small: bool = False) -> list:
     blocks, catalogues that are no multiple of the tile, k 1 and 128,
     fewer allowed items than k, none allowed, B 1 / 3 / 8 / 9 / 64 (one
     row group of exactly B rows, and partial groups of 8) and K 8 / 10 /
-    64 / 128 / 256."""
+    64 / 128 / 256, and above 256, where the query rows stream by chunk
+    (257, 300, 512; a model of any rank is served, as by the
+    reference)."""
     rng = np.random.default_rng(13)
     cases = []
     for n_items, b in ((26_744, 1), (5_000 if small else 1_048_576, 1),
@@ -224,7 +235,7 @@ def topk_edge_cases(small: bool = False) -> list:
         for k in (1, 128):
             cases.append((f"none_allowed_b{b}_k{k}", q, items,
                           np.zeros(5000, bool), k, False))
-    for rank in (8, 10, 64, 128, 256):
+    for rank in (8, 10, 64, 128, 256, 257, 300, 512):
         items = rng.standard_normal((3000, rank), np.float32)
         mask = rng.random(3000) > 0.1
         for b in (1, 3, 8, 9, 64):
@@ -522,6 +533,9 @@ TOPK_SHAPES = (
     (64, ML20M["items"], ML20M["rank"], 128),
     (1, MIPS_CATALOGUE["items"], MIPS_CATALOGUE["rank"], 128),
     (64, MIPS_CATALOGUE["items"], MIPS_CATALOGUE["rank"], 128),
+    # above rank 256 (the query rows streamed by chunk)
+    (1, ML20M["items"], 300, 10),
+    (64, ML20M["items"], 512, 128),
 )
 
 
@@ -596,6 +610,15 @@ def als_cases(chunk_elems: int, small: bool = False) -> list:
             # entries' D < K errors are read over as many rows
             cases.append((f"ml20m_d{d}_b{b_fused}", m_two, m_fused, 128,
                           b_fused, b_fused, d, 0.03, True, 16, None, ()))
+    # above rank 128, where the reference trains too: the Gram in 128 x 128
+    # tiles of the padded rank (one tile of 256 for K 129, 160 and 256, six
+    # of 384 for 300; K 129 no multiple of 4 elements), D < K at 256, and
+    # few wide rows (many slices of each)
+    for k, b, d in ((129, 12, 400), (160, 24, 1000), (256, 16, 300),
+                    (256, 6, 100), (300, 8, 500), (256, 4, 20_000)):
+        d = min(d, 2000) if small else d
+        cases.append((f"rank{k}_d{d}", 3000, 3000, k, b, b, d, 0.03, True,
+                      16, None, ("f32", "bf16") if d <= 1000 else ()))
     return cases
 
 
@@ -676,6 +699,8 @@ def als_kernel_phase(dev, ak, chunk_elems: int, small: bool = False):
 
     for (name, m_two, m_fused, k, b_two, b_fused, d, l2, reg_nnz, iters,
          density, implicit_dtypes) in als_cases(chunk_elems, small):
+        if k > 128 and not hasattr(ak, "solve_plan"):
+            continue  # an older A/B copy, which stops at 128
         for side, m, b in (("two", m_two, b_two), ("fused", m_fused,
                                                    b_fused)):
             table, cols, vals, mask, x0 = als_problem(rng, m, k, b, d,
@@ -737,18 +762,19 @@ def als_kernel_phase(dev, ak, chunk_elems: int, small: bool = False):
 
 
 def als_edge_phase(dev, ak):
-    """The one-row two-stage kernel at the edges of its split-D design, f32
-    and bf16, cold and warm, each against the plain version at
-    :func:`als_tolerance`: D = 1, D no multiple of a slab or of the
-    slices, ranks 10 / 16 / 24 / 32 / 64 / 128, a row with no observation
-    (row 3 of every problem), and the same rows under a one-slice plan and
-    a many-slice plan (``n_sms`` 1 and 1,000 in ``two_stage_plan``), held
-    to the plain version and to each other. A system with D < K beyond
-    the tolerance (a singular Gram, which 16 CG steps iterate on past
-    convergence, amplifying the order of sums) is held instead to the f64
-    solve of the same system: no more than 3x as far from it as the plain
-    version, the rule of :func:`als_tolerance`. Returns (#checks, max
-    relative error by case kind); raises with every failure."""
+    """Both ALS entries at the edges of their split-D design, f32 and bf16,
+    cold and warm, each against its plain version at :func:`als_tolerance`:
+    D = 1, D no multiple of a slab or of the slices, ranks 10 / 16 / 24 /
+    32 / 64 / 128 and 160 / 256 (Gram tiles), a row with no observation
+    (row 3 of every problem: exactly 0 from the fused entry), and the same
+    rows under a one-slice plan and a many-slice plan (``n_sms`` 1 and
+    1,000 in ``solve_plan``), held to the plain version and to each other.
+    A system with D < K beyond the tolerance (a singular Gram, which 16 CG
+    steps iterate on past convergence, amplifying the order of sums) is
+    held instead to the f64 solve of the same system: no more than 3x as
+    far from it as the plain version, the rule of :func:`als_tolerance`.
+    Returns (#checks, max relative error by case kind); raises with every
+    failure."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -759,8 +785,14 @@ def als_edge_phase(dev, ak):
              ("d333_k10", 200, 10, 6, 333, 0.8)]
     cases += [(f"d{d}_k{k}", 500, k, 6, d, None)
               for k in (16, 32, 64, 128) for d in (130, 2500)]
-    # the plans run on the card only; an older A/B copy has none
-    split = dev.type == "cuda" and hasattr(ak, "two_stage_plan")
+    # the plans run on the card only; an older A/B copy has no fused plan
+    # and no tiles above 128
+    split = dev.type == "cuda" and hasattr(ak, "_two_stage")
+    tiled = hasattr(ak, "solve_plan")
+    if tiled:
+        cases += [("d1_k160", 60, 160, 4, 1, None),
+                  ("d3000_k160", 900, 160, 5, 3000, None),
+                  ("d9000_k256", 900, 256, 3, 9000, None)]
     failures, checks, worst = [], 0, {}
     for name, m, k, b, d, density in cases:
         table, cols, vals, mask, x0 = (t(a) for a in als_problem(
@@ -770,56 +802,69 @@ def als_edge_phase(dev, ak):
             tol = als_tolerance(dtype, d, k)
             tab = table.to(dtype)
             for warm in (None, x0):
-                what = (f"{name} {str(dtype)[6:]} "
-                        f"{'warm' if warm is not None else 'cold'}")
-                ref = ak.als_solve_cg_plain(tab, cols, vals, mask, 0.05,
-                                            x0=warm)
-                # the system the kernel solves, in f64: the table's and
-                # the rhs weights' values rounded to the table's dtype
-                exact = (f64_solve(ak, tab.float(), cols,
-                                   vals.to(dtype).float(), mask, 0.05, True,
-                                   16, warm, False) if d < k else None)
-                outs = {"plan": ak.als_solve_cg(tab, cols, vals, mask, 0.05,
-                                                x0=warm)}
-                if split:
-                    for n_sms in (1, 1000):
-                        outs[f"n_sms={n_sms}"] = ak._two_stage(
-                            tab, cols, vals, mask, 0.05, True, 16, 1, warm,
-                            n_sms=n_sms)
-                sync(dev)
-                for tag, got in outs.items():
-                    checks += 1
-                    err, rel = _rel_err(got, ref)
-                    worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0),
-                                                rel)
-                    row_err = float((got[empty] - ref[empty]).abs().max())
-                    far = rel > tol or row_err > tol * max(
-                        float(ref.abs().max()), 1e-30)
-                    if far and exact is not None:
-                        k_f64 = _rel_err(got.double(), exact)[1]
-                        p_f64 = _rel_err(ref.double(), exact)[1]
-                        for key, v in ((f"{str(dtype)[6:]} D<K vs f64", k_f64),
-                                       (f"{str(dtype)[6:]} D<K plain vs f64",
-                                        p_f64)):
-                            worst[key] = max(worst.get(key, 0.0), v)
-                        far = k_f64 > 3 * p_f64 + 1e-6
-                        if far:
-                            failures.append(f"{what} {tag}: {k_f64:.3e} "
-                                            "from the f64 solve, the plain "
-                                            f"version {p_f64:.3e}")
-                    elif not bool(torch.isfinite(got).all()) or rel > tol:
-                        failures.append(f"{what} {tag}: {rel:.3e} of "
-                                        f"max|x_plain|, above {tol}")
-                    elif far:
-                        failures.append(f"{what} {tag}: the empty row is "
-                                        f"{row_err:.3e} from the plain one")
-                if split and exact is None:  # D < K: both held to f64
-                    checks += 1
-                    rel = _rel_err(outs["n_sms=1000"], outs["n_sms=1"])[1]
-                    worst["slices"] = max(worst.get("slices", 0.0), rel)
-                    if rel > tol:
-                        failures.append(f"{what}: one slice and many differ "
-                                        f"by {rel:.3e} of max|x|")
+                for fused in ((False, True) if tiled else (False,)):
+                    what = (f"{name} {'fused' if fused else 'two'} "
+                            f"{str(dtype)[6:]} "
+                            f"{'warm' if warm is not None else 'cold'}")
+                    if fused:
+                        ref = ak.als_fused_solve_cg_plain(
+                            tab, cols, vals, mask, 0.05, x0=warm)
+                        outs = {"plan": ak.als_fused_solve_cg(
+                            tab, cols, vals, mask, 0.05, x0=warm)}
+                    else:
+                        ref = ak.als_solve_cg_plain(tab, cols, vals, mask,
+                                                    0.05, x0=warm)
+                        outs = {"plan": ak.als_solve_cg(
+                            tab, cols, vals, mask, 0.05, x0=warm)}
+                    if split:
+                        for n_sms in (1, 1000):
+                            args = (tab, cols, vals, mask, 0.05, True, 16)
+                            outs[f"n_sms={n_sms}"] = (
+                                ak._fused(*args, False, 1.0, None, warm,
+                                          n_sms=n_sms) if fused else
+                                ak._two_stage(*args, 1, warm, n_sms=n_sms))
+                    # the system the kernel solves, in f64: the table's and
+                    # the rhs weights' values rounded to the table's dtype
+                    exact = (f64_solve(ak, tab.float(), cols,
+                                       vals.to(dtype).float(), mask, 0.05,
+                                       True, 16, warm, fused)
+                             if d < k else None)
+                    sync(dev)
+                    for tag, got in outs.items():
+                        checks += 1
+                        err, rel = _rel_err(got, ref)
+                        key = str(dtype)[6:]
+                        worst[key] = max(worst.get(key, 0), rel)
+                        if fused and bool((got[empty] != 0).any()):
+                            failures.append(f"{what} {tag}: the empty row "
+                                            "is not exactly 0")
+                        row_err = float((got[empty] - ref[empty]).abs().max())
+                        far = rel > tol or row_err > tol * max(
+                            float(ref.abs().max()), 1e-30)
+                        if far and exact is not None:
+                            k_f64 = _rel_err(got.double(), exact)[1]
+                            p_f64 = _rel_err(ref.double(), exact)[1]
+                            for wk, v in ((f"{key} D<K vs f64", k_f64),
+                                          (f"{key} D<K plain vs f64", p_f64)):
+                                worst[wk] = max(worst.get(wk, 0.0), v)
+                            if k_f64 > 3 * p_f64 + 1e-6:
+                                failures.append(
+                                    f"{what} {tag}: {k_f64:.3e} from the f64 "
+                                    f"solve, the plain version {p_f64:.3e}")
+                        elif not bool(torch.isfinite(got).all()) or rel > tol:
+                            failures.append(f"{what} {tag}: {rel:.3e} of "
+                                            f"max|x_plain|, above {tol}")
+                        elif far:
+                            failures.append(f"{what} {tag}: the empty row is "
+                                            f"{row_err:.3e} from the plain "
+                                            "one")
+                    if split and exact is None:  # D < K: both held to f64
+                        checks += 1
+                        rel = _rel_err(outs["n_sms=1000"], outs["n_sms=1"])[1]
+                        worst["slices"] = max(worst.get("slices", 0.0), rel)
+                        if rel > tol:
+                            failures.append(f"{what}: one slice and many "
+                                            f"differ by {rel:.3e} of max|x|")
     if failures:
         raise AssertionError(f"{len(failures)} of {checks} ALS edge checks "
                              "failed:\n" + "\n".join(failures))
@@ -920,12 +965,12 @@ def train_phase(dev, runtime, als, engine, base, params_mod, context,
     ho = als.rmse(trained, ho_u, ho_i, ho_r)
     ho_plain = als.rmse(plain, ho_u, ho_i, ho_r)
     stdev = float(np.std(pd.ratings))
-    fused_n = counts["als_fused_solve_cg"]
-    two_n = counts["als_solve_cg"]
-    if dev.type == "cuda" and (fused_n <= 0 or two_n <= 0):
-        raise AssertionError(f"training launched als_fused_solve_cg "
-                             f"{fused_n} and als_solve_cg {two_n} times; "
-                             "both must run on the path")
+    # ops/als.py routes both half-sweeps to the fused entry, which must
+    # have launched
+    on_path = ["als_fused_solve_cg"]
+    if dev.type == "cuda" and any(counts[e] <= 0 for e in on_path):
+        raise AssertionError(f"training launched {counts}; {on_path} must "
+                             "run on the path")
     if not fit < max(1.15 * fit_plain, fit_plain + 0.02):
         raise AssertionError(f"fit RMSE {fit:.4f} against the plain route's "
                              f"{fit_plain:.4f}")
@@ -946,8 +991,64 @@ def train_phase(dev, runtime, als, engine, base, params_mod, context,
         "launches": {k: counts[k] for k in
                      ("als_fused_solve_cg", "als_solve_cg",
                       "als_solve_cg_rows8")},
+        "on_path": on_path,
     }
     return model, pd, eng, ep, stats, (u_tree, i_tree, plain)
+
+
+def rank_train_phase(dev, runtime, als, planted, small: bool = False):
+    """Training above rank 128 on the card (A1): planted ratings (4,000
+    users x 2,000 items, 400,000 ratings) at rank 160 and 256 through the
+    kernels, every bucket routed to them (the fused entry on the user side,
+    the two-stage one on the item side), 3 sweeps (1 bf16), then the plain
+    route from the same initial state: both entries must launch and the
+    fit RMSE must be within the reference's parity bound of the plain
+    route's; then ``als_train`` itself at each rank (its launches counted).
+    Returns stats by rank."""
+    n_u, n_i, nnz = (400, 300, 20_000) if small else (4000, 2000, 400_000)
+    users, items, ratings, _ = planted.planted_ratings(
+        n_users=n_u, n_items=n_i, nnz=nnz, n_holdout=1000, seed=9)
+    trees = als.prepare_trees(users, items, ratings, n_u, n_i, device=dev)
+    out = {}
+    for rank in (160, 256):
+        init = als.als_init(torch.Generator().manual_seed(rank), n_u, n_i,
+                            rank, device=dev)
+        fits, launches = [], {}
+        for use_kernel in (True, False):
+            runtime.reset_launch_counts()
+            st = als._mixed_run(init, trees[0], trees[1], 0.03, 3, 1, True,
+                                torch.float32, trees[2], trees[3],
+                                use_kernel=use_kernel, use_fused=(True, False))
+            sync(dev)
+            counts = runtime.launch_counts()
+            for f in (st.user_factors, st.item_factors):
+                if not bool(torch.isfinite(f).all()):
+                    raise AssertionError(f"rank {rank}: non-finite factors")
+            if use_kernel:
+                launches = {k: counts[k] for k in ("als_fused_solve_cg",
+                                                   "als_solve_cg")}
+            fits.append(als.rmse(st, users, items, ratings))
+        if dev.type == "cuda" and min(launches.values()) <= 0:
+            raise AssertionError(f"rank {rank}: kernel launches {launches}")
+        if not fits[0] < max(1.15 * fits[1], fits[1] + 0.02):
+            raise AssertionError(f"rank {rank}: fit RMSE {fits[0]:.4f} "
+                                 f"against the plain route's {fits[1]:.4f}")
+        runtime.reset_launch_counts()
+        state, _ = als.als_train(users, items, ratings, n_u, n_i, rank=rank,
+                                 iterations=2, l2=0.03, device=dev)
+        sync(dev)
+        counts = runtime.launch_counts()
+        train_launches = counts["als_fused_solve_cg"] + counts["als_solve_cg"]
+        if dev.type == "cuda" and train_launches <= 0:
+            raise AssertionError(f"als_train at rank {rank} launched no ALS "
+                                 "kernel")
+        if tuple(state.user_factors.shape) != (n_u, rank) or not bool(
+                torch.isfinite(state.user_factors).all()):
+            raise AssertionError(f"als_train at rank {rank}: bad factors")
+        out[rank] = {"fit_rmse": fits[0], "fit_rmse_plain": fits[1],
+                     "launches": launches,
+                     "als_train_launches": train_launches}
+    return out
 
 
 def base_engine(engine, source):
@@ -1052,12 +1153,25 @@ def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True):
                                          iters=iters, x0=x0)
     got, ref = fn(), plain()
     err, rel = _rel_err(got, ref)
+    f64 = {}
     if rel > als_tolerance(table.dtype, cols.shape[1], table.shape[1],
                            trained=True):
-        raise AssertionError(f"{entry} on the main path's chunk: max error "
-                             f"{err:.3e} is {rel:.3e} of max|x_plain|")
-    f64 = {}
-    if exact and table.dtype == torch.float32:
+        # a D < K chunk beyond the tolerance is held to the f64 solve of the
+        # system it solves (the rule of als_tolerance), on its first rows
+        n = 1024
+        ref64 = (f64_solve(ak, table.float(), cols[:n],
+                           vals[:n].to(table.dtype).float(), mask[:n], 0.03,
+                           True, iters, x0[:n], entry == "als_fused_solve_cg")
+                 if cols.shape[1] < table.shape[1] else None)
+        if ref64 is None or _rel_err(got[:n].double(), ref64)[1] > 3 * \
+                _rel_err(ref[:n].double(), ref64)[1] + 1e-6:
+            raise AssertionError(f"{entry} {table.dtype} on the chunk (B "
+                                 f"{cols.shape[0]}, D {cols.shape[1]}): max "
+                                 f"error {err:.3e} is {rel:.3e} of "
+                                 "max|x_plain|")
+        f64 = {"f64_rel_err": _rel_err(got[:n].double(), ref64)[1],
+               "plain_f64_rel_err": _rel_err(ref[:n].double(), ref64)[1]}
+    if exact and table.dtype == torch.float32 and not f64:
         n = 1024
         exact = f64_solve(ak, table, cols[:n], vals[:n], mask[:n], 0.03,
                           True, iters, x0[:n], entry == "als_fused_solve_cg")
@@ -1084,10 +1198,11 @@ def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True):
         return torch.bmm(g.mT, g)
 
     calls = max(1, min(10, int(2e8 // max(g.numel(), 1))))
+    device_ms = graph_ms(fn, calls=calls, reps=reps)
     return {"dtype": str(table.dtype).replace("torch.", ""), "B": b, "D": d,
             "K": k, "nnz": int(mask.sum()), "iters": iters,
             "ms": median_ms(fn, reps=reps, warm=2),
-            "graph_ms": graph_ms(fn, calls=calls, reps=reps),
+            "graph_ms": device_ms, "us_per_row": 1e3 * device_ms / b,
             "plain_ms": median_ms(plain, reps=reps, warm=2),
             "library_ms": median_ms(gram, reps=reps, warm=2),
             "library_graph_ms": graph_ms(gram, calls=calls, reps=reps),
@@ -1125,7 +1240,11 @@ def als_shape_timings(ak, als, dev, chunk_elems, ds=(64, 128, 1024, 8192),
                       dtypes=(torch.float32,)):
     """Each ALS entry timed at the ML-20M bucket shapes of the als-kernel
     phase (D = 64, 128, 1,024 and 8,192, rank 128, one chunk of rows,
-    tables of ML-20M height), warm, in each of ``dtypes``."""
+    tables of ML-20M height), warm, in each of ``dtypes``: the fused entry
+    on the user side (gathering the item table, 13.7 MB in f32) and on the
+    item side (the user table, 70.9 MB), beside the two-stage entry on the
+    item side (R = 1 and 8, its gather included); ``us_per_row`` compares
+    entries whose chunks differ in rows."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -1134,12 +1253,14 @@ def als_shape_timings(ak, als, dev, chunk_elems, ds=(64, 128, 1024, 8192),
            "als_solve_cg_rows8": []}
     k = ML20M["rank"]
     for d in ds:
-        for entry, m, b in (
-                ("als_fused_solve_cg", ML20M["items"],
+        for entry, side, m, b in (
+                ("als_fused_solve_cg", "user", ML20M["items"],
                  fused_rows(d, k, chunk_elems)),
-                ("als_solve_cg", ML20M["users"],
+                ("als_fused_solve_cg", "item", ML20M["users"],
+                 fused_rows(d, k, chunk_elems)),
+                ("als_solve_cg", "item", ML20M["users"],
                  two_stage_rows(d, k, chunk_elems)),
-                ("als_solve_cg_rows8", ML20M["users"],
+                ("als_solve_cg_rows8", "item", ML20M["users"],
                  two_stage_rows(d, k, chunk_elems))):
             table, cols, vals, mask, prev = als_problem(rng, m, k, b, d)
             chunk = (t(cols), t(vals), t(mask),
@@ -1147,7 +1268,73 @@ def als_shape_timings(ak, als, dev, chunk_elems, ds=(64, 128, 1024, 8192),
             for dt in dtypes:
                 row = time_als(ak, als, entry, t(table).to(dt), chunk,
                                t(prev), exact=False)
-                out[entry].append(dict(shape=f"ml20m_d{d}", **row))
+                out[entry].append(dict(shape=f"ml20m_d{d}", side=side, **row))
+            del table, cols, vals, mask, prev, chunk
+    return out
+
+
+def cg_share(ak, als, chunk, table, prev) -> list:
+    """The CG's share of a fused chunk (f32, warm): device ms
+    (``graph_ms``) at 0 and ``CG_ITERS`` CG steps."""
+    cols, vals, mask, row_ids = chunk
+    x0 = als._gather_x0(prev, row_ids)
+    out = []
+    for iters in (0, als.CG_ITERS):
+        def fn(iters=iters):
+            return ak.als_fused_solve_cg(table, cols, vals, mask, 0.03,
+                                         iters=iters, x0=x0)
+        out.append({"iters": iters, "graph_ms": graph_ms(fn, calls=5)})
+    return out
+
+
+def fused_rule_timing(als, i_tree, user_factors, item_factors) -> list:
+    """One item half-sweep of the main path's kernel-routed buckets (the
+    split rows left out: the same on either route), gathering the user
+    table (70.9 MB in f32, 35.5 MB in bf16: from HBM), through the fused
+    entry and through the two-stage entry with its gather, in f32 and
+    bf16: ms from CUDA events around the half-sweep (host gaps between
+    bucket launches included), median of 3 after one warm-up: the routing
+    of ``ops/als._mixed_run`` (fused on both sides) against the other."""
+    out = []
+    n_items = item_factors.shape[0]
+    for dt in (torch.float32, torch.bfloat16):
+        iters = als.CG_ITERS if dt == torch.float32 else als.CG_ITERS_BF16
+        src = user_factors.to(dt)
+        for fused in (False, True):
+            def half_sweep(fused=fused):
+                return als._sweep_side(
+                    n_items, src, i_tree, None, 0.03, True, dt,
+                    cg_iters=iters, use_kernel=True,
+                    kernel_min_d=als.KERNEL_MIN_D, prev_factors=item_factors,
+                    use_fused=fused)
+            out.append({"side": "item", "dtype": str(dt)[6:],
+                         "route": "fused" if fused else "two_stage+gather",
+                         "ms": median_ms(half_sweep, reps=3, warm=1)})
+    return out
+
+
+def als_rank_timings(ak, als, dev, chunk_elems) -> dict:
+    """Both ALS entries above rank 128 (K 256: three 128 x 128 Gram tiles)
+    at an ML-20M user-bucket shape (fused, D 256, the chunk's rows capped
+    at 2,048) and an item-bucket one (two-stage, D 8,192, one chunk), f32
+    and bf16, warm: the times of the repaired fault."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rng = np.random.default_rng(15)
+    k = 256
+    out = {"als_fused_solve_cg": [], "als_solve_cg": []}
+    for entry, m, b, d in (
+            ("als_fused_solve_cg", ML20M["items"],
+             min(2048, fused_rows(256, k, chunk_elems)), 256),
+            ("als_solve_cg", ML20M["users"],
+             two_stage_rows(8192, k, chunk_elems), 8192)):
+        table, cols, vals, mask, prev = als_problem(rng, m, k, b, d)
+        chunk = (t(cols), t(vals), t(mask), torch.arange(b, device=dev))
+        for dt in (torch.float32, torch.bfloat16):
+            row = time_als(ak, als, entry, t(table).to(dt), chunk, t(prev),
+                           reps=5, exact=False)
+            out[entry].append(dict(shape=f"rank{k}_d{d}", **row))
     return out
 
 
@@ -1242,6 +1429,23 @@ def flash_cases(small: bool = False) -> list:
          left_padded(2, 200, [150, 0])),
         ("d80_not_causal", 1, 130, 130, 2, 80, torch.float32, False,
          left_padded(1, 130, [65])),
+        # heads wider than 128 (the D-tiled kernel: one, two and a partial
+        # block of 128 output columns), as the reference takes any D
+        ("wide_d160", 2, 500, 500, 2, 160, torch.float32, True,
+         left_padded(2, 500, [300, 0])),
+        ("wide_d160_bf16", 2, 500, 500, 2, 160, torch.bfloat16, True,
+         left_padded(2, 500, [300, 0])),
+        ("wide_d256", 1, 700, 700, 2, 256, torch.float32, True,
+         holes(1, 700)),
+        ("wide_d256_bf16_not_causal", 1, 300, 700, 2, 256, torch.bfloat16,
+         False, holes(1, 700)),
+        ("wide_d200", 1, 130, 130, 1, 200, torch.float32, True,
+         left_padded(1, 130, [1])),
+        # more than 65,535 batch x heads (grid x), at a small S
+        ("bh65536_h1", 65_536, 16, 16, 1, 8, torch.float32, True,
+         left_padded(65_536, 16, [16, 3] * 32_768)),
+        ("bh65536_h256_bf16", 256, 24, 24, 256, 16, torch.bfloat16, True,
+         None),
     ]
     s = 700 if small else SEQ["max_len"] - 1
     dh = SEQ["d_model"] // SEQ["n_heads"]
@@ -1651,6 +1855,14 @@ def flash_timings(fa, dev) -> list:
         for dt in (torch.float32, torch.bfloat16):
             rows.append(time_flash(fa, dev, rng, f"bench_s{n}", FLASH_BENCH[
                 "b"], n, FLASH_BENCH["h"], FLASH_BENCH["d"], dt, None))
+    # heads wider than 128 (the D-tiled kernel) at the bench's S 4,096, and
+    # 65,536 batch x heads at a short window
+    for d in (160, 256):
+        for dt in (torch.float32, torch.bfloat16):
+            rows.append(time_flash(fa, dev, rng, f"wide_d{d}_s4096", 1, 4096,
+                                   FLASH_BENCH["h"], d, dt, None))
+    rows.append(time_flash(fa, dev, rng, "bh65536_s64", 65_536, 64, 1, 32,
+                           torch.float32, None))
     return rows
 
 
@@ -1687,12 +1899,13 @@ def flash_resources(runtime) -> list:
     lib = runtime.build_kernels()
     rows = []
     for r in runtime.kernel_resources("flash_attention"):
-        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+                      r"|flash_wide_kernelI(f|13__nv_bfloat16)E",
                       str(r["function"]))
         if not m:
             continue
-        bf16 = m.group(1) != "f"
-        dp = int(m.group(2))
+        bf16 = (m.group(1) or m.group(3)) != "f"
+        dp = int(m.group(2)) if m.group(2) else 256  # wide: any D above 128
         rows.append(dict(dtype="bfloat16" if bf16 else "float32",
                          head_pad=dp,
                          dynamic_smem=lib.pio_flash_smem_bytes(dp, int(bf16)),
@@ -1734,12 +1947,31 @@ def als_only(dev, ak, als) -> int:
           f"versions, max abs error {json.dumps(errs)}, max relative error "
           f"{json.dumps(worst)}, edges {json.dumps(edge_worst)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if hasattr(ak, "solve_plan"):  # an older A/B copy trains only <= 128
+        from incubator_predictionio_tpu_torch import runtime
+        from incubator_predictionio_tpu_torch.utils import planted
+
+        print(f"als-rank: {json.dumps(rank_train_phase(dev, runtime, als, planted))}",
+              flush=True)
     times = als_shape_timings(ak, als, dev, als.CHUNK_ELEMS,
-                              ds=(64, 128, 1024, 8192, 32768),
+                              ds=(64, 128, 256, 1024, 8192, 32768),
                               dtypes=(torch.float32, torch.bfloat16))
+    if hasattr(ak, "solve_plan"):
+        for entry, rows in als_rank_timings(ak, als, dev,
+                                            als.CHUNK_ELEMS).items():
+            times[entry] += rows
     for entry, rows in times.items():
         for row in rows:
             print(f"time: {json.dumps(dict(name=entry, **row))}", flush=True)
+    # the CG's share at the main path's heaviest fused chunk's shape
+    rng = np.random.default_rng(16)
+    table, cols, vals, mask, prev = als_problem(rng, ML20M["items"], 128,
+                                                14_563, 256)
+    chunk = tuple(torch.from_numpy(a).to(dev) for a in (cols, vals, mask)) \
+        + (torch.arange(14_563, device=dev),)
+    for row in cg_share(ak, als, chunk, torch.from_numpy(table).to(dev),
+                        torch.from_numpy(prev).to(dev)):
+        print(f"cg: {json.dumps(row)}", flush=True)
     print(json.dumps({"als_ok": True, "kind": torch.cuda.get_device_name(0)}))
     return 0
 
@@ -1834,6 +2066,10 @@ def main() -> int:
           f"relative error {json.dumps(als_worst)}, edges "
           f"{json.dumps(edge_worst)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    t0 = time.perf_counter()
+    rank_stats = rank_train_phase(dev, runtime, als, planted)
+    print(f"als-rank: {json.dumps(rank_stats)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     err_f, flash_rel = flash_phase(dev, fa)
@@ -1875,12 +2111,21 @@ def main() -> int:
         print(f"time: {json.dumps(s)}", flush=True)
     als_times = als_timings(ak, als, (u_tree, i_tree), model, plain,
                             als.CHUNK_ELEMS)
-    for entry, rows in als_shape_timings(ak, als, dev,
-                                         als.CHUNK_ELEMS).items():
-        als_times[entry] += rows
+    for extra in (als_shape_timings(ak, als, dev, als.CHUNK_ELEMS),
+                  als_rank_timings(ak, als, dev, als.CHUNK_ELEMS)):
+        for entry, rows in extra.items():
+            als_times[entry] += rows
     for entry, rows in als_times.items():
         for row in rows:
             print(f"time: {json.dumps(dict(name=entry, **row))}", flush=True)
+    user_chunk = heaviest_chunk(u_tree, ML20M["rank"], als.KERNEL_MIN_D,
+                                als.CHUNK_ELEMS, fused=True)
+    for row in cg_share(ak, als, user_chunk, model.item_factors,
+                        plain.user_factors):
+        print(f"cg: {json.dumps(row)}", flush=True)
+    for row in fused_rule_timing(als, i_tree, model.user_factors,
+                                 model.item_factors):
+        print(f"fused-rule: {json.dumps(row)}", flush=True)
     head = shapes[0]
     entries = [{
         "name": "score_topk",
@@ -1925,6 +2170,12 @@ def main() -> int:
                 "the main path runs R = 1 (ops/als.py KERNEL_ROWS, the JAX "
                 "default); R = 8 is launched by the als-kernel phase and "
                 "timed here on the main path's heaviest item chunk")
+        elif entry not in train_stats["on_path"]:
+            entries[-1]["path_note"] = (
+                "off the main path (ops/als.py routes both sides to the "
+                "fused entry); launched and held to its plain "
+                "version by the als-kernel and als-rank phases, timed here "
+                "on the main path's heaviest item chunk")
     flash_rows = flash_timings(fa, dev)
     for row in flash_rows:
         print(f"time: {json.dumps(dict(name='flash_attention', **row))}",

@@ -12,8 +12,8 @@
 //   * Gram[k][l] = sum_d gw_d t_dk t_dl and rhs[k] = sum_d rw_d t_dk, summed
 //     in f32. With a bf16 table both weights round to bf16 first and so does
 //     the weighted row gw_d t_d (pallas_kernels.py:700, :782, :1082, :1091);
-//     bf16 x bf16 products are exact in f32. An f32 table is plain f32 FMAs,
-//     no TF32 (the TPU kernel pins Precision.HIGHEST).
+//     bf16 x bf16 products are exact in f32. An f32 table gives f32-accurate
+//     products (the TPU kernel pins Precision.HIGHEST): 3xTF32 below.
 //   * the ridge lam (and the implicit YtY) stay out of the Gram: the matvec
 //     is ap[k] = sum_l p[l] Gram[l][k] + lam p[k] (+ sum_l p[l] YtY[l][k]),
 //     in f32; the Jacobi diagonal is Gram[k][k] + lam (+ YtY[k][k]).
@@ -22,61 +22,79 @@
 //     and minv = diag > 0 ? 1 / diag : 0, so empty and converged systems are
 //     fixed points. The fused entry returns exactly 0 where nnz = 0
 //     (pallas_kernels.py:1318); the two-stage entry has no such guard.
-//   * rank padding (K up to KP, a multiple of 16) solves to exactly 0.
+//   * rank padding (K up to KP: 16, 32, 64 or 128, then a multiple of 128, as
+//     the TPU's als_padded_dims, pallas_kernels.py:846) solves to exactly 0.
 //
 // What bounds it on this card: the Gram, 2 * nnz * K^2 operations per
-// half-sweep against nnz * K elements gathered, so it is operations-bound
-// (at K = 128 in f32: 64 FMAs per 4-byte element read). The fused entry and
-// the R = 8 form run the products on the f32 FMA units (67 TFLOP/s on an
-// H100 SXM at 700 W, data sheet) also when the table is bf16; the one-row
-// two-stage form runs them on the tensor cores (989 TFLOP/s bf16; f32 as
-// 3xTF32 at 495/3).
+// half-sweep (half of them for its symmetric triangle) against nnz * K
+// elements gathered, so it is operations-bound: at K = 128 in f32, 64 FMAs
+// per 4-byte element read. The products run on the tensor cores: bf16
+// mma.sync m16n8k16 (989 TFLOP/s dense on an H100 SXM at 700 W, data
+// sheet), f32 as 3xTF32 m16n8k8 (the integer round-and-mask split of the
+// flash kernel, lo*lo dropped: 495/3 TFLOP/s). The R = 8 form keeps the
+// first design's f32 FMAs (67 TFLOP/s).
 //
-// Two-stage, one row (rows = 1): split-D partial Grams on the tensor cores.
-// A wide bucket has few rows (8 at D = 32,768) and each row's d range is
-// long, so one block per row would leave most SMs idle. The launch plan
-// (ops/als_kernels.two_stage_plan, computed in Python, checked here) cuts
-// each row's d range into S equal slices, so that B * S reaches two blocks
-// per SM where D allows; a block stages its slice in 64- or 128-row slabs.
-//   * Stage 1 (gram_slice_kernel), one block per (row, slice): slabs of the
-//     gathered [D, K] block come into shared memory by cp.async (16-byte
-//     copies, double-buffered; rows padded by 8 elements, so fragment reads
-//     are conflict-free). Gram = X^T X runs on mma.sync: bf16 m16n8k16, both
-//     operands from one ldmatrix.trans of the [d][k] slab, exact products
-//     into f32 accumulators; f32 as 3xTF32 m16n8k8 (the integer
-//     round-and-mask split of the flash kernel, lo*lo dropped). 8 warps
-//     tile the Gram (4 x 2 tiles of 32 x 64 at K = 128; below, warps also
-//     split the d steps and are added in warp order). The rhs is f32 FMAs.
-//     With one slice the block puts the Gram into shared memory and runs the
-//     CG itself; else it writes its partial record (Gram and rhs) to a
-//     workspace the wrapper allocates.
-//   * Stage 2 (S > 1): gram_reduce_kernel sums each row's S records in
-//     slice order (a fixed order: the result does not depend on scheduling)
-//     over many blocks; gram_solve_kernel, one block per row, loads the sum
-//     into the shared-memory Gram and runs the same CG as the other forms.
-// The fused entry and the R = 8 form keep the design below.
+// Design. One stage 1 serves both entries (GATHER: the fused entry's rows
+// table[cols[d]], Gram-weighted by gw; else the two-stage entry's gathered
+// [B, D, K] block, unweighted). A wide bucket has few rows (8 at D = 32,768)
+// and each row's d range is long, so one block per row would leave most SMs
+// idle: the launch plan (ops/als_kernels.solve_plan, computed in Python,
+// checked here) cuts each row's d range into S equal slices, so that B * S
+// (times the tiles below) reaches two blocks per SM where D allows.
+//   * Stage 1, one block per (row, slice) (gram_slice_kernel; above rank 128
+//     also per Gram tile, gram_tile_kernel): slabs of TD rows of d come
+//     into shared memory by cp.async, 16-byte copies double-buffered, so the
+//     next slab's L2/HBM reads overlap this slab's products; a slab's per-row
+//     inputs (the table row cols[d] and both weights) come one slab further
+//     ahead, in a ring of three, so a gathered row's address is known when
+//     its copy is issued. Rows that contribute nothing (both weights 0, or a
+//     column outside the table) are zero-filled, not read. The Gram runs on
+//     the tensor cores: bf16 from ldmatrix.trans of the [d][k] slab; f32 as
+//     3xTF32. Implicit confidences weigh the A fragment as it is loaded (in
+//     bf16 one rounding of the exact f32 product: the TPU's gw_d t_d; in f32
+//     one multiply before the split); the explicit weights are the 0/1 mask
+//     and need none. A slab's products (bf16; f32: a pair of k steps) go
+//     into a fresh accumulator added in IEEE f32: the tensor cores' own
+//     adds into a running sum drop bits, which a row's thousands of steps
+//     compound. Warps own 16-row m blocks
+//     and compute only the Gram's upper triangle (n blocks of 8 columns from
+//     the m block's diagonal on, the diagonal 16 x 16 block whole): 72 of 128
+//     products at K = 128, the m blocks paired (0 with 7, 1 with 6, ...) so
+//     the SM's four tensor-core sub-partitions get 18 n blocks each. Below
+//     rank 128 warps also split the d steps and are added in warp order.
+//     The rhs is f32 FMAs on the unweighted rows. With one slice the block
+//     solves the row itself; else it writes its partial record (Gram
+//     mirrored to the full square, rhs) to a workspace the wrapper allocates.
+//     With a bf16 table and confidence weights (implicit) the rounded
+//     weighted rows make the reference's Gram asymmetric; there every
+//     block is summed and nothing mirrored.
+//   * The CG with one slice at K = 128 runs its matvec from the Gram where
+//     the mma accumulators leave it: each thread's products with p are
+//     summed down the columns by a halving butterfly of warp shuffles and
+//     across a row quad, the eight warps' partial vectors added in warp
+//     order through shared memory (no atomics: the result does not depend
+//     on scheduling); four block syncs a CG step. Below 128 the Gram goes to
+//     shared memory and the matvec reads it there (cg_block's other form).
+//   * Stage 2 (S > 1): gram_reduce_kernel sums each row's S records in slice
+//     order (a fixed order) over many blocks; gram_solve_kernel, one block
+//     per row, loads the sum into a shared-memory Gram and runs the CG.
+//   * Above rank 128 a Gram of KP x KP f32 (256 KB at 256) does not fit in
+//     shared memory. Stage 1 then builds it in 128 x 128 tiles, one block
+//     per (row, slice, tile of the upper triangle), each writing its tile
+//     and its mirror into the row's record, and the rhs with the diagonal
+//     tiles; wide_solve_kernel runs the CG from the Gram in device memory
+//     (it stays in L2 across the steps), one block per row, its vectors in
+//     shared memory: the padded rank is at most kMaxRank.
 //
-// Design (fused, and R = 8). The TPU grid's sequential d axis (Gram carried in VMEM scratch
-// across d steps) becomes a loop over 32-row d tiles inside one block of 256
-// threads. Each tile's rows (gathered from the table by cols in the fused
-// entry, read from the [B, D, K] block gathered outside in the two-stage
-// one; each thread issues all its loads of a tile before it stores any)
-// are staged in shared memory as f32; each thread sums a TM x TM piece of
-// the Gram in registers (TM = KP / 16, 64 accumulators at K = 128) over 8
-// tiles, then adds it to the Gram in shared memory (KP x (KP + KP/8) f32,
-// 72 KB at K = 128, beside the tiles: 106 KB in all, dynamic shared memory
-// above 48 KB, two blocks per SM), so the Gram is never in device memory.
-// Then the whole CG runs in the block: the matvec splits each output
-// coordinate over 256 / KP threads (padded row stride, no bank conflicts),
-// the two dot products per step are block reductions.
-//
-// R = 8 rows per block (two-stage only): eight 64 KB Grams do not fit in
-// 227 KB of shared memory at K = 128, so the block builds the eight Grams
-// in turn, as above, copying each into a scratch buffer that the wrapper
-// allocates in device memory ([ceil(B / 8) * 8, KP, KP] f32), then runs the
-// CG batched over the group, one warp per row, reading its Gram from that
-// buffer (it stays in L2 across the CG steps). Every reduction is per row
-// (warp shuffles), so rows never mix. One layout serves every K.
+// R = 8 rows per block (two-stage only, rank <= 128; above, rows = 8 takes
+// the one-row path): eight 64 KB Grams do not fit in 227 KB of shared memory
+// at K = 128, so the block builds the eight Grams in turn in 32-row tiles of
+// f32 rows, each thread summing an 8 x 8 piece of the Gram in registers
+// (the first design of every form), copying each into a scratch buffer that
+// the wrapper allocates in device memory ([ceil(B / 8) * 8, KP, KP] f32),
+// then runs the CG batched over the group, one warp per row, reading its
+// Gram from that buffer (it stays in L2 across the CG steps). Every
+// reduction is per row (warp shuffles), so rows never mix.
 //
 // Plain C interface, bound from Python with ctypes; launches on the caller's
 // stream, allocates nothing, returns cudaGetLastError().
@@ -91,27 +109,41 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileD = 32;       // d rows staged per tile
-constexpr int kFlushTiles = 8;   // tiles summed in registers per flush
+constexpr int kTileD = 32;       // R = 8 form: d rows staged per tile
+constexpr int kFlushTiles = 8;   // R = 8 form: tiles summed per flush
 constexpr int kGroupRows = 8;    // rows per block of the R = 8 form
-constexpr int kMaxRank = 128;
-// rows of d in one staged slab of the split-D Gram (Mma<KP>::TD): padded
-// rank 64 and 128 take the wide slabs' fewer rows, 16 and 32 the narrow
+// rows of d in one staged slab of stage 1 (Tri<KT>::TD): padded rank 64 and
+// above take the wide slabs' fewer rows, 16 and 32 the narrow
 constexpr int kSlabRowsWide = 64;
 constexpr int kSlabRowsNarrow = 128;
-// the rank the kernels compute at: K rounded up to 16, 32, 64 or 128
+// above rank 128 the Gram is built in tiles of kGramTile x kGramTile
+constexpr int kGramTile = 128;
+// widest padded rank: the CG above 128 keeps five vectors of it in 160 KB of
+// shared memory (the TPU kernel pins a KP x KP f32 Gram in VMEM, far less)
+constexpr int kMaxRank = 8192;
+// two blocks per SM, so at most 128 registers a thread
+constexpr int kMinBlocks = 2;
+
+// the rank the kernels compute at: K rounded up to 16, 32, 64 or 128, then
+// to a multiple of kGramTile
 constexpr int padded_rank(int K) {
-  return K <= 16 ? 16 : K <= 32 ? 32 : K <= 64 ? 64 : 128;
+  return K <= 16 ? 16
+         : K <= 32 ? 32
+         : K <= 64 ? 64
+                   : (K + kGramTile - 1) / kGramTile * kGramTile;
 }
 constexpr int slab_rows(int kp) {
   return kp >= 64 ? kSlabRowsWide : kSlabRowsNarrow;
 }
-// two blocks per SM, so at most 128 registers a thread
-constexpr int kMinBlocks = 2;
+// stage-1 Gram tiles of one (row, slice): the upper triangle's above 128
+constexpr int gram_tiles(int kp) {
+  return kp <= kGramTile ? 1
+                         : (kp / kGramTile) * (kp / kGramTile + 1) / 2;
+}
 
 template <int KP>
 struct Geo {
-  static constexpr int TM = KP / 16;         // Gram rows/cols per thread
+  static constexpr int TM = KP / 16;         // R = 8: Gram rows/cols a thread
   static constexpr int TPR = kThreads / KP;  // threads per matvec output
   static constexpr int GS = KP + KP / 8;     // shared Gram row stride
   static constexpr int NQ = (KP + 31) / 32;  // coordinates per lane (R = 8)
@@ -133,6 +165,62 @@ template <>
 __device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+
+template <typename T>
+__device__ __forceinline__ float widen(T x);
+template <>
+__device__ __forceinline__ float widen<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_as();
+template <>
+__device__ __forceinline__ float zero_as<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_as<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();  // red is free again
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += red[w];
+  return t;
+}
+
+// block_sum with one sync: red holds two buffers of kWarps, used in turn
+// (par flips), so a buffer is rewritten only after another call's sync,
+// which every reader of its last use has passed
+__device__ __forceinline__ float block_sum2(float v, float* red, int& par) {
+  v = warp_sum(v);
+  float* r = red + par * kWarps;
+  par ^= 1;
+  if ((threadIdx.x & 31) == 0) r[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += r[w];
+  return t;
+}
+
+// -- the R = 8 form's Gram: 8 x 8 register pieces on the FMA units ----------
 
 // the Gram coordinate of a thread's i-th fragment element: two float4 runs
 // (64 apart) at TM = 8, one at TM = 4, contiguous below
@@ -163,29 +251,10 @@ __device__ __forceinline__ void fragment(const float* row, int t,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();  // red is free again
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) t += red[w];
-  return t;
-}
-
-// Shared-memory scratch of the Gram phase.
+// Shared-memory scratch of the R = 8 form's Gram phase.
 struct Tile {
   float* t;    // [kTileD, KP] rows as f32
-  float* w;    // [kTileD, KP] gw-weighted rows (fused only)
   float* rw;   // [kTileD] rhs weights
-  float* gw;   // [kTileD] Gram weights
   int* src;    // [kTileD] source row, -1 = contributes nothing
 };
 
@@ -208,19 +277,14 @@ __device__ __forceinline__ void flush(float (&acc)[Geo<KP>::TM][Geo<KP>::TM],
 }
 
 // One bucket row's Gram into G (shared, [KP][GS]) and its rhs into rhs
-// (threads tid < KP); the block syncs before it returns. FUSED: rows come
-// from table[cols[d]] weighted by gw; otherwise from the row's [D, K]
-// block, unweighted (already masked). Sums run in two levels, as the TPU
+// (threads tid < KP) from the row's [D, K] block (already masked), weights
+// wv; the block syncs before it returns. Sums run in two levels, as the TPU
 // kernel adds each d tile's product to its scratch: each thread sums
 // kFlushTiles tiles in registers (acc, part), then adds them to its own
-// coordinates of G and to rhs. A row of 40,000 observations is then ~160
-// sums of 256 terms, not one sum of 40,000 in turn, whose rounding the
-// unconverged CG would amplify.
-template <int KP, typename T, bool FUSED>
-__device__ void gram_rhs(const T* __restrict__ src, int M,
-                         const int* __restrict__ cols,
-                         const float* __restrict__ gw,
-                         const float* __restrict__ rw, size_t row, int D,
+// coordinates of G and to rhs.
+template <int KP, typename T>
+__device__ void gram_rhs(const T* __restrict__ g,
+                         const float* __restrict__ wv, size_t row, int D,
                          int K, Tile tile, float* G, float& rhs) {
   constexpr int TM = Geo<KP>::TM, GS = Geo<KP>::GS;
   constexpr int kPer = kTileD * KP / kThreads;  // tile elements per thread
@@ -236,28 +300,12 @@ __device__ void gram_rhs(const T* __restrict__ src, int M,
       G[own<TM>(ty, i) * GS + own<TM>(tx, j)] = 0.f;  // this thread's own
     }
   rhs = 0.f;
-  const T* base = FUSED ? src : src + row * D * K;
+  const T* base = g + row * D * K;
   for (int d0 = 0, n = 1; d0 < D; d0 += kTileD, ++n) {
     const int nd = min(kTileD, D - d0);
     if (tid < kTileD) {
-      int s = -1;
-      float wr = 0.f, wg = 0.f;
-      if (tid < nd) {
-        const size_t e = row * D + d0 + tid;
-        wr = round_as<T>(rw[e]);
-        if constexpr (FUSED) {
-          wg = round_as<T>(gw[e]);
-          s = cols[e];
-          // an entry with both weights 0 (padding) adds exactly nothing
-          if ((wg == 0.f && wr == 0.f) || s < 0 || s >= M) s = -1;
-        } else {
-          s = d0 + tid;
-          wg = 1.f;
-        }
-      }
-      tile.src[tid] = s;
-      tile.rw[tid] = wr;
-      tile.gw[tid] = wg;
+      tile.src[tid] = tid < nd ? d0 + tid : -1;
+      tile.rw[tid] = tid < nd ? round_as<T>(wv[row * D + d0 + tid]) : 0.f;
     }
     __syncthreads();
     // every load of the tile is issued before any is used, so a thread
@@ -271,16 +319,11 @@ __device__ void gram_rhs(const T* __restrict__ src, int M,
       v[q] = (s >= 0 && k < K) ? load_f(base, (size_t)s * K + k) : 0.f;
     }
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int e = tid + q * kThreads;
-      tile.t[e] = v[q];
-      if constexpr (FUSED) tile.w[e] = round_as<T>(tile.gw[e / KP] * v[q]);
-    }
+    for (int q = 0; q < kPer; ++q) tile.t[tid + q * kThreads] = v[q];
     __syncthreads();
-    const float* left = FUSED ? tile.w : tile.t;
     for (int d = 0; d < nd; ++d) {
       float a[TM], b[TM];
-      fragment<TM>(left + d * KP, ty, a);
+      fragment<TM>(tile.t + d * KP, ty, a);
       fragment<TM>(tile.t + d * KP, tx, b);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -297,7 +340,10 @@ __device__ void gram_rhs(const T* __restrict__ src, int M,
   __syncthreads();
 }
 
-// ap = Gram p + lam p (+ YtY p) for one row, the whole block; sp holds p.
+// -- the CG ------------------------------------------------------------------
+
+// ap = Gram p + lam p (+ YtY p) for one row, the whole block, from the Gram
+// in shared memory ([KP][GS]); sp holds p.
 template <int KP>
 __device__ void matvec_block(const float* G, const float* sp, float* sap,
                              float lam, const float* __restrict__ yty,
@@ -325,48 +371,53 @@ __device__ void matvec_block(const float* G, const float* sp, float* sap,
 }
 
 // Jacobi-PCG on (G + lam I [+ YtY]) x = b for one bucket row, the whole
-// block: G is the row's Gram in shared memory ([KP][GS]), b this thread's
-// rhs coordinate (threads tid < KP); x goes to out[row], or exactly 0 where
-// `empty`. sp, sap and red are shared scratch of KP, KP and 32 floats.
-template <int KP>
-__device__ void cg_block(const float* G, float b, float lam_r,
-                         const float* __restrict__ yty,
-                         const float* __restrict__ x0, size_t row, int K,
-                         int iters, float* sp, float* sap, float* red,
-                         bool empty, float* __restrict__ out) {
-  constexpr int GS = Geo<KP>::GS;
+// block: thread tid < KP holds coordinate tid, with dg = G[tid][tid] and b
+// its rhs; matvec(sp, sap) returns coordinate tid of ap = (G + lam I [+
+// YtY]) p for p in sp (sap: scratch it may use), every thread calling it.
+// x goes to out[row], or exactly 0 where `empty`. sp, sap and red are
+// shared scratch of KP, KP and 2 * kWarps floats. Three block syncs a step
+// besides the matvec's.
+template <int KP, typename MV>
+__device__ __forceinline__ void cg_block(float dg, float b, float lam_r,
+                                         const float* __restrict__ yty,
+                                         const float* __restrict__ x0,
+                                         size_t row, int K, int iters,
+                                         float* sp, float* sap, float* red,
+                                         bool empty, float* __restrict__ out,
+                                         MV matvec) {
   const int tid = threadIdx.x;
   const bool mine = tid < KP;
   float minv = 0.f, x = 0.f, r = 0.f;
   if (mine) {
-    float dg = G[tid * GS + tid] + lam_r;
+    dg += lam_r;
     if (yty != nullptr && tid < K) dg += yty[(size_t)tid * K + tid];
     minv = dg > 0.f ? 1.f / dg : 0.f;
     r = b;
   }
+  int par = 0;
   if (x0 != nullptr) {
     if (mine) {
       x = tid < K ? x0[row * K + tid] : 0.f;
       sp[tid] = x;
     }
     __syncthreads();
-    matvec_block<KP>(G, sp, sap, lam_r, yty, K);
-    if (mine) r = b - sap[tid];
+    const float ax = matvec(sp, sap);
+    if (mine) r = b - ax;
   }
   float z = minv * r;
-  float rz = block_sum(mine ? r * z : 0.f, red);
+  float rz = block_sum2(mine ? r * z : 0.f, red, par);
   float p = z;
   if (mine) sp[tid] = p;
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
-    matvec_block<KP>(G, sp, sap, lam_r, yty, K);
-    const float ap = mine ? sap[tid] : 0.f;
-    const float pap = block_sum(p * ap, red);
+    const float mv = matvec(sp, sap);
+    const float ap = mine ? mv : 0.f;
+    const float pap = block_sum2(p * ap, red, par);
     const float alpha = pap > 0.f ? rz / pap : 0.f;
     x = x + alpha * p;
     r = r - alpha * ap;
     z = minv * r;
-    const float rz2 = block_sum(r * z, red);
+    const float rz2 = block_sum2(r * z, red, par);
     const float beta = rz > 0.f ? rz2 / rz : 0.f;
     p = z + beta * p;
     rz = rz2;
@@ -376,35 +427,7 @@ __device__ void cg_block(const float* G, float b, float lam_r,
   if (tid < K) out[row * K + tid] = empty ? 0.f : x;
 }
 
-// Fused entry, one bucket row per block: the gathered Gram + rhs, then
-// Jacobi-PCG in the block.
-template <int KP, typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    row_solve_kernel(const T* __restrict__ src, int M,
-                     const int* __restrict__ cols,
-                     const float* __restrict__ gw,
-                     const float* __restrict__ rw,
-                     const float* __restrict__ lam,
-                     const float* __restrict__ nnz,
-                     const float* __restrict__ yty,
-                     const float* __restrict__ x0, float* __restrict__ out,
-                     int D, int K, int iters) {
-  constexpr int GS = Geo<KP>::GS;
-  extern __shared__ float4 smem4[];
-  float* G = reinterpret_cast<float*>(smem4);         // [KP][GS] Gram
-  float* tiles = G + KP * GS;                         // [2][kTileD][KP]
-  float* sp = tiles + kTileD * KP * 2;
-  float* sap = sp + KP;
-  float* red = sap + KP;
-  Tile tile{tiles, tiles + kTileD * KP, red + 32, red + 32 + kTileD,
-            reinterpret_cast<int*>(red + 32 + 2 * kTileD)};
-
-  const size_t row = blockIdx.x;
-  float b;
-  gram_rhs<KP, T, true>(src, M, cols, gw, rw, row, D, K, tile, G, b);
-  cg_block<KP>(G, b, lam[row], yty, x0, row, K, iters, sp, sap, red,
-               nnz[row] <= 0.f, out);
-}
+// -- the R = 8 form -----------------------------------------------------------
 
 // R = 8 rows per block (two-stage): the eight Grams in turn into the
 // device scratch, then one warp per row runs that row's CG.
@@ -423,15 +446,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   float* srhs = tiles + kTileD * KP;           // [R, KP]
   float* sp = srhs + kGroupRows * KP;          // [R, KP]
   float* red = sp + kGroupRows * KP;
-  Tile tile{tiles, nullptr, red + 32, red + 32 + kTileD,
-            reinterpret_cast<int*>(red + 32 + 2 * kTileD)};
+  Tile tile{tiles, red + 32, reinterpret_cast<int*>(red + 32 + kTileD)};
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t b0 = (size_t)blockIdx.x * kGroupRows;
   for (int rr = 0; rr < kGroupRows && b0 + rr < (size_t)B; ++rr) {
     float b;
-    gram_rhs<KP, T, false>(g, 0, nullptr, nullptr, wv, b0 + rr, D, K, tile,
-                           G, b);
+    gram_rhs<KP, T>(g, wv, b0 + rr, D, K, tile, G, b);
     // each thread copies the coordinates it summed (no other thread
     // touches them before the next row's gram_rhs zeroes them)
     float* Gg = scratch + (b0 + rr) * KP * KP;
@@ -529,7 +550,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-// -- two-stage, one row: split-D partial Grams on the tensor cores ---------
+// -- stage 1 on the tensor cores ------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -556,8 +577,8 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
@@ -598,276 +619,611 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Warp layout of the Gram on the tensor cores: WM x WN warp tiles of
-// WTM x WTN (16-row m blocks, 8-column n blocks), and WD warps splitting
-// the d steps of a stage (their Grams are added in warp order at the end).
-// Stages are TD rows of d; shared rows are padded by 8 elements, which puts
-// the 8 rows of an ldmatrix (bf16) and the 4 x 8 scalar fragment reads
-// (f32) on distinct banks.
-template <int KP>
-struct Mma {
-  static constexpr int WTM = KP >= 32 ? 32 : 16;
-  static constexpr int WTN = KP == 128 ? 64 : KP >= 32 ? 32 : 16;
-  static constexpr int WM = KP / WTM, WN = KP / WTN;
-  static constexpr int WD = kWarps / (WM * WN);
-  static constexpr int MT = WTM / 16, NT = WTN / 8;
-  static constexpr int TD = slab_rows(KP);
-  static constexpr int RS = KP + 8;
-  static constexpr int NG = kThreads / KP;  // rhs: thread groups over d
-  static_assert(WM * WN * WD == kWarps, "warp layout");
+// acc += c in IEEE f32. A slab's steps (bf16) or a pair of steps (f32) go
+// into a fresh accumulator c, added here: the tensor cores' own adds into
+// a running sum drop bits (they do not round to nearest), and a row's
+// thousands of steps compound that (1.5e-4 of an f64 solve at D 9,000 and
+// rank 256 in f32, against 2e-6 this way)
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&c)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
+}
+
+// two packed bf16 values times their weights, as the TPU kernel forms
+// gw_d t_d: the weights rounded to bf16, the exact f32 products rounded to
+// nearest even once
+__device__ __forceinline__ uint32_t weigh_bf16x2(uint32_t a, float w0,
+                                                 float w1) {
+  const float2 t = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
+  __nv_bfloat162 v =
+      __floats2bfloat162_rn(t.x * round_as<__nv_bfloat16>(w0),
+                            t.y * round_as<__nv_bfloat16>(w1));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Warp layout of stage 1 for a Gram tile of KT x KT (KT = the padded rank up
+// to 128, else kGramTile): NM m blocks of 16 rows and NN n blocks of 8
+// columns; warp w takes m block mblock(w) and, below 128, splits the d
+// steps with the WD - 1 other warps of that block. Slabs are TD rows of d;
+// shared rows are padded by 8 elements, which puts the 8 rows of an
+// ldmatrix (bf16) and the 4 x 8 scalar fragment reads (f32) on distinct
+// banks.
+template <int KT>
+struct Tri {
+  static constexpr int NM = KT / 16;
+  static constexpr int NN = KT / 8;
+  static constexpr int WD = kWarps / NM;
+  static constexpr int TD = slab_rows(KT);
+  static constexpr int RS = KT + 8;
+  static constexpr int NG = kThreads / KT;  // rhs: thread groups over d
+  static_assert(NM * WD == kWarps, "warp layout");
 };
 
-template <typename T>
-__device__ __forceinline__ T zero_as();
-template <>
-__device__ __forceinline__ float zero_as<float>() {
-  return 0.f;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero_as<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-
-template <typename T>
-__device__ __forceinline__ float widen(T x);
-template <>
-__device__ __forceinline__ float widen<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// m block of warp w: 0, 1, .., NM/2 - 1, then NM - 1, NM - 2, ..: warps w
+// and w + 4 share an SM sub-partition and get m blocks i and NM - 1 - i,
+// whose upper-triangle n blocks add up to the same count
+template <int KT>
+__device__ __forceinline__ int mblock(int warp) {
+  constexpr int NM = Tri<KT>::NM;
+  const int x = warp % NM;
+  return x < NM / 2 ? x : (3 * NM) / 2 - 1 - x;
 }
 
-// Stage rows [d0, d0 + TD) of one bucket row's [D, K] block (rows past d_end
-// and columns past K zero) and their rhs weights. vec: 16-byte cp.async
-// (K * sizeof(T) a multiple of 16 and the block aligned); else f32 takes
-// 4-byte cp.async and bf16 plain loads.
-template <int KP, typename T>
-__device__ __forceinline__ void load_slab(T* dst, float* wdst, const T* src,
-                                          const float* wsrc, int d0,
-                                          int d_end, int K, bool vec) {
-  constexpr int TD = Mma<KP>::TD, RS = Mma<KP>::RS;
+// acc[nb] += A^T B over one staged slab, this warp's d steps: A the slab XA
+// (weighted by w per d row when W and weighted), B the slab XB, m block mi,
+// n blocks
+// from jlo on (2 mi on a diagonal tile of a symmetric Gram: its upper
+// triangle; else 0).
+template <int KT, bool W>
+__device__ __forceinline__ void slab_gram(const __nv_bfloat16* XA,
+                                          const __nv_bfloat16* XB,
+                                          const float* w, bool weighted,
+                                          float (&acc)[Tri<KT>::NN][4],
+                                          int mi, int jlo, int wd, int lane) {
+  using G = Tri<KT>;
+  constexpr int KS = G::TD / 16;                // k steps of a slab
+  constexpr int KW = (KS + G::WD - 1) / G::WD;  // this warp's, at most
+  const int j = lane >> 3, r = lane & 7, t = lane & 3;
+  // the A fragments of this warp's k steps of the slab, held in registers
+  uint32_t a[KW][4];
+#pragma unroll
+  for (int q = 0; q < KW; ++q) {
+    const int ks = wd + q * G::WD;
+    if (ks >= KS) continue;
+    ldsm_x4_trans(a[q], XA + (ks * 16 + (j >> 1) * 8 + r) * G::RS +
+                            mi * 16 + (j & 1) * 8);
+    if (W && weighted) {
+      // A's registers 0 and 1 hold d rows 2t, 2t + 1 of the step, 2 and 3
+      // rows 2t + 8, 2t + 9
+      const float* wk = w + ks * 16 + 2 * t;
+      a[q][0] = weigh_bf16x2(a[q][0], wk[0], wk[1]);
+      a[q][1] = weigh_bf16x2(a[q][1], wk[0], wk[1]);
+      a[q][2] = weigh_bf16x2(a[q][2], wk[8], wk[9]);
+      a[q][3] = weigh_bf16x2(a[q][3], wk[8], wk[9]);
+    }
+  }
+  // each n block pair sums the slab's steps in fresh accumulators, added
+  // to the running sum once a slab
+#pragma unroll
+  for (int np = 0; np < G::NN / 2; ++np) {
+    if (2 * np < jlo) continue;
+    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < KW; ++q) {
+      const int ks = wd + q * G::WD;
+      if (ks >= KS) continue;
+      uint32_t b[4];
+      ldsm_x4_trans(b, XB + (ks * 16 + (j & 1) * 8 + r) * G::RS + np * 16 +
+                           (j >> 1) * 8);
+      mma_bf16(c0, a[q], b[0], b[1]);
+      mma_bf16(c1, a[q], b[2], b[3]);
+    }
+    add4(acc[2 * np], c0);
+    add4(acc[2 * np + 1], c1);
+  }
+}
+
+template <int KT, bool W>
+__device__ __forceinline__ void slab_gram(const float* XA, const float* XB,
+                                          const float* w, bool weighted,
+                                          float (&acc)[Tri<KT>::NN][4],
+                                          int mi, int jlo, int wd, int lane) {
+  using G = Tri<KT>;
+  const int g = lane >> 2, t = lane & 3;
+  // k steps in pairs: each n block sums a pair in a fresh accumulator
+  static_assert(G::TD / 8 % (2 * G::WD) == 0, "pairs of this warp's steps");
+#pragma unroll 1
+  for (int ks0 = 2 * wd; ks0 < G::TD / 8; ks0 += 2 * G::WD) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ks = ks0 + h;
+      const float* a0 = XA + (ks * 8 + t) * G::RS + mi * 16 + g;
+      const float* a1 = a0 + 4 * G::RS;
+      float wa = 1.f, wb = 1.f;  // the weights of d rows t and t + 4
+      if (W && weighted) {
+        wa = w[ks * 8 + t];
+        wb = w[ks * 8 + t + 4];
+      }
+      split_tf32(a0[0] * wa, ah[h][0], al[h][0]);
+      split_tf32(a0[8] * wa, ah[h][1], al[h][1]);
+      split_tf32(a1[0] * wb, ah[h][2], al[h][2]);
+      split_tf32(a1[8] * wb, ah[h][3], al[h][3]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < G::NN; ++nb) {
+      if (nb < jlo) continue;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* b0 = XB + ((ks0 + h) * 8 + t) * G::RS + g + nb * 8;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(b0[0], bh0, bl0);
+        split_tf32(b0[4 * G::RS], bh1, bl1);
+        mma_tf32(c, al[h], bh0, bh1);  // lo*hi + hi*lo + hi*hi
+        mma_tf32(c, ah[h], bl0, bl1);
+        mma_tf32(c, ah[h], bh0, bh1);
+      }
+      add4(acc[nb], c);
+    }
+  }
+}
+
+// One bucket solve's arrays, as the C entries take them: the gather source
+// (GATHER: the table [M, K]; else the gathered block [B, D, K]), cols and
+// the Gram weights gw [B, D] (GATHER only: else the Gram is unweighted),
+// the rhs weights rw [B, D], per row lam and nnz (nnz: the fused entry's
+// empty rows, exactly 0; may be null), yty [K, K] (implicit; may be null),
+// x0 [B, K] (may be null), out [B, K], and the workspace of partial records.
+template <typename T>
+struct Args {
+  const T* src;
+  int M;
+  const int* cols;
+  const float* gw;
+  const float* rw;
+  const float* lam;
+  const float* nnz;
+  const float* yty;
+  const float* x0;
+  float* out;
+  float* part;
+  int D, K, iters;
+};
+
+// the per-row inputs of slab rows [d0, d0 + TD) (0 past d_end) into one slot
+// of the ring: GATHER the table row, the Gram and the rhs weight; else the
+// rhs weight alone
+template <int TD, bool GATHER>
+__device__ __forceinline__ void load_index(int* icol, float* igw, float* irw,
+                                           const int* cols, const float* gw,
+                                           const float* rw, size_t base,
+                                           int d0, int d_end) {
+  constexpr int NI = GATHER ? 3 : 1;
+  for (int e = threadIdx.x; e < NI * TD; e += kThreads) {
+    const int which = GATHER ? e / TD : 2, r = GATHER ? e % TD : e;
+    const bool in = d0 + r < d_end;
+    const size_t at = base + d0 + r;
+    void* dst = which == 0 ? static_cast<void*>(icol + r)
+                : which == 1 ? static_cast<void*>(igw + r)
+                             : static_cast<void*>(irw + r);
+    const void* src = which == 0 ? static_cast<const void*>(cols + at)
+                      : which == 1 ? static_cast<const void*>(gw + at)
+                                   : static_cast<const void*>(rw + at);
+    cp_async4(dst, in ? src : static_cast<const void*>(rw), in ? 4 : 0);
+  }
+}
+
+// Slab rows [d0, d0 + TD) into dst: np <= NP panels of TD x RS elements,
+// panel p holding the KT columns from c0a, c0b (zero past K); GATHER rows are table
+// rows icol[r], zero where the row contributes nothing (both weights 0 or
+// a row outside the table), else rows of the bucket row's [D, K] block,
+// zero past d_end. vec: 16-byte cp.async (K * sizeof(T) a multiple of 16
+// and the source aligned); else f32 takes 4-byte cp.async and bf16 plain
+// loads.
+template <int KT, int NP, typename T, bool GATHER>
+__device__ __forceinline__ void load_rows(T* dst, const int* icol,
+                                          const float* igw, const float* irw,
+                                          const T* src, int M, size_t brow,
+                                          int d0, int d_end, int K, int np,
+                                          int c0a, int c0b, bool vec) {
+  using G = Tri<KT>;
   constexpr int kPer = 16 / (int)sizeof(T);
   const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int kParts = KP / kPer;
-#pragma unroll
-    for (int i = 0; i < (TD * kParts + kThreads - 1) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < TD * kParts) {
-        const int r = e / kParts, col = (e % kParts) * kPer;
-        const bool in = d0 + r < d_end && col < K;
-        cp_async16(dst + r * RS + col,
-                   in ? src + (size_t)(d0 + r) * K + col : src, in ? 16 : 0);
-      }
+  auto row_src = [&](int r) -> const T* {
+    if constexpr (GATHER) {
+      const int c = icol[r];
+      return ((unsigned)c < (unsigned)M && (igw[r] != 0.f || irw[r] != 0.f))
+                 ? src + (size_t)c * K
+                 : nullptr;
+    } else {
+      return d0 + r < d_end ? src + (brow + d0 + r) * K : nullptr;
     }
-  } else if constexpr (sizeof(T) == 4) {
-    for (int e = tid; e < TD * KP; e += kThreads) {
-      const int r = e / KP, col = e % KP;
-      const bool in = d0 + r < d_end && col < K;
-      cp_async4(dst + r * RS + col, in ? src + (size_t)(d0 + r) * K + col : src,
-                in ? 4 : 0);
+  };
+  if (vec) {
+    constexpr int kParts = KT / kPer;
+    constexpr int kPanel = G::TD * kParts;
+    const int all = np * kPanel;
+#pragma unroll
+    for (int i = 0; i < (NP * kPanel + kThreads - 1) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < all) {
+        const int p = e / kPanel, q = e - p * kPanel;
+        const int r = q / kParts, cl = (q % kParts) * kPer;
+        const int col = (p == 0 ? c0a : c0b) + cl;
+        const T* s = row_src(r);
+        const bool in = s != nullptr && col < K;
+        cp_async16(dst + (p * G::TD + r) * G::RS + cl, in ? s + col : src,
+                   in ? 16 : 0);
+      }
     }
   } else {
-    for (int e = tid; e < TD * KP; e += kThreads) {
-      const int r = e / KP, col = e % KP;
-      const bool in = d0 + r < d_end && col < K;
-      dst[r * RS + col] = in ? src[(size_t)(d0 + r) * K + col]
-                             : zero_as<T>();
-    }
-  }
-  if (tid < TD) {
-    const bool in = d0 + tid < d_end;
-    cp_async4(wdst + tid, in ? wsrc + d0 + tid : wsrc, in ? 4 : 0);
-  }
-}
-
-// acc += X^T X over the TD rows of a staged slab, this warp's d steps.
-template <int KP>
-__device__ __forceinline__ void slab_gram(
-    const __nv_bfloat16* X,
-    float (&acc)[Mma<KP>::MT][Mma<KP>::NT][4], int wm, int wn, int wd,
-    int lane) {
-  using M = Mma<KP>;
-  const int j = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int ks = wd; ks < M::TD / 16; ks += M::WD) {
-    const __nv_bfloat16* x0 = X + (ks * 16) * M::RS;
-    uint32_t a[M::MT][4];
-#pragma unroll
-    for (int mi = 0; mi < M::MT; ++mi)
-      ldsm_x4_trans(a[mi], x0 + ((j >> 1) * 8 + r) * M::RS +
-                               wm * M::WTM + mi * 16 + (j & 1) * 8);
-#pragma unroll
-    for (int np = 0; np < M::NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, x0 + ((j & 1) * 8 + r) * M::RS + wn * M::WTN +
-                           np * 16 + (j >> 1) * 8);
-#pragma unroll
-      for (int mi = 0; mi < M::MT; ++mi) {
-        mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
-        mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
-      }
+    const int all = np * G::TD * KT;
+    for (int e = tid; e < all; e += kThreads) {
+      const int p = e / (G::TD * KT), q = e - p * (G::TD * KT);
+      const int r = q / KT, cl = q % KT;
+      const int col = (p == 0 ? c0a : c0b) + cl;
+      const T* s = row_src(r);
+      const bool in = s != nullptr && col < K;
+      T* d = dst + (p * G::TD + r) * G::RS + cl;
+      if constexpr (sizeof(T) == 4)
+        cp_async4(d, in ? s + col : src, in ? 4 : 0);
+      else
+        *d = in ? s[col] : zero_as<T>();
     }
   }
 }
 
-template <int KP>
-__device__ __forceinline__ void slab_gram(
-    const float* X, float (&acc)[Mma<KP>::MT][Mma<KP>::NT][4], int wm,
-    int wn, int wd, int lane) {
-  using M = Mma<KP>;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int ks = wd; ks < M::TD / 8; ks += M::WD) {
-    const float* x0 = X + (ks * 8 + t) * M::RS;
-    const float* x1 = x0 + 4 * M::RS;
-    uint32_t ah[M::MT][4], al[M::MT][4];
-#pragma unroll
-    for (int mi = 0; mi < M::MT; ++mi) {
-      const int m = wm * M::WTM + mi * 16 + g;
-      split_tf32(x0[m], ah[mi][0], al[mi][0]);
-      split_tf32(x0[m + 8], ah[mi][1], al[mi][1]);
-      split_tf32(x1[m], ah[mi][2], al[mi][2]);
-      split_tf32(x1[m + 8], ah[mi][3], al[mi][3]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < M::NT; ++ni) {
-      const int n = wn * M::WTN + ni * 8 + g;
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(x0[n], bh0, bl0);
-      split_tf32(x1[n], bh1, bl1);
-#pragma unroll
-      for (int mi = 0; mi < M::MT; ++mi) {  // lo*hi + hi*lo + hi*hi
-        mma_tf32(acc[mi][ni], al[mi], bh0, bh1);
-        mma_tf32(acc[mi][ni], ah[mi], bl0, bl1);
-        mma_tf32(acc[mi][ni], ah[mi], bh0, bh1);
-      }
-    }
+// Stage 1's loop over d rows [d_begin, d_end) of bucket row `row`: slabs of
+// TD rows come in double-buffered (slab: [2][np][TD][RS], np <= NP panels
+// of columns from c0a and c0b), their per-row
+// inputs one slab further ahead in a ring of three slots (icol, igw, irw:
+// [3][TD] each), and body(X, w, rw) runs on each slab that has landed while
+// the next one's copies are in flight.
+template <int KT, int NP, typename T, bool GATHER, typename Body>
+__device__ __forceinline__ void slab_loop(T* slab, int* icol, float* igw,
+                                          float* irw, const Args<T>& a,
+                                          size_t row, int d_begin, int d_end,
+                                          int np, int c0a, int c0b, bool vec,
+                                          Body body) {
+  using G = Tri<KT>;
+  constexpr int TD = G::TD;
+  const int SL = np * TD * G::RS;  // elements of one slab buffer
+  const size_t base = row * (size_t)a.D;
+  const int n_slabs = (d_end - d_begin + TD - 1) / TD;
+  load_index<TD, GATHER>(icol, igw, irw, a.cols, a.gw, a.rw, base, d_begin,
+                         d_end);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  load_rows<KT, NP, T, GATHER>(slab, icol, igw, irw, a.src, a.M, base,
+                               d_begin, d_end, a.K, np, c0a, c0b, vec);
+  if (n_slabs > 1)
+    load_index<TD, GATHER>(icol + TD, igw + TD, irw + TD, a.cols, a.gw, a.rw,
+                           base, d_begin + TD, d_end);
+  cp_async_commit();
+  for (int n = 0; n < n_slabs; ++n) {
+    // slab n and slab n + 1's inputs have landed, and every warp is done
+    // with slab n - 1, whose buffer and ring slot are rewritten now
+    cp_async_wait_all();
+    __syncthreads();
+    const int s1 = (n + 1) % 3, s2 = (n + 2) % 3, s0 = n % 3;
+    if (n + 1 < n_slabs)
+      load_rows<KT, NP, T, GATHER>(slab + ((n + 1) & 1) * SL, icol + s1 * TD,
+                                   igw + s1 * TD, irw + s1 * TD, a.src, a.M,
+                                   base, d_begin + (n + 1) * TD, d_end, a.K,
+                                   np, c0a, c0b, vec);
+    if (n + 2 < n_slabs)
+      load_index<TD, GATHER>(icol + s2 * TD, igw + s2 * TD, irw + s2 * TD,
+                             a.cols, a.gw, a.rw, base, d_begin + (n + 2) * TD,
+                             d_end);
+    cp_async_commit();
+    body(slab + (n & 1) * SL, igw + s0 * TD, irw + s0 * TD);
   }
+  cp_async_wait_all();
+  __syncthreads();
 }
 
-// Shared memory of gram_slice_kernel: the two slabs and their weights, in
-// the same bytes as the Gram that follows them; then the rhs pieces and the
-// CG's vectors.
+// The shared memory of gram_slice_kernel: the slabs and the ring, in the
+// same bytes as the Gram that follows them; then the rhs pieces, the CG's
+// vectors and reduction scratch, the warps' matvec parts and the diagonal.
 template <int KP, typename T>
-__host__ __device__ constexpr size_t slab_union_bytes() {
-  using M = Mma<KP>;
-  constexpr size_t slabs = 2 * (M::TD * M::RS * sizeof(T) + M::TD * 4);
-  constexpr size_t gram = KP * Geo<KP>::GS * 4;
-  return slabs > gram ? slabs : gram;
+__host__ __device__ constexpr size_t slab_ring_bytes(int np) {
+  using G = Tri<(KP < kGramTile ? KP : kGramTile)>;
+  return 2 * (size_t)np * G::TD * G::RS * sizeof(T) + 3 * (size_t)G::TD * 12;
+}
+
+template <int KP, typename T>
+__host__ __device__ constexpr size_t slice_union_bytes() {
+  return slab_ring_bytes<KP, T>(1) > (size_t)KP * Geo<KP>::GS * 4
+             ? slab_ring_bytes<KP, T>(1)
+             : (size_t)KP * Geo<KP>::GS * 4;
 }
 
 template <int KP, typename T>
 constexpr size_t slice_smem_bytes() {
-  return slab_union_bytes<KP, T>() + 4 * (Mma<KP>::NG * KP + 2 * KP + 32);
+  return slice_union_bytes<KP, T>() +
+         4 * ((size_t)Tri<KP>::NG * KP + 2 * KP + 32 + kWarps * KP + KP);
 }
 
-// Stage 1 of the two-stage solve: block (row, slice) sums the Gram and rhs
-// of rows [s * slice_rows, min(D, (s + 1) * slice_rows)) of one bucket row's
-// gathered [D, K] block. The slabs come in by cp.async, double-buffered; the
-// Gram runs on the tensor cores (bf16 m16n8k16, exact products; f32 as
-// 3xTF32 m16n8k8) into f32 accumulators, the rhs on the FMA units. The warp
-// pieces are added into a shared Gram in warp order. SOLVE (one slice):
-// the block then runs the CG on it; else it writes the partial record
-// (Gram [KP][KP], rhs [KP]) to part[row][slice].
-template <int KP, typename T, bool SOLVE>
+// Stage 1, rank <= 128: block (row, slice) sums the Gram and rhs of d rows
+// [s * slice_rows, min(D, (s + 1) * slice_rows)) of one bucket row: its
+// upper triangle, mirrored, or with `full` every block (see solve). SOLVE
+// (one slice): the block then runs the CG, at K = 128 from the
+// accumulators, below from the warps' pieces summed in shared memory; else
+// it writes the partial record (Gram [KP][KP], rhs [KP]) to
+// part[row][slice].
+template <int KP, typename T, bool GATHER, bool SOLVE>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    gram_slice_kernel(const T* __restrict__ g, const float* __restrict__ wv,
-                      const float* __restrict__ lam,
-                      const float* __restrict__ x0, float* __restrict__ out,
-                      float* __restrict__ part, int D, int K, int iters,
-                      int S, int slice_rows, int vec) {
-  using M = Mma<KP>;
-  constexpr int GS = Geo<KP>::GS, TD = M::TD, RS = M::RS;
+    gram_slice_kernel(Args<T> a, int S, int slice_rows, int vec,
+                      int weighted, int full) {
+  using G = Tri<KP>;
+  constexpr int GS = Geo<KP>::GS, TD = G::TD, RS = G::RS, NN = G::NN;
   extern __shared__ float4 smem4[];
-  T* slab = reinterpret_cast<T*>(smem4);                       // [2][TD][RS]
-  float* wsl = reinterpret_cast<float*>(slab + 2 * TD * RS);   // [2][TD]
-  float* G = reinterpret_cast<float*>(smem4);  // [KP][GS], after the slabs
-  float* rs = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
-                                       slab_union_bytes<KP, T>());  // [NG][KP]
-  float* sp = rs + M::NG * KP;
+  char* sm = reinterpret_cast<char*>(smem4);
+  T* slab = reinterpret_cast<T*>(sm);  // [2][TD][RS]
+  int* icol = reinterpret_cast<int*>(sm + 2 * (size_t)TD * RS * sizeof(T));
+  float* igw = reinterpret_cast<float*>(icol + 3 * TD);
+  float* irw = igw + 3 * TD;
+  float* Gs = reinterpret_cast<float*>(sm);  // [KP][GS], after the slabs
+  float* rs =
+      reinterpret_cast<float*>(sm + slice_union_bytes<KP, T>());  // [NG][KP]
+  float* sp = rs + G::NG * KP;
   float* sap = sp + KP;
   float* red = sap + KP;
+  float* part = red + 32;            // [kWarps][KP]
+  float* sdg = part + kWarps * KP;   // [KP]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wd = warp % M::WD, wn = (warp / M::WD) % M::WN,
-            wm = warp / (M::WD * M::WN);
+  const int mi = mblock<KP>(warp), wd = warp / G::NM;
+  const int jlo = full ? 0 : 2 * mi;
+  const int g = lane >> 2, t = lane & 3;
   const size_t row = blockIdx.x / S;
   const int sl = blockIdx.x % S;
   const int d_begin = sl * slice_rows;
-  const int d_end = min(D, d_begin + slice_rows);
-  const int n_slabs = (d_end - d_begin + TD - 1) / TD;
-  const T* src = g + row * D * K;
-  const float* wsrc = wv + row * D;
+  const int d_end = min(a.D, d_begin + slice_rows);
 
-  float acc[M::MT][M::NT][4];
+  float acc[NN][4];
 #pragma unroll
-  for (int mi = 0; mi < M::MT; ++mi)
+  for (int nb = 0; nb < NN; ++nb)
 #pragma unroll
-    for (int ni = 0; ni < M::NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
   float rpart = 0.f;
   const int rk = tid % KP, rg = tid / KP;
+  slab_loop<KP, 1, T, GATHER>(
+      slab, icol, igw, irw, a, row, d_begin, d_end, 1, 0, 0, vec != 0,
+      [&](const T* X, const float* w, const float* wr) {
+        slab_gram<KP, GATHER>(X, X, w, weighted != 0, acc, mi, jlo, wd,
+                              lane);
+        for (int d = rg; d < TD; d += G::NG)
+          rpart = fmaf(round_as<T>(wr[d]), widen<T>(X[d * RS + rk]), rpart);
+      });
+  rs[rg * KP + rk] = rpart;
+  const float lam_r = SOLVE ? a.lam[row] : 0.f;
+  const bool empty = SOLVE && a.nnz != nullptr && a.nnz[row] <= 0.f;
 
-  load_slab<KP, T>(slab, wsl, src, wsrc, d_begin, d_end, K, vec);
-  cp_async_commit();
-  for (int n = 0; n < n_slabs; ++n) {
-    const int buf = n & 1;
-    if (n + 1 < n_slabs)
-      load_slab<KP, T>(slab + (buf ^ 1) * TD * RS, wsl + (buf ^ 1) * TD, src,
-                       wsrc, d_begin + (n + 1) * TD, d_end, K, vec);
-    cp_async_commit();  // an empty group past the last slab
-    cp_async_wait_1();
-    __syncthreads();
-    const T* X = slab + buf * TD * RS;
-    slab_gram<KP>(X, acc, wm, wn, wd, lane);
-    const float* w = wsl + buf * TD;
-    for (int d = rg; d < TD; d += M::NG)
-      rpart = fmaf(round_as<T>(w[d]), widen<T>(X[d * RS + rk]), rpart);
-    __syncthreads();  // this slab's buffer is free for slab n + 2
+  if constexpr (SOLVE && KP == kGramTile) {
+    {
+      // the diagonal from the accumulators, then the CG with the matvec
+      // where the accumulators are
+#pragma unroll
+      for (int nb = 0; nb < NN; ++nb)
+        if ((nb >> 1) == mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int m = mi * 16 + g + 8 * (e >> 1);
+            if (m == nb * 8 + 2 * t + (e & 1)) sdg[m] = acc[nb][e];
+          }
+      __syncthreads();
+      float b = 0.f, dg = 0.f;
+      if (tid < KP) {
+        for (int q = 0; q < G::NG; ++q) b += rs[q * KP + tid];
+        dg = sdg[tid];
+      }
+      float* pw = part + warp * KP;
+      auto matvec = [&](const float* p, float*) {
+        const float pm0 = p[mi * 16 + g], pm1 = p[mi * 16 + g + 8];
+        // this thread's products down its columns (col(i): column pair i /
+        // 2, column i % 2 of the pair), summed over the 8 lanes of a column
+        // by halving: after three exchanges a lane holds four column sums
+        auto col = [&](int i) {
+          return fmaf(acc[i >> 1][2 + (i & 1)], pm1, acc[i >> 1][i & 1] * pm0);
+        };
+        const bool u4 = lane & 16, u2 = lane & 8, u1 = lane & 4;
+        float h[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const float lo = col(q), hi = col(q + 16);
+          h[q] = (u4 ? hi : lo) +
+                 __shfl_xor_sync(0xffffffffu, u4 ? lo : hi, 16);
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          h[q] = (u2 ? h[q + 8] : h[q]) +
+                 __shfl_xor_sync(0xffffffffu, u2 ? h[q] : h[q + 8], 8);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          h[q] = (u1 ? h[q + 4] : h[q]) +
+                 __shfl_xor_sync(0xffffffffu, u1 ? h[q] : h[q + 4], 4);
+        // and, for a symmetric Gram, along the rows of the blocks above
+        // the diagonal (the lower triangle's, mirrored), summed over the
+        // quad
+        float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < NN; ++nb)
+          if (!full && nb >= jlo + 2) {
+            const float2 pn =
+                *reinterpret_cast<const float2*>(p + nb * 8 + 2 * t);
+            r0 = fmaf(acc[nb][0], pn.x, fmaf(acc[nb][1], pn.y, r0));
+            r1 = fmaf(acc[nb][2], pn.x, fmaf(acc[nb][3], pn.y, r1));
+          }
+        r0 += __shfl_xor_sync(0xffffffffu, r0, 1);
+        r0 += __shfl_xor_sync(0xffffffffu, r0, 2);
+        r1 += __shfl_xor_sync(0xffffffffu, r1, 1);
+        r1 += __shfl_xor_sync(0xffffffffu, r1, 2);
+        *reinterpret_cast<float2*>(pw + 16 * g + 2 * t) =
+            make_float2(h[0], h[1]);
+        *reinterpret_cast<float2*>(pw + 16 * g + 8 + 2 * t) =
+            make_float2(h[2], h[3]);
+        __syncwarp();
+        if (t == 0) {
+          pw[mi * 16 + g] += r0;
+          pw[mi * 16 + g + 8] += r1;
+        }
+        __syncthreads();
+        float s = 0.f, sy = 0.f;
+        if (tid < KP) {
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) s += part[w * KP + tid];
+          if (a.yty != nullptr && tid < a.K)
+            for (int l = 0; l < a.K; ++l)
+              sy = fmaf(a.yty[(size_t)l * a.K + tid], p[l], sy);
+          s = (s + lam_r * p[tid]) + sy;
+        }
+        return s;  // the thread's own coordinate: nobody else reads it
+      };
+      cg_block<KP>(dg, b, lam_r, a.yty, a.x0, row, a.K, a.iters, sp, sap,
+                   red, empty, a.out, matvec);
+      return;
+    }
   }
 
-  // the warp pieces into G, in warp order of wd; the rhs pieces into rs
-  rs[rg * KP + rk] = rpart;
-  for (int w = 0; w < M::WD; ++w) {
+  // the warp pieces into Gs, in warp order of wd, each mirrored below the
+  // diagonal blocks unless the Gram is full
+  for (int w = 0; w < G::WD; ++w) {
     if (wd == w) {
-      const int g8 = lane >> 2, t2 = (lane & 3) * 2;
 #pragma unroll
-      for (int mi = 0; mi < M::MT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < M::NT; ++ni)
+      for (int nb = 0; nb < NN; ++nb)
+        if (nb >= jlo)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int m = wm * M::WTM + mi * 16 + g8 + 8 * h;
-            const int col = wn * M::WTN + ni * 8 + t2;
-            float2* p = reinterpret_cast<float2*>(G + m * GS + col);
-            float2 v = make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+            const int m = mi * 16 + g + 8 * h, n = nb * 8 + 2 * t;
+            float2* pg = reinterpret_cast<float2*>(Gs + m * GS + n);
+            float2 v = make_float2(acc[nb][2 * h], acc[nb][2 * h + 1]);
             if (w > 0) {
-              const float2 o = *p;
+              const float2 o = *pg;
               v = make_float2(o.x + v.x, o.y + v.y);
             }
-            *p = v;
+            *pg = v;
+            if (!full && nb >= jlo + 2) {
+              Gs[n * GS + m] = v.x;
+              Gs[(n + 1) * GS + m] = v.y;
+            }
           }
     }
     __syncthreads();
   }
   float b = 0.f;
   if (tid < KP)
-    for (int q = 0; q < M::NG; ++q) b += rs[q * KP + tid];
+    for (int q = 0; q < G::NG; ++q) b += rs[q * KP + tid];
   if constexpr (SOLVE) {
-    cg_block<KP>(G, b, lam[row], nullptr, x0, row, K, iters, sp, sap, red,
-                 false, out);
+    cg_block<KP>(tid < KP ? Gs[tid * GS + tid] : 0.f, b, lam_r, a.yty, a.x0,
+                 row, a.K, a.iters, sp, sap, red, empty, a.out,
+                 [&](const float* p, float* ap) {
+                   matvec_block<KP>(Gs, p, ap, lam_r, a.yty, a.K);
+                   return threadIdx.x < KP ? ap[threadIdx.x] : 0.f;
+                 });
   } else {
-    float* rec = part + (row * S + sl) * (size_t)(KP * KP + KP);
+    float* rec = a.part + (row * S + sl) * (size_t)(KP * KP + KP);
     for (int e = tid; e < KP * KP / 2; e += kThreads) {  // GS is even
       const int m = e / (KP / 2), c = (e % (KP / 2)) * 2;
       reinterpret_cast<float2*>(rec)[e] =
-          *reinterpret_cast<const float2*>(G + m * GS + c);
+          *reinterpret_cast<const float2*>(Gs + m * GS + c);
     }
     if (tid < KP) rec[KP * KP + tid] = b;
+  }
+}
+
+template <typename T>
+constexpr size_t tile_smem_bytes() {
+  return slab_ring_bytes<kGramTile, T>(2) +
+         4 * (size_t)Tri<kGramTile>::NG * kGramTile;
+}
+
+// Stage 1 above rank 128: block (row, slice, tile) sums Gram tile (I, J)
+// of the 128 x 128 tiles of the padded rank, over the slice's d rows
+// (panel 0 the columns of I, panel 1 those of J, one panel when I = J),
+// into the record part[row][slice] ([KP][KP], then rhs [KP]): the tiles
+// with I <= J and their mirrors, or with `full` every tile (see solve); a
+// diagonal tile also writes rhs[I].
+template <typename T, bool GATHER>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    gram_tile_kernel(Args<T> a, int KP, int S, int slice_rows, int vec,
+                     int weighted, int full) {
+  using G = Tri<kGramTile>;
+  constexpr int TD = G::TD, RS = G::RS, NN = G::NN;
+  extern __shared__ float4 smem4[];
+  char* sm = reinterpret_cast<char*>(smem4);
+  T* slab = reinterpret_cast<T*>(sm);  // [2][2][TD][RS]
+  int* icol = reinterpret_cast<int*>(sm + 4 * (size_t)TD * RS * sizeof(T));
+  float* igw = reinterpret_cast<float*>(icol + 3 * TD);
+  float* irw = igw + 3 * TD;
+  float* rs = irw + 3 * TD;  // [NG][kGramTile]
+
+  const int nt = KP / kGramTile;
+  const int tiles = full ? nt * nt : nt * (nt + 1) / 2;
+  const int tile = blockIdx.x % tiles;
+  const size_t rsl = blockIdx.x / tiles;
+  const size_t row = rsl / S;
+  const int sl = (int)(rsl % S);
+  // tile -> (I, J), row-major over the square or the upper triangle
+  int I = full ? tile / nt : 0, rem = full ? tile % nt : tile;
+  if (!full)
+    while (rem >= nt - I) {
+      rem -= nt - I;
+      ++I;
+    }
+  const int J = full ? rem : I + rem;
+  const bool diag = I == J;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mi = mblock<kGramTile>(warp);
+  const int jlo = diag && !full ? 2 * mi : 0;
+  const int g = lane >> 2, t = lane & 3;
+  const int d_begin = sl * slice_rows;
+  const int d_end = min(a.D, d_begin + slice_rows);
+
+  float acc[NN][4];
+#pragma unroll
+  for (int nb = 0; nb < NN; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  float rpart = 0.f;
+  const int rk = tid % kGramTile, rg = tid / kGramTile;
+  slab_loop<kGramTile, 2, T, GATHER>(
+      slab, icol, igw, irw, a, row, d_begin, d_end, diag ? 1 : 2,
+      I * kGramTile, J * kGramTile, vec != 0,
+      [&](const T* X, const float* w, const float* wr) {
+        slab_gram<kGramTile, GATHER>(X, diag ? X : X + TD * RS, w,
+                                     weighted != 0, acc, mi, jlo, 0, lane);
+        if (diag)
+          for (int d = rg; d < TD; d += G::NG)
+            rpart =
+                fmaf(round_as<T>(wr[d]), widen<T>(X[d * RS + rk]), rpart);
+      });
+  float* rec = a.part + (row * S + sl) * ((size_t)KP * KP + KP);
+#pragma unroll
+  for (int nb = 0; nb < NN; ++nb)
+    if (nb >= jlo)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = I * kGramTile + mi * 16 + g + 8 * h;
+        const int n = J * kGramTile + nb * 8 + 2 * t;
+        const float v0 = acc[nb][2 * h], v1 = acc[nb][2 * h + 1];
+        *reinterpret_cast<float2*>(rec + (size_t)m * KP + n) =
+            make_float2(v0, v1);
+        if (!full && (!diag || nb >= jlo + 2)) {
+          rec[(size_t)n * KP + m] = v0;
+          rec[(size_t)(n + 1) * KP + m] = v1;
+        }
+      }
+  if (diag) {
+    rs[rg * kGramTile + rk] = rpart;
+    __syncthreads();
+    if (tid < kGramTile) {
+      float b = 0.f;
+      for (int q = 0; q < G::NG; ++q) b += rs[q * kGramTile + tid];
+      rec[(size_t)KP * KP + I * kGramTile + tid] = b;
+    }
   }
 }
 
@@ -892,12 +1248,14 @@ __global__ void __launch_bounds__(kThreads)
   sum[row * rec4 + e] = a;
 }
 
-// Stage 2b (S > 1): one block per row loads its summed record into the
-// shared Gram and runs the CG.
+// Stage 2b (S > 1, rank <= 128): one block per row loads its summed record
+// into the shared Gram and runs the CG.
 template <int KP>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     gram_solve_kernel(const float* __restrict__ sum,
                       const float* __restrict__ lam,
+                      const float* __restrict__ nnz,
+                      const float* __restrict__ yty,
                       const float* __restrict__ x0, float* __restrict__ out,
                       int K, int iters) {
   constexpr int GS = Geo<KP>::GS;
@@ -915,13 +1273,102 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   const float b = threadIdx.x < KP ? rec[KP * KP + threadIdx.x] : 0.f;
   __syncthreads();
-  cg_block<KP>(G, b, lam[row], nullptr, x0, row, K, iters, sp, sap, red,
-               false, out);
+  const float lam_r = lam[row];
+  const int tid = threadIdx.x;
+  cg_block<KP>(tid < KP ? G[tid * GS + tid] : 0.f, b, lam_r, yty, x0, row, K,
+               iters, sp, sap, red, nnz != nullptr && nnz[row] <= 0.f, out,
+               [&](const float* p, float* ap) {
+                 matvec_block<KP>(G, p, ap, lam_r, yty, K);
+                 return threadIdx.x < KP ? ap[threadIdx.x] : 0.f;
+               });
 }
 
 template <int KP>
 constexpr size_t solve_smem_bytes() {
   return 4 * (KP * Geo<KP>::GS + 2 * KP + 32);
+}
+
+// Above rank 128: the CG of one row per block from its record (Gram
+// [KP][KP], symmetric, then rhs [KP]) in device memory, where the Gram stays
+// in L2 across the steps; x, r, p, ap and the Jacobi inverse in shared
+// memory, coordinates k = tid, tid + 256, .. per thread. The same steps
+// and guards as cg_block.
+__global__ void __launch_bounds__(kThreads)
+    wide_solve_kernel(const float* __restrict__ recs,
+                      const float* __restrict__ lam,
+                      const float* __restrict__ nnz,
+                      const float* __restrict__ yty,
+                      const float* __restrict__ x0, float* __restrict__ out,
+                      int KP, int K, int iters) {
+  extern __shared__ float4 smem4[];
+  float* sx = reinterpret_cast<float*>(smem4);
+  float* sr = sx + KP;
+  float* sp = sr + KP;
+  float* sap = sp + KP;
+  float* sm = sap + KP;
+  float* red = sm + KP;
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const float* G = recs + row * ((size_t)KP * KP + KP);
+  const float* rhs = G + (size_t)KP * KP;
+  const float lam_r = lam[row];
+  auto matvec = [&](const float* p, float* ap) {
+    for (int k = tid; k < KP; k += kThreads) {
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+      for (int l = 0; l < KP; l += 4) {
+        s0 = fmaf(G[(size_t)l * KP + k], p[l], s0);
+        s1 = fmaf(G[(size_t)(l + 1) * KP + k], p[l + 1], s1);
+        s2 = fmaf(G[(size_t)(l + 2) * KP + k], p[l + 2], s2);
+        s3 = fmaf(G[(size_t)(l + 3) * KP + k], p[l + 3], s3);
+      }
+      float sy = 0.f;
+      if (yty != nullptr && k < K)
+        for (int l = 0; l < K; ++l)
+          sy = fmaf(yty[(size_t)l * K + k], p[l], sy);
+      ap[k] = (((s0 + s1) + (s2 + s3)) + lam_r * p[k]) + sy;
+    }
+    __syncthreads();
+  };
+  for (int k = tid; k < KP; k += kThreads) {
+    float dg = G[(size_t)k * KP + k] + lam_r;
+    if (yty != nullptr && k < K) dg += yty[(size_t)k * K + k];
+    sm[k] = dg > 0.f ? 1.f / dg : 0.f;
+    sx[k] = (x0 != nullptr && k < K) ? x0[row * K + k] : 0.f;
+    sr[k] = rhs[k];
+  }
+  __syncthreads();
+  if (x0 != nullptr) {
+    matvec(sx, sap);
+    for (int k = tid; k < KP; k += kThreads) sr[k] = rhs[k] - sap[k];
+  }
+  float part = 0.f;
+  for (int k = tid; k < KP; k += kThreads) {
+    const float z = sm[k] * sr[k];
+    sp[k] = z;
+    part += sr[k] * z;
+  }
+  float rz = block_sum(part, red);
+  for (int it = 0; it < iters; ++it) {
+    matvec(sp, sap);
+    part = 0.f;
+    for (int k = tid; k < KP; k += kThreads) part += sp[k] * sap[k];
+    const float pap = block_sum(part, red);
+    const float alpha = pap > 0.f ? rz / pap : 0.f;
+    part = 0.f;
+    for (int k = tid; k < KP; k += kThreads) {
+      sx[k] = sx[k] + alpha * sp[k];
+      sr[k] = sr[k] - alpha * sap[k];
+      part += sr[k] * (sm[k] * sr[k]);
+    }
+    const float rz2 = block_sum(part, red);
+    const float beta = rz > 0.f ? rz2 / rz : 0.f;
+    for (int k = tid; k < KP; k += kThreads)
+      sp[k] = sm[k] * sr[k] + beta * sp[k];
+    rz = rz2;
+    __syncthreads();
+  }
+  const bool empty = nnz != nullptr && nnz[row] <= 0.f;
+  for (int k = tid; k < K; k += kThreads) out[row * K + k] = empty ? 0.f : sx[k];
 }
 
 // The two-stage entry's gathered block in one pass: g[e] = table[cols[e]]
@@ -956,82 +1403,131 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Floats of the two-stage workspace: the S partial records of every row
-// and, for S > 1, the summed records.
-size_t two_stage_floats(int B, int KP, int S) {
+// Floats of the workspace of B rows cut into S slices: the S partial
+// records of every row and, for S > 1, the summed records; above rank 128
+// also the one record of an unsliced row, where stage 1 writes its tiles.
+size_t solve_floats(int B, int KP, int S) {
   const size_t rec = (size_t)KP * KP + KP;
-  return S > 1 ? (size_t)B * rec * ((size_t)S + 1) : 0;
+  const size_t per = S > 1 ? (size_t)S + 1 : KP > kGramTile ? 1 : 0;
+  return (size_t)B * rec * per;
 }
 
-template <int KP, typename T>
-int launch_sliced(const void* g, const float* wv, const float* lam,
-                  const float* x0, float* out, float* work, int B, int D,
-                  int K, int iters, int S, int slice_rows, cudaStream_t st) {
-  const bool vec = (K * sizeof(T)) % 16 == 0 &&
-                   (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+// The launch plan of ops/als_kernels.solve_plan, checked: S slices of
+// slice_rows rows of d, each d row in exactly one, no more slices than
+// slabs, and a workspace of at least solve_floats(B, KP, S) floats.
+bool bad_plan(int B, int D, int K, int S, int slice_rows,
+              const void* workspace, size_t workspace_bytes) {
+  const int kp = padded_rank(K), sr = slab_rows(kp);
+  const size_t need = sizeof(float) * solve_floats(B, kp, S);
+  return S <= 0 || slice_rows <= 0 || (long long)S * slice_rows < D ||
+         (long long)(S - 1) * slice_rows >= D || S > (D + sr - 1) / sr ||
+         workspace_bytes < need || (need > 0 && workspace == nullptr);
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T>
+bool aligned16(const Args<T>& a) {
+  return (a.K * sizeof(T)) % 16 == 0 &&
+         (reinterpret_cast<uintptr_t>(a.src) & 15) == 0;
+}
+
+template <int KP, typename T, bool GATHER>
+int launch_slices(const Args<T>& a, int B, int S, int slice_rows,
+                  int weighted, int full, cudaStream_t st) {
+  const int vec = aligned16(a);
   const size_t smem = slice_smem_bytes<KP, T>();
-  const T* gt = static_cast<const T*>(g);
-  cudaError_t err;
+  int err;
   if (S == 1) {
-    auto kernel = gram_slice_kernel<KP, T, true>;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<B, kThreads, smem, st>>>(gt, wv, lam, x0, out, nullptr, D, K,
-                                      iters, 1, slice_rows, vec);
+    auto kernel = gram_slice_kernel<KP, T, GATHER, true>;
+    if ((err = set_smem(kernel, smem)) != 0) return err;
+    kernel<<<B, kThreads, smem, st>>>(a, 1, slice_rows, vec, weighted,
+                                      full);
     return (int)cudaGetLastError();
   }
-  auto kernel = gram_slice_kernel<KP, T, false>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  auto kernel = gram_slice_kernel<KP, T, GATHER, false>;
+  if ((err = set_smem(kernel, smem)) != 0) return err;
   kernel<<<(unsigned)((size_t)B * S), kThreads, smem, st>>>(
-      gt, wv, lam, x0, out, work, D, K, iters, S, slice_rows, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      a, S, slice_rows, vec, weighted, full);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
   const int rec4 = (KP * KP + KP) / 4;
   const int chunks = (rec4 + kThreads - 1) / kThreads;
-  float* sum = work + (size_t)B * S * (KP * KP + KP);
+  float* sum = a.part + (size_t)B * S * (KP * KP + KP);
   gram_reduce_kernel<<<(unsigned)((size_t)B * chunks), kThreads, 0, st>>>(
-      reinterpret_cast<const float4*>(work), S, rec4, chunks,
+      reinterpret_cast<const float4*>(a.part), S, rec4, chunks,
       reinterpret_cast<float4*>(sum));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if ((err = (int)cudaGetLastError()) != 0) return err;
   auto solve = gram_solve_kernel<KP>;
   const size_t ssmem = solve_smem_bytes<KP>();
-  err = cudaFuncSetAttribute(
-      solve, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ssmem);
-  if (err != cudaSuccess) return (int)err;
-  solve<<<B, kThreads, ssmem, st>>>(sum, lam, x0, out, K, iters);
+  if ((err = set_smem(solve, ssmem)) != 0) return err;
+  solve<<<B, kThreads, ssmem, st>>>(sum, a.lam, a.nnz, a.yty, a.x0, a.out,
+                                    a.K, a.iters);
   return (int)cudaGetLastError();
 }
 
-template <int KP>
-size_t row_smem_bytes() {
-  return sizeof(float) * (KP * Geo<KP>::GS + kTileD * KP * 2 + 2 * KP + 32 +
-                          3 * kTileD);
+template <typename T, bool GATHER>
+int launch_tiles(const Args<T>& a, int B, int KP, int S, int slice_rows,
+                 int weighted, int full, cudaStream_t st) {
+  const int vec = aligned16(a);
+  const size_t rec = (size_t)KP * KP + KP;
+  const size_t smem = tile_smem_bytes<T>();
+  auto kernel = gram_tile_kernel<T, GATHER>;
+  int err;
+  if ((err = set_smem(kernel, smem)) != 0) return err;
+  const int nt = KP / kGramTile;
+  const size_t tiles = full ? (size_t)nt * nt : (size_t)gram_tiles(KP);
+  kernel<<<(unsigned)((size_t)B * S * tiles), kThreads, smem, st>>>(
+      a, KP, S, slice_rows, vec, weighted, full);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const float* grams = a.part;
+  if (S > 1) {
+    const int rec4 = (int)(rec / 4);
+    const int chunks = (rec4 + kThreads - 1) / kThreads;
+    float* sum = a.part + (size_t)B * S * rec;
+    gram_reduce_kernel<<<(unsigned)((size_t)B * chunks), kThreads, 0, st>>>(
+        reinterpret_cast<const float4*>(a.part), S, rec4, chunks,
+        reinterpret_cast<float4*>(sum));
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    grams = sum;
+  }
+  const size_t ssmem = sizeof(float) * (5 * (size_t)KP + 32);
+  if ((err = set_smem(wide_solve_kernel, ssmem)) != 0) return err;
+  wide_solve_kernel<<<B, kThreads, ssmem, st>>>(grams, a.lam, a.nnz, a.yty,
+                                                a.x0, a.out, KP, a.K,
+                                                a.iters);
+  return (int)cudaGetLastError();
+}
+
+// The Gram's form. Only the fused entry's implicit confidences (yty
+// given) weigh the rows: the explicit Gram weights are the mask, 0 or 1
+// as the buckets hold it, and a row with both weights 0 is zero-filled,
+// so the others weigh 1 (`weighted` 0). Weighted rows rounded to bf16
+// make the reference's Gram asymmetric, Gram[k][l] = sum_d round(gw_d
+// t_dk) t_dl: there every block is summed (`full`). Otherwise it is
+// symmetric (f32 weighted rows are exact to f32 rounding) and only its
+// upper triangle is, then mirrored.
+template <typename T, bool GATHER>
+int solve(const Args<T>& a, int B, int S, int slice_rows, cudaStream_t s) {
+  const int w = GATHER && a.yty != nullptr;
+  const int full = w && sizeof(T) == 2;
+  const int kp = padded_rank(a.K);
+  switch (kp) {
+    case 16: return launch_slices<16, T, GATHER>(a, B, S, slice_rows, w, full, s);
+    case 32: return launch_slices<32, T, GATHER>(a, B, S, slice_rows, w, full, s);
+    case 64: return launch_slices<64, T, GATHER>(a, B, S, slice_rows, w, full, s);
+    case 128: return launch_slices<128, T, GATHER>(a, B, S, slice_rows, w, full, s);
+    default: return launch_tiles<T, GATHER>(a, B, kp, S, slice_rows, w, full, s);
+  }
 }
 
 template <int KP>
 size_t group_smem_bytes() {
   return sizeof(float) * (KP * Geo<KP>::GS + kTileD * KP +
-                          2 * kGroupRows * KP + 32 + 3 * kTileD);
-}
-
-template <int KP, typename T>
-int launch_rows(const void* src, int M, const int* cols, const float* gw,
-                const float* rw, const float* lam, const float* nnz,
-                const float* yty, const float* x0, float* out, int B, int D,
-                int K, int iters, cudaStream_t stream) {
-  auto kernel = row_solve_kernel<KP, T>;
-  const size_t smem = row_smem_bytes<KP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<B, kThreads, smem, stream>>>(static_cast<const T*>(src), M, cols,
-                                        gw, rw, lam, nnz, yty, x0, out, D, K,
-                                        iters);
-  return (int)cudaGetLastError();
+                          2 * kGroupRows * KP + 32 + 2 * kTileD);
 }
 
 template <int KP, typename T>
@@ -1040,9 +1536,8 @@ int launch_group(const void* g, const float* wv, const float* lam,
                  int K, int iters, cudaStream_t stream) {
   auto kernel = group_solve_kernel<KP, T>;
   const size_t smem = group_smem_bytes<KP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  int err;
+  if ((err = set_smem(kernel, smem)) != 0) return err;
   const int grid = (B + kGroupRows - 1) / kGroupRows;
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(g), wv, lam,
                                            x0, out, scratch, B, D, K, iters);
@@ -1050,39 +1545,14 @@ int launch_group(const void* g, const float* wv, const float* lam,
 }
 
 template <typename T>
-int two_stage(const void* g, const float* wv, const float* lam,
-              const float* x0, float* out, float* scratch, float* work, int B,
-              int D, int K, int iters, int rows, int S, int slice_rows,
-              cudaStream_t s) {
-  const int kp = padded_rank(K);
-  if (rows == kGroupRows) {
-    switch (kp) {
-      case 16: return launch_group<16, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
-      case 32: return launch_group<32, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
-      case 64: return launch_group<64, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
-      default: return launch_group<128, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
-    }
-  }
-  switch (kp) {
-    case 16: return launch_sliced<16, T>(g, wv, lam, x0, out, work, B, D, K, iters, S, slice_rows, s);
-    case 32: return launch_sliced<32, T>(g, wv, lam, x0, out, work, B, D, K, iters, S, slice_rows, s);
-    case 64: return launch_sliced<64, T>(g, wv, lam, x0, out, work, B, D, K, iters, S, slice_rows, s);
-    default: return launch_sliced<128, T>(g, wv, lam, x0, out, work, B, D, K, iters, S, slice_rows, s);
-  }
-}
-
-
-template <typename T>
-int fused(const void* table, int M, const int* cols, const float* gw,
-          const float* rw, const float* lam, const float* nnz,
-          const float* yty, const float* x0, float* out, int B, int D, int K,
-          int iters, cudaStream_t s) {
-  const int kp = padded_rank(K);
-  switch (kp) {
-    case 16: return launch_rows<16, T>(table, M, cols, gw, rw, lam, nnz, yty, x0, out, B, D, K, iters, s);
-    case 32: return launch_rows<32, T>(table, M, cols, gw, rw, lam, nnz, yty, x0, out, B, D, K, iters, s);
-    case 64: return launch_rows<64, T>(table, M, cols, gw, rw, lam, nnz, yty, x0, out, B, D, K, iters, s);
-    default: return launch_rows<128, T>(table, M, cols, gw, rw, lam, nnz, yty, x0, out, B, D, K, iters, s);
+int group(const void* g, const float* wv, const float* lam, const float* x0,
+          float* out, float* scratch, int B, int D, int K, int iters,
+          cudaStream_t s) {
+  switch (padded_rank(K)) {
+    case 16: return launch_group<16, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
+    case 32: return launch_group<32, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
+    case 64: return launch_group<64, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
+    default: return launch_group<128, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
   }
 }
 
@@ -1090,45 +1560,47 @@ int fused(const void* table, int M, const int* cols, const float* gw,
 
 extern "C" {
 
-// Bytes of the rows = 1 workspace for S slices (0 for one slice): the
-// partial records (Gram [KP][KP] and rhs [KP], f32) of every row and slice,
-// then the summed record of every row.
-size_t pio_als_two_stage_workspace_bytes(int B, int K, int S) {
-  return sizeof(float) * two_stage_floats(B, padded_rank(K), S);
+// Bytes of the workspace of B rows of rank K cut into S slices: the partial
+// records (Gram [KP][KP] and rhs [KP], f32) of every row and slice, then for
+// S > 1 the summed record of every row; above rank 128 at least one record
+// a row (0 for one slice at rank <= 128).
+size_t pio_als_workspace_bytes(int B, int K, int S) {
+  return sizeof(float) * solve_floats(B, padded_rank(K), S);
 }
 
 // Two-stage solve: g [B, D, K] (the masked rows gathered outside, f32 or
 // bf16), wv [B, D] f32 (vals * mask), lam [B] f32, x0 [B, K] f32 or NULL,
-// out [B, K] f32; rows 1 or 8; scratch [ceil(B/8)*8, KP, KP] f32 for rows 8
-// (else NULL), KP = K rounded up to 16, 32, 64 or 128. rows 1 takes the
-// launch plan of ops/als_kernels.two_stage_plan: S slices of slice_rows
-// rows of d, each d row in exactly one, no more slices than slabs of
-// slab_rows(KP) rows, and a workspace of workspace_bytes >=
-// pio_als_two_stage_workspace_bytes(B, K, S).
+// out [B, K] f32; rows 1 or 8. rows 8 at padded rank <= 128 takes scratch
+// [ceil(B/8)*8, KP, KP] f32 (KP = K rounded up to 16, 32, 64 or 128);
+// otherwise the launch plan (S, slice_rows, workspace: bad_plan).
 int pio_als_solve_cg(const void* g, int g_is_bf16, const float* wv,
                      const float* lam, const float* x0, float* out,
                      float* scratch, int B, int D, int K, int iters, int rows,
                      int S, int slice_rows, void* workspace,
                      size_t workspace_bytes, void* stream) {
   if (B <= 0 || D <= 0 || K <= 0 || K > kMaxRank || iters < 0 ||
-      (rows != 1 && rows != kGroupRows) ||
-      (rows == kGroupRows && scratch == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (rows == 1 &&
-      (S <= 0 || slice_rows <= 0 ||
-       (long long)S * slice_rows < D ||
-       (long long)(S - 1) * slice_rows >= D ||
-       S > (D + slab_rows(padded_rank(K)) - 1) / slab_rows(padded_rank(K)) ||
-       workspace_bytes < pio_als_two_stage_workspace_bytes(B, K, S) ||
-       (S > 1 && workspace == nullptr)))
+      (rows != 1 && rows != kGroupRows))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == kGroupRows && padded_rank(K) <= kGramTile) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    return g_is_bf16 ? group<__nv_bfloat16>(g, wv, lam, x0, out, scratch, B,
+                                            D, K, iters, s)
+                     : group<float>(g, wv, lam, x0, out, scratch, B, D, K,
+                                    iters, s);
+  }
+  if (bad_plan(B, D, K, S, slice_rows, workspace, workspace_bytes))
+    return (int)cudaErrorInvalidValue;
   float* work = static_cast<float*>(workspace);
-  return g_is_bf16
-             ? two_stage<__nv_bfloat16>(g, wv, lam, x0, out, scratch, work, B,
-                                        D, K, iters, rows, S, slice_rows, s)
-             : two_stage<float>(g, wv, lam, x0, out, scratch, work, B, D, K,
-                                iters, rows, S, slice_rows, s);
+  if (g_is_bf16) {
+    const Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(g),
+                                0, nullptr, nullptr, wv, lam, nullptr,
+                                nullptr, x0, out, work, D, K, iters};
+    return solve<__nv_bfloat16, false>(a, B, S, slice_rows, s);
+  }
+  const Args<float> a{static_cast<const float*>(g), 0, nullptr, nullptr,
+                      wv, lam, nullptr, nullptr, x0, out, work, D, K, iters};
+  return solve<float, false>(a, B, S, slice_rows, s);
 }
 
 // The gathered block of the two-stage entry: g [n, K] = table [M, K] rows
@@ -1137,8 +1609,7 @@ int pio_als_solve_cg(const void* g, int g_is_bf16, const float* wv,
 int pio_als_gather_rows(const void* table, int table_is_bf16, int M,
                         const int* cols, const float* mask, long long n,
                         int K, void* g, void* stream) {
-  if (M <= 0 || n < 0 || K <= 0 || K > kMaxRank)
-    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || n < 0 || K <= 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)((n + kWarps - 1) / kWarps);
@@ -1154,21 +1625,31 @@ int pio_als_gather_rows(const void* table, int table_is_bf16, int M,
 }
 
 // Fused gather solve: table [M, K] (f32 or bf16), cols [B, D] i32,
-// gw / rw [B, D] f32 (Gram and rhs weights, mask folded in), lam and nnz
-// [B] f32, yty [K, K] f32 or NULL, x0 [B, K] f32 or NULL, out [B, K] f32.
+// gw / rw [B, D] f32 (Gram and rhs weights, mask folded in: without yty,
+// explicit, gw is the 0/1 mask), lam and nnz
+// [B] f32, yty [K, K] f32 or NULL, x0 [B, K] f32 or NULL, out [B, K] f32;
+// the launch plan as the two-stage entry's (bad_plan).
 int pio_als_fused_solve_cg(const void* table, int table_is_bf16, int M,
                            const int* cols, const float* gw, const float* rw,
                            const float* lam, const float* nnz,
                            const float* yty, const float* x0, float* out,
-                           int B, int D, int K, int iters, void* stream) {
-  if (B <= 0 || D <= 0 || K <= 0 || K > kMaxRank || M <= 0 || iters < 0)
+                           int B, int D, int K, int iters, int S,
+                           int slice_rows, void* workspace,
+                           size_t workspace_bytes, void* stream) {
+  if (B <= 0 || D <= 0 || K <= 0 || K > kMaxRank || M <= 0 || iters < 0 ||
+      bad_plan(B, D, K, S, slice_rows, workspace, workspace_bytes))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return table_is_bf16
-             ? fused<__nv_bfloat16>(table, M, cols, gw, rw, lam, nnz, yty,
-                                    x0, out, B, D, K, iters, s)
-             : fused<float>(table, M, cols, gw, rw, lam, nnz, yty, x0, out,
-                            B, D, K, iters, s);
+  float* work = static_cast<float*>(workspace);
+  if (table_is_bf16) {
+    const Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(table), M,
+                                cols, gw, rw, lam, nnz, yty, x0, out, work,
+                                D, K, iters};
+    return solve<__nv_bfloat16, true>(a, B, S, slice_rows, s);
+  }
+  const Args<float> a{static_cast<const float*>(table), M, cols, gw, rw, lam,
+                      nnz, yty, x0, out, work, D, K, iters};
+  return solve<float, true>(a, B, S, slice_rows, s);
 }
 
 }  // extern "C"

@@ -36,7 +36,8 @@
 // causal past skip the per-element mask, and exp2 is one ex2.approx.
 //
 // Design (FlashAttention-2's layout): one block of 4 warps per (query tile of
-// 64, batch*head), 16 query rows a warp. The warp's Q fragments stay in
+// 64, batch*head), 16 query rows a warp; batch*head and the query tiles share
+// grid x, so any B*H is taken. The warp's Q fragments stay in
 // registers for the whole KV scan; S = QK^T of a 64-key tile accumulates in
 // registers; the online softmax runs on those accumulator fragments (row max
 // and sum across the lane quad with two __shfl_xor_sync); P is repacked from
@@ -70,6 +71,15 @@
 // last chunks first); a query tile with more than one chunk writes f32
 // partials (o unnormalised, m, l) to the workspace, and
 // flash_combine_kernel merges them, one warp a row.
+//
+// Heads wider than 128 (the TPU kernel pads only S and takes any D) would
+// not fit this design's registers (O and Q fragments) or shared memory, so
+// they take flash_wide_kernel, a simple D-tiled form on the f32 FMA units:
+// one block of 128 threads per (16 query rows, batch*head, 128 output
+// columns); per 64-key tile S = QK^T accumulates over 64-column chunks of
+// the head (each block recomputes it for its output columns), then the same
+// masking, online softmax in f32 and exactly-0 dead rows, and O += PV for
+// its columns. Its times are in PERF.md; it is right, not fast.
 //
 // Plain C interface, bound from Python with ctypes; launches on the caller's
 // stream, allocates nothing, returns cudaGetLastError().
@@ -111,6 +121,10 @@ struct Split {
 
 constexpr int kSplitTiles = 8;   // live tiles a chunk: 512 keys
 constexpr int kMaxDevices = 64;  // devices whose attributes are cached
+constexpr int kMaxHead = 128;    // widest head of flash_fwd_kernel
+constexpr int kWQ = 16;          // wide heads: query rows a block
+constexpr int kWC = 64;          // wide heads: head columns a QK^T step
+constexpr int kWV = 128;         // wide heads: output columns a block
 
 // key tiles a query tile can see: below the causal limit, if causal
 __host__ __device__ __forceinline__ int q_tile_kv(int qt, int Sq, int Skv,
@@ -335,13 +349,15 @@ __device__ __forceinline__ int nth_live(const uint32_t* bits, int r, int n) {
   return n;
 }
 
-// Tiles of batch row blockIdx.y, word blockIdx.x (32 tiles): warp w reads
-// tiles 8w..8w+7, all 16 of a lane's loads in flight together, one ballot
-// a tile for live and one for full
+// Tiles of batch row blockIdx.x / words, word blockIdx.x % words (32
+// tiles): warp w reads tiles 8w..8w+7, all 16 of a lane's loads in flight
+// together, one ballot a tile for live and one for full
 __global__ void __launch_bounds__(kThreads)
     flash_tiles_kernel(const float* __restrict__ valid, int Skv, Tiles tiles) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.y, t0 = blockIdx.x * 32 + warp * 8;
+  const int b = blockIdx.x / tiles.words;
+  const int word = blockIdx.x - b * tiles.words;
+  const int t0 = word * 32 + warp * 8;
   const float* valb = valid == nullptr ? nullptr : valid + (long long)b * Skv;
   float x[8][2];
 #pragma unroll
@@ -366,7 +382,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    const long long w = (long long)b * tiles.words + blockIdx.x;
+    const long long w = (long long)b * tiles.words + word;
     tiles.live[w] = part[0][0] | part[0][1] | part[0][2] | part[0][3];
     tiles.full[w] = part[1][0] | part[1][1] | part[1][2] | part[1][3];
   }
@@ -376,8 +392,8 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ valid,
-                     T* __restrict__ out, int H, int Sq, int Skv, int D,
-                     Strides qs, Strides ks, Strides vs, int causal,
+                     T* __restrict__ out, int H, int BH, int Sq, int Skv,
+                     int D, Strides qs, Strides ks, Strides vs, int causal,
                      float scale, int vec, Tiles tiles, Split split) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kRow = row_elems<T, DP>();
@@ -389,9 +405,9 @@ __global__ void __launch_bounds__(kThreads)
   float* Val = reinterpret_cast<float*>(Vs + 2 * kBK * kRow);  // [2][kBK]
 
   // the last query tiles have the most live key tiles under the causal
-  // mask: they start first
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
+  // mask: they start first (grid x: query tiles from the last, then heads)
+  const int qt = gridDim.x / BH - 1 - blockIdx.x / BH;
+  const int bh = blockIdx.x % BH;
   const int b = bh / H, h = bh - (bh / H) * H;
   const int q0 = qt * kBQ;
   const int tid = threadIdx.x;
@@ -637,7 +653,7 @@ __global__ void __launch_bounds__(kThreads)
     inv[i] = 1.f / (l_r[i] == 0.f ? 1.f : l_r[i]);  // fully masked row -> 0
   }
   if (partial) {
-    const long long base = ((long long)chunk * gridDim.y + bh) * Sq;
+    const long long base = ((long long)chunk * BH + bh) * Sq;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = r_lo + 8 * i;
@@ -678,10 +694,12 @@ __global__ void __launch_bounds__(kThreads)
 // skipped, and a row with none in any chunk gives exactly 0
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_combine_kernel(T* __restrict__ out, int H, int Sq, int Skv, int D,
-                         int causal, Tiles tiles, Split split) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31, bh = blockIdx.y;
+    flash_combine_kernel(T* __restrict__ out, int H, int BH, int Sq, int Skv,
+                         int D, int causal, Tiles tiles, Split split) {
+  const int row_blocks = (Sq + kWarps - 1) / kWarps;
+  const int bh = blockIdx.x / row_blocks;
+  const int row = (blockIdx.x - bh * row_blocks) * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
   if (row >= Sq) return;
   const int b = bh / H, h = bh - (bh / H) * H;
   const int chunks = q_tile_chunks(
@@ -689,7 +707,7 @@ __global__ void __launch_bounds__(kThreads)
                  q_tile_kv(row / kBQ, Sq, Skv, causal)),
       split);
   if (chunks <= 1) return;  // written by its one block
-  const long long stride = (long long)gridDim.y * Sq;  // between chunks
+  const long long stride = (long long)BH * Sq;  // between chunks
   const long long r0 = (long long)bh * Sq + row;
   float mx = kMaskValue;
   for (int c = lane; c < chunks; c += 32)
@@ -713,6 +731,149 @@ __global__ void __launch_bounds__(kThreads)
              ex2(split.m[c * stride + r0] - mx);
     }
     orow[d] = from_f32<T>(acc * inv);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// shared memory of flash_wide_kernel: a chunk of Q [kWQ][kWC] and of K
+// [kBK][kWC + 1] (the odd stride puts a warp's 8 keys on distinct banks),
+// V's output columns [kBK][kWV], P [kWQ][kBK] and the keys' validity
+constexpr size_t wide_smem_bytes() {
+  return sizeof(float) *
+         (kWQ * kWC + kBK * (kWC + 1) + kBK * kWV + kWQ * kBK + kBK);
+}
+
+// Heads wider than kMaxHead: block (query tile of kWQ rows, batch*head,
+// output columns [dv0, dv0 + kWV)) on grid x, query tiles from the last.
+// Thread (row, j) of the 16 x 8 holds keys j, j + 8, .. of the row's scores
+// and output columns j, j + 8, ..; a row's max and sum are taken over its 8
+// threads. f32 throughout (bf16 inputs widened, exact products).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const float* __restrict__ valid, T* __restrict__ out,
+                      int H, int BH, int Sq, int Skv, int D, Strides qs,
+                      Strides ks, Strides vs, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qc = reinterpret_cast<float*>(smem);  // [kWQ][kWC]
+  float* Kc = Qc + kWQ * kWC;                   // [kBK][kWC + 1]
+  float* Vs = Kc + kBK * (kWC + 1);             // [kBK][kWV]
+  float* Ps = Vs + kBK * kWV;                   // [kWQ][kBK]
+  float* Val = Ps + kWQ * kBK;                  // [kBK]
+  constexpr int kKeys = kBK / 8, kCols = kWV / 8;  // per thread
+
+  const int nv = (D + kWV - 1) / kWV, nq = (Sq + kWQ - 1) / kWQ;
+  long long x = blockIdx.x;
+  const int dv = (int)(x % nv);
+  x /= nv;
+  const int bh = (int)(x % BH);
+  const int qt = nq - 1 - (int)(x / BH);
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int q0 = qt * kWQ, dv0 = dv * kWV;
+  const int tid = threadIdx.x, row = tid >> 3, j = tid & 7;
+  const int qr = q0 + row;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const float* valb = valid == nullptr ? nullptr : valid + (long long)b * Skv;
+  const float s_mul = scale * kLog2e;
+
+  int n_kv = (Skv + kBK - 1) / kBK;
+  if (causal) n_kv = min(n_kv, (min(q0 + kWQ, Sq) - 1) / kBK + 1);
+  float m_r = kMaskValue, l_r = 0.f;  // l_r: this thread's keys' part
+  float o[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) o[i] = 0.f;
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * kBK;
+    if (tid < kBK)
+      Val[tid] = k0 + tid >= Skv ? 0.f : valb == nullptr ? 1.f : valb[k0 + tid];
+    float s[kKeys];
+#pragma unroll
+    for (int u = 0; u < kKeys; ++u) s[u] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kWC) {
+      __syncthreads();  // the chunks are free
+      for (int e = tid; e < kWQ * kWC; e += kThreads) {
+        const int r = e / kWC, c = c0 + e % kWC;
+        Qc[e] = (q0 + r < Sq && c < D)
+                    ? to_f32<T>(qb[(long long)(q0 + r) * qs.s + c])
+                    : 0.f;
+      }
+      for (int e = tid; e < kBK * kWC; e += kThreads) {
+        const int r = e / kWC, c = e % kWC;
+        Kc[r * (kWC + 1) + c] =
+            (k0 + r < Skv && c0 + c < D)
+                ? to_f32<T>(kb[(long long)(k0 + r) * ks.s + c0 + c])
+                : 0.f;
+      }
+      __syncthreads();
+      for (int c = 0; c < kWC; ++c) {
+        const float qv = Qc[row * kWC + c];
+#pragma unroll
+        for (int u = 0; u < kKeys; ++u)
+          s[u] = fmaf(qv, Kc[(j + 8 * u) * (kWC + 1) + c], s[u]);
+      }
+    }
+    for (int e = tid; e < kBK * kWV; e += kThreads) {
+      const int r = e / kWV, c = dv0 + e % kWV;
+      Vs[e] = (k0 + r < Skv && c < D)
+                  ? to_f32<T>(vb[(long long)(k0 + r) * vs.s + c])
+                  : 0.f;
+    }
+    // mask, then the online softmax (log2 units)
+    float mx = kMaskValue;
+#pragma unroll
+    for (int u = 0; u < kKeys; ++u) {
+      const int key = j + 8 * u;
+      const bool live = Val[key] > 0.f && (!causal || qr >= k0 + key);
+      s[u] = live ? s[u] * s_mul : kMaskValue;
+      mx = fmaxf(mx, s[u]);
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m_r, mx);
+    const float corr = ex2(m_r - m_new);  // 0 after a fully masked start
+    m_r = m_new;
+    l_r *= corr;
+#pragma unroll
+    for (int u = 0; u < kKeys; ++u) {
+      const float p = s[u] == kMaskValue ? 0.f : ex2(s[u] - m_r);
+      Ps[row * kBK + j + 8 * u] = p;
+      l_r += p;
+    }
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) o[i] *= corr;
+    __syncthreads();  // V and P are in
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float p = Ps[row * kBK + kk];
+#pragma unroll
+      for (int i = 0; i < kCols; ++i)
+        o[i] = fmaf(p, Vs[kk * kWV + j + 8 * i], o[i]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    l_r += __shfl_xor_sync(0xffffffffu, l_r, off);
+  const float inv = 1.f / (l_r == 0.f ? 1.f : l_r);  // fully masked row -> 0
+  if (qr >= Sq) return;
+  T* orow = out + (((long long)b * Sq + qr) * H + h) * D;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int c = dv0 + j + 8 * i;
+    if (c < D) orow[c] = from_f32<T>(o[i] * inv);
   }
 }
 
@@ -745,6 +906,7 @@ size_t tiles_bytes(int B, int Skv) {
 }
 
 size_t workspace_bytes(int B, int H, int Sq, int Skv, int D) {
+  if (D > kMaxHead) return 0;  // flash_wide_kernel takes none
   const Split sp = split_plan(B, H, Sq, Skv);
   const size_t partials =
       sp.n <= 1 ? 0 : sizeof(float) * (size_t)sp.n * B * H * Sq * (D + 2);
@@ -784,23 +946,43 @@ int launch(const void* q, const void* k, const void* v, const float* valid,
     if (dev < kMaxDevices) smem_set[dev] = true;
   }
   if (tiles.words > 0) {
-    flash_tiles_kernel<<<dim3((unsigned)tiles.words, (unsigned)B), kThreads,
-                         0, stream>>>(valid, Skv, tiles);
+    flash_tiles_kernel<<<(unsigned)((long long)tiles.words * B), kThreads, 0,
+                         stream>>>(valid, Skv, tiles);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const unsigned nq = (unsigned)((Sq + kBQ - 1) / kBQ);
+  const int BH = B * H;
+  const long long nq = (Sq + kBQ - 1) / kBQ;
   flash_fwd_kernel<T, DP>
-      <<<dim3(nq, (unsigned)(B * H), (unsigned)sp.n), kThreads, smem,
+      <<<dim3((unsigned)(nq * BH), 1, (unsigned)sp.n), kThreads, smem,
          stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                    static_cast<const T*>(v), valid, static_cast<T*>(out), H,
-                   Sq, Skv, D, qs, ks, vs, causal, scale, vec, tiles, sp);
+                   BH, Sq, Skv, D, qs, ks, vs, causal, scale, vec, tiles, sp);
   err = cudaGetLastError();
   if (err != cudaSuccess || sp.n <= 1) return (int)err;
   flash_combine_kernel<T>
-      <<<dim3((unsigned)((Sq + kWarps - 1) / kWarps), (unsigned)(B * H)),
-         kThreads, 0, stream>>>(static_cast<T*>(out), H, Sq, Skv, D, causal,
-                                tiles, sp);
+      <<<(unsigned)((long long)((Sq + kWarps - 1) / kWarps) * BH), kThreads,
+         0, stream>>>(static_cast<T*>(out), H, BH, Sq, Skv, D, causal, tiles,
+                      sp);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v,
+                const float* valid, void* out, int B, int H, int Sq, int Skv,
+                int D, Strides qs, Strides ks, Strides vs, int causal,
+                float scale, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)((Sq + kWQ - 1) / kWQ) * B * H *
+                           ((D + kWV - 1) / kWV);
+  flash_wide_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), valid, static_cast<T*>(out), H, B * H, Sq,
+      Skv, D, qs, ks, vs, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -827,13 +1009,22 @@ int dispatch(const void* q, const void* k, const void* v, const float* valid,
   if (D <= 64)
     return launch<T, 64>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
                          causal, scale, vec, workspace, stream);
-  return launch<T, 128>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                        causal, scale, vec, workspace, stream);
+  if (D <= kMaxHead)
+    return launch<T, 128>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
+                          causal, scale, vec, workspace, stream);
+  return launch_wide<T>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
+                        causal, scale, stream);
 }
 
+// any B * H and D whose grid fits grid x (2^31 - 1 blocks)
 bool bad_shape(int B, int H, int Sq, int Skv, int D) {
-  return B <= 0 || H <= 0 || Sq <= 0 || Skv < 0 || D <= 0 || D > 128 ||
-         (long long)B * H > 65535;
+  if (B <= 0 || H <= 0 || Sq <= 0 || Skv < 0 || D <= 0) return true;
+  const long long bh = (long long)B * H;
+  const long long blocks =
+      D <= kMaxHead ? (long long)((Sq + kBQ - 1) / kBQ) * bh
+                    : (long long)((Sq + kWQ - 1) / kWQ) * bh *
+                          ((D + kWV - 1) / kWV);
+  return bh > 0x7fffffffLL || blocks > 0x7fffffffLL;
 }
 
 }  // namespace
@@ -843,7 +1034,8 @@ extern "C" {
 // dynamic shared memory of one attention block at head width D (the
 // build report's complement: ptxas prints only static shared memory)
 size_t pio_flash_smem_bytes(int D, int dtype) {
-  if (D <= 0 || D > 128 || (dtype != 0 && dtype != 1)) return 0;
+  if (D <= 0 || (dtype != 0 && dtype != 1)) return 0;
+  if (D > kMaxHead) return wide_smem_bytes();
   const int dp = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
   if (dtype == 1) {
     return dp == 16   ? fixed_smem_bytes<__nv_bfloat16, 16>()

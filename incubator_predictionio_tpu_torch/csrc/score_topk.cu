@@ -8,7 +8,7 @@
 //   * a disallowed item scores -3.4e38;
 //   * top-k per query row, descending, ties to the lowest item id;
 //   * a slot past the allowed count gets score -3.4e38 and id -1.
-//   * k <= 128, K <= 256, B <= 65,535 * 8.
+//   * k <= 128, any K, B <= 65,535 * 8.
 //
 // What bounds it on this card: the item table read (I*K*4 bytes at
 // 3.35 TB/s). An f32-accurate product can run as 3xTF32 on the tensor cores
@@ -29,7 +29,9 @@
 //   so the next chunk is in flight while this one is scored. Thread t
 //   scores item t of the tile for every row of the group from shared memory
 //   (rows padded by 16 bytes: conflict-free float4 reads), q broadcast from
-//   shared memory.
+//   shared memory: staged whole up to rank kMaxStagedRank, above it (the
+//   TPU kernel pads any rank to 128 lanes) one 32-column chunk of the 8
+//   rows at a time, copied with the items' chunk into the same stage.
 //   Selection by threshold: each (block, row) keeps candidate keys in a
 //   shared buffer of kBuf; a key packs (score, id) into 64 bits ordered as
 //   (score desc, id asc), so one integer comparison is the whole order.
@@ -74,7 +76,7 @@ constexpr int kStages = 2;               // pipeline stages (chunk buffers)
 constexpr int kMaxRows = 8;              // query rows per block
 constexpr int kBlocksPerSm = 2;          // pass-1 blocks resident per SM
 constexpr int kBuf = 512;                // candidate keys per (block, row)
-constexpr int kMaxRank = 256;
+constexpr int kMaxStagedRank = 256;     // q staged whole up to this rank
 constexpr int kMaxK = 128;
 constexpr int kMergeBuf = 4096;          // keys gathered per row in pass 2
 constexpr int kMaxLists = kMergeBuf - kMaxK;
@@ -325,12 +327,30 @@ __device__ void sort_rows(u64* buf, int stride, const int* cnt, int rows) {
   bitonic_desc(buf, rows, stride, n);
 }
 
-// Stage s of a block's walk: tile t0 + s / nc, rank columns of chunk s % nc.
-template <bool kVec>
+// floats of one pipeline stage: the tile's chunk, then with kStreamQ the
+// chunk's columns of the block's R query rows
+template <int R, bool kStreamQ>
+__host__ __device__ constexpr int stage_floats() {
+  return kTile * kRowStride + (kStreamQ ? R * kChunk : 0);
+}
+
+// Stage s of a block's walk: tile t0 + s / nc, rank columns of chunk s % nc
+// (and, kStreamQ, those columns of query rows row0 .. row0 + R - 1).
+template <bool kVec, int R, bool kStreamQ>
 __device__ __forceinline__ void load_stage(float* dst, const float* items,
-                                           int I, int K, int tile, int chunk) {
+                                           int I, int K, int tile, int chunk,
+                                           const float* q, int B, int row0) {
   const int col0 = chunk * kChunk;
   const int tid = threadIdx.x;
+  if constexpr (kStreamQ) {
+    float* qd = dst + kTile * kRowStride;  // [R][kChunk]
+    for (int e = tid; e < R * kChunk; e += kThreads) {
+      const int r = e / kChunk, col = col0 + e % kChunk;
+      const bool in = row0 + r < B && col < K;
+      cp_async4(qd + e, in ? q + (size_t)(row0 + r) * K + col : q,
+                in ? 4 : 0);
+    }
+  }
   if (kVec) {
     constexpr int kParts = kChunk / 4;  // 16-byte pieces per row chunk
 #pragma unroll
@@ -355,14 +375,15 @@ __device__ __forceinline__ void load_stage(float* dst, const float* items,
   }
 }
 
-size_t tile_smem_bytes(int R, int K) {
+template <int R, bool kStreamQ>
+size_t tile_smem_bytes(int K) {
   const int kq = (K + kChunk - 1) / kChunk * kChunk;
-  return sizeof(float) *
-             ((size_t)kStages * kTile * kRowStride + (size_t)R * kq) +
+  return sizeof(float) * ((size_t)kStages * stage_floats<R, kStreamQ>() +
+                          (kStreamQ ? 0 : (size_t)R * kq)) +
          sizeof(u64) * (size_t)R * kBuf;
 }
 
-template <int R, bool kVec>
+template <int R, bool kVec, bool kStreamQ>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     tile_topk_kernel(const float* __restrict__ q,
                      const float* __restrict__ items,
@@ -372,9 +393,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   extern __shared__ float4 smem4[];
   const int kq = (K + kChunk - 1) / kChunk * kChunk;
   const int nc = kq / kChunk;
-  float* stage = reinterpret_cast<float*>(smem4);  // [kStages][kTile][row]
-  float* q_s = stage + kStages * kTile * kRowStride;    // [R][kq]
-  u64* buf = reinterpret_cast<u64*>(q_s + R * kq);  // [R][kBuf]
+  constexpr int kStage = stage_floats<R, kStreamQ>();
+  float* stage = reinterpret_cast<float*>(smem4);  // [kStages][kStage]
+  float* q_s = stage + kStages * kStage;            // [R][kq], staged whole
+  u64* buf = reinterpret_cast<u64*>(q_s + (kStreamQ ? 0 : R * kq));  // [R][kBuf]
   __shared__ int cnt[R];
   __shared__ u64 thr[R];
   __shared__ Sel sel[R];
@@ -389,14 +411,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 #pragma unroll
   for (int p = 0; p < kStages - 1; ++p) {
     if (p < steps)
-      load_stage<kVec>(stage + p * kTile * kRowStride, items, I, K,
-                       t0 + p / nc, p % nc);
+      load_stage<kVec, R, kStreamQ>(stage + p * kStage, items, I, K,
+                                    t0 + p / nc, p % nc, q, B, row0);
     cp_async_commit();
   }
-  for (int e = tid; e < R * kq; e += kThreads) {
-    const int r = e / kq, c = e - r * kq;
-    q_s[e] = (r < live && c < K) ? q[(size_t)(row0 + r) * K + c] : 0.f;
-  }
+  if constexpr (!kStreamQ)
+    for (int e = tid; e < R * kq; e += kThreads) {
+      const int r = e / kq, c = e - r * kq;
+      q_s[e] = (r < live && c < K) ? q[(size_t)(row0 + r) * K + c] : 0.f;
+    }
   if (tid < R) {
     cnt[tid] = 0;
     thr[tid] = 0;
@@ -406,8 +429,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   for (int s = 0; s < steps; ++s) {
     const int ahead = s + kStages - 1;
     if (ahead < steps)
-      load_stage<kVec>(stage + (ahead % kStages) * kTile * kRowStride, items, I,
-                       K, t0 + ahead / nc, ahead % nc);
+      load_stage<kVec, R, kStreamQ>(stage + (ahead % kStages) * kStage, items,
+                                    I, K, t0 + ahead / nc, ahead % nc, q, B,
+                                    row0);
     cp_async_commit();        // an empty group past the last stage
     cp_async_wait<kStages - 1>();  // stage s landed
     __syncthreads();
@@ -416,15 +440,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
     }
-    float* here = stage + (s % kStages) * kTile * kRowStride;
+    float* here = stage + (s % kStages) * kStage;
     const float* x_row = here + tid * kRowStride;
-    const float* qc = q_s + c * kChunk;
+    const float* qc = kStreamQ ? here + kTile * kRowStride : q_s + c * kChunk;
+    const int qs = kStreamQ ? kChunk : kq;  // q row stride
 #pragma unroll
     for (int j = 0; j < kChunk; j += 4) {
       const float4 x = *reinterpret_cast<const float4*>(x_row + j);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float4 w = *reinterpret_cast<const float4*>(qc + r * kq + j);
+        const float4 w = *reinterpret_cast<const float4*>(qc + r * qs + j);
         float a = acc[r];
         a = fmaf(w.x, x.x, a);
         a = fmaf(w.y, x.y, a);
@@ -534,13 +559,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int R>
+template <int R, bool kStreamQ = false>
 int launch_tiles(const float* q, const float* items, const uint8_t* allowed,
                  int B, int I, int K, int k, int tpb, int item_blocks,
                  u64* cand, cudaStream_t st) {
   const bool vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(items) & 15) == 0;
-  auto kernel = vec ? tile_topk_kernel<R, true> : tile_topk_kernel<R, false>;
-  const size_t smem = tile_smem_bytes(R, K);
+  auto kernel = vec ? tile_topk_kernel<R, true, kStreamQ>
+                    : tile_topk_kernel<R, false, kStreamQ>;
+  const size_t smem = tile_smem_bytes<R, kStreamQ>(K);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -571,7 +597,7 @@ int pio_score_topk(const float* q, const float* items, const uint8_t* allowed,
                    int B, int I, int K, int k, int item_blocks,
                    int tiles_per_block, float* out_s, int* out_i,
                    void* workspace, size_t workspace_bytes, void* stream) {
-  if (B <= 0 || I <= 0 || K <= 0 || K > kMaxRank || k <= 0 || k > kMaxK ||
+  if (B <= 0 || I <= 0 || K <= 0 || k <= 0 || k > kMaxK ||
       k > I || (B + kMaxRows - 1) / kMaxRows > 65535)
     return (int)cudaErrorInvalidValue;
   const long long n_tiles = ((long long)I + kTile - 1) / kTile;
@@ -583,7 +609,11 @@ int pio_score_topk(const float* q, const float* items, const uint8_t* allowed,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   u64* cand = static_cast<u64*>(workspace);
   int rc;
-  switch (B < kMaxRows ? B : kMaxRows) {
+  // above kMaxStagedRank the query rows stream by chunk, eight rows a block
+  if (K > kMaxStagedRank)
+    rc = launch_tiles<kMaxRows, true>(q, items, allowed, B, I, K, k,
+                                      tiles_per_block, item_blocks, cand, st);
+  else switch (B < kMaxRows ? B : kMaxRows) {
     case 1: rc = launch_tiles<1>(q, items, allowed, B, I, K, k, tiles_per_block, item_blocks, cand, st); break;
     case 2: rc = launch_tiles<2>(q, items, allowed, B, I, K, k, tiles_per_block, item_blocks, cand, st); break;
     case 3: rc = launch_tiles<3>(q, items, allowed, B, I, K, k, tiles_per_block, item_blocks, cand, st); break;

@@ -4,8 +4,8 @@ port of incubator_predictionio_tpu/ops/als.py (single-device training).
 Each half-sweep solves every row of one side against the other side's
 factors, bucket by bucket (ops/sparse.py): buckets of width ≥
 ``KERNEL_MIN_D`` go to a hand-written kernel (ops/als_kernels.py), the
-fused gather kernel when the other side's table is small enough to stay in
-L2, the two-stage kernel otherwise; narrower buckets and the split (heavy)
+fused gather entry on both sides (measured on the H100: ``_mixed_run``);
+narrower buckets and the split (heavy)
 rows are assembled with plain PyTorch (gather → batched Gram → CG), as the
 JAX package assembles them with XLA outside any Pallas kernel. Factors are
 dense f32 tensors; the ``bf16_sweeps`` early sweeps gather from a bf16 copy
@@ -48,10 +48,6 @@ CG_ITERS_BF16 = 3 if CG_WARMSTART else 6
 #: Pallas kernel padded every row to 128 lanes); still to be measured on
 #: the H100, whose kernels do not pad D.
 KERNEL_MIN_D = 64
-#: a half-sweep takes the fused gather kernel when the other side's table,
-#: in the sweep's dtype, fits in this many bytes: half the H100's 50 MB L2,
-#: so the gathered rows are served from L2. A placeholder until measured.
-FUSED_TABLE_BYTES = 25_000_000
 #: rows per block of the two-stage kernel (1 or 8)
 KERNEL_ROWS = 1
 #: element budget of one chunk's [rows, D, K] gather (als.py:602, 64 MB f32)
@@ -245,13 +241,6 @@ def _scatter_rows_impl(out, row_ids, sol):
     return out
 
 
-def _fused_fits(table_rows: int, rank: int, dtype) -> bool:
-    """The fused-routing rule: the gather table in the sweep's dtype fits
-    in ``FUSED_TABLE_BYTES``."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return table_rows * rank * itemsize <= FUSED_TABLE_BYTES
-
-
 def _solve_heavy(other_factors, heavy, l2: float, alpha: float,
                  reg_nnz: bool, compute_dtype, implicit: bool, yty,
                  cg_iters: int = CG_ITERS, prev_factors=None):
@@ -372,15 +361,6 @@ def _als_run_fused(state: ALSState, user_tree, item_tree, l2: float,
     return st
 
 
-def _check_kernel_rank(rank: int, device: torch.device) -> None:
-    """On CUDA the kernel route launches the kernels or raises: above
-    their rank it raises here, before any work."""
-    if device.type == "cuda" and rank > als_kernels.MAX_RANK:
-        raise ValueError(
-            f"the ALS kernels take rank 1..{als_kernels.MAX_RANK}, got "
-            f"{rank}; use_kernel=False is the plain route")
-
-
 def _mixed_run(state: ALSState, u_tree, i_tree, l2: float, iterations: int,
                bf16_sweeps: int, reg_nnz: bool, compute_dtype, user_heavy,
                item_heavy, use_kernel: bool = True,
@@ -394,33 +374,25 @@ def _mixed_run(state: ALSState, u_tree, i_tree, l2: float, iterations: int,
     ``use_kernel`` routes buckets of width ≥
     ``kernel_min_d`` to the kernels (on CPU tensors their plain versions
     run); False is the plain-PyTorch route throughout. ``use_fused``
-    (user side, item side) defaults to the L2 rule per sweep dtype. The
-    kernels take rank ≤ ``als_kernels.MAX_RANK``: above it, ``use_kernel``
-    with factors on CUDA raises before any sweep."""
+    (user side, item side) defaults to the fused entry on both sides: on
+    the H100 it beats the two-stage entry and its gather at every ML-20M
+    bucket, the item side's 70.9 MB user table read from HBM included
+    (PERF.md §6), so the TPU's VMEM rule (``als_fused_fits``) and its
+    L2 stand-in are gone."""
     lo = min(max(int(bf16_sweeps), 0), int(iterations))
-    n_u, rank = state.user_factors.shape
-    n_i = state.item_factors.shape[0]
-    if use_kernel:
-        _check_kernel_rank(rank, state.user_factors.device)
-
-    def fused_for(dtype):
-        if use_fused is not None:
-            return tuple(use_fused)
-        if not use_kernel:
-            return (False, False)
-        return (_fused_fits(n_i, rank, dtype), _fused_fits(n_u, rank, dtype))
-
+    fused = (tuple(use_fused) if use_fused is not None
+             else (bool(use_kernel), bool(use_kernel)))
     common = dict(user_heavy=user_heavy, item_heavy=item_heavy,
-                  use_kernel=use_kernel, kernel_min_d=kernel_min_d)
+                  use_kernel=use_kernel, kernel_min_d=kernel_min_d,
+                  use_fused=fused)
     if lo:
         state = _als_run_fused(
             state, u_tree, i_tree, l2, lo, reg_nnz, torch.bfloat16,
-            cg_iters=min(CG_ITERS_BF16, CG_ITERS),
-            use_fused=fused_for(torch.bfloat16), **common)
+            cg_iters=min(CG_ITERS_BF16, CG_ITERS), **common)
     if iterations - lo:
         state = _als_run_fused(
             state, u_tree, i_tree, l2, iterations - lo, reg_nnz,
-            compute_dtype, use_fused=fused_for(compute_dtype), **common)
+            compute_dtype, **common)
     return state
 
 
@@ -484,10 +456,9 @@ def als_train(users: np.ndarray, items: np.ndarray, ratings: np.ndarray,
     solve. ``track_rmse`` records the fit RMSE after every sweep.
     ``stats`` receives the walls "als.prep" (buckets built and put on the
     device) and "als.sweeps" (every sweep, to the device's last step).
-    Trains through the kernels, so on CUDA ``rank`` is at most
+    Trains through the kernels, at any rank up to
     ``als_kernels.MAX_RANK``."""
     dev = default_device(device)
-    _check_kernel_rank(rank, dev)
     t0 = time.perf_counter()
     u_tree, i_tree, u_hv, i_hv = prepare_trees(
         users, items, ratings, n_users, n_items, max_width, dev)

@@ -19,13 +19,17 @@ then ``iters`` steps of Jacobi-preconditioned CG on
   body with the shared YᵀY term in the matvec. Empty rows give exactly 0.
 
 The kernels are in ``csrc/als_solve.cu``, whose note says what bounds them
-on the card. The one-row two-stage form splits each row's d range over
-blocks (:func:`two_stage_plan`, its launch plan, is computed here and
-checked by the C entry) and sums the Gram on the tensor cores. For CUDA tensors a wrapper launches its kernel or raises; for
-CPU tensors it runs its plain version, which does the same arithmetic in
-PyTorch (bf16 values widened to f32 before f32 products, the rhs weights
-and the gw-weighted rows rounded to bf16 where the TPU kernel rounds them)
-and which the chip smoke compares the kernel with.
+on the card. Both entries share one stage 1 on the tensor cores, which
+splits each row's d range over blocks and, above rank 128, the Gram into
+128 × 128 tiles: :func:`solve_plan`, its launch plan, is computed here and
+checked by the C entries. Any rank is taken, as by the JAX package, which
+pads K to a multiple of 128 (``als_padded_dims``, pallas_kernels.py:846):
+up to ``MAX_RANK``, where the CG's vectors fill shared memory. For CUDA
+tensors a wrapper launches its kernel or raises; for CPU tensors it runs
+its plain version, which does the same arithmetic in PyTorch (bf16 values
+widened to f32 before f32 products, the rhs weights and the gw-weighted
+rows rounded to bf16 where the TPU kernel rounds them) and which the chip
+smoke compares the kernel with.
 """
 
 from __future__ import annotations
@@ -36,8 +40,6 @@ import torch
 
 from incubator_predictionio_tpu_torch import runtime
 
-#: largest rank the kernels take (a thread's Gram piece lives in registers)
-MAX_RANK = 128
 #: row-group sizes of the two-stage kernel
 ROWS = (1, 8)
 #: the TPU kernels these replace, entry → pallas_call → body
@@ -55,52 +57,85 @@ ALS_SOLVE_CG_ROWS8_LAUNCHES = runtime.LaunchCounter("als_solve_cg_rows8")
 ALS_FUSED_SOLVE_CG_LAUNCHES = runtime.LaunchCounter("als_fused_solve_cg")
 
 
-#: stage-1 blocks of the one-row two-stage solve the plan aims at per SM
-TWO_STAGE_BLOCKS_PER_SM = 2
+#: stage-1 blocks per SM the launch plan aims at
+SOLVE_BLOCKS_PER_SM = 2
+#: most workspace one launch takes; a call with more rows runs in groups
+WORKSPACE_CAP = 1 << 28
 
 
 _GEOMETRY = runtime.csrc_constants("als_solve.cu")
+#: the Gram tile above rank 128
+GRAM_TILE = _GEOMETRY["kGramTile"]
+#: widest rank the kernels take (the CG above 128 keeps its vectors in
+#: shared memory)
+MAX_RANK = _GEOMETRY["kMaxRank"]
 
 
 def padded_rank(k: int) -> int:
-    """The rank the kernels compute at: 16, 32, 64 or 128 (padding
-    coordinates solve to exactly 0; ``padded_rank`` of the source)."""
-    return next(kp for kp in (16, 32, 64, 128) if k <= kp)
+    """The rank the kernels compute at: 16, 32, 64 or 128, then a multiple
+    of ``GRAM_TILE`` (padding coordinates solve to exactly 0;
+    ``padded_rank`` of the source)."""
+    if k <= GRAM_TILE:
+        return next(kp for kp in (16, 32, 64, GRAM_TILE) if k <= kp)
+    return -(-k // GRAM_TILE) * GRAM_TILE
+
+
+def gram_tiles(kp: int) -> int:
+    """Stage-1 blocks per (row, slice): 1 up to rank 128, else the
+    ``GRAM_TILE`` tiles of the Gram's upper triangle, diagonal included
+    (``gram_tiles`` of the source; the fused entry with implicit
+    confidences and a bf16 table sums all (kp / GRAM_TILE)² tiles)."""
+    n = kp // GRAM_TILE
+    return 1 if kp <= GRAM_TILE else n * (n + 1) // 2
 
 
 def slab_rows(kp: int) -> int:
-    """Rows of d in one staged slab of the split-D Gram kernel
-    (``slab_rows`` of the source, whose constants these are)."""
+    """Rows of d in one staged slab of stage 1 (``slab_rows`` of the
+    source, whose constants these are)."""
     return _GEOMETRY["kSlabRowsWide" if kp >= 64 else "kSlabRowsNarrow"]
 
 
-class TwoStagePlan(NamedTuple):
-    """Launch plan of the one-row two-stage solve: each bucket row's d
-    range is cut into ``slices`` slices of ``slice_rows`` rows (the last
-    fewer), one stage-1 block each, which stages them in slabs of
-    :func:`slab_rows`; ``workspace_bytes`` holds their partial Grams and
-    rhs and the summed ones (0 for one slice, where the stage-1 block
-    solves the row itself)."""
+def record_floats(kp: int) -> int:
+    """f32 of one partial record: a [kp, kp] Gram and its rhs."""
+    return kp * kp + kp
+
+
+class SolvePlan(NamedTuple):
+    """Launch plan of both entries' stage 1: each bucket row's d range is
+    cut into ``slices`` slices of ``slice_rows`` rows (the last fewer),
+    one stage-1 block per slice and Gram tile (``tiles``), which stages
+    them in slabs of :func:`slab_rows`. ``rows`` rows go to one launch
+    (the call runs in groups of them), whose workspace of
+    ``workspace_bytes`` holds their partial records and, for several
+    slices, the summed ones: none for one slice up to rank 128, where the
+    stage-1 block solves the row itself."""
     kp: int
+    tiles: int
     slices: int
     slice_rows: int
+    rows: int
     workspace_bytes: int
 
 
-def two_stage_plan(b: int, d: int, k: int, n_sms: int) -> TwoStagePlan:
+def solve_plan(b: int, d: int, k: int, n_sms: int) -> SolvePlan:
     """The split of a [b, d, k] bucket chunk on a card of ``n_sms`` SMs:
-    enough slices that b·slices reaches ``TWO_STAGE_BLOCKS_PER_SM``
+    enough slices that b·slices·tiles reaches ``SOLVE_BLOCKS_PER_SM``
     blocks per SM where d allows (no more slices than slabs), of equal
-    length, so that b = 8 fills the card in one wave exactly."""
+    length, so that b = 8 fills the card in one wave exactly; rows per
+    launch as many as keep the workspace within ``WORKSPACE_CAP`` (at
+    least one)."""
     kp = padded_rank(k)
-    want = min(max(1, -(-TWO_STAGE_BLOCKS_PER_SM * n_sms // b)),
+    tiles = gram_tiles(kp)
+    want = min(max(1, -(-SOLVE_BLOCKS_PER_SM * n_sms // (b * tiles))),
                -(-d // slab_rows(kp)))
-    rows = -(-d // want)
-    slices = -(-d // rows)
-    rec = kp * kp + kp
-    work = 4 * b * rec * (slices + 1) if slices > 1 else 0
-    return TwoStagePlan(kp=kp, slices=slices, slice_rows=rows,
-                        workspace_bytes=work)
+    slice_rows = -(-d // want)
+    slices = -(-d // slice_rows)
+    per_row = 4 * record_floats(kp) * (
+        slices + 1 if slices > 1 else int(kp > GRAM_TILE))
+    group = b if per_row == 0 else max(1, min(b, WORKSPACE_CAP // per_row))
+    return SolvePlan(kp=kp, tiles=tiles, slices=slices,
+                     slice_rows=slice_rows, rows=group,
+                     workspace_bytes=group * per_row)
 
 
 def als_bound(nnz: float, distinct_rows: int, b: int, d: int, k: int,
@@ -304,9 +339,9 @@ def _two_stage(table, cols, vals, mask, l2: float, reg_nnz: bool,
                iters: int, rows_per_program: int,
                x0: Optional[torch.Tensor], n_sms: Optional[int] = None
                ) -> torch.Tensor:
-    """:func:`als_solve_cg` on CUDA tensors; ``n_sms`` sizes the R = 1
-    launch plan (None: the card's SM count; the card tests pass others to
-    force one slice or many on the same rows)."""
+    """:func:`als_solve_cg` on CUDA tensors; ``n_sms`` sizes the launch
+    plan (None: the card's SM count; the card tests pass others to force
+    one slice or many on the same rows)."""
     _check("als_solve_cg", table, cols, vals, mask, x0)
     dev = table.device
     b, d = cols.shape
@@ -318,20 +353,16 @@ def _two_stage(table, cols, vals, mask, l2: float, reg_nnz: bool,
         mask.contiguous()
     g = torch.empty((b, d, k), dtype=table.dtype, device=dev)
     wv = (vals * mask).contiguous()
-    _, lam = _ridge(mask, l2, reg_nnz)
+    lam = _ridge(mask, l2, reg_nnz)[1].contiguous()
     x0c = None if x0 is None else x0.contiguous()
-    scratch = work = None
-    if rows_per_program == 8:
-        kp = padded_rank(k)
+    scratch = None
+    kp = padded_rank(k)
+    if rows_per_program == 8 and kp <= GRAM_TILE:
         scratch = torch.empty(-(-b // 8) * 8 * kp * kp, dtype=torch.float32,
                               device=dev)
-        plan = TwoStagePlan(kp, 1, d, 0)  # read only by the R = 1 form
-    else:
-        plan = two_stage_plan(b, d, k, n_sms or runtime.sm_count(dev))
-        if plan.workspace_bytes:
-            # stream-ordered: concurrent calls on other streams never share
-            work = torch.empty(plan.workspace_bytes, dtype=torch.uint8,
-                               device=dev)
+        plan = SolvePlan(kp, 1, 1, d, b, 0)  # read only by the R = 1 form
+    else:  # above rank 128 R = 8 takes the one-row path
+        plan = solve_plan(b, d, k, n_sms or runtime.sm_count(dev))
     lib = runtime.build_kernels()
     bf16 = int(table.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
@@ -340,16 +371,29 @@ def _two_stage(table, cols, vals, mask, l2: float, reg_nnz: bool,
             tab.data_ptr(), bf16, tab.shape[0], colsc.data_ptr(),
             maskc.data_ptr(), b * d, k, g.data_ptr(), _stream(dev))
         runtime.check_launch(rc, "als_solve_cg gather")
-        rc = lib.pio_als_solve_cg(
-            g.data_ptr(), bf16, wv.data_ptr(),
-            lam.contiguous().data_ptr(), _ptr(x0c), out.data_ptr(),
-            _ptr(scratch), b, d, k, int(iters), int(rows_per_program),
-            plan.slices, plan.slice_rows, _ptr(work), plan.workspace_bytes,
-            _stream(dev))
-    runtime.check_launch(rc, "als_solve_cg")
+        for r0, r1, work in _row_groups(plan, b, dev):
+            rc = lib.pio_als_solve_cg(
+                g[r0:r1].data_ptr(), bf16, wv[r0:r1].data_ptr(),
+                lam[r0:r1].data_ptr(),
+                _ptr(None if x0c is None else x0c[r0:r1]),
+                out[r0:r1].data_ptr(), _ptr(scratch), r1 - r0, d, k,
+                int(iters), int(rows_per_program), plan.slices,
+                plan.slice_rows, _ptr(work), plan.workspace_bytes,
+                _stream(dev))
+            runtime.check_launch(rc, "als_solve_cg")
     (ALS_SOLVE_CG_ROWS8_LAUNCHES if rows_per_program == 8
      else ALS_SOLVE_CG_LAUNCHES).add()
     return out
+
+
+def _row_groups(plan: SolvePlan, b: int, dev):
+    """(first row, end row, workspace) of each launch of a call: groups of
+    ``plan.rows`` rows sharing one stream-ordered workspace (concurrent
+    calls on other streams never share it)."""
+    work = (torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=dev)
+            if plan.workspace_bytes else None)
+    for r0 in range(0, b, plan.rows):
+        yield r0, min(b, r0 + plan.rows), work
 
 
 def als_fused_solve_cg(table, cols, vals, mask, l2: float,
@@ -358,9 +402,10 @@ def als_fused_solve_cg(table, cols, vals, mask, l2: float,
                        yty: Optional[torch.Tensor] = None,
                        x0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused gather bucket solve → [B, K] f32: arguments as
-    :func:`als_solve_cg`; ``implicit`` takes the confidences α·vals and the
-    shared ``yty`` [K, K] f32 (λ then is plain, not λ·nnz). Rows with no
-    observation give exactly 0."""
+    :func:`als_solve_cg` (``mask`` 0 or 1, as the buckets hold it);
+    ``implicit`` takes the confidences α·vals and the shared ``yty`` [K, K]
+    f32 (λ then is plain, not λ·nnz). Rows with no observation give
+    exactly 0."""
     if implicit and yty is None:
         raise ValueError("implicit als_fused_solve_cg needs yty")
     if _on_cpu(table, cols, vals, mask, x0, yty if implicit else None):
@@ -368,11 +413,22 @@ def als_fused_solve_cg(table, cols, vals, mask, l2: float,
                                         iters, implicit, alpha, yty, x0)
     yty = yty if implicit else None
     _check("als_fused_solve_cg", table, cols, vals, mask, x0, yty)
+    k = table.shape[1]
+    if yty is not None and tuple(yty.shape) != (k, k):
+        raise ValueError(f"yty must be [{k}, {k}], got {tuple(yty.shape)}")
+    return _fused(table, cols, vals, mask, l2, reg_nnz, iters, implicit,
+                  alpha, yty, x0)
+
+
+def _fused(table, cols, vals, mask, l2: float, reg_nnz: bool, iters: int,
+           implicit: bool, alpha: float, yty: Optional[torch.Tensor],
+           x0: Optional[torch.Tensor], n_sms: Optional[int] = None
+           ) -> torch.Tensor:
+    """:func:`als_fused_solve_cg` on CUDA tensors (``yty`` None unless
+    implicit); ``n_sms`` as :func:`_two_stage`'s."""
     dev = table.device
     b, d = cols.shape
     m, k = table.shape
-    if yty is not None and tuple(yty.shape) != (k, k):
-        raise ValueError(f"yty must be [{k}, {k}], got {tuple(yty.shape)}")
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b == 0:
         return out
@@ -381,16 +437,22 @@ def als_fused_solve_cg(table, cols, vals, mask, l2: float,
     tab = table.contiguous()
     colsc = cols.contiguous()
     gw, rw = gw.contiguous(), rw.contiguous()
+    lam, nnz = lam.contiguous(), nnz.contiguous()
     ytyc = None if yty is None else yty.contiguous()
     x0c = None if x0 is None else x0.contiguous()
+    plan = solve_plan(b, d, k, n_sms or runtime.sm_count(dev))
     lib = runtime.build_kernels()
     with torch.cuda.device(dev):
-        rc = lib.pio_als_fused_solve_cg(
-            tab.data_ptr(), int(table.dtype == torch.bfloat16), m,
-            colsc.data_ptr(), gw.data_ptr(), rw.data_ptr(),
-            lam.contiguous().data_ptr(), nnz.contiguous().data_ptr(),
-            _ptr(ytyc), _ptr(x0c), out.data_ptr(), b, d, k, int(iters),
-            _stream(dev))
-    runtime.check_launch(rc, "als_fused_solve_cg")
+        for r0, r1, work in _row_groups(plan, b, dev):
+            rc = lib.pio_als_fused_solve_cg(
+                tab.data_ptr(), int(table.dtype == torch.bfloat16), m,
+                colsc[r0:r1].data_ptr(), gw[r0:r1].data_ptr(),
+                rw[r0:r1].data_ptr(), lam[r0:r1].data_ptr(),
+                nnz[r0:r1].data_ptr(), _ptr(ytyc),
+                _ptr(None if x0c is None else x0c[r0:r1]),
+                out[r0:r1].data_ptr(), r1 - r0, d, k, int(iters),
+                plan.slices, plan.slice_rows, _ptr(work),
+                plan.workspace_bytes, _stream(dev))
+            runtime.check_launch(rc, "als_fused_solve_cg")
     ALS_FUSED_SOLVE_CG_LAUNCHES.add()
     return out

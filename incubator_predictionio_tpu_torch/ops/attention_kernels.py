@@ -8,7 +8,10 @@ attention on BSHD tensors with online softmax, a per-key validity mask, an
 optional causal mask, and 0 for a query with no live key. The kernel is
 ``csrc/flash_attention.cu`` (tensor-core products, 3xTF32 for f32; key
 tiles in the causal future or with no valid key are skipped), whose note
-says what bounds it on the card and what its design does about that.
+says what bounds it on the card and what its design does about that. It
+takes any head width and any batch × heads, as the TPU kernel, which pads
+only S: heads wider than 128 take a simpler D-tiled kernel of the same
+source.
 
 The JAX custom VJP becomes a ``torch.autograd.Function``: the forward is
 the kernel (CUDA tensors) or :func:`flash_attention_plain` (CPU tensors);
@@ -36,8 +39,6 @@ from incubator_predictionio_tpu_torch.ops.attention import blockwise_attention
 
 #: the TPU kernel this module's kernel replaces
 REPLACES = "incubator_predictionio_tpu/ops/pallas_kernels.py:350"
-#: widest head the kernel takes (its output columns live in registers)
-MAX_HEAD_DIM = 128
 #: block of the plain version and of the backward recompute
 DEFAULT_KV_BLOCK = 512
 
@@ -142,14 +143,8 @@ def _launch(q, k, v, valid, causal: bool, scale: float) -> torch.Tensor:
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention takes head_dim <= {MAX_HEAD_DIM}, "
-                         f"got {d}")
     if valid.shape != (b, s_kv) or valid.dtype != torch.float32:
         raise ValueError(f"kv_valid must be [{b}, {s_kv}] f32")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention takes batch*heads <= 65535, got "
-                         f"{b * h}")
     if q.stride(-1) != 1:
         q = q.contiguous()
     if k.stride(-1) != 1:

@@ -8,7 +8,8 @@ kernel, and a top-k per query with ties to the lowest item id. Its source is
 ``csrc/score_topk.cu``, which says what bounds it on the card (the item
 table read at one query, f32 FMAs at 64) and what its design does about
 that (a card-filling grid over coalesced item tiles, selection by a
-running per-row threshold, one parallel merge). :func:`topk_plan` is its
+running per-row threshold, one parallel merge). It takes any rank, as the
+TPU kernel does by padding it to 128 lanes. :func:`topk_plan` is its
 launch plan, computed here and checked by the C entry.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
@@ -125,8 +126,6 @@ def _launch(queries, items, allowed, k):
         raise ValueError("score_topk takes contiguous queries and items")
     b, rank = queries.shape
     n_items = items.shape[0]
-    if rank > 256:
-        raise ValueError(f"score_topk takes rank <= 256, got {rank}")
     if allowed is not None:
         if allowed.shape != (n_items,):
             raise ValueError(f"allowed must be [{n_items}], got "

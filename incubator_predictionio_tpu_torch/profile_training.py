@@ -6,9 +6,11 @@ NVIDIA GPU.
 
 At ML-20M width (138,493 users x 26,744 items x rank 128, 20,000,000
 distinct planted ratings from ``utils/planted.py``), the buckets are built
-once and three single sweeps are profiled with ``torch.profiler``: a bf16
-sweep and an f32 sweep through the kernels, and an f32 sweep of the plain
-route (``use_kernel=False``). For each it prints one JSON line with the
+once and five single sweeps are profiled with ``torch.profiler``: a bf16
+sweep and an f32 sweep through the kernels (the fused entry on both
+sides), the same two with the item half-sweep through the two-stage entry
+and its gather (the routing ``ops/als.py`` measured itself against), and
+an f32 sweep of the plain route (``use_kernel=False``). For each it prints one JSON line with the
 host wall, the device time by kernel name, the device's idle share, and
 the kernel route's bound per half-sweep: the sum of
 ``ops/als_kernels.bucket_bound`` over its kernel-routed buckets (f32
@@ -22,6 +24,7 @@ limit from nvidia-smi. Needs a CUDA device; fails without one.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -37,17 +40,29 @@ from incubator_predictionio_tpu_torch.utils import planted
 RANK, L2 = 128, 0.03
 
 
+#: stage 1's template flag GATHER (the fused entry), demangled or mangled
+_GATHER = re.compile(
+    r"gram_slice_kernel<\d+, [^,]+, (true|false)"
+    r"|gram_tile_kernel<[^,]+, (true|false)"
+    r"|gram_slice_kernelILi\d+E(?:f|13__nv_bfloat16)Lb([01])"
+    r"|gram_tile_kernelI(?:f|13__nv_bfloat16)Lb([01])")
+
+
 def _short(name: str) -> str:
     """A kernel's name for the report; the ALS kernels by entry (the
-    profiler gives them mangled or demangled)."""
+    profiler gives them mangled or demangled): stage 1 by its GATHER flag,
+    the sliced rows' reduce and solve, shared by both entries, apart."""
     if "group_solve_kernel" in name:
         return "als_solve_cg_rows8"
     if "gather_rows" in name:  # the two-stage entries' gathered block
         return "als_solve_cg gather"
-    if "gram_" in name:  # the one-row two-stage kernel's three passes
-        return "als_solve_cg"
-    if "row_solve_kernel" in name:
-        return "als_fused_solve_cg"
+    m = _GATHER.search(name)
+    if m:
+        flag = next(g for g in m.groups() if g is not None)
+        return ("als_fused_solve_cg" if flag in ("true", "1")
+                else "als_solve_cg")
+    if "gram_" in name or "wide_solve" in name:
+        return "als stage 2"
     return name[:70]
 
 
@@ -104,7 +119,7 @@ def bucket_times(state, trees) -> list:
     for side, tree, other, prev in (
             ("user", trees[0], state.item_factors, state.user_factors),
             ("item", trees[1], state.user_factors, state.item_factors)):
-        fused = als._fused_fits(other.shape[0], RANK, torch.float32)
+        fused = True  # the routing of _mixed_run: fused on both sides
         for row_ids, cols, vals, mask in tree:
             d = cols.shape[1]
             if d < als.KERNEL_MIN_D:
@@ -147,9 +162,12 @@ def bucket_times(state, trees) -> list:
     return out
 
 
-def profile_sweep(state, trees, bf16: bool, use_kernel: bool) -> dict:
+def profile_sweep(state, trees, bf16: bool, use_kernel: bool,
+                  use_fused=None) -> dict:
+    """One profiled sweep; ``use_fused`` (user side, item side) overrides
+    ``_mixed_run``'s routing (the fused entry on both sides)."""
     u_tree, i_tree, u_hv, i_hv = trees
-    kw = dict(use_kernel=use_kernel)
+    kw = dict(use_kernel=use_kernel, use_fused=use_fused)
     als._mixed_run(state, u_tree, i_tree, L2, 1, int(bf16), True,
                    torch.float32, u_hv, i_hv, **kw)  # warm-up
     torch.cuda.synchronize()
@@ -166,8 +184,11 @@ def profile_sweep(state, trees, bf16: bool, use_kernel: bool) -> dict:
     # the ten largest, and every ALS kernel of the port however small
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     top.update({k: v for k, v in by_name.items() if k.startswith("als_")})
+    fused = (True, True) if use_fused is None else use_fused
     return {"sweep": "bf16" if bf16 else "f32",
             "route": "kernel" if use_kernel else "plain",
+            "fused": {"user_side": fused[0], "item_side": fused[1]}
+            if use_kernel else None,
             "wall_ms": wall, "device_ms": busy,
             "device_idle_share": 1.0 - busy / wall,
             "device_ms_by_name": top,
@@ -194,14 +215,17 @@ def main() -> int:
     u_work = side_work(trees[0], als.KERNEL_MIN_D)
     i_work = side_work(trees[1], als.KERNEL_MIN_D)
     print(json.dumps({"user_side": u_work, "item_side": i_work}), flush=True)
-    for bf16, use_kernel in ((True, True), (False, True), (False, False)):
-        row = profile_sweep(state, trees, bf16, use_kernel)
+    # the routing (fused on both sides), then the item side through the
+    # two-stage entry and its gather (what decided it), then the plain route
+    runs = [(True, True, None), (False, True, None), (True, True, (True, False)),
+            (False, True, (True, False)), (False, False, None)]
+    for bf16, use_kernel, use_fused in runs:
+        row = profile_sweep(state, trees, bf16, use_kernel, use_fused)
         if use_kernel:
             iters = als.CG_ITERS_BF16 if bf16 else als.CG_ITERS
             row["bound"] = {
-                "user_half_sweep_fused": side_bound(trees[0], bf16, iters),
-                "item_half_sweep_two_stage": side_bound(trees[1], bf16,
-                                                        iters)}
+                "user_half_sweep": side_bound(trees[0], bf16, iters),
+                "item_half_sweep": side_bound(trees[1], bf16, iters)}
         print(json.dumps(row), flush=True)
     for row in bucket_times(state, trees):
         print(json.dumps({"bucket": row}), flush=True)

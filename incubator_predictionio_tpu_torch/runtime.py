@@ -166,10 +166,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pio_als_gather_rows.argtypes = [p, i, i, p, p, ctypes.c_longlong, i,
                                         p, p]
     lib.pio_als_gather_rows.restype = ctypes.c_int
-    lib.pio_als_two_stage_workspace_bytes.argtypes = [i, i, i]
-    lib.pio_als_two_stage_workspace_bytes.restype = sz
+    lib.pio_als_workspace_bytes.argtypes = [i, i, i]
+    lib.pio_als_workspace_bytes.restype = sz
     lib.pio_als_fused_solve_cg.argtypes = [p, i, i, p, p, p, p, p, p, p, p,
-                                           i, i, i, i, p]
+                                           i, i, i, i, i, i, p, sz, p]
     lib.pio_als_fused_solve_cg.restype = ctypes.c_int
     ll = ctypes.c_longlong
     lib.pio_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i,

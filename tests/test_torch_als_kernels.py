@@ -222,17 +222,19 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     assert ak.ALS_FUSED_SOLVE_CG_LAUNCHES.value == 0
 
 
-# -- the one-row two-stage kernel's launch plan (two_stage_plan), on the CPU ---
+# -- stage 1's launch plan (solve_plan), on the CPU ----------------------------
 
 PLAN_SHAPES = [(8, 32_768, 128), (16, 8192, 128), (128, 1024, 128),
                (1024, 128, 128), (2048, 64, 128), (13, 300, 24),
-               (5, 1, 32), (1, 100, 10), (3, 1000, 64), (9, 130, 16)]
+               (5, 1, 32), (1, 100, 10), (3, 1000, 64), (9, 130, 16),
+               (14_563, 256, 128), (13, 300, 129), (8, 32_768, 160),
+               (1020, 256, 256), (3, 100, 300), (64, 500, 1000)]
 
 
 @pytest.mark.parametrize("n_sms", [1, 132, 1000])
 @pytest.mark.parametrize("b,d,k", PLAN_SHAPES)
 def test_two_stage_plan_puts_every_d_row_in_one_slice(b, d, k, n_sms):
-    plan = ak.two_stage_plan(b, d, k, n_sms)
+    plan = ak.solve_plan(b, d, k, n_sms)
     assert plan.kp == ak.padded_rank(k)
     starts = [s * plan.slice_rows for s in range(plan.slices)]
     ends = [min(d, s + plan.slice_rows) for s in starts]
@@ -244,17 +246,17 @@ def test_two_stage_plan_puts_every_d_row_in_one_slice(b, d, k, n_sms):
 @pytest.mark.parametrize("b,d,k", PLAN_SHAPES)
 def test_two_stage_plan_fills_the_card_where_d_allows(b, d, k):
     n_sms = 132
-    plan = ak.two_stage_plan(b, d, k, n_sms)
+    plan = ak.solve_plan(b, d, k, n_sms)
     most = -(-d // ak.slab_rows(plan.kp))  # one slab per slice
-    assert b * plan.slices >= min(ak.TWO_STAGE_BLOCKS_PER_SM * n_sms,
-                                  b * most)
+    assert b * plan.slices * plan.tiles >= min(
+        ak.SOLVE_BLOCKS_PER_SM * n_sms, b * most * plan.tiles)
 
 
 @pytest.mark.parametrize("n_sms", [1, 132, 1000])
 @pytest.mark.parametrize("b,d,k", PLAN_SHAPES)
 def test_two_stage_plan_has_no_more_slices_than_slabs(b, d, k, n_sms):
-    """The C entry refuses a plan with more slices than slabs of d."""
-    plan = ak.two_stage_plan(b, d, k, n_sms)
+    """The C entries refuse a plan with more slices than slabs of d."""
+    plan = ak.solve_plan(b, d, k, n_sms)
     assert plan.slices <= -(-d // ak.slab_rows(plan.kp))
 
 
@@ -264,14 +266,123 @@ def test_slab_rows_are_the_kernel_sources():
     src = (runtime.CSRC_DIR / "als_solve.cu").read_text()
     assert f"constexpr int kSlabRowsWide = {ak.slab_rows(64)};" in src
     assert f"constexpr int kSlabRowsNarrow = {ak.slab_rows(16)};" in src
-    assert ak.slab_rows(128) == ak.slab_rows(64)
+    assert ak.slab_rows(128) == ak.slab_rows(64) == ak.slab_rows(256)
     assert ak.slab_rows(32) == ak.slab_rows(16)
-    assert "static constexpr int TD = slab_rows(KP);" in src
+    assert "static constexpr int TD = slab_rows(KT);" in src
 
 
 @pytest.mark.parametrize("b,d,k", PLAN_SHAPES)
 def test_two_stage_plan_workspace_bytes(b, d, k):
-    plan = ak.two_stage_plan(b, d, k, 132)
+    """Partial records of every row and slice and, for several slices, the
+    summed ones; above rank 128 at least one record a row, where stage 1
+    writes its tiles (none for one slice below, where the block solves)."""
+    plan = ak.solve_plan(b, d, k, 132)
     rec = plan.kp * plan.kp + plan.kp  # a Gram and its rhs, f32
-    want = 4 * b * rec * (plan.slices + 1) if plan.slices > 1 else 0
-    assert plan.workspace_bytes == want
+    per = plan.slices + 1 if plan.slices > 1 else int(plan.kp > 128)
+    assert plan.workspace_bytes == 4 * plan.rows * rec * per
+
+
+# (k, padded rank, Gram tiles): 16/32/64/128, then multiples of 128 and the
+# upper triangle's 128 x 128 tiles, as the JAX package's als_padded_dims
+# pads K to a multiple of 128 (pallas_kernels.py:846)
+PADDED = [(1, 16, 1), (16, 16, 1), (17, 32, 1), (33, 64, 1), (65, 128, 1),
+          (128, 128, 1), (129, 256, 3), (160, 256, 3), (256, 256, 3),
+          (257, 384, 6), (300, 384, 6), (512, 512, 10), (1000, 1024, 36)]
+
+
+@pytest.mark.parametrize("k,kp,tiles", PADDED)
+def test_padded_rank_and_tiles_above_128(k, kp, tiles):
+    assert ak.padded_rank(k) == kp
+    assert ak.gram_tiles(kp) == tiles
+    plan = ak.solve_plan(50, 400, k, 132)
+    assert (plan.kp, plan.tiles) == (kp, tiles)
+    if kp > 128:  # the padded rank is the JAX package's
+        assert kp == -(-k // 128) * 128
+
+
+@pytest.mark.parametrize("b,d,k", [(14_563, 256, 256), (20_000, 64, 1000),
+                                   (3, 100, 8192), (1020, 256, 256)])
+def test_solve_plan_caps_the_workspace_by_row_groups(b, d, k):
+    """A call whose records would exceed ``WORKSPACE_CAP`` runs in groups
+    of ``rows`` rows sharing one workspace: as many as fit, at least one."""
+    plan = ak.solve_plan(b, d, k, 132)
+    per_row = plan.workspace_bytes // plan.rows
+    assert per_row == 4 * ak.record_floats(plan.kp) * (
+        plan.slices + 1 if plan.slices > 1 else 1)
+    assert 1 <= plan.rows <= b
+    assert plan.workspace_bytes <= max(ak.WORKSPACE_CAP, per_row)
+    if plan.rows < b:
+        assert (plan.rows + 1) * per_row > ak.WORKSPACE_CAP
+
+
+def test_plan_constants_are_the_kernel_sources():
+    """The Gram tile, the widest rank and the tile count are read from (or
+    written as) the kernel source, their owner."""
+    src = (runtime.CSRC_DIR / "als_solve.cu").read_text()
+    assert f"constexpr int kGramTile = {ak.GRAM_TILE};" in src
+    assert f"constexpr int kMaxRank = {ak.MAX_RANK};" in src
+    assert "(kp / kGramTile) * (kp / kGramTile + 1) / 2" in src
+    # the CG above 128 keeps five vectors of the padded rank in shared
+    # memory, which a block may have 227 KB of
+    assert 4 * (5 * ak.MAX_RANK + 32) <= 227 * 1024
+
+
+# -- rank 160: above 128, where the kernels build the Gram in tiles ------------
+
+# A table of 600 rows: with 200 (the problem above) the implicit YᵀY of
+# rank 160 is nearly singular, and 32 CG steps leave both packages ~2% from
+# the exact solve and 2.5e-3 from each other (the port as near to an f64
+# solve as the reference: a conditioning effect, not an arithmetic one).
+K160, M160 = 160, 600
+
+
+def _problem160():
+    rng = np.random.default_rng(12)
+    table = rng.normal(0, 0.3, (M160, K160)).astype(np.float32)
+    cols = rng.integers(0, M160, (B, D)).astype(np.int32)
+    vals = rng.normal(3.5, 1.0, (B, D)).astype(np.float32)
+    mask = (rng.random((B, D)) < 0.8).astype(np.float32)
+    mask[EMPTY] = 0.0
+    x0 = rng.normal(0, 0.3, (B, K160)).astype(np.float32)
+    return table, cols, vals, mask, x0
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("entry,dt", [("rows1", "f32"), ("rows1", "bf16"),
+                                      ("fused", "f32"), ("fused", "bf16"),
+                                      ("implicit", "f32")])
+def test_rank_160_matches_jax_kernel(entry, dt, warm):
+    """Both entries' plain versions at rank 160 against the Pallas kernels
+    in interpret mode, which pad it to 256: the arithmetic the port's
+    kernels run above 128 (tiles of the padded rank) at the reference
+    tests' tolerances (the implicit variant in f32, as those tests run
+    it); empty rows of the fused entry exactly 0."""
+    table, cols, vals, mask, x0 = _problem160()
+    x = x0 if warm else None
+    jargs = (jnp.asarray(table).astype(JDT[dt]), jnp.asarray(cols),
+             jnp.asarray(vals), jnp.asarray(mask), L2)
+    targs = (torch.from_numpy(table).to(TDT[dt]), torch.from_numpy(cols),
+             torch.from_numpy(vals), torch.from_numpy(mask), L2)
+    tx = None if x is None else torch.from_numpy(x)
+    jx = None if x is None else jnp.asarray(x)
+    if entry == "rows1":
+        ref = pk.als_solve_cg_pallas(*jargs, reg_nnz=True, iters=ITERS,
+                                     interpret=True, rows_per_program=1,
+                                     x0=jx)
+        got = ak.als_solve_cg(*targs, reg_nnz=True, iters=ITERS, x0=tx)
+    else:
+        implicit = entry == "implicit"
+        yty = table.T @ table
+        ref = pk.als_fused_solve_cg_pallas(
+            *jargs, reg_nnz=True, iters=ITERS * (2 if implicit else 1),
+            implicit=implicit, alpha=ALPHA,
+            yty=jnp.asarray(yty) if implicit else None, x0=jx,
+            interpret=True)
+        got = ak.als_fused_solve_cg(
+            *targs, reg_nnz=True, iters=ITERS * (2 if implicit else 1),
+            implicit=implicit, alpha=ALPHA,
+            yty=torch.from_numpy(yty) if implicit else None, x0=tx)
+        assert (got[EMPTY] == 0).all()
+    assert tuple(got.shape) == (B, K160)
+    rel = _rel(got.numpy(), np.asarray(ref, np.float32))
+    assert rel < TOL[dt], (entry, dt, warm, rel)

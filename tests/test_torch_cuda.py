@@ -129,12 +129,14 @@ def test_topk_threshold_ties_in_later_tiles(dev, b, k):
     _topk_exact(dev, q, items, None, k)
 
 
-@pytest.mark.parametrize("rank", [8, 10, 64, 128, 256])
+@pytest.mark.parametrize("rank", [8, 10, 64, 128, 256, 257, 300, 512])
 @pytest.mark.parametrize("b", [1, 3, 8, 9, 64])
 def test_topk_row_groups_and_ranks(dev, b, rank):
     """One row group of exactly B rows (B ≤ 8), partial groups of 8 (9,
     and 64's last), ranks below, at and above a 32-column chunk, one not a
-    multiple of 4 (the 4-byte copies)."""
+    multiple of 4 (the 4-byte copies), and above 256, where the query rows
+    stream by chunk with the items (257 and 300 no multiple of a chunk,
+    257 of 4): a model of any rank is served, as by the reference."""
     rng = np.random.default_rng(b * rank)
     items = torch.from_numpy(
         rng.standard_normal((3000, rank), np.float32)).to(dev)
@@ -211,9 +213,12 @@ def _rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
 
 
-# rank no multiple of 16, of 32, and the full 128; B = 13 pads a row group
+# rank no multiple of 16, of 32, and the full 128; B = 13 pads a row group;
+# above 128, ranks of one and of several 128 x 128 tiles (129 no multiple
+# of 4 elements: the 4-byte copies)
 ALS_SHAPES = [(150, 24, 13, 300), (400, 64, 24, 48), (600, 32, 13, 1024),
-              (500, 128, 9, 200), (90, 10, 5, 40)]
+              (500, 128, 9, 200), (90, 10, 5, 40), (700, 129, 6, 400),
+              (800, 160, 7, 500), (900, 256, 5, 600)]
 
 
 @pytest.mark.parametrize("m,k,b,d", ALS_SHAPES)
@@ -282,7 +287,7 @@ def test_als_two_stage_one_slice_and_many(dev, m, k, b, d, dtype):
                                        16, 1, warm, n_sms=n)
                 for n in (1, 1000)]
         torch.cuda.synchronize()
-        slices = [als_kernels.two_stage_plan(b, d, k, n).slices
+        slices = [als_kernels.solve_plan(b, d, k, n).slices
                   for n in (1, 1000)]
         assert slices[0] == 1 and (slices[1] > 1 or d <= 128), slices
         for got in outs:
@@ -313,10 +318,11 @@ def _f64_two_stage(table, cols, vals, mask, l2, iters, x0):
 
 def test_als_two_stage_plan_matches_the_c_entry(dev):
     lib = runtime.build_kernels()
-    for b, d, k in ((8, 32_768, 128), (13, 300, 24), (5, 1, 32)):
-        plan = als_kernels.two_stage_plan(b, d, k, runtime.sm_count(dev))
+    for b, d, k in ((8, 32_768, 128), (13, 300, 24), (5, 1, 32),
+                    (1020, 256, 160), (8, 32_768, 256), (3, 100, 300)):
+        plan = als_kernels.solve_plan(b, d, k, runtime.sm_count(dev))
         assert plan.workspace_bytes == \
-            lib.pio_als_two_stage_workspace_bytes(b, k, plan.slices)
+            lib.pio_als_workspace_bytes(plan.rows, k, plan.slices)
 
 
 def test_als_launch_counts(dev):
@@ -345,33 +351,96 @@ def test_als_wrong_dtype_or_device_raises(dev):
         als_kernels.als_solve_cg(table.double(), cols, vals, mask, 0.05)
     with pytest.raises(TypeError):
         als_kernels.als_fused_solve_cg(table, cols.long(), vals, mask, 0.05)
-    with pytest.raises(ValueError):  # rank above the kernels' 128
+    with pytest.raises(ValueError):  # rank above the kernels' MAX_RANK
         als_kernels.als_fused_solve_cg(
-            torch.zeros((150, 129), device=dev), cols, vals, mask, 0.05)
+            torch.zeros((150, als_kernels.MAX_RANK + 1), device=dev), cols,
+            vals, mask, 0.05)
 
 
-def test_als_above_the_kernels_rank_raises(dev):
-    """Above the kernels' rank the kernel route raises on the card; it
-    never hands a bucket to the plain version."""
+@pytest.mark.parametrize("m,k,b,d", ALS_EDGE_SHAPES + [
+    (700, 129, 6, 400), (800, 160, 4, 3000), (900, 256, 3, 9000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_als_fused_one_slice_and_many(dev, m, k, b, d, dtype):
+    """The fused entry under a one-slice plan and a many-slice plan on the
+    same rows, cold and warm, explicit and implicit: each within the
+    tolerance of the plain version, empty rows exactly 0; beyond it a
+    D < K system is held to its f64 solve (no more than 3x as far from it
+    as the plain version)."""
+    table, cols, vals, mask, x0 = _als_problem(dev, m, k, b, d, k + d + 1)
+    table = table.to(dtype)
+    tol = 1e-4 if dtype == torch.float32 and d >= k else 1e-3
+    for implicit in (False, True):
+        yty = table.float().T @ table.float() if implicit else None
+        iters = 32 if implicit else 16
+        for warm in (None, x0):
+            ref = als_kernels.als_fused_solve_cg_plain(
+                table, cols, vals, mask, 0.05, True, iters, implicit, 2.0,
+                yty, warm)
+            for n in (1, 1000):
+                got = als_kernels._fused(table, cols, vals, mask, 0.05, True,
+                                         iters, implicit, 2.0, yty, warm,
+                                         n_sms=n)
+                torch.cuda.synchronize()
+                assert (got[mask.sum(-1) == 0] == 0).all()
+                if _rel(got, ref) >= tol and d < k:
+                    exact = _f64_fused(table, cols, vals.to(dtype).float(),
+                                       mask, 0.05, iters, warm, yty)
+                    assert _rel(got.double(), exact) <= \
+                        3 * _rel(ref.double(), exact) + 1e-6
+                else:
+                    assert _rel(got, ref) < tol, (n, implicit,
+                                                  warm is None)
+
+
+def _f64_fused(table, cols, vals, mask, l2, iters, x0, yty=None):
+    """The fused bucket solve in f64 (implicit with ``yty``: confidences
+    2·vals, plain λ); empty rows exactly 0."""
+    t = table.double()[cols]
+    m = mask.double()
+    gw = 2.0 * vals.double() * m if yty is not None else m
+    rw = m + gw if yty is not None else vals.double() * m
+    gram = torch.einsum("bdk,bdl->bkl", t * gw[..., None], t)
+    rhs = torch.einsum("bd,bdk->bk", rw, t)
+    nnz = m.sum(-1)
+    lam = torch.full_like(nnz, l2) if yty is not None \
+        else l2 * nnz.clamp(min=1.0)
+    x = als_kernels.cg_plain(gram, rhs, lam, iters,
+                             None if x0 is None else x0.double(),
+                             None if yty is None else yty.double())
+    return torch.where(nnz[:, None] > 0, x, torch.zeros_like(x))
+
+
+def test_als_above_rank_128_answers(dev):
+    """Above rank 128 training answers through the kernels, as the
+    reference trains at any rank: ``als_train`` at rank 160 and 256 through
+    the kernels (every bucket, both entries) launches them and fits within
+    the parity bound of the plain route from the same initial state."""
     rng = np.random.default_rng(4)
-    users, items = np.nonzero(rng.random((40, 30)) < 0.5)
-    ratings = rng.normal(3.5, 1.0, users.shape[0]).astype(np.float32)
-    rank = als_kernels.MAX_RANK + 1
-    runtime.reset_launch_counts()
-    with pytest.raises(ValueError, match="rank"):
-        als.als_train(users, items, ratings, 40, 30, rank=rank, iterations=1,
-                      device=dev)
-    trees = als.prepare_trees(users, items, ratings, 40, 30, device=dev)
-    init = als.als_init(torch.Generator().manual_seed(0), 40, 30, rank,
-                        device=dev)
-    with pytest.raises(ValueError, match="rank"):
-        als._mixed_run(init, trees[0], trees[1], 0.05, 1, 0, True,
-                       torch.float32, trees[2], trees[3], use_kernel=True,
-                       kernel_min_d=0)
-    assert sum(runtime.launch_counts().values()) == 0
-    st = als._mixed_run(init, trees[0], trees[1], 0.05, 1, 0, True,
-                        torch.float32, trees[2], trees[3], use_kernel=False)
-    assert torch.isfinite(st.user_factors).all()
+    n_u, n_i = 300, 280
+    u = rng.normal(size=(n_u, 4)) / 2
+    v = rng.normal(size=(n_i, 4)) / 2
+    users, items = np.nonzero(rng.random((n_u, n_i)) < 0.8)
+    ratings = (u @ v.T + 3.0)[users, items].astype(np.float32)
+    trees = als.prepare_trees(users, items, ratings, n_u, n_i, device=dev)
+    for rank in (160, 256):
+        init = als.als_init(torch.Generator().manual_seed(0), n_u, n_i,
+                            rank, device=dev)
+        fits = []
+        for use_kernel in (True, False):
+            runtime.reset_launch_counts()
+            st = als._mixed_run(init, trees[0], trees[1], 0.05, 3, 1, True,
+                                torch.float32, trees[2], trees[3],
+                                use_kernel=use_kernel, kernel_min_d=0,
+                                use_fused=(True, False))
+            counts = runtime.launch_counts()
+            assert (counts["als_fused_solve_cg"] > 0) == use_kernel
+            assert (counts["als_solve_cg"] > 0) == use_kernel
+            assert torch.isfinite(st.user_factors).all()
+            fits.append(als.rmse(st, users, items, ratings))
+        assert fits[0] < max(1.15 * fits[1], fits[1] + 0.02), (rank, fits)
+    state, _ = als.als_train(users, items, ratings, n_u, n_i, rank=160,
+                             iterations=2, device=dev)
+    assert tuple(state.user_factors.shape) == (n_u, 160)
 
 
 def test_als_train_on_the_card_matches_plain_route(dev):
@@ -564,9 +633,41 @@ def test_flash_rejects_what_the_kernel_does_not_take(dev):
         attention_kernels.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(TypeError):
         attention_kernels.flash_attention(q, q.half(), q)
-    wide = torch.zeros((1, 16, 1, 160), device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
-        attention_kernels.flash_attention(wide, wide, wide)
+
+
+# (b, s, h, d, valid lengths or None, dtype): heads wider than 128 (the
+# D-tiled kernel: one and two output-column blocks, a partial one), and
+# more than 65,535 batch x heads (grid x)
+FLASH_WIDE = [
+    (2, 200, 2, 160, (150, 7), torch.float32),
+    (2, 200, 2, 160, (150, 7), torch.bfloat16),
+    (1, 300, 2, 256, None, torch.float32),
+    (1, 300, 2, 256, (1,), torch.bfloat16),
+    (1, 130, 1, 200, (0,), torch.float32),
+    (65_536, 16, 1, 8, None, torch.float32),
+    (256, 20, 256, 16, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_WIDE)
+def test_flash_wide_heads_and_many_heads(dev, shape):
+    """Head widths above 128 and B·H above 65,535 answer through the
+    kernel, as the reference's kernel pads only S: within the tolerance of
+    the plain version, a row with no live key exactly 0, one launch."""
+    b, s, h, d, lengths, dtype = shape
+    q, k, v, valid = _flash_inputs(dev, b, s, s, h, d, lengths, dtype, d + s)
+    before = attention_kernels.FLASH_LAUNCHES.value
+    got = attention_kernels.flash_attention(q, k, v, kv_valid=valid)
+    torch.cuda.synchronize()
+    assert attention_kernels.FLASH_LAUNCHES.value == before + 1
+    ref = attention_kernels.flash_attention_plain(q, k, v, kv_valid=valid)
+    tol = 1e-4 if dtype == torch.float32 else 8e-3
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= tol * float(ref.float().abs().max()), err
+    if lengths is not None:
+        for r, n in enumerate(lengths):
+            # causal, left padded: queries before the first live key are 0
+            assert (got[r, :s - n] == 0).all()
 
 
 def test_sequence_model_serves_through_the_kernel(dev):

@@ -56,6 +56,8 @@ CASES = {
     "k_exceeding_allowed": dict(n=40, rank=8, k=6, allow_first=3),
     "duplicate_row_ties": dict(n=300, rank=8, k=20, ties=True),
     "valid_items": dict(n=300, rank=16, k=10, valid_items=200),
+    # above the rank the kernel stages whole (256): it streams q by chunk
+    "rank_300": dict(n=400, rank=300, k=12, mask_every=5),
 }
 
 
