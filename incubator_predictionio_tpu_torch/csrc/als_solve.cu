@@ -52,15 +52,17 @@
 //     the tensor cores: bf16 from ldmatrix.trans of the [d][k] slab; f32 as
 //     3xTF32. Implicit confidences weigh the A fragment as it is loaded (in
 //     bf16 one rounding of the exact f32 product: the TPU's gw_d t_d; in f32
-//     one multiply before the split); the explicit weights are the 0/1 mask
-//     and need none. A slab's products (bf16; f32: a pair of k steps) go
-//     into a fresh accumulator added in IEEE f32: the tensor cores' own
-//     adds into a running sum drop bits, which a row's thousands of steps
-//     compound. Warps own 16-row m blocks
-//     and compute only the Gram's upper triangle (n blocks of 8 columns from
-//     the m block's diagonal on, the diagonal 16 x 16 block whole): 72 of 128
-//     products at K = 128, the m blocks paired (0 with 7, 1 with 6, ...) so
-//     the SM's four tensor-core sub-partitions get 18 n blocks each. Below
+//     one multiply before the split); the explicit weights are the mask,
+//     which needs none where it holds only 0 and 1, as the buckets do (a
+//     block that finds another value in its rows weighs them). A slab's
+//     products (bf16; f32: a pair of k steps) go into a fresh accumulator
+//     added in IEEE f32: the tensor cores' own adds into a running sum
+//     drop bits, which a row's thousands of steps compound. Warps own
+//     16-row m blocks and compute only the Gram's upper triangle (n
+//     blocks of 8 columns from the m block's diagonal on, the diagonal
+//     16 x 16 block whole): 72 of 128 products at K = 128, the m blocks
+//     paired (0 with 7, 1 with 6, ...) so the SM's four tensor-core
+//     sub-partitions get 18 n blocks each. Below
 //     rank 128 warps also split the d steps and are added in warp order.
 //     The rhs is f32 FMAs on the unweighted rows. With one slice the block
 //     solves the row itself; else it writes its partial record (Gram
@@ -121,7 +123,9 @@ constexpr int kGramTile = 128;
 // widest padded rank: the CG above 128 keeps five vectors of it in 160 KB of
 // shared memory (the TPU kernel pins a KP x KP f32 Gram in VMEM, far less)
 constexpr int kMaxRank = 8192;
-// two blocks per SM, so at most 128 registers a thread
+// two blocks per SM, so at most 128 registers a thread: stage 1 at rank
+// 128 spills under the cap, and without it (one block per SM, no spills)
+// runs 1.1-1.6x slower on an H100
 constexpr int kMinBlocks = 2;
 
 // the rank the kernels compute at: K rounded up to 16, 32, 64 or 128, then
@@ -175,6 +179,17 @@ __device__ __forceinline__ float widen<float>(float x) {
 template <>
 __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 template <typename T>
@@ -791,6 +806,29 @@ struct Args {
   int D, K, iters;
 };
 
+// Unweighted (explicit) the Gram weights are the mask, which the buckets
+// hold as 0 or 1: such rows need no multiply (a row with both weights 0
+// is zero-filled). A weight in the block's d rows [d_begin, d_end) that is
+// neither turns the weighting on, and with a bf16 table the full Gram as
+// well (see solve). Every block of one (row, slice) reads the same
+// weights, so all decide alike.
+template <typename T, bool GATHER>
+__device__ __forceinline__ void weigh_fractional(const Args<T>& a, size_t row,
+                                                 int d_begin, int d_end,
+                                                 int& weighted, int& full) {
+  if constexpr (GATHER) {
+    if (weighted) return;
+    bool frac = false;
+    const float* gw = a.gw + row * (size_t)a.D;
+    for (int d = d_begin + (int)threadIdx.x; d < d_end; d += kThreads)
+      frac |= gw[d] != 0.f && gw[d] != 1.f;
+    if (__syncthreads_or(frac)) {
+      weighted = 1;
+      full |= sizeof(T) == 2;
+    }
+  }
+}
+
 // the per-row inputs of slab rows [d0, d0 + TD) (0 past d_end) into one slot
 // of the ring: GATHER the table row, the Gram and the rhs weight; else the
 // rhs weight alone
@@ -879,13 +917,15 @@ __device__ __forceinline__ void load_rows(T* dst, const int* icol,
 // of columns from c0a and c0b), their per-row
 // inputs one slab further ahead in a ring of three slots (icol, igw, irw:
 // [3][TD] each), and body(X, w, rw) runs on each slab that has landed while
-// the next one's copies are in flight.
-template <int KT, int NP, typename T, bool GATHER, typename Body>
+// the next one's copies are in flight; first() runs once, while the first
+// slab's inputs are.
+template <int KT, int NP, typename T, bool GATHER, typename Body,
+          typename First>
 __device__ __forceinline__ void slab_loop(T* slab, int* icol, float* igw,
                                           float* irw, const Args<T>& a,
                                           size_t row, int d_begin, int d_end,
                                           int np, int c0a, int c0b, bool vec,
-                                          Body body) {
+                                          Body body, First first) {
   using G = Tri<KT>;
   constexpr int TD = G::TD;
   const int SL = np * TD * G::RS;  // elements of one slab buffer
@@ -894,6 +934,7 @@ __device__ __forceinline__ void slab_loop(T* slab, int* icol, float* igw,
   load_index<TD, GATHER>(icol, igw, irw, a.cols, a.gw, a.rw, base, d_begin,
                          d_end);
   cp_async_commit();
+  first();
   cp_async_wait_all();
   __syncthreads();
   load_rows<KT, NP, T, GATHER>(slab, icol, igw, irw, a.src, a.M, base,
@@ -976,12 +1017,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int mi = mblock<KP>(warp), wd = warp / G::NM;
-  const int jlo = full ? 0 : 2 * mi;
   const int g = lane >> 2, t = lane & 3;
   const size_t row = blockIdx.x / S;
   const int sl = blockIdx.x % S;
   const int d_begin = sl * slice_rows;
   const int d_end = min(a.D, d_begin + slice_rows);
+  int jlo = 0;  // set by the loop's first(): the Gram's form
 
   float acc[NN][4];
 #pragma unroll
@@ -997,6 +1038,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                               lane);
         for (int d = rg; d < TD; d += G::NG)
           rpart = fmaf(round_as<T>(wr[d]), widen<T>(X[d * RS + rk]), rpart);
+      },
+      [&] {
+        weigh_fractional<T, GATHER>(a, row, d_begin, d_end, weighted, full);
+        jlo = full ? 0 : 2 * mi;
       });
   rs[rg * KP + rk] = rpart;
   const float lam_r = SOLVE ? a.lam[row] : 0.f;
@@ -1145,11 +1190,12 @@ constexpr size_t tile_smem_bytes() {
 // (panel 0 the columns of I, panel 1 those of J, one panel when I = J),
 // into the record part[row][slice] ([KP][KP], then rhs [KP]): the tiles
 // with I <= J and their mirrors, or with `full` every tile (see solve); a
-// diagonal tile also writes rhs[I].
+// diagonal tile also writes rhs[I]. The grid covers the upper triangle of
+// tiles, or with `square` (where a block may find its Gram full) them all.
 template <typename T, bool GATHER>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     gram_tile_kernel(Args<T> a, int KP, int S, int slice_rows, int vec,
-                     int weighted, int full) {
+                     int weighted, int full, int square) {
   using G = Tri<kGramTile>;
   constexpr int TD = G::TD, RS = G::RS, NN = G::NN;
   extern __shared__ float4 smem4[];
@@ -1161,26 +1207,30 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   float* rs = irw + 3 * TD;  // [NG][kGramTile]
 
   const int nt = KP / kGramTile;
-  const int tiles = full ? nt * nt : nt * (nt + 1) / 2;
+  const int tiles = square ? nt * nt : nt * (nt + 1) / 2;
   const int tile = blockIdx.x % tiles;
   const size_t rsl = blockIdx.x / tiles;
   const size_t row = rsl / S;
   const int sl = (int)(rsl % S);
   // tile -> (I, J), row-major over the square or the upper triangle
-  int I = full ? tile / nt : 0, rem = full ? tile % nt : tile;
-  if (!full)
+  int I = square ? tile / nt : 0, rem = square ? tile % nt : tile;
+  if (!square)
     while (rem >= nt - I) {
       rem -= nt - I;
       ++I;
     }
-  const int J = full ? rem : I + rem;
+  const int J = square ? rem : I + rem;
   const bool diag = I == J;
+  const int d_begin = sl * slice_rows;
+  const int d_end = min(a.D, d_begin + slice_rows);
+  weigh_fractional<T, GATHER>(a, row, d_begin, d_end, weighted, full);
+  // on a square grid a symmetric Gram's lower tiles are the upper ones'
+  // mirrors, which those write
+  if (square && !full && I > J) return;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int mi = mblock<kGramTile>(warp);
   const int jlo = diag && !full ? 2 * mi : 0;
   const int g = lane >> 2, t = lane & 3;
-  const int d_begin = sl * slice_rows;
-  const int d_end = min(a.D, d_begin + slice_rows);
 
   float acc[NN][4];
 #pragma unroll
@@ -1199,7 +1249,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           for (int d = rg; d < TD; d += G::NG)
             rpart =
                 fmaf(round_as<T>(wr[d]), widen<T>(X[d * RS + rk]), rpart);
-      });
+      },
+      [] {});
   float* rec = a.part + (row * S + sl) * ((size_t)KP * KP + KP);
 #pragma unroll
   for (int nb = 0; nb < NN; ++nb)
@@ -1371,11 +1422,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = tid; k < K; k += kThreads) out[row * K + k] = empty ? 0.f : sx[k];
 }
 
-// The two-stage entry's gathered block in one pass: g[e] = table[cols[e]]
-// where mask[e] > 0, else zeros (e over B * D), as the plain version's
-// table[cols] * mask for a mask of 0 and 1. One warp per row of g: 16-byte
-// copies when rows are 16-byte aligned, elements otherwise; out-of-range
-// ids give zeros.
+// The two-stage entry's gathered block in one pass: g[e] = table[cols[e]] *
+// mask[e] (e over B * D), as the plain version's table[cols] * mask: a copy
+// where the mask is 1, zeros where it is 0 or the id is out of range, else
+// the product rounded to T, the mask rounded to T first. One warp per row
+// of g: 16-byte copies when rows are 16-byte aligned, elements otherwise.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gather_rows_kernel(const T* __restrict__ table, int M,
@@ -1386,9 +1437,16 @@ __global__ void __launch_bounds__(kThreads)
   if (e >= n) return;
   const int lane = threadIdx.x & 31;
   const int c = cols[e];
-  const bool live = mask[e] > 0.f && c >= 0 && c < M;
+  const float m = mask[e];
+  const bool live = m != 0.f && c >= 0 && c < M;
   const T* src = table + (size_t)c * K;
   T* dst = g + (size_t)e * K;
+  if (live && m != 1.f) {
+    const float mr = round_as<T>(m);
+    for (int i = lane; i < K; i += 32)
+      dst[i] = narrow<T>(widen<T>(src[i]) * mr);
+    return;
+  }
   const bool vec = (K * sizeof(T)) % 16 == 0 &&
                    ((reinterpret_cast<uintptr_t>(table) |
                      reinterpret_cast<uintptr_t>(g)) & 15) == 0;
@@ -1474,14 +1532,16 @@ int launch_tiles(const Args<T>& a, int B, int KP, int S, int slice_rows,
                  int weighted, int full, cudaStream_t st) {
   const int vec = aligned16(a);
   const size_t rec = (size_t)KP * KP + KP;
+  // explicit weights in bf16 may turn out fractional, and the Gram full
+  const int square = full || (GATHER && !weighted && sizeof(T) == 2);
   const size_t smem = tile_smem_bytes<T>();
   auto kernel = gram_tile_kernel<T, GATHER>;
   int err;
   if ((err = set_smem(kernel, smem)) != 0) return err;
   const int nt = KP / kGramTile;
-  const size_t tiles = full ? (size_t)nt * nt : (size_t)gram_tiles(KP);
+  const size_t tiles = square ? (size_t)nt * nt : (size_t)gram_tiles(KP);
   kernel<<<(unsigned)((size_t)B * S * tiles), kThreads, smem, st>>>(
-      a, KP, S, slice_rows, vec, weighted, full);
+      a, KP, S, slice_rows, vec, weighted, full, square);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   const float* grams = a.part;
   if (S > 1) {
@@ -1502,10 +1562,12 @@ int launch_tiles(const Args<T>& a, int B, int KP, int S, int slice_rows,
   return (int)cudaGetLastError();
 }
 
-// The Gram's form. Only the fused entry's implicit confidences (yty
-// given) weigh the rows: the explicit Gram weights are the mask, 0 or 1
-// as the buckets hold it, and a row with both weights 0 is zero-filled,
-// so the others weigh 1 (`weighted` 0). Weighted rows rounded to bf16
+// The Gram's form. The fused entry's implicit confidences (yty given)
+// weigh the rows. The explicit Gram weights are the mask, 0 or 1 as the
+// buckets hold it, and a row with both weights 0 is zero-filled, so the
+// others weigh 1 (`weighted` 0) unless a block finds another weight in
+// its d rows (weigh_fractional: weighing every f32 row instead, exact for
+// a 0 or 1, measured slower on an H100). Weighted rows rounded to bf16
 // make the reference's Gram asymmetric, Gram[k][l] = sum_d round(gw_d
 // t_dk) t_dl: there every block is summed (`full`). Otherwise it is
 // symmetric (f32 weighted rows are exact to f32 rounding) and only its
@@ -1626,7 +1688,7 @@ int pio_als_gather_rows(const void* table, int table_is_bf16, int M,
 
 // Fused gather solve: table [M, K] (f32 or bf16), cols [B, D] i32,
 // gw / rw [B, D] f32 (Gram and rhs weights, mask folded in: without yty,
-// explicit, gw is the 0/1 mask), lam and nnz
+// explicit, gw is the mask, of any value), lam and nnz
 // [B] f32, yty [K, K] f32 or NULL, x0 [B, K] f32 or NULL, out [B, K] f32;
 // the launch plan as the two-stage entry's (bad_plan).
 int pio_als_fused_solve_cg(const void* table, int table_is_bf16, int M,

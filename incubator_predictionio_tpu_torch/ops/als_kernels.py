@@ -402,7 +402,9 @@ def als_fused_solve_cg(table, cols, vals, mask, l2: float,
                        yty: Optional[torch.Tensor] = None,
                        x0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused gather bucket solve → [B, K] f32: arguments as
-    :func:`als_solve_cg` (``mask`` 0 or 1, as the buckets hold it);
+    :func:`als_solve_cg` (``mask`` the explicit Gram weights: 0 or 1 as
+    the buckets hold it, and any other value weighs its row as in the
+    plain version);
     ``implicit`` takes the confidences α·vals and the shared ``yty`` [K, K]
     f32 (λ then is plain, not λ·nnz). Rows with no observation give
     exactly 0."""

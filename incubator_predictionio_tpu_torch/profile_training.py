@@ -6,13 +6,12 @@ NVIDIA GPU.
 
 At ML-20M width (138,493 users x 26,744 items x rank 128, 20,000,000
 distinct planted ratings from ``utils/planted.py``), the buckets are built
-once and five single sweeps are profiled with ``torch.profiler``: a bf16
+once and three single sweeps are profiled with ``torch.profiler``: a bf16
 sweep and an f32 sweep through the kernels (the fused entry on both
-sides), the same two with the item half-sweep through the two-stage entry
-and its gather (the routing ``ops/als.py`` measured itself against), and
-an f32 sweep of the plain route (``use_kernel=False``). For each it prints one JSON line with the
-host wall, the device time by kernel name, the device's idle share, and
-the kernel route's bound per half-sweep: the sum of
+sides), and an f32 sweep of the plain route (``use_kernel=False``). For
+each it prints one JSON line with the host wall, the device time by
+kernel name, the device's idle share, and the kernel route's bound per
+half-sweep: the sum of
 ``ops/als_kernels.bucket_bound`` over its kernel-routed buckets (f32
 products at the 3xTF32 rate; in f32 also on the FMA units,
 ``bound_fma_ms``). Then one
@@ -113,13 +112,12 @@ def side_bound(tree, bf16: bool, iters: int) -> dict:
 
 def bucket_times(state, trees) -> list:
     """Device ms (CUDA events, median of 3) of each kernel-routed bucket's
-    solve in one f32 sweep, routed as ``_sweep_side`` routes it, beside
-    its bound."""
+    solve in one f32 sweep, through the fused entry as ``_mixed_run``
+    routes both sides, beside its bound."""
     out = []
     for side, tree, other, prev in (
             ("user", trees[0], state.item_factors, state.user_factors),
             ("item", trees[1], state.user_factors, state.item_factors)):
-        fused = True  # the routing of _mixed_run: fused on both sides
         for row_ids, cols, vals, mask in tree:
             d = cols.shape[1]
             if d < als.KERNEL_MIN_D:
@@ -127,13 +125,9 @@ def bucket_times(state, trees) -> list:
             x0 = als._gather_x0(prev, row_ids)
 
             def solver(t):
-                if fused:
-                    return als._solve_bucket_fused(
-                        other, None, t[0], t[1], t[2], L2, True,
-                        als.CG_ITERS, x0=t[3])
-                return als._solve_bucket_kernel(
-                    other, t[0], t[1], t[2], L2, True, als.CG_ITERS,
-                    als.KERNEL_ROWS, x0=t[3])
+                return als._solve_bucket_fused(
+                    other, None, t[0], t[1], t[2], L2, True, als.CG_ITERS,
+                    x0=t[3])
 
             times = []
             for _ in range(4):
@@ -142,7 +136,7 @@ def bucket_times(state, trees) -> list:
                 a.record()
                 als._solve_bucket_chunked(
                     solver, cols, vals, mask, RANK,
-                    row_elems=3 * d + 3 * RANK if fused else None, x0=x0)
+                    row_elems=3 * d + 3 * RANK, x0=x0)
                 b.record()
                 b.synchronize()
                 times.append(a.elapsed_time(b))
@@ -154,20 +148,16 @@ def bucket_times(state, trees) -> list:
                                      torch.float32,
                                      f32_flops=runtime.F32_FLOPS)[0]
             out.append({
-                "side": side, "entry": ("als_fused_solve_cg" if fused
-                                        else "als_solve_cg"),
+                "side": side, "entry": "als_fused_solve_cg",
                 "D": d, "rows": rows, "nnz": nnz,
                 "ms": sorted(times[1:])[1], "bound_ms": bound_ms,
                 "bound_by": bound_by, "bound_fma_ms": fma_ms})
     return out
 
 
-def profile_sweep(state, trees, bf16: bool, use_kernel: bool,
-                  use_fused=None) -> dict:
-    """One profiled sweep; ``use_fused`` (user side, item side) overrides
-    ``_mixed_run``'s routing (the fused entry on both sides)."""
+def profile_sweep(state, trees, bf16: bool, use_kernel: bool) -> dict:
     u_tree, i_tree, u_hv, i_hv = trees
-    kw = dict(use_kernel=use_kernel, use_fused=use_fused)
+    kw = dict(use_kernel=use_kernel)
     als._mixed_run(state, u_tree, i_tree, L2, 1, int(bf16), True,
                    torch.float32, u_hv, i_hv, **kw)  # warm-up
     torch.cuda.synchronize()
@@ -184,11 +174,8 @@ def profile_sweep(state, trees, bf16: bool, use_kernel: bool,
     # the ten largest, and every ALS kernel of the port however small
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     top.update({k: v for k, v in by_name.items() if k.startswith("als_")})
-    fused = (True, True) if use_fused is None else use_fused
     return {"sweep": "bf16" if bf16 else "f32",
             "route": "kernel" if use_kernel else "plain",
-            "fused": {"user_side": fused[0], "item_side": fused[1]}
-            if use_kernel else None,
             "wall_ms": wall, "device_ms": busy,
             "device_idle_share": 1.0 - busy / wall,
             "device_ms_by_name": top,
@@ -215,12 +202,8 @@ def main() -> int:
     u_work = side_work(trees[0], als.KERNEL_MIN_D)
     i_work = side_work(trees[1], als.KERNEL_MIN_D)
     print(json.dumps({"user_side": u_work, "item_side": i_work}), flush=True)
-    # the routing (fused on both sides), then the item side through the
-    # two-stage entry and its gather (what decided it), then the plain route
-    runs = [(True, True, None), (False, True, None), (True, True, (True, False)),
-            (False, True, (True, False)), (False, False, None)]
-    for bf16, use_kernel, use_fused in runs:
-        row = profile_sweep(state, trees, bf16, use_kernel, use_fused)
+    for bf16, use_kernel in ((True, True), (False, True), (False, False)):
+        row = profile_sweep(state, trees, bf16, use_kernel)
         if use_kernel:
             iters = als.CG_ITERS_BF16 if bf16 else als.CG_ITERS
             row["bound"] = {

@@ -392,6 +392,47 @@ def test_als_fused_one_slice_and_many(dev, m, k, b, d, dtype):
                                                   warm is None)
 
 
+# (m, k, b, d): rank 128 with one slice (its CG from the accumulators) and
+# many, a padded rank below 128, and the 128 x 128 tiles above it
+ALS_FRACTION_SHAPES = [(500, 128, 6, 300), (400, 64, 6, 700),
+                       (800, 256, 4, 500)]
+
+
+@pytest.mark.parametrize("m,k,b,d", ALS_FRACTION_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_als_fractional_mask_matches_plain(dev, m, k, b, d, dtype):
+    """A mask of weights other than 0 and 1 (the buckets hold only those)
+    weighs the rows as the plain versions do: the fused entry's Gram
+    Σ mask·t·tᵀ (in bf16 the weighted rows rounded, an asymmetric Gram),
+    the two-stage entry's rows table[cols] * mask. Every row fractional, or
+    one row only (the others take the unweighted triangle), cold and warm,
+    one slice and many, R = 1 and 8: each within the tolerance of the plain
+    version, the empty row exactly 0 from the fused entry."""
+    table, cols, vals, mask, x0 = _als_problem(dev, m, k, b, d, k + d + 2)
+    table = table.to(dtype)
+    rng = np.random.default_rng(k + d)
+    frac = torch.from_numpy(rng.choice(
+        np.float32([0.25, 0.5, 0.7, 1.0, 1.5]), (b, d))).to(dev)
+    one_row = mask.clone()
+    one_row[0] *= frac[0]
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    for weights in (mask * frac, one_row):
+        for warm in (None, x0):
+            args = (table, cols, vals, weights, 0.05, True, 16)
+            ref = als_kernels.als_fused_solve_cg_plain(*args, x0=warm)
+            for n in (1, 1000):
+                got = als_kernels._fused(*args, False, 1.0, None, warm,
+                                         n_sms=n)
+                torch.cuda.synchronize()
+                assert (got[weights.sum(-1) == 0] == 0).all()
+                assert _rel(got, ref) < tol, ("fused", n, warm is None)
+            ref = als_kernels.als_solve_cg_plain(*args, x0=warm)
+            for rows, n in ((1, 1), (1, 1000), (8, None)):
+                got = als_kernels._two_stage(*args, rows, warm, n_sms=n)
+                torch.cuda.synchronize()
+                assert _rel(got, ref) < tol, ("two", rows, n, warm is None)
+
+
 def _f64_fused(table, cols, vals, mask, l2, iters, x0, yty=None):
     """The fused bucket solve in f64 (implicit with ``yty``: confidences
     2·vals, plain λ); empty rows exactly 0."""
