@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the recommendation
 template (serving, ALS training through ``Engine.train``, serving the
-trained model) and the sequence engine (SASRec served and trained through
-the flash-attention kernel).
+trained model), the sequence engine (SASRec served and trained through
+the flash-attention kernel), and both through the event store: events in
+SQLite → ``CoreWorkflow.run_train`` → the checkpoint → ``load_models`` →
+/queries.json.
 
     python3 chip_smoke.py
 
@@ -11,7 +13,9 @@ Phases, each of which fails the run on any error or mismatch:
 1. card    — requires CUDA; prints the card's name and power limit as
              ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
              gives them; turns TF32 off.
-2. build   — compiles the port's CUDA sources (``runtime.build_kernels``).
+2. build   — compiles the port's CUDA sources (``runtime.build_kernels``)
+             and its native host library (``native.load``: the bucket
+             builder, ``native/src/csr_builder.cc``, with ``g++``).
 3. kernel  — the score+top-k kernel against its plain PyTorch version on
              the card: the reference's four kernel test cases, duplicate-row
              ties, the ML-20M width (26,744 items x rank 128) and a
@@ -55,12 +59,17 @@ Phases, each of which fails the run on any error or mismatch:
              ``_handle_batch``, every answer checked against the plain
              version on the same factors, and the kernel's launch count read.
 7. train   — 20,000,000 planted ratings at ML-20M width trained through
-             ``Engine.train`` (rank 128, 4 sweeps, 2 in bf16), then from the
-             same initial state on the plain route (``use_kernel=False``):
-             the fused ALS entry (both half-sweeps) must launch, the fit
-             RMSE must be within the
+             ``Engine.train`` (rank 128, 4 sweeps, 2 in bf16; the buckets
+             from the native builder, the latest-wins dedup on the card),
+             then from the same initial state on the plain route
+             (``use_kernel=False``): the fused ALS entry (both half-sweeps)
+             must launch, the fit RMSE must be within the
              reference's parity bound of the plain route's and the heldout
-             RMSE below 0.8.
+             RMSE below 0.8. Once per run both host routes are held equal
+             bit for bit and their walls printed side by side
+             (:func:`host_routes`): the preparator with the dedup on the
+             card and by ``np.unique``, the buckets native and numpy, and
+             the two dedups on the triples with 2,000,000 repeated pairs.
 8. serve-trained — the trained model behind PredictionServer, each answer
              against the plain top-k on the trained factors.
 9. seq-path — a SeqRecModel at the slice's width (d_model 64, 2 heads, 2
@@ -76,7 +85,24 @@ Phases, each of which fails the run on any error or mismatch:
              step, each step's loss within 1e-3 relative of the plain
              route's, a falling loss; the trained model served as in
              seq-path.
-11. report — kernel, plain-version and library times (CUDA events, median
+11. store-als — ALS through the event store at ML-20M width
+             (:func:`store_als_phase`): an app as ``pio app new`` makes it,
+             1,000,000 planted ratings over every one of the 138,493 users
+             and 26,744 items through ``import_interactions`` plus the
+             items' ``$set`` categories, ``CoreWorkflow.run_train`` (rank
+             128, 4 sweeps, 2 bf16), the checkpoint, ``load_models``,
+             ``PredictionServer``: the store's triples the planted ones,
+             the decoded factors the trained ones bit for bit, 23 answers
+             against the plain top-k, the fit within the parity bound of
+             the plain route's and within 1e-3 of it, relative; the wall
+             of each phase.
+12. store-seq — the seq-train sessions as 524,352 ``view`` events
+             through ``run_train`` → checkpoint → ``load_models`` → HTTP
+             (:func:`store_seq_phase`): one query with ``recentItems``, the
+             same user without them twice (the history from the store,
+             then from the TTL cache): identical answers, held to the plain
+             attention's; the decoded weights the trained ones bit for bit.
+13. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
              line (flash: the engine's windows, also left-padded with 1 to
              4,096 live keys, and the bench's shapes; the repaired limits'
@@ -112,11 +138,15 @@ flash entry's is ``ops/attention_kernels.flash_bound``, 4·D FLOP per live
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -360,15 +390,25 @@ def path_queries(rng, users: int, n_items: int, seen) -> list:
     return docs
 
 
-def check_answer(kernels, dev, uf_t, items_t, doc, mask, body, what) -> float:
-    """One served answer against the plain version on the same factors."""
+def check_answer(kernels, dev, uf_t, items_t, doc, mask, body, what,
+                 model=None) -> float:
+    """One served answer against the plain version on the same factors.
+    Ids map to rows by their number (``u17`` is row 17), or through the
+    BiMaps of ``model`` when one is given."""
     got = body["itemScores"]
     num = doc["num"]
     if doc["user"].startswith("nosuch") or num <= 0:
         if got:
             raise AssertionError(f"{what}: expected no items, got {len(got)}")
         return 0.0
-    row = int(doc["user"][1:])
+    if model is None:
+        row = int(doc["user"][1:])
+
+        def item_index(name):
+            return int(name[1:])
+    else:
+        row = model.user_bimap[doc["user"]]
+        item_index = model.item_bimap.__getitem__
     allowed = None if mask is None else torch.from_numpy(mask).to(dev)
     n_live = num if mask is None else min(num, int(mask.sum()))
     ref_s, ref_i = kernels.score_topk_plain(
@@ -376,7 +416,7 @@ def check_answer(kernels, dev, uf_t, items_t, doc, mask, body, what) -> float:
     if len(got) != n_live:
         raise AssertionError(f"{what}: {len(got)} items, expected {n_live}")
     got_s = np.array([[x["score"] for x in got]])
-    got_i = np.array([[int(x["item"][1:]) for x in got]])
+    got_i = np.array([[item_index(x["item"]) for x in got]])
     return check_topk(got_s, got_i, ref_s.cpu()[:, :n_live + 1],
                       ref_i.cpu()[:, :n_live + 1], n_live, what)
 
@@ -957,6 +997,10 @@ def train_phase(dev, runtime, als, engine, base, params_mod, context,
                           len(pd.user_bimap), len(pd.item_bimap), rank,
                           device=dev)
     plain_prep_s = time.perf_counter() - t0
+    routes = host_routes(dev, als, engine, ctx, td, pd,
+                         (u_tree, i_tree, u_hv, i_hv))
+    routes["engine_prepare_s"] = timings["prepare"]
+    routes["engine_als_prep_s"] = timings["als.prep"]
     t0 = time.perf_counter()
     plain = als._mixed_run(state0, u_tree, i_tree, 0.03, sweeps,
                            bf16_sweeps, True, torch.float32, u_hv, i_hv,
@@ -997,6 +1041,7 @@ def train_phase(dev, runtime, als, engine, base, params_mod, context,
         "plain_sweeps_s": plain_sweeps_s, "fit_rmse": fit,
         "fit_rmse_plain": fit_plain, "heldout_rmse": ho,
         "heldout_rmse_plain": ho_plain, "ratings_stdev": stdev,
+        "host_routes": routes,
         "heavy_items": 0 if i_hv is None else int(i_hv[1].shape[0]),
         "heavy_users": 0 if u_hv is None else int(u_hv[1].shape[0]),
         "launches": {k: counts[k] for k in
@@ -1005,6 +1050,116 @@ def train_phase(dev, runtime, als, engine, base, params_mod, context,
         "on_path": on_path,
     }
     return model, pd, eng, ep, stats, (u_tree, i_tree, plain)
+
+
+def same_trees(a, b, what: str) -> int:
+    """Two ``prepare_trees`` results hold equal tensors, bit for bit;
+    returns the number of tensors compared."""
+    flat_a = [t for part in a if part is not None
+              for t in torch.utils._pytree.tree_leaves(part)]
+    flat_b = [t for part in b if part is not None
+              for t in torch.utils._pytree.tree_leaves(part)]
+    if len(flat_a) != len(flat_b):
+        raise AssertionError(f"{what}: {len(flat_a)} tensors against "
+                             f"{len(flat_b)}")
+    for k, (x, y) in enumerate(zip(flat_a, flat_b)):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{what}: tensor {k} differs")
+    return len(flat_a)
+
+
+def numpy_latest_wins(users, items, n_items: int) -> np.ndarray:
+    """The plain version of ``ops/sparse.latest_wins``, the JAX
+    preparator's route: one ``np.unique`` over the reversed packed keys,
+    on the host."""
+    keys = np.asarray(users, np.int64) * max(int(n_items), 1) \
+        + np.asarray(items, np.int64)
+    _, first_in_rev = np.unique(keys[::-1], return_index=True)
+    return np.sort(len(keys) - 1 - first_in_rev)
+
+
+def numpy_prepare(engine, td):
+    """The recommendation preparator's columnar route with the dedup by
+    :func:`numpy_latest_wins` on the host: the JAX package's
+    ``_prepare_columnar``."""
+    from incubator_predictionio_tpu_torch.data.bimap import BiMap
+
+    inter = td.interactions
+    user_bimap = BiMap({u: i for i, u in enumerate(inter.user_ids)})
+    item_bimap = BiMap({t: i for i, t in enumerate(inter.item_ids)})
+    keep = numpy_latest_wins(inter.user_idx, inter.item_idx,
+                             len(inter.item_ids))
+    return engine.PreparedData(
+        users=inter.user_idx[keep], items=inter.item_idx[keep],
+        ratings=inter.values[keep], user_bimap=user_bimap,
+        item_bimap=item_bimap, item_years=td.item_years,
+        item_categories=td.item_categories)
+
+
+def host_routes(dev, als, engine, ctx, td, pd, trees, n_dups: int = 2_000_000,
+                seed: int = 5) -> dict:
+    """The host phases of ``Engine.train`` on both routes, held equal bit
+    for bit: the preparator with its dedup on the device (the path's) and
+    by ``np.unique`` on the host (the JAX package's route), the buckets
+    from the native builder (the path's, ``trees``) and from numpy; then
+    the two dedups again on the triples with ``n_dups`` repeated pairs
+    appended (the planted pairs are distinct). Returns the walls."""
+    from incubator_predictionio_tpu_torch.ops import sparse
+
+    t0 = time.perf_counter()
+    pd_dev = engine.RecommendationPreparator().prepare(ctx, td)
+    device_prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pd_np = numpy_prepare(engine, td)
+    numpy_prepare_s = time.perf_counter() - t0
+    for f in ("users", "items", "ratings"):
+        for got in (pd_dev, pd_np):
+            a, b = getattr(got, f), getattr(pd, f)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"prepare routes: {f} differ")
+    inter = td.interactions
+    rng = np.random.default_rng(seed)
+    pick = np.sort(rng.choice(len(inter), min(n_dups, len(inter)),
+                              replace=False))
+    users = np.concatenate([inter.user_idx, inter.user_idx[pick]])
+    items = np.concatenate([inter.item_idx, inter.item_idx[pick]])
+    n_items = len(inter.item_ids)
+    sync(dev)
+    t0 = time.perf_counter()
+    keep_dev = sparse.latest_wins(users, items, n_items, dev)
+    dup_device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keep_np = numpy_latest_wins(users, items, n_items)
+    dup_numpy_s = time.perf_counter() - t0
+    if not np.array_equal(keep_dev, keep_np):
+        raise AssertionError("dedup routes differ on repeated pairs")
+    distinct = len(np.unique(users.astype(np.int64) * n_items + items))
+    if len(keep_dev) != distinct:
+        raise AssertionError(f"dedup kept {len(keep_dev)} of {distinct} "
+                             "distinct pairs")
+    t0 = time.perf_counter()
+    native_trees = als.prepare_trees(
+        pd.users, pd.items, pd.ratings, len(pd.user_bimap),
+        len(pd.item_bimap), device=dev, impl="native")
+    sync(dev)
+    native_prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numpy_trees = als.prepare_trees(
+        pd.users, pd.items, pd.ratings, len(pd.user_bimap),
+        len(pd.item_bimap), device=dev, impl="numpy")
+    sync(dev)
+    numpy_prep_s = time.perf_counter() - t0
+    compared = same_trees(native_trees, trees, "native buckets, twice")
+    same_trees(numpy_trees, trees, "numpy buckets against native")
+    del native_trees, numpy_trees
+    return {"prepare_device_s": device_prepare_s,
+            "prepare_numpy_s": numpy_prepare_s,
+            "als_prep_native_s": native_prep_s,
+            "als_prep_numpy_s": numpy_prep_s,
+            "bucket_tensors_equal": compared,
+            "dedup_repeated_pairs": int(len(pick)),
+            "dedup_repeated_device_s": dup_device_s,
+            "dedup_repeated_numpy_s": dup_numpy_s}
 
 
 def rank_train_phase(dev, runtime, als, planted, small: bool = False):
@@ -1102,6 +1257,367 @@ def serve_trained_phase(dev, runtime, kernels, server_mod, model, pd, eng,
         raise AssertionError(f"score_topk launched {launches} times for "
                              f"{device_queries} device queries")
     return launches, err, {"queries": len(docs), "launches": launches}
+
+
+# -- the stored main path: event store → run_train → checkpoint → deploy -------
+
+STORE_T0 = "2024-01-01T00:00:00Z"
+
+
+@contextlib.contextmanager
+def temp_store():
+    """The port's Storage on the zero-config SQLite default under a fresh
+    temporary ``PIO_HOME`` (no ``PIO_STORAGE_*`` variables), put back as
+    it was afterwards."""
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+
+    saved = {k: v for k, v in os.environ.items()
+             if k == "PIO_HOME" or k.startswith("PIO_STORAGE_")}
+    with tempfile.TemporaryDirectory(prefix="pio_home_") as home:
+        for k in saved:
+            del os.environ[k]
+        os.environ["PIO_HOME"] = home
+        Storage.reset()
+        try:
+            yield home
+        finally:
+            Storage.reset()
+            os.environ.pop("PIO_HOME", None)
+            os.environ.update(saved)
+
+
+def new_app(name: str) -> int:
+    """What ``pio app new`` does through the metadata DAOs: the app, its
+    event store and an access key."""
+    from incubator_predictionio_tpu_torch.data.storage import (
+        AccessKey,
+        App,
+        Storage,
+    )
+
+    app_id = Storage.get_meta_data_apps().insert(App(0, name))
+    Storage.get_events().init(app_id)
+    if not Storage.get_meta_data_access_keys().insert(AccessKey("", app_id)):
+        raise AssertionError("no access key was made")
+    return app_id
+
+
+def keep_trained(eng) -> list:
+    """The models ``eng.train`` returns, kept for a check: ``run_train``
+    returns only the instance id."""
+    kept: list = []
+    train = eng.train
+
+    def keeping(*args, **kw):
+        kept[:] = train(*args, **kw)
+        return kept[:]
+
+    eng.train = keeping
+    return kept
+
+
+def insert_events(events, app_id: int, chunk: int = 20_000) -> float:
+    """Events into the store in batches; returns the wall."""
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+
+    dao = Storage.get_events()
+    t0 = time.perf_counter()
+    for k in range(0, len(events), chunk):
+        dao.insert_batch(events[k:k + chunk], app_id)
+    return time.perf_counter() - t0
+
+
+def store_als_phase(dev, runtime, kernels, als, engine, planted, params_mod,
+                    context, server_mod, small: bool = False, seed: int = 3):
+    """ALS through the event store at ML-20M width: an app made as ``pio
+    app new`` makes it; 1,000,000 planted ratings (seed 7) over all
+    138,493 users and 26,744 items, every one rated, imported through
+    ``import_interactions``, and each item's ``$set`` categories; then
+    ``CoreWorkflow.run_train`` with the quickstart's params (``appName``;
+    rank 128, 4 sweeps, 2 in bf16, λ 0.03) → ``load_models`` →
+    ``PredictionServer`` → POST /queries.json. Checks: the store's triples
+    are the planted ones, the decoded factors the trained ones bit for bit,
+    every answer the plain top-k on them, the fit RMSE within the parity
+    bound of the plain route's from the same initial state and within 1e-3
+    of it, relative (each factor table's distance from the plain route's
+    is reported), and the fused
+    ALS and score+top-k kernels launched on the path. Returns (launches by
+    kernel, max score error, stats)."""
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.interactions import (
+        Interactions,
+    )
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+    from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    if small:
+        n_users, n_items, nnz, rank = 400, 300, 20_000, 16
+    else:
+        n_users, n_items = ML20M["users"], ML20M["items"]
+        nnz, rank = 1_000_000, ML20M["rank"]
+    name = "store-als"
+    with temp_store():
+        app_id = new_app(name)
+        t0 = time.perf_counter()
+        users, items, ratings, _ = planted.planted_ratings(
+            n_users=n_users, n_items=n_items, nnz=nnz, n_holdout=1000,
+            cover=True)
+        user_ids = [f"u{k}" for k in range(n_users)]
+        item_ids = [f"i{k}" for k in range(n_items)]
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Storage.get_events().import_interactions(
+            Interactions(user_idx=users, item_idx=items, values=ratings,
+                         user_ids=user_ids, item_ids=item_ids),
+            app_id, base_time=parse_iso8601(STORE_T0))
+        import_s = time.perf_counter() - t0
+        cats = np.random.default_rng(8).integers(0, 20, n_items)
+        set_s = insert_events(
+            [Event(event="$set", entity_type="item", entity_id=item_ids[k],
+                   properties=DataMap({"categories": [
+                       f"c{cats[k]}", f"c{(cats[k] + 7) % 20}"]}))
+             for k in range(n_items)], app_id)
+
+        eng = engine.RecommendationEngine().apply()
+        kept = keep_trained(eng)
+        ep = params_mod.EngineParams(
+            data_source_params=("", engine.DataSourceParams(app_name=name)),
+            algorithm_params_list=[("als", engine.ALSAlgorithmParams(
+                rank=rank, num_iterations=4, lambda_=0.03, bf16_sweeps=2,
+                seed=seed))])
+        ctx = context.RuntimeContext(device=dev)
+        runtime.reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        iid = CoreWorkflow.run_train(eng, ep, ctx=ctx)
+        train_s = time.perf_counter() - t0
+        timings = dict(ctx.timings)
+        blob_bytes = len(Storage.get_model_data_models().get(iid).models)
+        t0 = time.perf_counter()
+        models = CoreWorkflow.load_models(iid, eng, ep, ctx=ctx)
+        sync(dev)
+        load_s = time.perf_counter() - t0
+        model, trained = models[0], kept[0]
+        for f in ("user_factors", "item_factors"):
+            a, b = getattr(model, f), getattr(trained, f)
+            if a.device != b.device or not torch.equal(a, b):
+                raise AssertionError(f"store-als: decoded {f} differ from "
+                                     "the trained ones")
+
+        rng = np.random.default_rng(9)
+        pick = rng.choice(n_users, 24, replace=False)
+        docs = [({"user": f"u{u}", "num": 10}, None) for u in pick[:10]]
+        docs += [({"user": f"u{u}", "num": 100}, None) for u in pick[10:14]]
+        for u in pick[14:18]:
+            mask = np.ones(n_items, bool)
+            mask[model.user_seen[model.user_bimap[f"u{u}"]]] = False
+            docs.append(({"user": f"u{u}", "num": 20, "excludeSeen": True},
+                         mask))
+        for u, c in zip(pick[18:22], (1, 4, 9, 16)):
+            mask = np.zeros(n_items, bool)
+            for item, idx in model.item_bimap.items():
+                if f"c{c}" in model.item_categories.get(item, ()):
+                    mask[idx] = True
+            docs.append(({"user": f"u{u}", "num": 10,
+                          "categories": [f"c{c}"]}, mask))
+        docs.append(({"user": "nosuch-1", "num": 10}, None))
+        srv = server_mod.PredictionServer(eng, ep, models, device=dev)
+        port = srv.start_background()
+        try:
+            walls, answers = [], []
+            for doc, _mask in docs:
+                t0 = time.perf_counter()
+                answers.append(post(port, doc))
+                walls.append(time.perf_counter() - t0)
+        finally:
+            srv.stop()
+        counts = runtime.launch_counts()
+
+        err = 0.0
+        for i, ((doc, mask), body) in enumerate(zip(docs, answers)):
+            err = max(err, check_answer(
+                kernels, dev, model.user_factors, model.item_factors, doc,
+                mask, body, f"store-als query {i} {list(doc)}", model=model))
+        # a second read of the store: the triples are the planted ones
+        t0 = time.perf_counter()
+        td = engine.RecommendationDataSource(
+            engine.DataSourceParams(app_name=name)).read_training(ctx)
+        reread_s = time.perf_counter() - t0
+        inter = td.interactions
+        u_num = np.array([int(x[1:]) for x in inter.user_ids])[inter.user_idx]
+        i_num = np.array([int(x[1:]) for x in inter.item_ids])[inter.item_idx]
+        if not (np.array_equal(u_num, users) and np.array_equal(i_num, items)
+                and np.array_equal(inter.values, ratings)):
+            raise AssertionError("store-als: the store's triples are not "
+                                 "the planted ones")
+        if (len(inter.user_ids), len(inter.item_ids)) != (n_users, n_items):
+            raise AssertionError("store-als: not every user and item read")
+        pd = engine.RecommendationPreparator().prepare(ctx, td)
+    trees = als.prepare_trees(pd.users, pd.items, pd.ratings, n_users,
+                              n_items, device=dev)
+    state0 = als.als_init(torch.Generator().manual_seed(seed), n_users,
+                          n_items, rank, device=dev)
+    plain = als._mixed_run(state0, trees[0], trees[1], 0.03, 4, 2, True,
+                           torch.float32, trees[2], trees[3],
+                           use_kernel=False)
+    fit = als.rmse(als.ALSState(user_factors=trained.user_factors,
+                                item_factors=trained.item_factors),
+                   pd.users, pd.items, pd.ratings)
+    fit_plain = als.rmse(plain, pd.users, pd.items, pd.ratings)
+    if not fit < max(1.15 * fit_plain, fit_plain + 0.02):
+        raise AssertionError(f"store-als: fit RMSE {fit:.4f} against the "
+                             f"plain route's {fit_plain:.4f}")
+    # the same run from the same initial state: beside the parity bound,
+    # the fit within 1e-3 of the plain route's, relative
+    fit_rel = abs(fit - fit_plain) / fit_plain
+    if not fit_rel <= 1e-3:
+        raise AssertionError(f"store-als: fit RMSE {fit!r} is {fit_rel:.2e} "
+                             f"from the plain route's {fit_plain!r}")
+    factor_rel = {f: _rel_err(getattr(trained, f), getattr(plain, f))[1]
+                  for f in ("user_factors", "item_factors")}
+    launches = {k: counts[k] for k in ("als_fused_solve_cg", "score_topk")}
+    device_queries = len(docs) - 1
+    if dev.type == "cuda" and (launches["als_fused_solve_cg"] <= 0
+                               or launches["score_topk"] < device_queries):
+        raise AssertionError(f"store-als: launches {launches}")
+    stats = {"users": n_users, "items": n_items, "ratings": nnz,
+             "rank": rank, "generate_s": gen_s, "import_s": import_s,
+             "import_events_per_s": nnz / import_s, "set_events": n_items,
+             "set_s": set_s, "run_train_s": train_s,
+             "engine_timings_s": timings, "blob_bytes": blob_bytes,
+             "load_models_s": load_s, "queries": len(docs),
+             "http_p50_ms": 1e3 * statistics.median(walls),
+             "http_max_ms": 1e3 * max(walls), "reread_s": reread_s,
+             "fit_rmse": fit, "fit_rmse_plain": fit_plain,
+             "fit_rel_err": fit_rel, "factor_rel_err": factor_rel,
+             "launches": launches}
+    return launches, err, stats
+
+
+def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
+                    context, server_mod, small: bool = False, seed: int = 3):
+    """The sequence engine through the event store: the train phase's 64
+    planted sessions of 8,193 items as ``view`` events (524,352) →
+    ``CoreWorkflow.run_train`` (``SequenceDataSource.read_training``;
+    window 8,192, 26,744 items, batch 8, 1 epoch) → ``load_models`` →
+    ``PredictionServer``: one query with ``recentItems``, then the same
+    user without them twice, the history read from the store through
+    ``find_by_entity`` and the second time through the TTL cache. The three
+    answers must be identical and agree with the plain attention's; the
+    decoded weights are the trained ones bit for bit; the flash kernel
+    launches ``n_layers`` times a training step and a query. Returns
+    (flash launches, max score error, stats)."""
+    from datetime import timedelta
+
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+    from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    n_items = 500 if small else SEQ["n_items"]
+    max_len = 701 if small else SEQ["max_len"]
+    n_sessions, batch = 64, 8
+    name = "store-seq"
+    rows = planted.planted_sessions(n_items, n_sessions, max_len, seed=17)
+    base = parse_iso8601(STORE_T0)
+    with temp_store():
+        app_id = new_app(name)
+        t0 = time.perf_counter()
+        stamps = [base + timedelta(milliseconds=j) for j in range(max_len)]
+        events = [Event(event="view", entity_type="user", entity_id=f"s{s}",
+                        target_entity_type="item",
+                        target_entity_id=f"i{t - 1}", event_time=stamps[j])
+                  for s, row in enumerate(rows.tolist())
+                  for j, t in enumerate(row)]
+        make_s = time.perf_counter() - t0
+        import_s = insert_events(events, app_id)
+        del events
+
+        eng = seq_engine.SequenceEngine().apply()
+        kept = keep_trained(eng)
+        ep = params_mod.EngineParams(
+            data_source_params=("", seq_engine.DataSourceParams(
+                app_name=name)),
+            preparator_params=("", seq_engine.PreparatorParams(
+                max_len=max_len)),
+            algorithm_params_list=[("sasrec", seq_engine.SeqRecAlgorithmParams(
+                app_name=name, d_model=SEQ["d_model"],
+                n_heads=SEQ["n_heads"], n_layers=SEQ["n_layers"], epochs=1,
+                batch_size=batch, seed=seed))])
+        ctx = context.RuntimeContext(device=dev)
+        runtime.reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        iid = CoreWorkflow.run_train(eng, ep, ctx=ctx)
+        train_s = time.perf_counter() - t0
+        timings = dict(ctx.timings)
+        train_launches = runtime.launch_counts()["flash_attention"]
+        blob_bytes = len(Storage.get_model_data_models().get(iid).models)
+        t0 = time.perf_counter()
+        models = CoreWorkflow.load_models(iid, eng, ep, ctx=ctx)
+        sync(dev)
+        load_s = time.perf_counter() - t0
+        model, trained = models[0], kept[0]
+        for f in dataclasses.fields(model.weights):
+            if not torch.equal(getattr(model.weights, f.name),
+                               getattr(trained.weights, f.name)):
+                raise AssertionError(f"store-seq: decoded {f.name} differs "
+                                     "from the trained weights")
+        if len(model.item_bimap) != n_items:
+            raise AssertionError(f"store-seq: {len(model.item_bimap)} items "
+                                 f"in the catalogue, expected {n_items}")
+        user = "s5"
+        history = [f"i{t - 1}" for t in rows[5].tolist()]
+        given = {"user": user, "num": 50, "recentItems": history}
+        stored = {"user": user, "num": 50}
+        srv = server_mod.PredictionServer(eng, ep, models, device=dev)
+        port = srv.start_background()
+        try:
+            walls = []
+            answers = []
+            for doc in (given, stored, stored):
+                t0 = time.perf_counter()
+                answers.append(post(port, doc))
+                walls.append(time.perf_counter() - t0)
+            cache = srv.algorithms[0]._history_cache
+            cache_hits = cache.hits
+        finally:
+            srv.stop()
+        launches = runtime.launch_counts()["flash_attention"]
+    if not answers[0] == answers[1] == answers[2]:
+        raise AssertionError("store-seq: the answer from the store's history "
+                             "differs from the one with recentItems")
+    if cache_hits < 1:
+        raise AssertionError("store-seq: the second history read missed the "
+                             "TTL cache")
+    ref_s, ref_i, _ = seq_reference(tr, fa, model, given, max_len - 1)
+    err = check_seq_answer(answers[0], ref_s, ref_i, given["num"],
+                           model.item_bimap, "store-seq query")
+    steps = -(-n_sessions // batch)
+    n_layers = SEQ["n_layers"]
+    if dev.type == "cuda" and (train_launches != n_layers * steps
+                               or launches != train_launches + 3 * n_layers):
+        raise AssertionError(f"store-seq: flash_attention launched "
+                             f"{train_launches} times in training and "
+                             f"{launches - train_launches} in 3 queries")
+    stats = {"sessions": n_sessions, "length": max_len,
+             "events": n_sessions * max_len, "make_events_s": make_s,
+             "import_s": import_s,
+             "import_events_per_s": n_sessions * max_len / import_s,
+             "run_train_s": train_s, "engine_timings_s": timings,
+             "blob_bytes": blob_bytes, "load_models_s": load_s,
+             "http_ms": {"recent_items": 1e3 * walls[0],
+                         "store_history": 1e3 * walls[1],
+                         "cached_history": 1e3 * walls[2]},
+             "cache_hits": cache_hits, "final_loss": model.final_loss,
+             "launches": launches}
+    return launches, err, stats
 
 
 def f64_solve(ak, table, cols, vals, mask, l2, reg_nnz, iters, x0,
@@ -2030,6 +2546,11 @@ def main() -> int:
     t0 = time.perf_counter()
     runtime.build_kernels()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    from incubator_predictionio_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load()
+    print(f"build-native: {time.perf_counter() - t0:.1f} s", flush=True)
     mode = sys.argv[1:]
     if mode not in ([], ["--flash"], ["--topk"], ["--als"]):
         print(f"chip_smoke: unknown arguments {mode}", file=sys.stderr)
@@ -2103,6 +2624,20 @@ def main() -> int:
     print(f"seq-train: {json.dumps(seq_train_stats)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    t0 = time.perf_counter()
+    store_launches, err_sa, store_stats = store_als_phase(
+        dev, runtime, kernels, als, engine, planted, params_mod, context,
+        server_mod)
+    print(f"store-als: {json.dumps(store_stats)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    store_seq_launches, err_ss, store_seq_stats = store_seq_phase(
+        dev, runtime, tr, fa, seq_engine, planted, params_mod, context,
+        server_mod)
+    print(f"store-seq: {json.dumps(store_seq_stats)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     shapes = topk_timings(kernels, planted, dev)
     for s in shapes:
         print(f"time: {json.dumps(s)}", flush=True)
@@ -2126,8 +2661,9 @@ def main() -> int:
         "route": "cuda",
         "source": "incubator_predictionio_tpu_torch/csrc/score_topk.cu",
         "replaces": kernels.REPLACES,
-        "launches": launches + trained_launches,
-        "max_abs_err": max(err_k, err_p, err_t),
+        "launches": launches + trained_launches
+        + store_launches["score_topk"],
+        "max_abs_err": max(err_k, err_p, err_t, err_sa),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
@@ -2144,7 +2680,8 @@ def main() -> int:
             "route": "cuda",
             "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
             "replaces": ak.REPLACES[entry],
-            "launches": train_stats["launches"][entry],
+            "launches": train_stats["launches"][entry]
+            + store_launches.get(entry, 0),
             "max_abs_err": max([als_errs[entry]]
                                + [r["max_abs_err"] for r in rows]),
             "ms": first["ms"],
@@ -2182,14 +2719,14 @@ def main() -> int:
         "route": "cuda",
         "source": "incubator_predictionio_tpu_torch/csrc/flash_attention.cu",
         "replaces": fa.REPLACES,
-        "launches": seq_launches + seq_train_launches,
+        "launches": seq_launches + seq_train_launches + store_seq_launches,
         "max_abs_err": err_f,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "max_score_err": max(err_sp, err_st),
+        "max_score_err": max(err_sp, err_st, err_ss),
         "shapes": flash_rows,
     })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -11,5 +11,10 @@ Gram+CG kernels (``ops/als.py``, ``ops/als_kernels.py``,
 prediction_server.py``) through the score+top-k kernel (``ops/kernels.py``,
 ``csrc/score_topk.cu``); and the sequence engine (``models/sequence/``,
 SASRec), served and trained with its long-window attention in the flash
-kernel (``ops/attention_kernels.py``, ``csrc/flash_attention.cu``).
+kernel (``ops/attention_kernels.py``, ``csrc/flash_attention.cu``). Both
+engines read their training events from the event store (``data/store.py``
+over ``data/storage/``: memory, SQLite, local files), bucket ratings with a
+native C++ builder (``native/``), and go from ``workflow.CoreWorkflow.
+run_train`` to a checkpoint (``workflow/checkpoint.py``, the JAX package's
+v2 format) and back through ``load_models`` to the prediction server.
 """

@@ -4,7 +4,8 @@ controller/Engine.scala:83-712). The Engine holds class maps for the data
 source, preparator, algorithm and serving slots and instantiates components
 through :func:`doer`. ``train`` is read → sanity → prepare → sanity →
 per-algorithm train → sanity; ``components`` gives the server its
-algorithms and serving component.
+algorithms and serving component; ``prepare_deploy`` turns checkpointed
+models into servable ones (Engine.scala:199-269).
 """
 
 from __future__ import annotations
@@ -130,6 +131,42 @@ class Engine:
         for model in models:
             _sanity(model, params.skip_sanity_check)
         return models
+
+    # -- deploy-time model restoration (Engine.scala:199-269) --------------
+    def prepare_deploy(self, ctx: RuntimeContext, engine_params: EngineParams,
+                       engine_instance_id: str, models: List[Any],
+                       params: Optional[WorkflowParams] = None) -> List[Any]:
+        """Turn checkpointed models into servable models on ``ctx.device``.
+
+        Reference semantics: Unit models (non-serializable RDD models) are
+        retrained at deploy (Engine.scala:211-233); PersistentModel
+        manifests load through their companion loader (:241-255). Here a
+        checkpointed model goes through its algorithm's ``prepare_model``
+        (which puts its tensors on ``ctx.device``); a
+        ``PersistentModelManifest`` loads through ``PersistentModel.load``
+        first; and a ``RetrainMarker`` (the explicit form of the silent
+        Unit model) trains the engine again."""
+        from incubator_predictionio_tpu_torch.core.persistent_model import (
+            PersistentModelManifest,
+            RetrainMarker,
+        )
+
+        algo_list = self._algorithms(engine_params)
+        if len(models) != len(algo_list):
+            raise ValueError(
+                f"{len(models)} models for {len(algo_list)} algorithms")
+        if any(isinstance(m, RetrainMarker) for m in models):
+            logger.info("Some models are retrain markers; retraining at "
+                        "deploy.")
+            trained = self.train(ctx, engine_params, params)
+        else:
+            trained = models
+        out: List[Any] = []
+        for algo, model in zip(algo_list, trained):
+            if isinstance(model, PersistentModelManifest):
+                model = model.load(algo.params, ctx)
+            out.append(algo.prepare_model(ctx, model))
+        return out
 
 
 class EngineFactory:

@@ -9,7 +9,7 @@ component.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 from incubator_predictionio_tpu_torch.core.base import EmptyParams, Params
 
@@ -26,9 +26,13 @@ class EngineParams:
 
 @dataclasses.dataclass
 class WorkflowParams:
-    """The training run controls ``Engine.train`` reads
-    (workflow/WorkflowParams.scala)."""
+    """The training run controls ``Engine.train`` and
+    ``CoreWorkflow.run_train`` read (workflow/WorkflowParams.scala)."""
 
     skip_sanity_check: bool = False
     stop_after_read: bool = False
     stop_after_prepare: bool = False
+    #: the run's batch label, stored with its engine instance
+    batch: str = ""
+    #: stored with the engine instance; "seed" seeds the run's context
+    runtime_conf: Dict[str, str] = dataclasses.field(default_factory=dict)

@@ -1,27 +1,12 @@
-"""Columnar training triples: the port's own copy of ``Interactions``
-(incubator_predictionio_tpu/data/storage/base.py:237-261). The id tables
-are plain lists of ``str``; the event store's zero-copy id views come with
-the storage slice.
+"""Columnar training triples: ``Interactions`` and its zero-copy id table
+``IdTable``, defined with the storage layer (``data/storage/base.py``, the
+port's copy of incubator_predictionio_tpu/data/storage/base.py) and named
+here for the engines and tests that build triples by hand.
 """
 
-from __future__ import annotations
+from incubator_predictionio_tpu_torch.data.storage.base import (
+    IdTable,
+    Interactions,
+)
 
-import dataclasses
-from typing import Sequence
-
-import numpy as np
-
-
-@dataclasses.dataclass
-class Interactions:
-    """Pre-indexed (entity, target, value) triples in first-seen id order:
-    ``user_ids[user_idx[k]]`` is the entity id of triple ``k``."""
-
-    user_idx: np.ndarray      # int32 [nnz], index into user_ids
-    item_idx: np.ndarray      # int32 [nnz], index into item_ids
-    values: np.ndarray        # float32 [nnz]
-    user_ids: Sequence[str]   # distinct entity ids
-    item_ids: Sequence[str]   # distinct target entity ids
-
-    def __len__(self) -> int:
-        return int(self.user_idx.shape[0])
+__all__ = ["IdTable", "Interactions"]

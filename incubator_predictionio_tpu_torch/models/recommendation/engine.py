@@ -3,7 +3,7 @@ card → every query scored against the whole catalogue by the score+top-k
 kernel.
 
 Port of incubator_predictionio_tpu/models/recommendation/engine.py
-(:54-85 query model, :107-143 training data, :252-313 preparator, :333-494
+(:54-85 query model, :95-193 data source, :252-313 preparator, :333-494
 ALS training, :496-919 serving and factory). Reference parity
 (examples/scala-parallel-recommendation/custom-query/):
 ``Query(user, num, creationYear?)`` / ``PredictedResult(itemScores)``
@@ -12,10 +12,16 @@ lambda, seed) (ALSAlgorithm.scala:25-31); the model keeps String↔Int
 BiMaps next to the factors (ALSModel.scala); serving returns the first
 algorithm's result.
 
-Not ported yet: the event-store data source (``RecommendationDataSource``
-raises until the storage slice), continuation retrain, the sharded trainer,
-evaluation reads, the speed-layer overlay, the host-mirror serving of small
-models and the MIPS index. The host mirror is left out on purpose: on the
+The data source reads rate and buy events from the event store in columnar
+form (``EventStore.interactions``) and the items' ``$set`` properties
+(``creationYear``, ``categories``); the preparator's latest-wins dedup of
+repeated (user, item) pairs runs on the context's device
+(``ops/sparse.latest_wins``), with the same kept rows as the JAX package's
+``np.unique``.
+
+Not ported yet: continuation retrain, the sharded trainer, evaluation
+reads (``read_eval``), the speed-layer overlay, the host-mirror serving of
+small models and the MIPS index. The host mirror is left out on purpose: on the
 card it would hide the kernel for small models, and on the CPU the plain
 version already is the path.
 """
@@ -39,9 +45,15 @@ from incubator_predictionio_tpu_torch.core.base import (
     Serving,
 )
 from incubator_predictionio_tpu_torch.core.engine import Engine, EngineFactory
+from incubator_predictionio_tpu_torch.core.self_cleaning import (
+    EventWindow,
+    SelfCleaningDataSource,
+)
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.interactions import Interactions
+from incubator_predictionio_tpu_torch.data.store import EventStore
 from incubator_predictionio_tpu_torch.ops import als
+from incubator_predictionio_tpu_torch.ops.sparse import latest_wins
 from incubator_predictionio_tpu_torch.ops.topk import (
     batch_score_top_k,
     ladder_rungs,
@@ -95,10 +107,22 @@ class Rating:
 # Training data and data source (DataSource.scala:55-90)
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class DataSourceParams(Params):
+    __camel_case__ = True  # engine.json parity: appName, eventWindow...
+
+    app_name: str
+    channel_name: Optional[str] = None
+    buy_rating: float = 4.0  # implicit weight of a "buy" event
+    eval_k: int = 0          # >0 asks for k-fold read_eval (not ported)
+    eval_queries_num: int = 10
+    event_window: Optional[str] = None  # SelfCleaningDataSource duration
+
+
 @dataclasses.dataclass
 class TrainingData(SanityCheck):
-    """Training set in columnar form (``interactions``) or, for hand-built
-    fixtures, a ``ratings`` list."""
+    """Training set in columnar form (``interactions``, what the event
+    store's scan gives) or, for hand-built fixtures, a ``ratings`` list."""
 
     ratings: Optional[List[Rating]] = None
     item_years: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -117,15 +141,55 @@ class TrainingData(SanityCheck):
                 "TrainingData has no ratings — ingest rate/buy events first")
 
 
-class RecommendationDataSource(DataSource):
-    """The template's data source reads rate/buy events from the event
-    store, which comes with the storage slice of the port. Until then an
-    engine is given a ``DataSource`` of its own in ``Engine(...)``."""
+class RecommendationDataSource(DataSource, SelfCleaningDataSource):
+    """Rate and buy events of ``app_name`` from the event store (JAX
+    engine.py:145-193): a rate event gives its ``rating`` property (events
+    without a numeric one are skipped, DataSource.scala:66-72), a buy event
+    ``buy_rating``; items' ``creationYear`` and ``categories`` come from
+    their aggregated ``$set`` properties. With ``event_window`` the app's
+    events are cleaned first (SelfCleaningDataSource)."""
+
+    def __init__(self, params: DataSourceParams):
+        super().__init__(params)
+        self.app_name = params.app_name
+        self.channel_name = params.channel_name
+        self.event_window = (EventWindow(duration=params.event_window)
+                             if params.event_window else None)
+
+    def _read_interactions(self) -> Interactions:
+        return EventStore.interactions(
+            app_name=self.params.app_name,
+            channel_name=self.params.channel_name,
+            entity_type="user",
+            target_entity_type="item",
+            event_names=("rate", "buy"),
+            value_prop="rating",
+            event_values={"buy": self.params.buy_rating},
+        )
+
+    def _read_item_meta(self) -> Tuple[Dict[str, int],
+                                       Dict[str, Tuple[str, ...]]]:
+        props = EventStore.aggregate_properties(
+            app_name=self.params.app_name,
+            channel_name=self.params.channel_name,
+            entity_type="item",
+        )
+        years, cats = {}, {}
+        for item_id, pm in props.items():
+            year = pm.opt("creationYear", int)
+            if year is not None:
+                years[item_id] = year
+            categories = pm.opt("categories", list)
+            if categories:
+                cats[item_id] = tuple(str(c) for c in categories)
+        return years, cats
 
     def read_training(self, ctx: RuntimeContext) -> TrainingData:
-        raise NotImplementedError(
-            "the event-store data source comes with the port's storage "
-            "slice; register an in-memory DataSource in Engine(...)")
+        if self.event_window is not None:
+            self.clean_persisted_events()
+        years, cats = self._read_item_meta()
+        return TrainingData(interactions=self._read_interactions(),
+                            item_years=years, item_categories=cats)
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +213,7 @@ class RecommendationPreparator(Preparator):
 
     def prepare(self, ctx: RuntimeContext, td: TrainingData) -> PreparedData:
         if td.interactions is not None:
-            return self._prepare_columnar(td)
+            return self._prepare_columnar(td, ctx.device)
         user_bimap = BiMap.string_int(r.user for r in td.ratings)
         item_bimap = BiMap.string_int(r.item for r in td.ratings)
         latest: Dict[Tuple[int, int], float] = {}
@@ -165,18 +229,17 @@ class RecommendationPreparator(Preparator):
             user_bimap=user_bimap, item_bimap=item_bimap,
             item_years=td.item_years, item_categories=td.item_categories)
 
-    def _prepare_columnar(self, td: TrainingData) -> PreparedData:
+    @staticmethod
+    def _prepare_columnar(td: TrainingData, device) -> PreparedData:
         """Vectorized reindex: the ids are already interned, so the BiMaps
-        are table views and the latest-wins dedup is one np.unique over
-        packed (user, item) keys."""
+        are table views; the latest-wins dedup runs on ``device``
+        (``ops/sparse.latest_wins``: the last occurrence of each (user,
+        item) pair, in scan order, which is event-time order)."""
         inter = td.interactions
         user_bimap = BiMap({u: i for i, u in enumerate(inter.user_ids)})
         item_bimap = BiMap({t: i for i, t in enumerate(inter.item_ids)})
-        n_items = max(len(inter.item_ids), 1)
-        keys = inter.user_idx.astype(np.int64) * n_items \
-            + inter.item_idx.astype(np.int64)
-        _, first_in_rev = np.unique(keys[::-1], return_index=True)
-        keep = np.sort(len(keys) - 1 - first_in_rev)
+        keep = latest_wins(inter.user_idx, inter.item_idx,
+                           len(inter.item_ids), device)
         return PreparedData(
             users=inter.user_idx[keep], items=inter.item_idx[keep],
             ratings=inter.values[keep],

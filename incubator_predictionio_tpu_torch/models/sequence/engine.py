@@ -3,15 +3,15 @@ the card → the next items for a session history.
 
 Port of incubator_predictionio_tpu/models/sequence/engine.py. The wire
 shape is the JAX package's: ``Query(user, num, recentItems?)`` →
-``PredictedResult(itemScores)``. The model is ``ops/transformer.py``; a
-scoring window of 8,192 or more runs its attention through the flash
-kernel (``ops/attention_kernels.py``).
+``PredictedResult(itemScores)``. The data source reads each user's item
+events from the event store, in event time; a query without
+``recentItems`` is answered from the user's latest events in the store,
+read through a TTL micro-cache (``speed/cache.py``) that a write to the
+app invalidates. The model is ``ops/transformer.py``; a scoring window of
+8,192 or more runs its attention through the flash kernel
+(``ops/attention_kernels.py``).
 
 Not ported yet, each raising where it is reached:
-- the event-store data source (``SequenceDataSource.read_training``) and a
-  query without ``recentItems``, whose history the JAX package reads from
-  the event store: both wait for the storage slice; an engine is given an
-  in-memory ``DataSource`` and queries carry their history;
 - ``seq_parallel`` ring / ulysses: the multi-device slice;
 - the ``HitAtK`` metric: the evaluation slice.
 """
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,16 +35,20 @@ from incubator_predictionio_tpu_torch.core.base import (
 )
 from incubator_predictionio_tpu_torch.core.engine import Engine, EngineFactory
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
+from incubator_predictionio_tpu_torch.data.store import EventStore
 from incubator_predictionio_tpu_torch.ops.transformer import (
     TransformerWeights,
     sasrec_fit,
     sasrec_topk,
 )
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
+from incubator_predictionio_tpu_torch.speed.cache import (
+    TTLCache,
+    serve_cache_ttl,
+    store_version,
+)
 
 logger = logging.getLogger(__name__)
-
-_STORAGE = "comes with the port's storage slice (ROADMAP Queue 1 item 1)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +57,7 @@ class Query:
 
     user: str
     num: int
-    #: explicit session history (most recent last)
+    #: explicit session history (most recent last); overrides the event store
     recent_items: Optional[Tuple[str, ...]] = None
 
 
@@ -72,6 +76,17 @@ class PredictedResult:
     item_scores: Tuple[ItemScore, ...]
 
 
+@dataclasses.dataclass(frozen=True)
+class DataSourceParams(Params):
+    __camel_case__ = True
+
+    app_name: str
+    channel_name: Optional[str] = None
+    event_names: Tuple[str, ...] = ("view", "buy")
+    #: sessions shorter than this are dropped (nothing to predict from)
+    min_session_length: int = 2
+
+
 @dataclasses.dataclass
 class TrainingData(SanityCheck):
     #: per-user time-ordered item id sequences
@@ -83,14 +98,34 @@ class TrainingData(SanityCheck):
 
 
 class SequenceDataSource(DataSource):
-    """The template's data source reads each user's item events from the
-    event store; until Storage is ported an engine is given an in-memory
-    ``DataSource`` of its own in ``Engine(...)``."""
+    """Each user's ``event_names`` events on items, from the event store
+    (JAX engine.py:85-108): one session per user, sorted by event time
+    (a stable sort: equal times keep the store's order); sessions shorter
+    than ``min_session_length`` are dropped."""
+
+    def __init__(self, params: DataSourceParams):
+        super().__init__(params)
 
     def read_training(self, ctx: RuntimeContext) -> TrainingData:
-        raise NotImplementedError(
-            f"the event-store data source {_STORAGE}; register an in-memory "
-            "DataSource in Engine(...)")
+        events = EventStore.find(
+            app_name=self.params.app_name,
+            channel_name=self.params.channel_name,
+            entity_type="user",
+            target_entity_type="item",
+            event_names=list(self.params.event_names),
+        )
+        per_user: Dict[str, List[Tuple[Any, str]]] = {}
+        for e in events:
+            if e.target_entity_id:
+                per_user.setdefault(e.entity_id, []).append(
+                    (e.event_time, e.target_entity_id))
+        sessions = []
+        for items in per_user.values():
+            items.sort(key=lambda t: t[0])
+            seq = [i for _, i in items]
+            if len(seq) >= self.params.min_session_length:
+                sessions.append(seq)
+        return TrainingData(sessions=sessions)
 
 
 @dataclasses.dataclass
@@ -149,8 +184,10 @@ class SeqRecModel:
     max_len: int
     final_loss: float
     #: the loss of every training step, [epochs, steps] (None: not trained
-    #: here)
+    #: here); not checkpointed, as the JAX package's model has no such field
     step_losses: Optional[np.ndarray] = None
+
+    __checkpoint_skip__ = ("step_losses",)
 
 
 class SeqRecAlgorithm(Algorithm):
@@ -158,6 +195,9 @@ class SeqRecAlgorithm(Algorithm):
 
     def __init__(self, params: SeqRecAlgorithmParams):
         super().__init__(params)
+        # bounded TTL micro-cache in front of the per-query history read,
+        # versioned by the store's write cursor: a new event misses at once
+        self._history_cache = TTLCache(maxsize=4096, ttl_s=serve_cache_ttl())
 
     def _attn_fn(self):
         """Attention backend per ``params.seq_parallel``: None (routed by
@@ -208,13 +248,40 @@ class SeqRecAlgorithm(Algorithm):
 
     def _history(self, query: Query, model: SeqRecModel) -> List[int]:
         """Session history as model token ids, oldest first; unknown items
-        are dropped."""
-        if query.recent_items is None:
-            raise NotImplementedError(
-                f"reading a user's history from the event store {_STORAGE}; "
-                "send the session as recentItems")
-        return [model.item_bimap[n] + 1 for n in query.recent_items
+        are dropped. Without ``recent_items`` the user's latest
+        ``recent_events`` come from the event store, through the TTL
+        micro-cache."""
+        if query.recent_items is not None:
+            names: Sequence[str] = query.recent_items
+        else:
+            names = self._history_cache.get_or_load(
+                query.user,
+                lambda: self._load_history_names(query.user, model),
+                version=store_version(self.params.app_name,
+                                      self.params.channel_name))
+        return [model.item_bimap[n] + 1 for n in names
                 if n in model.item_bimap]
+
+    def _load_history_names(self, user: str,
+                            model: SeqRecModel) -> List[str]:
+        """The user's latest ``max_len`` events of ``recent_events``, oldest
+        first; a failed read is logged and gives no history."""
+        try:
+            events = list(EventStore.find_by_entity(
+                app_name=self.params.app_name,
+                channel_name=self.params.channel_name,
+                entity_type="user",
+                entity_id=user,
+                event_names=list(self.params.recent_events),
+                limit=model.max_len,
+                latest=True,
+            ))
+        except Exception:
+            logger.warning("sequence: recent-event lookup failed for user %r",
+                           user, exc_info=True)
+            events = []
+        return [e.target_entity_id for e in reversed(events)
+                if e.target_entity_id]
 
     def warmup(self, model: SeqRecModel, max_batch: int = 1) -> None:
         """Run the serving forward once, with a one-item history."""

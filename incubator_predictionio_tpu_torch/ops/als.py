@@ -431,12 +431,14 @@ def rmse(state: ALSState, users, items, ratings, chunk: int = 1 << 20
 
 
 def prepare_trees(users, items, ratings, n_users: int, n_items: int,
-                  max_width: int = 1 << 16, device=None):
+                  max_width: int = 1 << 16, device=None, impl: str = "auto"):
     """Both sides' buckets and split rows, on ``device`` →
-    (u_tree, i_tree, user_heavy, item_heavy)."""
+    (u_tree, i_tree, user_heavy, item_heavy). ``impl`` picks the bucket
+    builder's route (``ops/sparse.build_padded_rows``)."""
     dev = default_device(device)
     (user_light, user_heavy), (item_light, item_heavy) = build_both_sides(
-        users, items, ratings, n_users, n_items, max_width=max_width)
+        users, items, ratings, n_users, n_items, max_width=max_width,
+        impl=impl)
     return (_buckets_tree(user_light, dev), _buckets_tree(item_light, dev),
             _heavy_tree(user_heavy, dev), _heavy_tree(item_heavy, dev))
 

@@ -1,5 +1,5 @@
 """Host-side sparse → degree-bucketed padded rows: the port's own copy of
-incubator_predictionio_tpu/ops/sparse.py:22-277 (numpy path).
+incubator_predictionio_tpu/ops/sparse.py:22-277, both routes.
 
 Rows (users or items) are grouped into buckets by degree ceiling (powers of
 two from ``min_width``), each bucket padded to its ceiling: padding waste
@@ -8,9 +8,17 @@ O(log max_degree). Rows of degree above ``max_width`` are split into
 segments; :func:`split_heavy` moves them out of the buckets for the
 partial-Gram combining solve (ops/als.py ``_solve_heavy``).
 
-:func:`build_padded_rows` gives the same buckets as the JAX package's numpy
-path, with the per-segment Python loops replaced by array operations (the
-ML-20M-width training builds 20M triples per side).
+:func:`build_padded_rows` takes the native C++ builder
+(``native/csr.py`` → ``native/src/csr_builder.cc``) from
+``NATIVE_MIN_NNZ`` triples up, as the JAX package does, and its numpy
+route below that; both give the same buckets bit for bit. Unlike the JAX
+package, a native library that cannot be built raises: the numpy route is
+taken only when asked for (``impl="numpy"``) or when an index does not fit
+in int32. The numpy route replaces the JAX package's per-segment Python
+loops with array operations.
+
+:func:`latest_wins` is the preparator's dedup of (user, item) pairs, the
+last occurrence kept, on a torch device.
 """
 
 from __future__ import annotations
@@ -20,6 +28,11 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+#: triplet count above which the C++ builder is worth its call overhead
+#: (the JAX package's value, ops/sparse.py:67)
+NATIVE_MIN_NNZ = 100_000
 
 
 @dataclasses.dataclass
@@ -125,13 +138,32 @@ def build_padded_rows(
     min_width: int = 8,
     max_width: int = 4096,
     row_multiple: int = 8,
+    impl: str = "auto",
 ) -> List[PaddedRows]:
     """COO triplets → degree-bucketed :class:`PaddedRows`, in ascending
     width; within a bucket, segments in row order. Rows of degree above
     ``max_width`` are split into ``max_width``-wide segments, so nothing
-    is dropped. ``n_rows`` is the row space (kept for the JAX signature;
-    rows without triples get no padded row)."""
-    del n_rows
+    is dropped. ``n_rows`` is the row space (rows without triples get no
+    padded row).
+
+    ``impl``: "auto" takes the native builder from ``NATIVE_MIN_NNZ``
+    triples up and numpy below; "native" and "numpy" force a route. The
+    native route raises when its library cannot be built, and falls to
+    numpy only where an index exceeds int32."""
+    if impl not in ("auto", "native", "numpy"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "native" or (impl == "auto" and len(rows) >= NATIVE_MIN_NNZ):
+        from incubator_predictionio_tpu_torch.native.csr import (
+            build_buckets_native,
+        )
+
+        buckets = build_buckets_native(
+            np.asarray(rows), np.asarray(cols), np.asarray(vals), n_rows,
+            min_width, max_width)
+        if buckets is not None:
+            return [PaddedRows(row_ids=r, cols=c, vals=v, mask=m)
+                    .pad_rows_to(row_multiple)
+                    for (_w, r, c, v, m) in buckets]
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int32)
     vals = np.asarray(vals, np.float32)
@@ -181,16 +213,41 @@ def build_both_sides(
     max_width: int = 4096,
     row_multiple: int = 8,
     split_row_multiple: int = 8,
+    impl: str = "auto",
 ):
-    """Both training orientations, built in two threads →
+    """Both training orientations, built in two threads (the native
+    builder's ctypes calls release the GIL) →
     ((user_light, user_heavy), (item_light, item_heavy))."""
     def side(rows, cols, n_rows):
         return split_heavy(
             build_padded_rows(rows, cols, vals, n_rows, max_width=max_width,
-                              row_multiple=row_multiple),
+                              row_multiple=row_multiple, impl=impl),
             row_multiple=split_row_multiple)
 
     with ThreadPoolExecutor(max_workers=2) as pool:
         fu = pool.submit(side, users, items, n_users)
         fi = pool.submit(side, items, users, n_items)
         return fu.result(), fi.result()
+
+
+def latest_wins(users, items, n_items: int, device) -> np.ndarray:
+    """Positions of the triples to keep when (user, item) pairs repeat:
+    the last occurrence of each pair, in ascending position (int64). The
+    same rows in the same order as the JAX preparator's ``np.unique`` over
+    packed keys (models/recommendation/engine.py ``_prepare_columnar``),
+    computed on ``device``: a stable sort of the packed keys puts each
+    pair's occurrences in position order, so the last of each run is the
+    one kept. Only the kept positions come back to the host."""
+    n = len(users)
+    if n == 0:
+        return np.empty(0, np.int64)
+    u = torch.from_numpy(np.ascontiguousarray(users, np.int32)).to(device)
+    i = torch.from_numpy(np.ascontiguousarray(items, np.int32)).to(device)
+    keys = u.long() * max(int(n_items), 1) + i.long()
+    del u, i
+    sorted_keys, order = torch.sort(keys, stable=True)
+    del keys
+    last = torch.ones(n, dtype=torch.bool, device=sorted_keys.device)
+    last[:-1] = sorted_keys[1:] != sorted_keys[:-1]
+    keep, _ = torch.sort(order[last])
+    return keep.cpu().numpy()

@@ -12,8 +12,10 @@ Queries are served in a batch when :meth:`_handle_batch` is given several
 bodies; it keeps the reference's split between the rendered-bytes fast
 path (``batch_serve_json``) and the object path. The HTTP front end is the
 standard library's ``ThreadingHTTPServer``: one thread per connection, each
-query one call of ``_handle_batch``. Not ported yet: the continuous-batching
-scheduler, tenancy, the feedback loop, plugins, ``/reload`` and Storage.
+query one call of ``_handle_batch``. A deployed engine's models come from
+``workflow.CoreWorkflow.load_models`` (the checkpoint of a stored engine
+instance). Not ported yet: the continuous-batching scheduler, tenancy, the
+feedback loop, plugins and ``/reload``.
 """
 
 from __future__ import annotations

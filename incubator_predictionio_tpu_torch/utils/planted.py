@@ -91,11 +91,26 @@ def _sample_pairs(rng, n: int, n_users: int, n_items: int):
     return users, items
 
 
-def _distinct_pairs(rng, nnz: int, n_users: int, n_items: int):
+def _distinct_pairs(rng, nnz: int, n_users: int, n_items: int,
+                    cover: bool = False):
     """The first ``nnz`` distinct (user, item) pairs of a stream of draws
-    with the marginals of :func:`_sample_pairs`, in draw order."""
+    with the marginals of :func:`_sample_pairs`, in draw order. With
+    ``cover`` the stream starts with one pair for every user (its item
+    drawn by the item marginal) and one for every item left out of those
+    (its user drawn by the user marginal), so every user and item is
+    rated."""
     users = np.empty(0, np.int32)
     items = np.empty(0, np.int32)
+    if cover:
+        _, items = _sample_pairs(rng, n_users, n_users, n_items)
+        users = np.arange(n_users, dtype=np.int32)
+        missing = np.setdiff1d(np.arange(n_items, dtype=np.int32), items)
+        more_u, _ = _sample_pairs(rng, len(missing), n_users, n_items)
+        users = np.concatenate([users, more_u])
+        items = np.concatenate([items, missing])
+        if len(users) > nnz:
+            raise ValueError(f"{nnz} ratings cannot cover {n_users} users "
+                             f"and {n_items} items")
     while True:
         need = nnz - len(users)
         more_u, more_i = _sample_pairs(rng, need + need // 20 + 1024,
@@ -118,6 +133,7 @@ def planted_ratings(
     plant_rank: int = 16,
     noise_sigma: float = 0.35,
     n_holdout: int = 200_000,
+    cover: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
            Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """→ (users, items, ratings, heldout (u, i, r)): ratings = 3.5 + U·Vᵀ
@@ -128,7 +144,9 @@ def planted_ratings(
     rating per (user, item) and a template trains on the latest rating of
     each pair. So the most popular item keeps more than 65,536 raters
     (the bench comment's ≈67k for ML-20M's most-rated movie): at seed 7
-    and ML-20M shape it holds 65,764, and its row is split in two."""
+    and ML-20M shape it holds 65,764, and its row is split in two. With
+    ``cover`` every user and item is rated at least once
+    (:func:`_distinct_pairs`)."""
     rng = np.random.default_rng(seed)
     u_true = rng.normal(0, 1.0 / np.sqrt(plant_rank),
                         (n_users, plant_rank)).astype(np.float32)
@@ -139,7 +157,7 @@ def planted_ratings(
         return (3.5 + signal
                 + rng.normal(0, noise_sigma, len(users))).astype(np.float32)
 
-    users, items = _distinct_pairs(rng, nnz, n_users, n_items)
+    users, items = _distinct_pairs(rng, nnz, n_users, n_items, cover)
     ho_u, ho_i = _sample_pairs(rng, n_holdout, n_users, n_items)
     return users, items, rate(users, items), (ho_u, ho_i, rate(ho_u, ho_i))
 

@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
-entry points refuse to pick the CPU on their own."""
+"""The port stands alone: it imports neither JAX nor the JAX package (every
+module of it imports, and the served and the stored paths run on the CPU,
+with both blocked), and its entry points refuse to pick the CPU on their
+own."""
 
 import subprocess
 import sys
@@ -85,11 +87,78 @@ _ISOLATED = textwrap.dedent('''
             seq_body = json.loads(resp.read())
     finally:
         srv.stop()
+    # the stored path: events in SQLite under a temporary PIO_HOME →
+    # run_train → load_models → /queries.json, then a sequence query
+    # answered from the store's history
+    import os, tempfile
+    from datetime import timedelta
+    os.environ["PIO_HOME"] = tempfile.mkdtemp()
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.interactions import (
+        Interactions)
+    from incubator_predictionio_tpu_torch.data.storage import App, Storage
+    from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow)
+    Storage.reset()
+    app_id = Storage.get_meta_data_apps().insert(App(0, "app"))
+    Storage.get_events().init(app_id)
+    Storage.get_events().import_interactions(Interactions(
+        user_idx=rng.integers(0, 5, 40).astype(np.int32),
+        item_idx=rng.integers(0, 9, 40).astype(np.int32),
+        values=rng.integers(1, 6, 40).astype(np.float32),
+        user_ids=[f"u{i}" for i in range(5)],
+        item_ids=[f"i{i}" for i in range(9)]), app_id)
+    t0 = parse_iso8601("2024-01-01T00:00:00Z")
+    Storage.get_events().insert_batch([
+        Event(event="view", entity_type="user", entity_id=f"s{u}",
+              target_entity_type="item", target_entity_id=f"i{(u + j) % 9}",
+              event_time=t0 + timedelta(seconds=j))
+        for u in range(4) for j in range(5)], app_id)
+    ep = EngineParams(
+        data_source_params=("", engine.DataSourceParams(app_name="app")),
+        algorithm_params_list=[("als", engine.ALSAlgorithmParams(
+            rank=2, num_iterations=2, seed=0))])
+    eng = engine.RecommendationEngine().apply()
+    iid = CoreWorkflow.run_train(eng, ep, device="cpu")
+    srv = PredictionServer(eng, ep, CoreWorkflow.load_models(
+        iid, eng, ep, device="cpu"), device="cpu")
+    port = srv.start_background()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/queries.json",
+            data=b'{"user": "u1", "num": 2}', method="POST")
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            stored_body = json.loads(resp.read())
+    finally:
+        srv.stop()
+    seq_ep = EngineParams(
+        data_source_params=("", seq_engine.DataSourceParams(app_name="app")),
+        preparator_params=("", seq_engine.PreparatorParams(max_len=4)),
+        algorithm_params_list=[("sasrec", seq_engine.SeqRecAlgorithmParams(
+            app_name="app", d_model=8, n_layers=1, epochs=1, seed=0))])
+    seq_eng = seq_engine.SequenceEngine().apply()
+    iid = CoreWorkflow.run_train(seq_eng, seq_ep, device="cpu")
+    srv = PredictionServer(seq_eng, seq_ep, CoreWorkflow.load_models(
+        iid, seq_eng, seq_ep, device="cpu"), device="cpu")
+    port = srv.start_background()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/queries.json",
+            data=b'{"user": "s1", "num": 3}', method="POST")
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            seq_stored_body = json.loads(resp.read())
+    finally:
+        srv.stop()
+    Storage.reset()
     leaked = sorted(m for m in sys.modules
                     if m == "incubator_predictionio_tpu"
                     or m.startswith("incubator_predictionio_tpu."))
     print(json.dumps({"modules": len(names), "items": len(body["itemScores"]),
                       "seq_items": len(seq_body["itemScores"]),
+                      "stored_items": len(stored_body["itemScores"]),
+                      "seq_stored_items": len(
+                          seq_stored_body["itemScores"]),
                       "leaked": leaked}))
 ''')
 
@@ -104,6 +173,8 @@ def test_port_imports_and_serves_without_jax_or_the_jax_package():
     assert out["modules"] >= 22
     assert out["items"] == 3
     assert out["seq_items"] == 4
+    assert out["stored_items"] == 2
+    assert out["seq_stored_items"] == 3
     assert out["leaked"] == []
 
 

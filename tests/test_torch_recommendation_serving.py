@@ -227,11 +227,46 @@ def test_handle_batch_mixes_fast_and_object_paths(pair, server):
     assert kernels.SCORE_TOPK_LAUNCHES.value == 0  # CPU: no kernel
 
 
-def test_template_data_source_waits_for_storage(pair):
-    """ALS training is ported (tests/test_torch_als.py); the template's own
-    data source, which reads the event store, is not yet: training through
-    the factory's engine raises at the read."""
-    engine = teng.RecommendationEngine().apply()
-    with pytest.raises(NotImplementedError, match="event-store"):
-        engine.train(RuntimeContext(device="cpu"), EngineParams(
-            algorithm_params_list=[("als", teng.ALSAlgorithmParams())]))
+def test_template_data_source_waits_for_storage(tmp_path, monkeypatch):
+    """The template's own data source reads the event store: training
+    through the factory's engine reads rate and buy events and the items'
+    ``$set`` properties of the app, and an unknown app raises at the read."""
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.storage import App, Storage
+    from incubator_predictionio_tpu_torch.data.store import EventStoreError
+
+    monkeypatch.setenv("PIO_HOME", str(tmp_path))
+    Storage.reset()
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(0, "shop"))
+        Storage.get_events().init(app_id)
+        events = [Event(event="rate", entity_type="user", entity_id=u,
+                        target_entity_type="item", target_entity_id=i,
+                        properties=DataMap({"rating": r}))
+                  for u, i, r in (("u1", "i1", 4.0), ("u2", "i2", 3.0),
+                                  ("u1", "i2", 5.0), ("u3", "i1", 2.0))]
+        events.append(Event(event="buy", entity_type="user", entity_id="u2",
+                            target_entity_type="item", target_entity_id="i3"))
+        events.append(Event(event="$set", entity_type="item", entity_id="i3",
+                            properties=DataMap({"creationYear": 1999,
+                                                "categories": ["c1"]})))
+        Storage.get_events().insert_batch(events, app_id)
+        engine = teng.RecommendationEngine().apply()
+        algo = ("als", teng.ALSAlgorithmParams(rank=2, num_iterations=2,
+                                               seed=1))
+        [model] = engine.train(RuntimeContext(device="cpu"), EngineParams(
+            data_source_params=("", teng.DataSourceParams(app_name="shop")),
+            algorithm_params_list=[algo]))
+        assert dict(model.user_bimap.items()) == {"u1": 0, "u2": 1, "u3": 2}
+        assert dict(model.item_bimap.items()) == {"i1": 0, "i2": 1, "i3": 2}
+        assert model.item_years == {"i3": 1999}
+        assert model.item_categories == {"i3": ("c1",)}
+        assert model.user_seen[1].tolist() == [1, 2]   # u2: a rate, a buy
+        with pytest.raises(EventStoreError, match="nosuch"):
+            engine.train(RuntimeContext(device="cpu"), EngineParams(
+                data_source_params=("", teng.DataSourceParams(
+                    app_name="nosuch")),
+                algorithm_params_list=[algo]))
+    finally:
+        Storage.reset()

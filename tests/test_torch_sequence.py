@@ -368,23 +368,74 @@ def test_query_extracts_recent_items():
                           ).recent_items is None
 
 
+@pytest.fixture
+def tstore(tmp_path, monkeypatch):
+    """The port's Storage on a fresh SQLite store under ``tmp_path``, with
+    the app "a"."""
+    from incubator_predictionio_tpu_torch.data.storage import App, Storage
+
+    monkeypatch.setenv("PIO_HOME", str(tmp_path))
+    Storage.reset()
+    app_id = Storage.get_meta_data_apps().insert(App(0, "a"))
+    Storage.get_events().init(app_id)
+    yield Storage, app_id
+    Storage.reset()
+
+
+def _views(user, items, t0=0):
+    from datetime import timedelta
+
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
+
+    base = parse_iso8601("2024-01-01T00:00:00Z")
+    return [Event(event="view", entity_type="user", entity_id=user,
+                  target_entity_type="item", target_entity_id=i,
+                  event_time=base + timedelta(seconds=t0 + k))
+            for k, i in enumerate(items)]
+
+
 def test_history_from_the_event_store_waits_for_storage(trained_pair,
-                                                         server):
+                                                         server, tstore):
+    """A query without ``recentItems`` is answered from the user's latest
+    events in the store, as the same query with that history would be; a
+    user with no events gets no items."""
     _, _, _, _, tmodel = trained_pair
+    storage, app_id = tstore
+    storage.get_events().insert_batch(
+        _views("u1", ["i2", "i3"]) + _views("u2", ["i4"]), app_id)
     algo = tseq.SeqRecAlgorithm(tseq.SeqRecAlgorithmParams(app_name="a"))
-    with pytest.raises(NotImplementedError, match="storage slice"):
-        algo.predict(tmodel, tseq.Query(user="u1", num=3))
-    with pytest.raises(urllib.error.HTTPError) as err:
-        _post(server, {"user": "u1", "num": 3})
-    assert err.value.code == 500
+    ref = algo.predict(tmodel, tseq.Query(user="u1", num=3,
+                                          recent_items=("i2", "i3")))
+    assert len(ref.item_scores) == 3
+    assert algo.predict(tmodel, tseq.Query(user="u1", num=3)) == ref
+    assert algo.predict(tmodel, tseq.Query(user="u9", num=3)
+                        ).item_scores == ()
+    status, body = _post(server, {"user": "u1", "num": 3})
+    assert status == 200
+    assert body == tcodec.to_jsonable(ref)
 
 
-def test_event_store_data_source_waits_for_storage():
+def test_event_store_data_source_waits_for_storage(tstore):
+    """The template's data source reads each user's view and buy events
+    from the store, in event time, and drops sessions shorter than
+    ``minSessionLength``; as the JAX data source does on the same
+    events."""
+    storage, app_id = tstore
+    events = (_views("u1", ["i3", "i1", "i2"], t0=10) + _views("u2", ["i5"])
+              + _views("u3", ["i2", "i4"], t0=5))
+    events.reverse()   # stored out of time order
+    storage.get_events().insert_batch(events, app_id)
+    ds = tseq.SequenceDataSource(tseq.DataSourceParams(app_name="a"))
+    td = ds.read_training(RuntimeContext(device=CPU))
+    assert sorted(td.sessions) == [["i2", "i4"], ["i3", "i1", "i2"]]
     eng = tseq.SequenceEngine().apply()
-    with pytest.raises(NotImplementedError, match="storage slice"):
-        eng.train(RuntimeContext(device=CPU), EngineParams(
-            algorithm_params_list=[("sasrec", tseq.SeqRecAlgorithmParams(
-                app_name="a"))]))
+    [model] = eng.train(RuntimeContext(device=CPU), EngineParams(
+        data_source_params=("", tseq.DataSourceParams(app_name="a")),
+        preparator_params=("", tseq.PreparatorParams(max_len=4)),
+        algorithm_params_list=[("sasrec", tseq.SeqRecAlgorithmParams(
+            app_name="a", d_model=8, epochs=1, seed=0))]))
+    assert sorted(model.item_bimap) == ["i1", "i2", "i3", "i4"]
 
 
 def test_seq_parallel_waits_for_multi_device():
