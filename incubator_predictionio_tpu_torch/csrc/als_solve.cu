@@ -31,8 +31,9 @@
 // per 4-byte element read. The products run on the tensor cores: bf16
 // mma.sync m16n8k16 (989 TFLOP/s dense on an H100 SXM at 700 W, data
 // sheet), f32 as 3xTF32 m16n8k8 (the integer round-and-mask split of the
-// flash kernel, lo*lo dropped: 495/3 TFLOP/s). The R = 8 form keeps the
-// first design's f32 FMAs (67 TFLOP/s).
+// flash kernel, lo*lo dropped: 495/3 TFLOP/s). A short row (d <= K) is the
+// exception: its Gram costs more than its CG needs, and the R-row form
+// below forms none.
 //
 // Design. One stage 1 serves both entries (GATHER: the fused entry's rows
 // table[cols[d]], Gram-weighted by gw; else the two-stage entry's gathered
@@ -88,15 +89,23 @@
 //     (it stays in L2 across the steps), one block per row, its vectors in
 //     shared memory: the padded rank is at most kMaxRank.
 //
-// R = 8 rows per block (two-stage only, rank <= 128; above, rows = 8 takes
-// the one-row path): eight 64 KB Grams do not fit in 227 KB of shared memory
-// at K = 128, so the block builds the eight Grams in turn in 32-row tiles of
-// f32 rows, each thread summing an 8 x 8 piece of the Gram in registers
-// (the first design of every form), copying each into a scratch buffer that
-// the wrapper allocates in device memory ([ceil(B / 8) * 8, KP, KP] f32),
-// then runs the CG batched over the group, one warp per row, reading its
-// Gram from that buffer (it stays in L2 across the CG steps). Every
-// reduction is per row (warp shuffles), so rows never mix.
+// The R-row form (two-stage, rows = 8), for many short rows: the TPU's
+// answer to a half-sweep of ~165k one-row programs that was overhead-bound
+// (pallas_kernels.py:757-763). A row with d <= KP observations (KP <= 128)
+// needs no Gram: its CG's matvec Gram p = T^T (T p) costs 4 d K operations
+// from the row's [d, K] block against 2 K^2 from a Gram, and the Jacobi
+// diagonal sum_d t_dk^2 and the rhs come in one pass over the block. So one
+// block stages the blocks of R such rows (R up to kGroupRows, as many as
+// fit in shared memory: 8 at d <= 64 in bf16 or d <= 32 in f32) with
+// 16-byte cp.async copies, and each warp then runs one row's whole CG from
+// shared memory, its vectors in registers and every reduction a warp
+// shuffle: no block sync after the staging, no Gram, nothing through
+// device memory. The CG runs in f64 (see rows_solve_kernel): T^T (T p)
+// rounds differently from (T^T T) p, not its function, and in f64 the
+// form follows the exact solve. A row with d > KP, or a rank above
+// kRowsMaxRank, takes the one-row plan: stage 1 on the tensor cores, its d
+// range cut into slices where it is long, so that a wide bucket of few
+// rows fills the card.
 //
 // Plain C interface, bound from Python with ctypes; launches on the caller's
 // stream, allocates nothing, returns cudaGetLastError().
@@ -111,9 +120,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileD = 32;       // R = 8 form: d rows staged per tile
-constexpr int kFlushTiles = 8;   // R = 8 form: tiles summed per flush
-constexpr int kGroupRows = 8;    // rows per block of the R = 8 form
+constexpr int kGroupRows = 8;      // R-row form: most rows (warps) a block
+constexpr int kRowsMaxRank = 128;  // R-row form: widest padded rank
+constexpr int kSmemBlock = 232448; // shared memory a block can use (227 KB)
 // rows of d in one staged slab of stage 1 (Tri<KT>::TD): padded rank 64 and
 // above take the wide slabs' fewer rows, 16 and 32 the narrow
 constexpr int kSlabRowsWide = 64;
@@ -147,18 +156,9 @@ constexpr int gram_tiles(int kp) {
 
 template <int KP>
 struct Geo {
-  static constexpr int TM = KP / 16;         // R = 8: Gram rows/cols a thread
   static constexpr int TPR = kThreads / KP;  // threads per matvec output
   static constexpr int GS = KP + KP / 8;     // shared Gram row stride
-  static constexpr int NQ = (KP + 31) / 32;  // coordinates per lane (R = 8)
 };
-
-__device__ __forceinline__ float load_f(const float* p, size_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
 
 // rounding to the table's type (identity for f32)
 template <typename T>
@@ -233,126 +233,6 @@ __device__ __forceinline__ float block_sum2(float v, float* red, int& par) {
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) t += r[w];
   return t;
-}
-
-// -- the R = 8 form's Gram: 8 x 8 register pieces on the FMA units ----------
-
-// the Gram coordinate of a thread's i-th fragment element: two float4 runs
-// (64 apart) at TM = 8, one at TM = 4, contiguous below
-template <int TM>
-__device__ __forceinline__ int own(int t, int i) {
-  if constexpr (TM >= 4) {
-    return (i / 4) * 64 + t * 4 + (i % 4);
-  } else {
-    return t * TM + i;
-  }
-}
-
-template <int TM>
-__device__ __forceinline__ void fragment(const float* row, int t,
-                                         float (&f)[TM]) {
-  if constexpr (TM >= 4) {
-#pragma unroll
-    for (int g = 0; g < TM / 4; ++g) {
-      const float4 v = *reinterpret_cast<const float4*>(row + g * 64 + t * 4);
-      f[4 * g] = v.x;
-      f[4 * g + 1] = v.y;
-      f[4 * g + 2] = v.z;
-      f[4 * g + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < TM; ++i) f[i] = row[t * TM + i];
-  }
-}
-
-// Shared-memory scratch of the R = 8 form's Gram phase.
-struct Tile {
-  float* t;    // [kTileD, KP] rows as f32
-  float* rw;   // [kTileD] rhs weights
-  int* src;    // [kTileD] source row, -1 = contributes nothing
-};
-
-// Add a thread's register sums to its own Gram coordinates in G and to
-// its rhs, and zero them.
-template <int KP>
-__device__ __forceinline__ void flush(float (&acc)[Geo<KP>::TM][Geo<KP>::TM],
-                                      float& part, float* G, float& rhs,
-                                      int tx, int ty) {
-  constexpr int TM = Geo<KP>::TM, GS = Geo<KP>::GS;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      G[own<TM>(ty, i) * GS + own<TM>(tx, j)] += acc[i][j];
-      acc[i][j] = 0.f;
-    }
-  rhs += part;
-  part = 0.f;
-}
-
-// One bucket row's Gram into G (shared, [KP][GS]) and its rhs into rhs
-// (threads tid < KP) from the row's [D, K] block (already masked), weights
-// wv; the block syncs before it returns. Sums run in two levels, as the TPU
-// kernel adds each d tile's product to its scratch: each thread sums
-// kFlushTiles tiles in registers (acc, part), then adds them to its own
-// coordinates of G and to rhs.
-template <int KP, typename T>
-__device__ void gram_rhs(const T* __restrict__ g,
-                         const float* __restrict__ wv, size_t row, int D,
-                         int K, Tile tile, float* G, float& rhs) {
-  constexpr int TM = Geo<KP>::TM, GS = Geo<KP>::GS;
-  constexpr int kPer = kTileD * KP / kThreads;  // tile elements per thread
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[TM][TM];
-  float part = 0.f;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      acc[i][j] = 0.f;
-      G[own<TM>(ty, i) * GS + own<TM>(tx, j)] = 0.f;  // this thread's own
-    }
-  rhs = 0.f;
-  const T* base = g + row * D * K;
-  for (int d0 = 0, n = 1; d0 < D; d0 += kTileD, ++n) {
-    const int nd = min(kTileD, D - d0);
-    if (tid < kTileD) {
-      tile.src[tid] = tid < nd ? d0 + tid : -1;
-      tile.rw[tid] = tid < nd ? round_as<T>(wv[row * D + d0 + tid]) : 0.f;
-    }
-    __syncthreads();
-    // every load of the tile is issued before any is used, so a thread
-    // has kPer loads in flight instead of waiting out each one in turn;
-    // rows past nd have src -1 and stage zeros
-    float v[kPer];
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int e = tid + q * kThreads;
-      const int s = tile.src[e / KP], k = e % KP;
-      v[q] = (s >= 0 && k < K) ? load_f(base, (size_t)s * K + k) : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) tile.t[tid + q * kThreads] = v[q];
-    __syncthreads();
-    for (int d = 0; d < nd; ++d) {
-      float a[TM], b[TM];
-      fragment<TM>(tile.t + d * KP, ty, a);
-      fragment<TM>(tile.t + d * KP, tx, b);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (tid < KP)
-      for (int d = 0; d < nd; ++d)
-        part = fmaf(tile.rw[d], tile.t[d * KP + tid], part);
-    if (n % kFlushTiles == 0) flush<KP>(acc, part, G, rhs, tx, ty);
-    __syncthreads();
-  }
-  flush<KP>(acc, part, G, rhs, tx, ty);
-  __syncthreads();
 }
 
 // -- the CG ------------------------------------------------------------------
@@ -440,129 +320,6 @@ __device__ __forceinline__ void cg_block(float dg, float b, float lam_r,
     __syncthreads();
   }
   if (tid < K) out[row * K + tid] = empty ? 0.f : x;
-}
-
-// -- the R = 8 form -----------------------------------------------------------
-
-// R = 8 rows per block (two-stage): the eight Grams in turn into the
-// device scratch, then one warp per row runs that row's CG.
-template <int KP, typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    group_solve_kernel(const T* __restrict__ g, const float* __restrict__ wv,
-                       const float* __restrict__ lam,
-                       const float* __restrict__ x0,
-                       float* __restrict__ out, float* __restrict__ scratch,
-                       int B, int D, int K, int iters) {
-  constexpr int TM = Geo<KP>::TM, GS = Geo<KP>::GS, NQ = Geo<KP>::NQ;
-  static_assert(kWarps == kGroupRows, "one warp per row of the group");
-  extern __shared__ float4 smem4[];
-  float* G = reinterpret_cast<float*>(smem4);  // [KP][GS] one row's Gram
-  float* tiles = G + KP * GS;                  // [kTileD][KP]
-  float* srhs = tiles + kTileD * KP;           // [R, KP]
-  float* sp = srhs + kGroupRows * KP;          // [R, KP]
-  float* red = sp + kGroupRows * KP;
-  Tile tile{tiles, red + 32, reinterpret_cast<int*>(red + 32 + kTileD)};
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t b0 = (size_t)blockIdx.x * kGroupRows;
-  for (int rr = 0; rr < kGroupRows && b0 + rr < (size_t)B; ++rr) {
-    float b;
-    gram_rhs<KP, T>(g, wv, b0 + rr, D, K, tile, G, b);
-    // each thread copies the coordinates it summed (no other thread
-    // touches them before the next row's gram_rhs zeroes them)
-    float* Gg = scratch + (b0 + rr) * KP * KP;
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        const int gi = own<TM>(ty, i), gj = own<TM>(tx, j);
-        Gg[gi * KP + gj] = G[gi * GS + gj];
-      }
-    if (tid < KP) srhs[rr * KP + tid] = b;
-  }
-  __syncthreads();
-
-  const int w = tid >> 5, lane = tid & 31;
-  const size_t row = b0 + w;
-  if (row >= (size_t)B) return;
-  const float* Gg = scratch + row * KP * KP;
-  float* spw = sp + w * KP;
-  const float lam_r = lam[row];
-  float x[NQ], r[NQ], p[NQ], z[NQ], ap[NQ], minv[NQ], b[NQ];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int k = lane + 32 * q;
-    const bool ok = k < KP;
-    b[q] = ok ? srhs[w * KP + k] : 0.f;
-    const float dg = ok ? Gg[k * KP + k] + lam_r : 0.f;
-    minv[q] = dg > 0.f ? 1.f / dg : 0.f;
-    x[q] = (x0 != nullptr && k < K) ? x0[row * K + k] : 0.f;
-    if (ok) spw[k] = x[q];
-  }
-  __syncwarp();
-  auto matvec = [&]() {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int k = lane + 32 * q;
-      float s = 0.f;
-      if (k < KP) {
-        for (int l = 0; l < KP; ++l) s = fmaf(Gg[l * KP + k], spw[l], s);
-        s = s + lam_r * spw[k];
-      }
-      ap[q] = s;
-    }
-    __syncwarp();  // every lane has read p before it is rewritten
-  };
-  if (x0 != nullptr) {
-    matvec();
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) r[q] = b[q] - ap[q];
-  } else {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) r[q] = b[q];
-  }
-  float part = 0.f;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    z[q] = minv[q] * r[q];
-    p[q] = z[q];
-    part += r[q] * z[q];
-    const int k = lane + 32 * q;
-    if (k < KP) spw[k] = p[q];
-  }
-  float rz = warp_sum(part);
-  __syncwarp();
-  for (int it = 0; it < iters; ++it) {
-    matvec();
-    part = 0.f;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) part += p[q] * ap[q];
-    const float pap = warp_sum(part);
-    const float alpha = pap > 0.f ? rz / pap : 0.f;
-    part = 0.f;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      x[q] = x[q] + alpha * p[q];
-      r[q] = r[q] - alpha * ap[q];
-      z[q] = minv[q] * r[q];
-      part += r[q] * z[q];
-    }
-    const float rz2 = warp_sum(part);
-    const float beta = rz > 0.f ? rz2 / rz : 0.f;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      p[q] = z[q] + beta * p[q];
-      const int k = lane + 32 * q;
-      if (k < KP) spw[k] = p[q];
-    }
-    rz = rz2;
-    __syncwarp();
-  }
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int k = lane + 32 * q;
-    if (k < K) out[row * K + k] = x[q];
-  }
 }
 
 // -- stage 1 on the tensor cores ------------------------------------------------
@@ -1461,6 +1218,250 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- the R-row form: many short rows, one warp each ---------------------------
+
+// Lane layout of the R-row form at padded rank KP: a lane holds VK
+// coordinates (16 bytes of a staged row), LK lanes span a row, and the
+// warp's 32 / LK lane groups split the d rows; shared rows are padded by
+// 16 bytes, which puts the 8 lanes of a 16-byte shared load that read 8
+// consecutive d rows at one column on distinct banks.
+template <int KP, typename T>
+struct RowsGeo {
+  static constexpr int VK = 16 / (int)sizeof(T);
+  static constexpr int LK = KP / VK;
+  static constexpr int GD = 32 / LK;
+  static constexpr int RS = KP + VK;
+};
+
+// Shared memory of one row of the R-row form: its [D][RS] block, then f64
+// u [D rounded up to 2] and p [KP].
+template <int KP, typename T>
+__host__ __device__ constexpr size_t rows_row_bytes(int D) {
+  return (size_t)D * RowsGeo<KP, T>::RS * sizeof(T) +
+         8 * ((size_t)(D + 1) / 2 * 2 + KP);
+}
+
+// rows a block of the R-row form takes: as many as fit (at most kGroupRows)
+template <int KP, typename T>
+int rows_per_block(int D) {
+  const size_t per = rows_row_bytes<KP, T>(D);
+  const size_t r = kSmemBlock / per;
+  return (int)(r < (size_t)kGroupRows ? r : (size_t)kGroupRows);
+}
+
+// the VK coordinates [c, c + VK) of a staged row, widened to f32
+__device__ __forceinline__ void load_vk(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load_vk(const __nv_bfloat16* p,
+                                        float (&v)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ double warp_sum_f64(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// R-row form (two-stage, rows = 8): block x stages the [D, K] blocks of
+// rows [x R, x R + R) of g (contiguous there; columns K..KP zero), then
+// warp w runs row x R + w's CG alone: the Jacobi diagonal sum_d t_dk^2 and
+// rhs sum_d wv_d t_dk in one pass, then each matvec as u = T p (lanes over
+// d rows, a row's products summed across the lanes that split its
+// columns), ap = T^T u + lam p (lanes over columns, summed across the
+// lane groups that split the d rows), every sum a butterfly of shuffles,
+// which leaves identical values in every lane. The CG, its matvec
+// included, runs in f64 and rounds x to f32 once: T^T (T p) rounds
+// differently from the Gram route's (T^T T) p, and a system with d < K is
+// singular but for the ridge, where 16 f32 CG steps amplify any rounding
+// (chip_smoke.als_tolerance); in f64 the form follows the exact solve of
+// the same CG. The same steps and guards as cg_block; no guard for an
+// empty row (the two-stage contract).
+template <int KP, typename T>
+__global__ void __launch_bounds__(kThreads)
+    rows_solve_kernel(const T* __restrict__ g, const float* __restrict__ wv,
+                      const float* __restrict__ lam,
+                      const float* __restrict__ x0, float* __restrict__ out,
+                      int B, int D, int K, int iters, int R, int vec) {
+  using RG = RowsGeo<KP, T>;
+  constexpr int VK = RG::VK, LK = RG::LK, GD = RG::GD, RS = RG::RS;
+  extern __shared__ float4 smem4[];
+  T* slab = reinterpret_cast<T*>(smem4);  // [R][D][RS]
+  const size_t b0 = (size_t)blockIdx.x * R;
+  const int nr = (int)min((size_t)R, (size_t)B - b0);
+  const int D2 = (D + 1) / 2 * 2;
+  // [R][D2 + KP] f64, 16-byte aligned: a row's RS elements are 16 bytes
+  double* vecs = reinterpret_cast<double*>(slab + (size_t)R * D * RS);
+
+  // stage the rows' blocks: nr * D rows of K elements from g, in order
+  const T* src = g + b0 * D * K;
+  const int n_rows = nr * D;
+  if (vec) {
+    constexpr int kParts = KP / VK;
+    for (int e = threadIdx.x; e < n_rows * kParts; e += blockDim.x) {
+      const int r = e / kParts, c = (e % kParts) * VK;
+      const bool in = c < K;
+      cp_async16(slab + (size_t)r * RS + c, in ? src + (size_t)r * K + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n_rows * KP; e += blockDim.x) {
+      const int r = e / KP, c = e % KP;
+      const bool in = c < K;
+      T* d = slab + (size_t)r * RS + c;
+      if constexpr (sizeof(T) == 4)
+        cp_async4(d, in ? src + (size_t)r * K + c : src, in ? 4 : 0);
+      else
+        *d = in ? src[(size_t)r * K + c] : zero_as<T>();
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= nr) return;
+  const size_t row = b0 + warp;
+  const T* S = slab + (size_t)warp * D * RS;
+  double* su = vecs + (size_t)warp * (D2 + KP);
+  double* sp = su + D2;
+  const int kl = lane % LK, dg = lane / LK, k0 = kl * VK;
+  const bool owner = dg == 0;  // one replica of each coordinate counts
+  // u = T p: DR lanes take DR d rows at a time, the KS = 32 / DR lanes of
+  // a row splitting its LK column parts
+  int DR = 1;
+  while (DR < D && DR < 32) DR <<= 1;
+  const int KS = 32 / DR, dr = lane % DR, ks = lane / DR;
+
+  double dia[VK], b[VK];
+#pragma unroll
+  for (int i = 0; i < VK; ++i) dia[i] = b[i] = 0.0;
+  for (int d = dg; d < D; d += GD) {
+    float t[VK];
+    load_vk(S + (size_t)d * RS + k0, t);
+    const double w = round_as<T>(wv[row * D + d]);
+#pragma unroll
+    for (int i = 0; i < VK; ++i) {
+      dia[i] = fma((double)t[i], (double)t[i], dia[i]);
+      b[i] = fma(w, (double)t[i], b[i]);
+    }
+  }
+#pragma unroll
+  for (int o = LK; o < 32; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < VK; ++i) {
+      dia[i] += __shfl_xor_sync(0xffffffffu, dia[i], o);
+      b[i] += __shfl_xor_sync(0xffffffffu, b[i], o);
+    }
+  const double lam_r = lam[row];
+
+  // ap = T^T (T v) + lam v, every lane calling it with its coordinates
+  auto matvec = [&](const double (&v)[VK], double (&ap)[VK]) {
+    if (owner)
+#pragma unroll
+      for (int i = 0; i < VK; i += 2)
+        *reinterpret_cast<double2*>(sp + k0 + i) = make_double2(v[i], v[i + 1]);
+    __syncwarp();
+    for (int d0 = 0; d0 < D; d0 += DR) {
+      const int d = d0 + dr;
+      double s = 0.0;
+      if (d < D)
+        for (int c = ks; c < LK; c += KS) {
+          float t[VK];
+          load_vk(S + (size_t)d * RS + c * VK, t);
+#pragma unroll
+          for (int i = 0; i < VK; i += 2) {
+            const double2 pv =
+                *reinterpret_cast<const double2*>(sp + c * VK + i);
+            s = fma((double)t[i], pv.x, s);
+            s = fma((double)t[i + 1], pv.y, s);
+          }
+        }
+      for (int o = DR; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (ks == 0 && d < D) su[d] = s;
+    }
+    __syncwarp();
+    double a[VK];
+#pragma unroll
+    for (int i = 0; i < VK; ++i) a[i] = 0.0;
+    for (int d = dg; d < D; d += GD) {
+      float t[VK];
+      load_vk(S + (size_t)d * RS + k0, t);
+      const double u = su[d];
+#pragma unroll
+      for (int i = 0; i < VK; ++i) a[i] = fma((double)t[i], u, a[i]);
+    }
+#pragma unroll
+    for (int o = LK; o < 32; o <<= 1)
+#pragma unroll
+      for (int i = 0; i < VK; ++i)
+        a[i] += __shfl_xor_sync(0xffffffffu, a[i], o);
+#pragma unroll
+    for (int i = 0; i < VK; ++i) ap[i] = a[i] + lam_r * v[i];
+    __syncwarp();  // sp and su are free again
+  };
+  auto dot = [&](const double (&u)[VK], const double (&v)[VK]) {
+    double s = 0.0;
+#pragma unroll
+    for (int i = 0; i < VK; ++i) s = fma(u[i], v[i], s);
+    return warp_sum_f64(owner ? s : 0.0);
+  };
+
+  double x[VK], r[VK], p[VK], z[VK], ap[VK], minv[VK];
+#pragma unroll
+  for (int i = 0; i < VK; ++i) {
+    const int k = k0 + i;
+    const double dd = dia[i] + lam_r;
+    minv[i] = dd > 0.0 ? 1.0 / dd : 0.0;
+    x[i] = (x0 != nullptr && k < K) ? (double)x0[row * K + k] : 0.0;
+    r[i] = b[i];
+  }
+  if (x0 != nullptr) {
+    matvec(x, ap);
+#pragma unroll
+    for (int i = 0; i < VK; ++i) r[i] = b[i] - ap[i];
+  }
+#pragma unroll
+  for (int i = 0; i < VK; ++i) {
+    z[i] = minv[i] * r[i];
+    p[i] = z[i];
+  }
+  double rz = dot(r, z);
+  for (int it = 0; it < iters; ++it) {
+    matvec(p, ap);
+    const double pap = dot(p, ap);
+    const double alpha = pap > 0.0 ? rz / pap : 0.0;
+#pragma unroll
+    for (int i = 0; i < VK; ++i) {
+      x[i] = x[i] + alpha * p[i];
+      r[i] = r[i] - alpha * ap[i];
+      z[i] = minv[i] * r[i];
+    }
+    const double rz2 = dot(r, z);
+    const double beta = rz > 0.0 ? rz2 / rz : 0.0;
+#pragma unroll
+    for (int i = 0; i < VK; ++i) p[i] = z[i] + beta * p[i];
+    rz = rz2;
+  }
+  if (owner)
+#pragma unroll
+    for (int i = 0; i < VK; ++i)
+      if (k0 + i < K) out[row * K + k0 + i] = (float)x[i];
+}
+
 // Floats of the workspace of B rows cut into S slices: the S partial
 // records of every row and, for S > 1, the summed records; above rank 128
 // also the one record of an unsliced row, where stage 1 writes its tiles.
@@ -1586,36 +1587,38 @@ int solve(const Args<T>& a, int B, int S, int slice_rows, cudaStream_t s) {
   }
 }
 
-template <int KP>
-size_t group_smem_bytes() {
-  return sizeof(float) * (KP * Geo<KP>::GS + kTileD * KP +
-                          2 * kGroupRows * KP + 32 + 2 * kTileD);
-}
-
 template <int KP, typename T>
-int launch_group(const void* g, const float* wv, const float* lam,
-                 const float* x0, float* out, float* scratch, int B, int D,
-                 int K, int iters, cudaStream_t stream) {
-  auto kernel = group_solve_kernel<KP, T>;
-  const size_t smem = group_smem_bytes<KP>();
+int launch_rows(const void* g, const float* wv, const float* lam,
+                const float* x0, float* out, int B, int D, int K, int iters,
+                cudaStream_t stream) {
+  auto kernel = rows_solve_kernel<KP, T>;
+  const int R = rows_per_block<KP, T>(D);
+  const size_t smem = R * rows_row_bytes<KP, T>(D);
   int err;
   if ((err = set_smem(kernel, smem)) != 0) return err;
-  const int grid = (B + kGroupRows - 1) / kGroupRows;
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(g), wv, lam,
-                                           x0, out, scratch, B, D, K, iters);
+  const int vec = (K * sizeof(T)) % 16 == 0 &&
+                  (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  kernel<<<(unsigned)((B + R - 1) / R), 32 * R, smem, stream>>>(
+      static_cast<const T*>(g), wv, lam, x0, out, B, D, K, iters, R, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int group(const void* g, const float* wv, const float* lam, const float* x0,
-          float* out, float* scratch, int B, int D, int K, int iters,
-          cudaStream_t s) {
+int solve_rows(const void* g, const float* wv, const float* lam,
+               const float* x0, float* out, int B, int D, int K, int iters,
+               cudaStream_t s) {
   switch (padded_rank(K)) {
-    case 16: return launch_group<16, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
-    case 32: return launch_group<32, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
-    case 64: return launch_group<64, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
-    default: return launch_group<128, T>(g, wv, lam, x0, out, scratch, B, D, K, iters, s);
+    case 16: return launch_rows<16, T>(g, wv, lam, x0, out, B, D, K, iters, s);
+    case 32: return launch_rows<32, T>(g, wv, lam, x0, out, B, D, K, iters, s);
+    case 64: return launch_rows<64, T>(g, wv, lam, x0, out, B, D, K, iters, s);
+    default: return launch_rows<128, T>(g, wv, lam, x0, out, B, D, K, iters, s);
   }
+}
+
+// whether the R-row form takes rows of d observations at rank K
+bool rows_form(int D, int K) {
+  const int kp = padded_rank(K);
+  return kp <= kRowsMaxRank && D <= kp;
 }
 
 }  // namespace
@@ -1632,25 +1635,24 @@ size_t pio_als_workspace_bytes(int B, int K, int S) {
 
 // Two-stage solve: g [B, D, K] (the masked rows gathered outside, f32 or
 // bf16), wv [B, D] f32 (vals * mask), lam [B] f32, x0 [B, K] f32 or NULL,
-// out [B, K] f32; rows 1 or 8. rows 8 at padded rank <= 128 takes scratch
-// [ceil(B/8)*8, KP, KP] f32 (KP = K rounded up to 16, 32, 64 or 128);
-// otherwise the launch plan (S, slice_rows, workspace: bad_plan).
+// out [B, K] f32; rows 1 or 8. rows 8, the R-row form, takes rows of d <= KP
+// at padded rank KP <= kRowsMaxRank (KP = K rounded up to 16, 32, 64 or
+// 128; pio_als_rows_form) and no plan; rows 1 the launch plan (S,
+// slice_rows, workspace: bad_plan).
 int pio_als_solve_cg(const void* g, int g_is_bf16, const float* wv,
-                     const float* lam, const float* x0, float* out,
-                     float* scratch, int B, int D, int K, int iters, int rows,
-                     int S, int slice_rows, void* workspace,
-                     size_t workspace_bytes, void* stream) {
+                     const float* lam, const float* x0, float* out, int B,
+                     int D, int K, int iters, int rows, int S, int slice_rows,
+                     void* workspace, size_t workspace_bytes, void* stream) {
   if (B <= 0 || D <= 0 || K <= 0 || K > kMaxRank || iters < 0 ||
-      (rows != 1 && rows != kGroupRows))
+      (rows != 1 && rows != kGroupRows) ||
+      (rows == kGroupRows && !rows_form(D, K)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows == kGroupRows && padded_rank(K) <= kGramTile) {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    return g_is_bf16 ? group<__nv_bfloat16>(g, wv, lam, x0, out, scratch, B,
-                                            D, K, iters, s)
-                     : group<float>(g, wv, lam, x0, out, scratch, B, D, K,
-                                    iters, s);
-  }
+  if (rows == kGroupRows)
+    return g_is_bf16 ? solve_rows<__nv_bfloat16>(g, wv, lam, x0, out, B, D,
+                                                 K, iters, s)
+                     : solve_rows<float>(g, wv, lam, x0, out, B, D, K, iters,
+                                         s);
   if (bad_plan(B, D, K, S, slice_rows, workspace, workspace_bytes))
     return (int)cudaErrorInvalidValue;
   float* work = static_cast<float*>(workspace);
@@ -1663,6 +1665,18 @@ int pio_als_solve_cg(const void* g, int g_is_bf16, const float* wv,
   const Args<float> a{static_cast<const float*>(g), 0, nullptr, nullptr,
                       wv, lam, nullptr, nullptr, x0, out, work, D, K, iters};
   return solve<float, false>(a, B, S, slice_rows, s);
+}
+
+// Rows a block of the R-row form takes at these sizes (one warp each), or 0
+// where the form does not take them (the one-row plan does).
+int pio_als_group_rows(int D, int K, int is_bf16) {
+  if (D <= 0 || K <= 0 || !rows_form(D, K)) return 0;
+  switch (padded_rank(K)) {
+    case 16: return is_bf16 ? rows_per_block<16, __nv_bfloat16>(D) : rows_per_block<16, float>(D);
+    case 32: return is_bf16 ? rows_per_block<32, __nv_bfloat16>(D) : rows_per_block<32, float>(D);
+    case 64: return is_bf16 ? rows_per_block<64, __nv_bfloat16>(D) : rows_per_block<64, float>(D);
+    default: return is_bf16 ? rows_per_block<128, __nv_bfloat16>(D) : rows_per_block<128, float>(D);
+  }
 }
 
 // The gathered block of the two-stage entry: g [n, K] = table [M, K] rows

@@ -72,14 +72,18 @@
 // partials (o unnormalised, m, l) to the workspace, and
 // flash_combine_kernel merges them, one warp a row.
 //
-// Heads wider than 128 (the TPU kernel pads only S and takes any D) would
-// not fit this design's registers (O and Q fragments) or shared memory, so
-// they take flash_wide_kernel, a simple D-tiled form on the f32 FMA units:
-// one block of 128 threads per (16 query rows, batch*head, 128 output
-// columns); per 64-key tile S = QK^T accumulates over 64-column chunks of
-// the head (each block recomputes it for its output columns), then the same
-// masking, online softmax in f32 and exactly-0 dead rows, and O += PV for
-// its columns. Its times are in PERF.md; it is right, not fast.
+// Heads of 129-256 (the TPU kernel pads only S and takes any D) take
+// flash_wide_kernel, the same layout on the tensor cores: each warp owns
+// all of its 16 rows' output columns, so QK^T runs once per tile. Its O
+// accumulator fills half a thread's registers, so Q is read from shared
+// memory per k step instead of held in registers, and K and V have one
+// buffer each, refilled in separate cp.async groups (FlashAttention-2's
+// order) to fit 64-key tiles of 256-wide f32 rows in shared memory. Head
+// widths pad to a multiple of 32 with zeros in shared memory. Heads wider
+// than 256 would not fit its registers and take flash_dtiled_kernel, the
+// first design: D-tiled on the f32 FMA units, one block of 128 threads per
+// (16 query rows, batch*head, 128 output columns), each recomputing S for
+// its columns; right, not fast.
 //
 // Plain C interface, bound from Python with ctypes; launches on the caller's
 // stream, allocates nothing, returns cudaGetLastError().
@@ -122,9 +126,10 @@ struct Split {
 constexpr int kSplitTiles = 8;   // live tiles a chunk: 512 keys
 constexpr int kMaxDevices = 64;  // devices whose attributes are cached
 constexpr int kMaxHead = 128;    // widest head of flash_fwd_kernel
-constexpr int kWQ = 16;          // wide heads: query rows a block
-constexpr int kWC = 64;          // wide heads: head columns a QK^T step
-constexpr int kWV = 128;         // wide heads: output columns a block
+constexpr int kMaxWide = 256;    // widest head of flash_wide_kernel
+constexpr int kWQ = 16;          // heads above kMaxWide: query rows a block
+constexpr int kWC = 64;          // heads above kMaxWide: columns a QK^T step
+constexpr int kWV = 128;         // heads above kMaxWide: output columns
 
 // key tiles a query tile can see: below the causal limit, if causal
 __host__ __device__ __forceinline__ int q_tile_kv(int qt, int Sq, int Skv,
@@ -388,6 +393,208 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// S = Q K^T over one tile of kBK keys: 8 column tiles of 8 keys, DP / 16
+// (bf16) or DP / 8 (f32) k steps; qfrag(kk, a) gives the warp's A fragment
+// of step kk: bf16 the m16n8k16 registers, f32 the (scaled) q values of the
+// m16n8k8 fragment, split here
+template <typename T, int DP, typename QF>
+__device__ __forceinline__ void qk_tile(float (&s)[8][4], const T* Kt,
+                                        int lane, QF qfrag) {
+  constexpr int kRow = row_elems<T, DP>();
+  const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t qa[4];
+      qfrag(kk, qa);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bfr[4];
+        ldsm_x4(bfr, Kt + (np * 16 + (j >> 1) * 8 + r) * kRow + kk * 16 +
+                         (j & 1) * 8);
+        mma_bf16(s[2 * np], qa, bfr[0], bfr[1]);
+        mma_bf16(s[2 * np + 1], qa, bfr[2], bfr[3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      float qf[4];
+      qfrag(kk, qf);
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(qf[e], ah[e], al[e]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bfr[4], bh[4], bl[4];
+        ldsm_x4(bfr, reinterpret_cast<const float*>(Kt) +
+                         (np * 16 + (j >> 1) * 8 + r) * kRow + kk * 8 +
+                         (j & 1) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(bfr[e]), bh[e], bl[e]);
+        mma_3xtf32(s[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma_3xtf32(s[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+      }
+    }
+  }
+}
+
+// The mask of keys [k0, k0 + kBK) (where `masked`: validity Vl, and the
+// causal limit), then the online softmax on the S fragments in log2 units:
+// m_r and this thread's part of l_r updated, o rescaled, s turned into P
+// (0 at a masked key, explicitly)
+template <int ND>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4],
+                                             float (&m_r)[2],
+                                             float (&l_r)[2],
+                                             float (&o)[ND][4], bool masked,
+                                             const float* Vl, bool causal,
+                                             int r_lo, int k0, float s_mul,
+                                             int t4) {
+  float mx[2] = {kMaskValue, kMaskValue};
+  if (masked) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t4 + (e & 1);
+        const int row = r_lo + (e >> 1) * 8;
+        const bool live = Vl[col] > 0.f && (!causal || row >= k0 + col);
+        s[n][e] = live ? s[n][e] * s_mul : kMaskValue;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+  } else {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] *= s_mul;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+  }
+  float corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_r[i], mx[i]);
+    corr[i] = ex2(m_r[i] - m_new);  // 0 after a fully masked start
+    m_r[i] = m_new;
+    l_r[i] *= corr[i];
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float sv = s[n][e];
+      const float p = masked && sv == kMaskValue ? 0.f : ex2(sv - m_r[e >> 1]);
+      s[n][e] = p;
+      l_r[e >> 1] += p;
+    }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    o[n][0] *= corr[0];
+    o[n][1] *= corr[0];
+    o[n][2] *= corr[1];
+    o[n][3] *= corr[1];
+  }
+}
+
+// O += P V over one tile: P from the S accumulators as the A operand (bf16:
+// rounded, 16 keys a step; f32: split, 8 keys a step in the order
+// 0,2,4,6,1,3,5,7 that the accumulator holds them, V's rows read alike)
+template <typename T, int DP>
+__device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
+                                        const float (&s)[8][4], const T* Vt,
+                                        int lane) {
+  constexpr int kRow = row_elems<T, DP>();
+  constexpr int kND = DP / 8;
+  if constexpr (sizeof(T) == 2) {
+    const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 16 keys: S tiles 2kk and 2kk + 1
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < kND / 2; ++dp) {
+        uint32_t bfr[4];
+        ldsm_x4_trans(bfr, Vt + (kk * 16 + (j & 1) * 8 + r) * kRow +
+                               (2 * dp + (j >> 1)) * 8);
+        mma_bf16(o[2 * dp], pa, bfr[0], bfr[1]);
+        mma_bf16(o[2 * dp + 1], pa, bfr[2], bfr[3]);
+      }
+    }
+  } else {
+    const int g = lane >> 2, t4 = lane & 3;
+    const float* Vf = reinterpret_cast<const float*>(Vt);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {  // 8 keys, in the order 0,2,4,6,1,...
+      uint32_t ph[4], pl[4];
+      split_tf32(s[kk][0], ph[0], pl[0]);  // row g,     key 2t
+      split_tf32(s[kk][2], ph[1], pl[1]);  // row g + 8, key 2t
+      split_tf32(s[kk][1], ph[2], pl[2]);  // row g,     key 2t + 1
+      split_tf32(s[kk][3], ph[3], pl[3]);  // row g + 8, key 2t + 1
+      const float* v0 = Vf + (kk * 8 + 2 * t4) * kRow + g;
+#pragma unroll
+      for (int n = 0; n < kND; ++n) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(v0[n * 8], bh0, bl0);         // key 2t
+        split_tf32(v0[kRow + n * 8], bh1, bl1);  // key 2t + 1
+        mma_3xtf32(o[n], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+// l_r summed over the lane quad and inverted (a row with no live key, l =
+// 0, divides by 1 and gives exactly 0)
+__device__ __forceinline__ void row_inverse(float (&l_r)[2],
+                                            float (&inv)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    inv[i] = 1.f / (l_r[i] == 0.f ? 1.f : l_r[i]);
+  }
+}
+
+// this thread's output of rows r_lo and r_lo + 8 (those below Sq), o * inv
+template <typename T, int ND>
+__device__ __forceinline__ void write_out(T* out, const float (&o)[ND][4],
+                                          const float (&inv)[2], int b,
+                                          int h, int H, int Sq, int D,
+                                          int r_lo, int t4) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= Sq) continue;
+    T* orow = out + (((long long)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * t4 + e;
+        if (d < D) orow[d] = from_f32<T>(o[n][2 * i + e] * inv[i]);
+      }
+  }
+}
+
+// whether key tile t needs the per-key mask: some key may be invalid, or in
+// the causal future of a query of the tile starting at q0
+__device__ __forceinline__ bool tile_masked(const uint32_t* full_bits, int t,
+                                            int q0, int causal) {
+  return (causal && t * kBK + kBK - 1 > q0) ||
+         !((__ldg(full_bits + (t >> 5)) >> (t & 31)) & 1u);
+}
+
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -501,143 +708,20 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    const T* Kt = Ks + buf * kBK * kRow;
-    const T* Vt = Vs + buf * kBK * kRow;
-    const float* Vl = Val + buf * kBK;
-    const int k0 = t * kBK;
-    // per-key masking only where a key may be invalid or in the future
-    const bool masked = (causal && k0 + kBK - 1 > q0) ||
-                        !((__ldg(full_bits + (t >> 5)) >> (t & 31)) & 1u);
-
-    // S = Q K^T over the tile: 8 column tiles of 8 keys
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    {
-      const int j = lane >> 3, r = lane & 7;
-      if constexpr (kBf16) {
-#pragma unroll
-        for (int kk = 0; kk < kQF; ++kk)
-#pragma unroll
-          for (int np = 0; np < 4; ++np) {
-            uint32_t bfr[4];
-            ldsm_x4(bfr, Kt + (np * 16 + (j >> 1) * 8 + r) * kRow + kk * 16 +
-                             (j & 1) * 8);
-            mma_bf16(s[2 * np], qa[kk], bfr[0], bfr[1]);
-            mma_bf16(s[2 * np + 1], qa[kk], bfr[2], bfr[3]);
-          }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < kQF; ++kk) {
-          uint32_t ah[4], al[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(qf[kk][e], ah[e], al[e]);
-#pragma unroll
-          for (int np = 0; np < 4; ++np) {
-            uint32_t bfr[4], bh[4], bl[4];
-            ldsm_x4(bfr, reinterpret_cast<const float*>(Kt) +
-                             (np * 16 + (j >> 1) * 8 + r) * kRow + kk * 8 +
-                             (j & 1) * 4);
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              split_tf32(__uint_as_float(bfr[e]), bh[e], bl[e]);
-            mma_3xtf32(s[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
-            mma_3xtf32(s[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
-          }
-        }
-      }
-    }
-
-    // mask, then the online softmax on the fragments (log2 units)
-    float mx[2] = {kMaskValue, kMaskValue};
-    if (masked) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + 2 * t4 + (e & 1);
-          const int row = r_lo + (e >> 1) * 8;
-          const bool live = Vl[col] > 0.f && (!causal || row >= k0 + col);
-          s[n][e] = live ? s[n][e] * s_mul : kMaskValue;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-        }
-    } else {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] *= s_mul;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-        }
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      corr[i] = ex2(m_r[i] - m_new);  // 0 after a fully masked start
-      m_r[i] = m_new;
-      l_r[i] *= corr[i];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
+    qk_tile<T, DP>(s, Ks + buf * kBK * kRow, lane, [&](int kk, auto& a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float sv = s[n][e];
-        const float p =
-            masked && sv == kMaskValue ? 0.f : ex2(sv - m_r[e >> 1]);
-        s[n][e] = p;
-        l_r[e >> 1] += p;
+        if constexpr (kBf16)
+          a[e] = qa[kk][e];
+        else
+          a[e] = qf[kk][e];
       }
-#pragma unroll
-    for (int n = 0; n < kND; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-
-    // O += P V: P from the S accumulators as the A operand
-    if constexpr (kBf16) {
-      const int j = lane >> 3, r = lane & 7;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // 16 keys: S tiles 2kk and 2kk + 1
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dp = 0; dp < kND / 2; ++dp) {
-          uint32_t bfr[4];
-          ldsm_x4_trans(bfr, Vt + (kk * 16 + (j & 1) * 8 + r) * kRow +
-                                 (2 * dp + (j >> 1)) * 8);
-          mma_bf16(o[2 * dp], pa, bfr[0], bfr[1]);
-          mma_bf16(o[2 * dp + 1], pa, bfr[2], bfr[3]);
-        }
-      }
-    } else {
-      const float* Vf = reinterpret_cast<const float*>(Vt);
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {  // 8 keys, in the order 0,2,4,6,1,...
-        uint32_t ph[4], pl[4];
-        split_tf32(s[kk][0], ph[0], pl[0]);  // row g,     key 2t
-        split_tf32(s[kk][2], ph[1], pl[1]);  // row g + 8, key 2t
-        split_tf32(s[kk][1], ph[2], pl[2]);  // row g,     key 2t + 1
-        split_tf32(s[kk][3], ph[3], pl[3]);  // row g + 8, key 2t + 1
-        const float* v0 = Vf + (kk * 8 + 2 * t4) * kRow + g;
-#pragma unroll
-        for (int n = 0; n < kND; ++n) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(v0[n * 8], bh0, bl0);         // key 2t
-          split_tf32(v0[kRow + n * 8], bh1, bl1);  // key 2t + 1
-          mma_3xtf32(o[n], ph, pl, bh0, bh1, bl0, bl1);
-        }
-      }
-    }
+    });
+    softmax_tile<kND>(s, m_r, l_r, o,
+                      tile_masked(full_bits, t, q0, causal), Val + buf * kBK,
+                      causal, r_lo, t * kBK, s_mul, t4);
+    pv_tile<T, DP>(o, s, Vs + buf * kBK * kRow, lane);
 
     __syncthreads();  // tile t's buffers are free for the copy of tile t + 2
     t = tn;
@@ -646,12 +730,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-    inv[i] = 1.f / (l_r[i] == 0.f ? 1.f : l_r[i]);  // fully masked row -> 0
-  }
+  row_inverse(l_r, inv);
   if (partial) {
     const long long base = ((long long)chunk * BH + bh) * Sq;
 #pragma unroll
@@ -673,19 +752,126 @@ __global__ void __launch_bounds__(kThreads)
     }
     return;
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r_lo + 8 * i;
-    if (row >= Sq) continue;
-    T* orow = out + (((long long)b * Sq + row) * H + h) * D;
-#pragma unroll
-    for (int n = 0; n < kND; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * t4 + e;
-        if (d < D) orow[d] = from_f32<T>(o[n][2 * i + e] * inv[i]);
-      }
+  write_out<T, kND>(out, o, inv, b, h, H, Sq, D, r_lo, t4);
+}
+
+// Heads of kMaxHead + 1 .. kMaxWide: the layout of flash_fwd_kernel (4
+// warps of 16 query rows, each warp all DP output columns, so QK^T runs
+// once per tile), whose O accumulator is now DP / 2 registers a thread
+// (128 at DP 256). Q's fragments no longer fit beside it, so Q stays in
+// shared memory (f32: scaled in place once, by each warp for its rows) and
+// is read per k step (ldmatrix in bf16, and split at that load in f32). K
+// and V have one buffer each, filled in separate cp.async groups, as
+// FlashAttention-2 does: tile t + 1's K copy is issued once every warp has
+// read tile t's K and lands during tile t's softmax and PV, its V copy
+// once PV(t) is done and lands during QK^T(t + 1); shared memory Q, K, V:
+// 3 x 64 padded rows, 99.5 KB in bf16 at DP 256 (two blocks an SM), 195 KB
+// in f32. The tile skip, masks, softmax and products are flash_fwd_kernel's;
+// no key tiles are cut into chunks (one block per (query tile, head) is
+// 256 blocks at the engine's window of 8,192 and two heads).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+    flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const float* __restrict__ valid, T* __restrict__ out,
+                      int H, int BH, int Sq, int Skv, int D, Strides qs,
+                      Strides ks, Strides vs, int causal, float scale,
+                      int vec, Tiles tiles) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kRow = row_elems<T, DP>();
+  constexpr int kND = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + kBK * kRow;
+  T* Vs = Ks + kBK * kRow;
+  float* Val = reinterpret_cast<float*>(Vs + kBK * kRow);  // [2][kBK]
+
+  const int qt = gridDim.x / BH - 1 - blockIdx.x / BH;
+  const int bh = blockIdx.x % BH;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int q0 = qt * kBQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const float* valb = valid == nullptr ? nullptr : valid + (long long)b * Skv;
+  const uint32_t* live_bits = tiles.live + (long long)b * tiles.words;
+  const uint32_t* full_bits = tiles.full + (long long)b * tiles.words;
+  const int n_kv = q_tile_kv(qt, Sq, Skv, causal);
+  int todo = count_live(live_bits, n_kv);
+  int t = next_live(live_bits, 0, n_kv);
+  const bool vec_ok = vec != 0;
+  if (todo > 0) {
+    load_tile<T, DP>(Qs, qb, qs.s, q0, Sq, D, vec_ok);
+    load_tile<T, DP>(Ks, kb, ks.s, t * kBK, Skv, D, vec_ok);
+    load_valid(Val, valb, t * kBK, Skv);
+    cp_async_commit();
+    load_tile<T, DP>(Vs, vb, vs.s, t * kBK, Skv, D, vec_ok);
+    cp_async_commit();
   }
+
+  float m_r[2] = {kMaskValue, kMaskValue};
+  float l_r[2] = {0.f, 0.f};
+  float o[kND][4];
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const float s_mul = kBf16 ? scale * kLog2e : kLog2e;
+  const int r_lo = q0 + warp * 16 + g;
+  T* qw = Qs + warp * 16 * kRow;  // this warp's 16 rows of Q
+
+  int buf = 0;
+  bool first = true;
+  while (todo > 0) {
+    cp_async_wait_1();  // K(t), its validity (and Q) landed; V(t) may not
+    __syncthreads();
+    if (first) {
+      first = false;
+      if constexpr (!kBf16) {  // f32 q scaled on load, each warp its rows
+        float* qf = reinterpret_cast<float*>(qw);
+        for (int e = lane; e < 16 * DP; e += 32)
+          qf[(e / DP) * kRow + e % DP] *= scale;
+        __syncwarp();
+      }
+    }
+    float s[8][4];
+    qk_tile<T, DP>(s, Ks, lane, [&](int kk, auto& a) {
+      if constexpr (kBf16) {
+        const int j = lane >> 3, r = lane & 7;
+        ldsm_x4(a, qw + ((j & 1) * 8 + r) * kRow + kk * 16 + (j >> 1) * 8);
+      } else {
+        const float* qp = reinterpret_cast<const float*>(qw);
+        a[0] = qp[g * kRow + kk * 8 + t4];
+        a[1] = qp[(g + 8) * kRow + kk * 8 + t4];
+        a[2] = qp[g * kRow + kk * 8 + t4 + 4];
+        a[3] = qp[(g + 8) * kRow + kk * 8 + t4 + 4];
+      }
+    });
+    __syncthreads();  // every warp has read K(t): K(t + 1) may come in
+    const int tn = todo > 1 ? next_live(live_bits, t + 1, n_kv) : n_kv;
+    if (tn < n_kv) {
+      load_tile<T, DP>(Ks, kb, ks.s, tn * kBK, Skv, D, vec_ok);
+      load_valid(Val + (buf ^ 1) * kBK, valb, tn * kBK, Skv);
+    }
+    cp_async_commit();  // an empty group past the last tile
+    softmax_tile<kND>(s, m_r, l_r, o,
+                      tile_masked(full_bits, t, q0, causal), Val + buf * kBK,
+                      causal, r_lo, t * kBK, s_mul, t4);
+    cp_async_wait_1();  // V(t) landed; K(t + 1) may not
+    __syncthreads();
+    pv_tile<T, DP>(o, s, Vs, lane);
+    __syncthreads();  // every warp has read V(t): V(t + 1) may come in
+    if (tn < n_kv) load_tile<T, DP>(Vs, vb, vs.s, tn * kBK, Skv, D, vec_ok);
+    cp_async_commit();
+    t = tn;
+    buf ^= 1;
+    --todo;
+  }
+  float inv[2];
+  row_inverse(l_r, inv);
+  write_out<T, kND>(out, o, inv, b, h, H, Sq, D, r_lo, t4);
 }
 
 // out = sum_c o_c 2^(m_c - M) / sum_c l_c 2^(m_c - M), M = max_c m_c, over
@@ -745,26 +931,27 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// shared memory of flash_wide_kernel: a chunk of Q [kWQ][kWC] and of K
+// shared memory of flash_dtiled_kernel: a chunk of Q [kWQ][kWC] and of K
 // [kBK][kWC + 1] (the odd stride puts a warp's 8 keys on distinct banks),
 // V's output columns [kBK][kWV], P [kWQ][kBK] and the keys' validity
-constexpr size_t wide_smem_bytes() {
+constexpr size_t dtiled_smem_bytes() {
   return sizeof(float) *
          (kWQ * kWC + kBK * (kWC + 1) + kBK * kWV + kWQ * kBK + kBK);
 }
 
-// Heads wider than kMaxHead: block (query tile of kWQ rows, batch*head,
-// output columns [dv0, dv0 + kWV)) on grid x, query tiles from the last.
+// Heads wider than kMaxWide, whose O accumulator would not fit in
+// registers: block (query tile of kWQ rows, batch*head, output columns
+// [dv0, dv0 + kWV)) on grid x, query tiles from the last.
 // Thread (row, j) of the 16 x 8 holds keys j, j + 8, .. of the row's scores
 // and output columns j, j + 8, ..; a row's max and sum are taken over its 8
 // threads. f32 throughout (bf16 inputs widened, exact products).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v,
-                      const float* __restrict__ valid, T* __restrict__ out,
-                      int H, int BH, int Sq, int Skv, int D, Strides qs,
-                      Strides ks, Strides vs, int causal, float scale) {
+    flash_dtiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const float* __restrict__ valid, T* __restrict__ out,
+                        int H, int BH, int Sq, int Skv, int D, Strides qs,
+                        Strides ks, Strides vs, int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qc = reinterpret_cast<float*>(smem);  // [kWQ][kWC]
   float* Kc = Qc + kWQ * kWC;                   // [kBK][kWC + 1]
@@ -879,8 +1066,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // how the key tiles are cut: chunks of kSplitTiles live tiles when the
 // query tiles and heads give fewer blocks than 4 per SM (the kernel's
-// occupancy at the engine's head width), else no cut
-Split split_plan(int B, int H, int Sq, int Skv) {
+// occupancy at the engine's head width), else no cut; heads wider than
+// kMaxHead are never cut (flash_wide_kernel)
+Split split_plan(int B, int H, int Sq, int Skv, int D) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -892,7 +1080,7 @@ Split split_plan(int B, int H, int Sq, int Skv) {
   const long long blocks = (long long)((Sq + kBQ - 1) / kBQ) * B * H;
   const int n_kv = (Skv + kBK - 1) / kBK;
   Split sp{1, n_kv, nullptr, nullptr, nullptr};
-  if (blocks < 4LL * sms && n_kv > kSplitTiles) {
+  if (D <= kMaxHead && blocks < 4LL * sms && n_kv > kSplitTiles) {
     sp.n = (n_kv + kSplitTiles - 1) / kSplitTiles;
     sp.chunk = kSplitTiles;
   }
@@ -906,18 +1094,29 @@ size_t tiles_bytes(int B, int Skv) {
 }
 
 size_t workspace_bytes(int B, int H, int Sq, int Skv, int D) {
-  if (D > kMaxHead) return 0;  // flash_wide_kernel takes none
-  const Split sp = split_plan(B, H, Sq, Skv);
+  if (D > kMaxWide) return 0;  // flash_dtiled_kernel takes none
+  const Split sp = split_plan(B, H, Sq, Skv, D);
   const size_t partials =
       sp.n <= 1 ? 0 : sizeof(float) * (size_t)sp.n * B * H * Sq * (D + 2);
   return tiles_bytes(B, Skv) + partials;
 }
 
+// dynamic shared memory of the attention kernel at padded head width DP
+template <typename T, int DP>
+constexpr size_t smem_bytes() {
+  return DP > kMaxHead ? 3 * tile_bytes<T, DP>() + 2 * kBK * sizeof(float)
+                       : fixed_smem_bytes<T, DP>();
+}
+
+// the tile bitmasks, then the attention kernel at padded head width DP
+// (flash_fwd_kernel, or flash_wide_kernel above kMaxHead), then, where key
+// tiles were cut, flash_combine_kernel
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, const float* valid,
            void* out, int B, int H, int Sq, int Skv, int D, Strides qs,
            Strides ks, Strides vs, int causal, float scale, int vec,
            void* workspace, cudaStream_t stream) {
+  constexpr bool kWide = DP > kMaxHead;
   if (workspace == nullptr && workspace_bytes(B, H, Sq, Skv, D) > 0)
     return (int)cudaErrorInvalidValue;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
@@ -926,22 +1125,27 @@ int launch(const void* q, const void* k, const void* v, const float* valid,
     tiles.live = reinterpret_cast<uint32_t*>(ws);
     tiles.full = tiles.live + (size_t)B * tiles.words;
   }
-  Split sp = split_plan(B, H, Sq, Skv);
+  Split sp = split_plan(B, H, Sq, Skv, D);
   if (sp.n > 1) {
     const size_t rows = (size_t)sp.n * B * H * Sq;
     sp.o = reinterpret_cast<float*>(ws + tiles_bytes(B, Skv));
     sp.m = sp.o + rows * D;
     sp.l = sp.m + rows;
   }
-  const int smem = (int)fixed_smem_bytes<T, DP>();
+  const int smem = (int)smem_bytes<T, DP>();
   static bool smem_set[kMaxDevices] = {};  // attribute set, by device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    if constexpr (kWide)
+      err = cudaFuncSetAttribute(flash_wide_kernel<T, DP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    else
+      err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
     if (err != cudaSuccess) return (int)err;
     if (dev < kMaxDevices) smem_set[dev] = true;
   }
@@ -953,37 +1157,57 @@ int launch(const void* q, const void* k, const void* v, const float* valid,
   }
   const int BH = B * H;
   const long long nq = (Sq + kBQ - 1) / kBQ;
-  flash_fwd_kernel<T, DP>
-      <<<dim3((unsigned)(nq * BH), 1, (unsigned)sp.n), kThreads, smem,
-         stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                   static_cast<const T*>(v), valid, static_cast<T*>(out), H,
-                   BH, Sq, Skv, D, qs, ks, vs, causal, scale, vec, tiles, sp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || sp.n <= 1) return (int)err;
-  flash_combine_kernel<T>
-      <<<(unsigned)((long long)((Sq + kWarps - 1) / kWarps) * BH), kThreads,
-         0, stream>>>(static_cast<T*>(out), H, BH, Sq, Skv, D, causal, tiles,
-                      sp);
-  return (int)cudaGetLastError();
+  if constexpr (kWide) {
+    flash_wide_kernel<T, DP><<<(unsigned)(nq * BH), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), valid, static_cast<T*>(out), H, BH, Sq, Skv,
+        D, qs, ks, vs, causal, scale, vec, tiles);
+    return (int)cudaGetLastError();
+  } else {
+    flash_fwd_kernel<T, DP>
+        <<<dim3((unsigned)(nq * BH), 1, (unsigned)sp.n), kThreads, smem,
+           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), valid, static_cast<T*>(out),
+                     H, BH, Sq, Skv, D, qs, ks, vs, causal, scale, vec, tiles,
+                     sp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || sp.n <= 1) return (int)err;
+    flash_combine_kernel<T>
+        <<<(unsigned)((long long)((Sq + kWarps - 1) / kWarps) * BH),
+           kThreads, 0, stream>>>(static_cast<T*>(out), H, BH, Sq, Skv, D,
+                                  causal, tiles, sp);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T>
-int launch_wide(const void* q, const void* k, const void* v,
-                const float* valid, void* out, int B, int H, int Sq, int Skv,
-                int D, Strides qs, Strides ks, Strides vs, int causal,
-                float scale, cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes();
+int launch_dtiled(const void* q, const void* k, const void* v,
+                  const float* valid, void* out, int B, int H, int Sq,
+                  int Skv, int D, Strides qs, Strides ks, Strides vs,
+                  int causal, float scale, cudaStream_t stream) {
+  const size_t smem = dtiled_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dtiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)((Sq + kWQ - 1) / kWQ) * B * H *
                            ((D + kWV - 1) / kWV);
-  flash_wide_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  flash_dtiled_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid, static_cast<T*>(out), H, B * H, Sq,
       Skv, D, qs, ks, vs, causal, scale);
   return (int)cudaGetLastError();
+}
+
+// the padded head width of D: 16, 32, 64 or 128, then a multiple of 32 up
+// to kMaxWide; 0 above (flash_dtiled_kernel)
+constexpr int head_pad(int D) {
+  return D <= 16 ? 16
+         : D <= 32 ? 32
+         : D <= 64 ? 64
+         : D <= kMaxHead ? kMaxHead
+         : D <= kMaxWide ? (D + 31) / 32 * 32
+                         : 0;
 }
 
 template <typename T>
@@ -1000,20 +1224,24 @@ int dispatch(const void* q, const void* k, const void* v, const float* valid,
                   qs.b % kPer == 0 && qs.s % kPer == 0 && qs.h % kPer == 0 &&
                   ks.b % kPer == 0 && ks.s % kPer == 0 && ks.h % kPer == 0 &&
                   vs.b % kPer == 0 && vs.s % kPer == 0 && vs.h % kPer == 0;
-  if (D <= 16)
-    return launch<T, 16>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
+#define PIO_FLASH_LAUNCH(DP)                                                  \
+  case DP:                                                                    \
+    return launch<T, DP>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,  \
                          causal, scale, vec, workspace, stream);
-  if (D <= 32)
-    return launch<T, 32>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                         causal, scale, vec, workspace, stream);
-  if (D <= 64)
-    return launch<T, 64>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                         causal, scale, vec, workspace, stream);
-  if (D <= kMaxHead)
-    return launch<T, 128>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                          causal, scale, vec, workspace, stream);
-  return launch_wide<T>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks, vs,
-                        causal, scale, stream);
+  switch (head_pad(D)) {
+    PIO_FLASH_LAUNCH(16)
+    PIO_FLASH_LAUNCH(32)
+    PIO_FLASH_LAUNCH(64)
+    PIO_FLASH_LAUNCH(128)
+    PIO_FLASH_LAUNCH(160)
+    PIO_FLASH_LAUNCH(192)
+    PIO_FLASH_LAUNCH(224)
+    PIO_FLASH_LAUNCH(256)
+    default:
+      return launch_dtiled<T>(q, k, v, valid, out, B, H, Sq, Skv, D, qs, ks,
+                              vs, causal, scale, stream);
+  }
+#undef PIO_FLASH_LAUNCH
 }
 
 // any B * H and D whose grid fits grid x (2^31 - 1 blocks)
@@ -1021,10 +1249,25 @@ bool bad_shape(int B, int H, int Sq, int Skv, int D) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv < 0 || D <= 0) return true;
   const long long bh = (long long)B * H;
   const long long blocks =
-      D <= kMaxHead ? (long long)((Sq + kBQ - 1) / kBQ) * bh
+      D <= kMaxWide ? (long long)((Sq + kBQ - 1) / kBQ) * bh
                     : (long long)((Sq + kWQ - 1) / kWQ) * bh *
                           ((D + kWV - 1) / kWV);
   return bh > 0x7fffffffLL || blocks > 0x7fffffffLL;
+}
+
+template <typename T>
+size_t dtype_smem_bytes(int D) {
+  switch (head_pad(D)) {
+    case 16: return smem_bytes<T, 16>();
+    case 32: return smem_bytes<T, 32>();
+    case 64: return smem_bytes<T, 64>();
+    case 128: return smem_bytes<T, 128>();
+    case 160: return smem_bytes<T, 160>();
+    case 192: return smem_bytes<T, 192>();
+    case 224: return smem_bytes<T, 224>();
+    case 256: return smem_bytes<T, 256>();
+    default: return dtiled_smem_bytes();
+  }
 }
 
 }  // namespace
@@ -1035,18 +1278,8 @@ extern "C" {
 // build report's complement: ptxas prints only static shared memory)
 size_t pio_flash_smem_bytes(int D, int dtype) {
   if (D <= 0 || (dtype != 0 && dtype != 1)) return 0;
-  if (D > kMaxHead) return wide_smem_bytes();
-  const int dp = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
-  if (dtype == 1) {
-    return dp == 16   ? fixed_smem_bytes<__nv_bfloat16, 16>()
-           : dp == 32 ? fixed_smem_bytes<__nv_bfloat16, 32>()
-           : dp == 64 ? fixed_smem_bytes<__nv_bfloat16, 64>()
-                      : fixed_smem_bytes<__nv_bfloat16, 128>();
-  }
-  return dp == 16   ? fixed_smem_bytes<float, 16>()
-         : dp == 32 ? fixed_smem_bytes<float, 32>()
-         : dp == 64 ? fixed_smem_bytes<float, 64>()
-                    : fixed_smem_bytes<float, 128>();
+  return dtype == 1 ? dtype_smem_bytes<__nv_bfloat16>(D)
+                    : dtype_smem_bytes<float>(D);
 }
 
 // scratch the call with these sizes needs (the tile bitmasks, and f32

@@ -2,12 +2,13 @@
 port of incubator_predictionio_tpu/ops/als.py (single-device training).
 
 Each half-sweep solves every row of one side against the other side's
-factors, bucket by bucket (ops/sparse.py): buckets of width ≥
-``KERNEL_MIN_D`` go to a hand-written kernel (ops/als_kernels.py), the
-fused gather entry on both sides (measured on the H100: ``_mixed_run``);
-narrower buckets and the split (heavy)
-rows are assembled with plain PyTorch (gather → batched Gram → CG), as the
-JAX package assembles them with XLA outside any Pallas kernel. Factors are
+factors, bucket by bucket (ops/sparse.py), on a hand-written kernel
+(ops/als_kernels.py) chosen by width and rank (``_route``, measured on
+the H100): buckets up to ``ROWS_MAX_D`` on the two-stage kernel's R-row
+form where it takes the rank, the others on the fused gather entry. The
+split (heavy) rows are assembled with plain PyTorch (gather → batched
+Gram → CG), as the JAX package assembles them with XLA outside any Pallas
+kernel. Factors are
 dense f32 tensors; the ``bf16_sweeps`` early sweeps gather from a bf16 copy
 of the table and run a loose CG, then f32 sweeps polish (``_mixed_run``).
 
@@ -44,12 +45,19 @@ CG_ITERS = 16
 CG_WARMSTART = True
 #: CG steps of a bf16 sweep: 3 with warm start, 6 cold (als.py:339)
 CG_ITERS_BF16 = 3 if CG_WARMSTART else 6
-#: narrowest bucket routed to a kernel. Measured on a TPU (als.py:212: the
-#: Pallas kernel padded every row to 128 lanes); still to be measured on
-#: the H100, whose kernels do not pad D.
-KERNEL_MIN_D = 64
-#: rows per block of the two-stage kernel (1 or 8)
-KERNEL_ROWS = 1
+# Every bucket goes to a kernel: the JAX package's narrowest kernel-routed
+# width, 64 (als.py:212), was a TPU measure (its Pallas kernel padded every
+# row to 128 lanes). On the H100 every kernel entry beats the plain route
+# on every bucket of width 8 to 64, 5.5-41x (the narrow-bucket cell of
+# ``chip_smoke.py --als``, PERF.md §6).
+#: rows per block of the two-stage kernel (1 or 8): 8, the R-row form
+KERNEL_ROWS = 8
+#: widest bucket routed to the two-stage kernel's R-row form whatever the
+#: side (where the form takes the rank: up to 128); wider buckets, and
+#: every bucket above rank 128, take the fused entry. In the same cell
+#: R = 8 solves a whole bucket of width 8-32 1.3-7.5x faster than the
+#: fused entry (level with it on a bucket of 48 rows), and loses to it at 64
+ROWS_MAX_D = 32
 #: element budget of one chunk's [rows, D, K] gather (als.py:602, 64 MB f32)
 CHUNK_ELEMS = 1 << 24
 
@@ -265,14 +273,59 @@ def _solve_heavy(other_factors, heavy, l2: float, alpha: float,
         cg_matvec_dtype=torch.float32 if implicit else compute_dtype, x0=x0)
 
 
+def _route(d: int, rank: int, use_kernel: bool, kernel_min_d: int,
+           use_fused: bool) -> str:
+    """The entry a bucket of width ``d`` at ``rank`` takes in
+    :func:`_sweep_side`: "plain" (:func:`_solve_bucket`) with the kernels
+    off or below ``kernel_min_d``; the two-stage kernel's R-row form
+    ("rows8", ``KERNEL_ROWS`` 8) up to ``ROWS_MAX_D`` where that form takes
+    the width and rank (``als_kernels.rows_form``); else the fused entry
+    where ``use_fused``; else the two-stage kernel, in the R-row form where
+    it takes the bucket and the one-row form ("rows1") where not."""
+    if not use_kernel or d < kernel_min_d:
+        return "plain"
+    rows_form = KERNEL_ROWS == 8 and als_kernels.rows_form(d, rank)
+    if use_fused and not (rows_form and d <= ROWS_MAX_D):
+        return "fused"
+    return "rows8" if rows_form else "rows1"
+
+
+def _bucket_solver(route: str, gsrc, l2: float, reg_nnz: bool,
+                   compute_dtype, cg_iters: int, d: int):
+    """(solver, row_elems) of one bucket of width ``d`` on ``route`` (see
+    :func:`_route`): ``solver((cols, vals, mask[, x0])) -> sol`` for
+    :func:`_solve_bucket_chunked`, and the gathered elements a row counts
+    for its chunks (None: D·rank)."""
+    def x0(t):
+        return t[3] if len(t) > 3 else None
+
+    if route == "fused":
+        def solver(t):
+            return _solve_bucket_fused(gsrc, None, t[0], t[1], t[2], l2,
+                                       reg_nnz=reg_nnz, cg_iters=cg_iters,
+                                       x0=x0(t))
+        return solver, 3 * d + 3 * gsrc.shape[1]
+    if route in ("rows1", "rows8"):
+        def solver(t):
+            return _solve_bucket_kernel(gsrc, t[0], t[1], t[2], l2,
+                                        reg_nnz=reg_nnz, cg_iters=cg_iters,
+                                        kernel_rows=int(route[4:]), x0=x0(t))
+        return solver, None
+
+    def solver(t):
+        return _solve_bucket(gsrc, t[0], t[1], t[2], l2, reg_nnz=reg_nnz,
+                             compute_dtype=compute_dtype, cg_iters=cg_iters,
+                             x0=x0(t))
+    return solver, None
+
+
 def _sweep_side(n_rows: int, other_factors, tree, heavy, l2: float,
                 reg_nnz: bool, compute_dtype, cg_iters: int = CG_ITERS,
                 use_kernel: bool = False, kernel_min_d: int = 0,
                 prev_factors=None, use_fused: bool = False):
     """One half-sweep: solve every bucket and the split rows → the side's
-    new factors [n_rows, K] f32. Buckets of width ≥ ``kernel_min_d`` go to
-    the fused kernel (``use_fused``) or the two-stage kernel when
-    ``use_kernel``; the rest to :func:`_solve_bucket`."""
+    new factors [n_rows, K] f32, each bucket on the entry :func:`_route`
+    gives it."""
     rank = other_factors.shape[1]
     out = torch.zeros((n_rows + 1, rank), dtype=torch.float32,
                       device=other_factors.device)
@@ -282,26 +335,9 @@ def _sweep_side(n_rows: int, other_factors, tree, heavy, l2: float,
         d = cols.shape[1]
         x0 = (_gather_x0(prev_factors, row_ids)
               if prev_factors is not None else None)
-        row_elems = None
-        if use_kernel and use_fused and d >= kernel_min_d:
-            row_elems = 3 * d + 3 * rank
-
-            def solver(t):
-                return _solve_bucket_fused(
-                    gsrc, None, t[0], t[1], t[2], l2, reg_nnz=reg_nnz,
-                    cg_iters=cg_iters, x0=t[3] if len(t) > 3 else None)
-        elif use_kernel and d >= kernel_min_d:
-            def solver(t):
-                return _solve_bucket_kernel(
-                    gsrc, t[0], t[1], t[2], l2, reg_nnz=reg_nnz,
-                    cg_iters=cg_iters, kernel_rows=KERNEL_ROWS,
-                    x0=t[3] if len(t) > 3 else None)
-        else:
-            def solver(t):
-                return _solve_bucket(
-                    gsrc, t[0], t[1], t[2], l2, reg_nnz=reg_nnz,
-                    compute_dtype=compute_dtype, cg_iters=cg_iters,
-                    x0=t[3] if len(t) > 3 else None)
+        solver, row_elems = _bucket_solver(
+            _route(d, rank, use_kernel, kernel_min_d, use_fused), gsrc, l2,
+            reg_nnz, compute_dtype, cg_iters, d)
         sol = _solve_bucket_chunked(solver, cols, vals, mask, rank,
                                     row_elems=row_elems, x0=x0)
         _scatter_rows_impl(out, row_ids, sol)
@@ -364,21 +400,22 @@ def _als_run_fused(state: ALSState, user_tree, item_tree, l2: float,
 def _mixed_run(state: ALSState, u_tree, i_tree, l2: float, iterations: int,
                bf16_sweeps: int, reg_nnz: bool, compute_dtype, user_heavy,
                item_heavy, use_kernel: bool = True,
-               kernel_min_d: int = KERNEL_MIN_D,
+               kernel_min_d: int = 0,
                use_fused: Optional[Tuple[bool, bool]] = None) -> ALSState:
     """Mixed-precision schedule: ``bf16_sweeps`` early sweeps gathering
     from a bf16 table with ``CG_ITERS_BF16`` CG steps, then the rest at
     ``compute_dtype`` with ``CG_ITERS``. ALS re-solves every row each
     half-sweep, so the bf16 sweeps only move the polish's starting point.
 
-    ``use_kernel`` routes buckets of width ≥
-    ``kernel_min_d`` to the kernels (on CPU tensors their plain versions
-    run); False is the plain-PyTorch route throughout. ``use_fused``
-    (user side, item side) defaults to the fused entry on both sides: on
-    the H100 it beats the two-stage entry and its gather at every ML-20M
-    bucket, the item side's 70.9 MB user table read from HBM included
-    (PERF.md §6), so the TPU's VMEM rule (``als_fused_fits``) and its
-    L2 stand-in are gone."""
+    ``use_kernel`` routes buckets of width ≥ ``kernel_min_d`` (by
+    default every bucket) to the kernels (on CPU tensors their plain
+    versions run; :func:`_route`); False is the plain-PyTorch route
+    throughout.
+    ``use_fused`` (user side, item side) defaults to the fused entry on
+    both sides above ``ROWS_MAX_D``: on the H100 it beats the two-stage
+    entry and its gather at every ML-20M bucket, the item side's 70.9 MB
+    user table read from HBM included (PERF.md §6), so the TPU's VMEM rule
+    (``als_fused_fits``) and its L2 stand-in are gone."""
     lo = min(max(int(bf16_sweeps), 0), int(iterations))
     fused = (tuple(use_fused) if use_fused is not None
              else (bool(use_kernel), bool(use_kernel)))

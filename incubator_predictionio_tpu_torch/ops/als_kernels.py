@@ -11,7 +11,9 @@ then ``iters`` steps of Jacobi-preconditioned CG on
   are gathered from the table outside the kernel into a [B, D, K] block,
   and the kernel builds the Gram and runs the CG. ``rows_per_program`` 1
   is the body ``_als_cg_kernel`` (:653), 8 the body ``_als_cg_kernel_rows``
-  (:756). No guard for empty rows.
+  (:756): the R-row form, for many short rows (:func:`rows_form`), which
+  solves up to 8 rows a block, one warp each, without forming a Gram;
+  longer rows take the one-row plan. No guard for empty rows.
 - :func:`als_fused_solve_cg` replaces ``als_fused_solve_cg_pallas``
   (:1196, body ``_als_fused_kernel`` :1052): the kernel gathers the rows
   from the table itself, so the [B, D, K] block never reaches device
@@ -66,6 +68,8 @@ WORKSPACE_CAP = 1 << 28
 _GEOMETRY = runtime.csrc_constants("als_solve.cu")
 #: the Gram tile above rank 128
 GRAM_TILE = _GEOMETRY["kGramTile"]
+#: widest padded rank of the R-row form
+ROWS_MAX_RANK = _GEOMETRY["kRowsMaxRank"]
 #: widest rank the kernels take (the CG above 128 keeps its vectors in
 #: shared memory)
 MAX_RANK = _GEOMETRY["kMaxRank"]
@@ -78,6 +82,16 @@ def padded_rank(k: int) -> int:
     if k <= GRAM_TILE:
         return next(kp for kp in (16, 32, 64, GRAM_TILE) if k <= kp)
     return -(-k // GRAM_TILE) * GRAM_TILE
+
+
+def rows_form(d: int, k: int) -> bool:
+    """Whether ``rows_per_program`` 8 takes the R-row form at width ``d``
+    and rank ``k``: rows of d ≤ the padded rank, which is at most
+    ``ROWS_MAX_RANK`` (``rows_form`` of the source). Other widths and
+    ranks take the one-row plan (:func:`solve_plan`), whose slices spread
+    a long row over many blocks."""
+    kp = padded_rank(k)
+    return kp <= ROWS_MAX_RANK and d <= kp
 
 
 def gram_tiles(kp: int) -> int:
@@ -146,19 +160,26 @@ def als_bound(nnz: float, distinct_rows: int, b: int, d: int, k: int,
     for one explicit bucket solve, either entry, with a ``dtype`` table.
     Bytes: the ``distinct_rows`` table rows the bucket references,
     cols/vals/mask [b, d], x0 when ``warm`` and the [b, k] output, each
-    once. Operations: the symmetric Gram, nnz·K·(K + 1) (its K(K + 1)/2
-    entries, a multiply and an add each), and the rhs, 2·nnz·K, at the
-    table dtype's peak: bf16 on the tensor cores, f32 at ``f32_flops``,
-    by default the 3xTF32 rate (the fastest f32-accurate products);
-    ``runtime.F32_FLOPS`` gives the FMA units' bound beside it. Then
-    (iters + warm) matvecs of 2·b·K² in f32 for the CG."""
+    once. Operations: the lesser of the function's two ways.
+    - Through the Gram: the symmetric Gram, nnz·K·(K + 1) (its K(K + 1)/2
+      entries, a multiply and an add each), and the rhs, 2·nnz·K, at the
+      table dtype's peak: bf16 on the tensor cores, f32 at ``f32_flops``,
+      by default the 3xTF32 rate (the fastest f32-accurate products;
+      ``runtime.F32_FLOPS`` gives the FMA units' bound beside it); then
+      (iters + warm) matvecs of 2·b·K² in f32 for the CG.
+    - Without it (the R-row form's way): the rhs and the Jacobi diagonal,
+      4·nnz·K, and (iters + warm) matvecs Tᵀ(T p) of 4·nnz·K, all in f32
+      on the FMA units (matrix-vector products)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = (distinct_rows * k * itemsize + 3 * 4 * b * d
               + 4 * b * k * (2 if warm else 1))
     peak = runtime.BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
+    steps = iters + int(warm)
     t_bytes = nbytes / runtime.HBM_BYTES_PER_S
-    t_ops = (float(nnz) * k * (k + 1) + 2.0 * nnz * k) / peak \
-        + (iters + int(warm)) * 2.0 * b * k * k / runtime.F32_FLOPS
+    t_gram = (float(nnz) * k * (k + 1) + 2.0 * nnz * k) / peak \
+        + steps * 2.0 * b * k * k / runtime.F32_FLOPS
+    t_free = (steps + 1) * 4.0 * nnz * k / runtime.F32_FLOPS
+    t_ops = min(t_gram, t_free)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -355,13 +376,10 @@ def _two_stage(table, cols, vals, mask, l2: float, reg_nnz: bool,
     wv = (vals * mask).contiguous()
     lam = _ridge(mask, l2, reg_nnz)[1].contiguous()
     x0c = None if x0 is None else x0.contiguous()
-    scratch = None
-    kp = padded_rank(k)
-    if rows_per_program == 8 and kp <= GRAM_TILE:
-        scratch = torch.empty(-(-b // 8) * 8 * kp * kp, dtype=torch.float32,
-                              device=dev)
-        plan = SolvePlan(kp, 1, 1, d, b, 0)  # read only by the R = 1 form
-    else:  # above rank 128 R = 8 takes the one-row path
+    rows = 8 if rows_per_program == 8 and rows_form(d, k) else 1
+    if rows == 8:
+        plan = SolvePlan(padded_rank(k), 1, 1, d, b, 0)  # no plan: one launch
+    else:
         plan = solve_plan(b, d, k, n_sms or runtime.sm_count(dev))
     lib = runtime.build_kernels()
     bf16 = int(table.dtype == torch.bfloat16)
@@ -376,12 +394,13 @@ def _two_stage(table, cols, vals, mask, l2: float, reg_nnz: bool,
                 g[r0:r1].data_ptr(), bf16, wv[r0:r1].data_ptr(),
                 lam[r0:r1].data_ptr(),
                 _ptr(None if x0c is None else x0c[r0:r1]),
-                out[r0:r1].data_ptr(), _ptr(scratch), r1 - r0, d, k,
-                int(iters), int(rows_per_program), plan.slices,
-                plan.slice_rows, _ptr(work), plan.workspace_bytes,
-                _stream(dev))
+                out[r0:r1].data_ptr(), r1 - r0, d, k, int(iters), rows,
+                plan.slices, plan.slice_rows, _ptr(work),
+                plan.workspace_bytes, _stream(dev))
             runtime.check_launch(rc, "als_solve_cg")
-    (ALS_SOLVE_CG_ROWS8_LAUNCHES if rows_per_program == 8
+    # counted by the kernel that ran: rows = 8 outside the R-row form's
+    # widths launches the one-row kernels
+    (ALS_SOLVE_CG_ROWS8_LAUNCHES if rows == 8
      else ALS_SOLVE_CG_LAUNCHES).add()
     return out
 

@@ -10,8 +10,9 @@ optional causal mask, and 0 for a query with no live key. The kernel is
 tiles in the causal future or with no valid key are skipped), whose note
 says what bounds it on the card and what its design does about that. It
 takes any head width and any batch × heads, as the TPU kernel, which pads
-only S: heads wider than 128 take a simpler D-tiled kernel of the same
-source.
+only S: heads of 129–256 take the same design with Q read from shared
+memory per step (``flash_wide_kernel``), heads wider than 256 a simpler
+D-tiled kernel of the same source.
 
 The JAX custom VJP becomes a ``torch.autograd.Function``: the forward is
 the kernel (CUDA tensors) or :func:`flash_attention_plain` (CPU tensors);

@@ -7,16 +7,15 @@ NVIDIA GPU.
 At ML-20M width (138,493 users x 26,744 items x rank 128, 20,000,000
 distinct planted ratings from ``utils/planted.py``), the buckets are built
 once and three single sweeps are profiled with ``torch.profiler``: a bf16
-sweep and an f32 sweep through the kernels (the fused entry on both
-sides), and an f32 sweep of the plain route (``use_kernel=False``). For
-each it prints one JSON line with the host wall, the device time by
-kernel name, the device's idle share, and the kernel route's bound per
-half-sweep: the sum of
-``ops/als_kernels.bucket_bound`` over its kernel-routed buckets (f32
-products at the 3xTF32 rate; in f32 also on the FMA units,
-``bound_fma_ms``). Then one
-``{"bucket": ...}`` line for each kernel-routed bucket of an f32 sweep: its
-device ms against its bound. The first line is the card's name and power
+sweep and an f32 sweep through the kernels (each bucket on the entry
+``ops/als._route`` gives it), and an f32 sweep of the plain route
+(``use_kernel=False``). For each it prints one JSON line with the host
+wall, the device time by kernel name, the device's idle share, and the
+kernel route's bound per half-sweep: the sum of
+``ops/als_kernels.bucket_bound`` over its buckets (f32 products at the
+3xTF32 rate; in f32 also on the FMA units, ``bound_fma_ms``). Then one
+``{"bucket": ...}`` line for each bucket of an f32 sweep: its device ms
+against its bound. The first line is the card's name and power
 limit from nvidia-smi. Needs a CUDA device; fails without one.
 """
 
@@ -51,7 +50,7 @@ def _short(name: str) -> str:
     """A kernel's name for the report; the ALS kernels by entry (the
     profiler gives them mangled or demangled): stage 1 by its GATHER flag,
     the sliced rows' reduce and solve, shared by both entries, apart."""
-    if "group_solve_kernel" in name:
+    if "rows_solve_kernel" in name:
         return "als_solve_cg_rows8"
     if "gather_rows" in name:  # the two-stage entries' gathered block
         return "als_solve_cg gather"
@@ -75,34 +74,28 @@ def device_ms(prof) -> dict:
     return out
 
 
-def side_work(tree, min_d: int) -> dict:
-    """Observations and rows of one side, in kernel-routed buckets and in
-    the rest."""
-    work = {"kernel_nnz": 0.0, "kernel_rows": 0, "plain_nnz": 0.0,
-            "plain_rows": 0}
-    for row_ids, cols, _vals, mask in tree:
-        tag = "kernel" if cols.shape[1] >= min_d else "plain"
-        work[f"{tag}_nnz"] += float(mask.sum())
-        work[f"{tag}_rows"] += int((row_ids >= 0).sum())
-    return work
+def side_work(tree) -> dict:
+    """Observations and rows of one side's buckets, all kernel-routed."""
+    return {"nnz": sum(float(mask.sum()) for _r, _c, _v, mask in tree),
+            "rows": sum(int((row_ids >= 0).sum())
+                        for row_ids, _c, _v, _m in tree)}
 
 
 def side_bound(tree, bf16: bool, iters: int) -> dict:
-    """The least time of one side's kernel-routed solves in one sweep: the
+    """The least time of one side's bucket solves in one sweep: the
     sum of each bucket's bound (f32 products at the 3xTF32 rate), and in
     f32 the same with them on the FMA units (``bound_fma_ms``)."""
     dtype = torch.bfloat16 if bf16 else torch.float32
     by_ms = {"bytes": 0.0, "operations": 0.0}
     fma_ms = 0.0
     for _row_ids, cols, _vals, mask in tree:
-        if cols.shape[1] >= als.KERNEL_MIN_D:
-            ms, by = ak.bucket_bound(cols, mask, RANK, iters,
-                                     als.CG_WARMSTART, dtype)
-            by_ms[by] += ms
-            if not bf16:
-                fma_ms += ak.bucket_bound(cols, mask, RANK, iters,
-                                          als.CG_WARMSTART, dtype,
-                                          f32_flops=runtime.F32_FLOPS)[0]
+        ms, by = ak.bucket_bound(cols, mask, RANK, iters, als.CG_WARMSTART,
+                                 dtype)
+        by_ms[by] += ms
+        if not bf16:
+            fma_ms += ak.bucket_bound(cols, mask, RANK, iters,
+                                      als.CG_WARMSTART, dtype,
+                                      f32_flops=runtime.F32_FLOPS)[0]
     out = {"bound_ms": sum(by_ms.values()),
            "bound_by": max(by_ms, key=by_ms.get)}
     if not bf16:
@@ -111,23 +104,19 @@ def side_bound(tree, bf16: bool, iters: int) -> dict:
 
 
 def bucket_times(state, trees) -> list:
-    """Device ms (CUDA events, median of 3) of each kernel-routed bucket's
-    solve in one f32 sweep, through the fused entry as ``_mixed_run``
-    routes both sides, beside its bound."""
+    """Device ms (CUDA events, median of 3) of each bucket's solve in one
+    f32 sweep, on the entry ``_mixed_run`` routes it to, beside its
+    bound."""
     out = []
     for side, tree, other, prev in (
             ("user", trees[0], state.item_factors, state.user_factors),
             ("item", trees[1], state.user_factors, state.item_factors)):
         for row_ids, cols, vals, mask in tree:
             d = cols.shape[1]
-            if d < als.KERNEL_MIN_D:
-                continue
             x0 = als._gather_x0(prev, row_ids)
-
-            def solver(t):
-                return als._solve_bucket_fused(
-                    other, None, t[0], t[1], t[2], L2, True, als.CG_ITERS,
-                    x0=t[3])
+            route = als._route(d, RANK, True, 0, True)
+            solver, row_elems = als._bucket_solver(
+                route, other, L2, True, torch.float32, als.CG_ITERS, d)
 
             times = []
             for _ in range(4):
@@ -135,8 +124,8 @@ def bucket_times(state, trees) -> list:
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
                 als._solve_bucket_chunked(
-                    solver, cols, vals, mask, RANK,
-                    row_elems=3 * d + 3 * RANK, x0=x0)
+                    solver, cols, vals, mask, RANK, row_elems=row_elems,
+                    x0=x0)
                 b.record()
                 b.synchronize()
                 times.append(a.elapsed_time(b))
@@ -148,7 +137,9 @@ def bucket_times(state, trees) -> list:
                                      torch.float32,
                                      f32_flops=runtime.F32_FLOPS)[0]
             out.append({
-                "side": side, "entry": "als_fused_solve_cg",
+                "side": side, "entry": {"fused": "als_fused_solve_cg",
+                                        "rows8": "als_solve_cg_rows8",
+                                        "rows1": "als_solve_cg"}[route],
                 "D": d, "rows": rows, "nnz": nnz,
                 "ms": sorted(times[1:])[1], "bound_ms": bound_ms,
                 "bound_by": bound_by, "bound_fma_ms": fma_ms})
@@ -199,9 +190,8 @@ def main() -> int:
     trees = als.prepare_trees(users, items, ratings, n_u, n_i, device=dev)
     state = als.als_init(torch.Generator().manual_seed(0), n_u, n_i, RANK,
                          device=dev)
-    u_work = side_work(trees[0], als.KERNEL_MIN_D)
-    i_work = side_work(trees[1], als.KERNEL_MIN_D)
-    print(json.dumps({"user_side": u_work, "item_side": i_work}), flush=True)
+    print(json.dumps({"user_side": side_work(trees[0]),
+                      "item_side": side_work(trees[1])}), flush=True)
     for bf16, use_kernel in ((True, True), (False, True), (False, False)):
         row = profile_sweep(state, trees, bf16, use_kernel)
         if use_kernel:

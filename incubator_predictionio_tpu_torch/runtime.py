@@ -160,7 +160,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pio_score_topk.restype = ctypes.c_int
     lib.pio_score_topk_workspace_bytes.argtypes = [i, i, i]
     lib.pio_score_topk_workspace_bytes.restype = sz
-    lib.pio_als_solve_cg.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i,
+    lib.pio_als_solve_cg.argtypes = [p, i, p, p, p, p, i, i, i, i, i,
                                      i, i, p, sz, p]
     lib.pio_als_solve_cg.restype = ctypes.c_int
     lib.pio_als_gather_rows.argtypes = [p, i, i, p, p, ctypes.c_longlong, i,
@@ -168,6 +168,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pio_als_gather_rows.restype = ctypes.c_int
     lib.pio_als_workspace_bytes.argtypes = [i, i, i]
     lib.pio_als_workspace_bytes.restype = sz
+    lib.pio_als_group_rows.argtypes = [i, i, i]
+    lib.pio_als_group_rows.restype = ctypes.c_int
     lib.pio_als_fused_solve_cg.argtypes = [p, i, i, p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, i, p, sz, p]
     lib.pio_als_fused_solve_cg.restype = ctypes.c_int

@@ -290,43 +290,133 @@ def test_mixed_run_bf16_schedule_fit_matches_jax(mixed_problem, kernel):
     assert (tstate.item_factors[-1] == 0).all()
 
 
-def test_kernel_routing_reaches_both_kernels(mixed_problem, monkeypatch):
-    """With the kernels on and min-D 0, the user half-sweep takes the
-    fused entry and the item half-sweep the two-stage one."""
+def _spy_entries(monkeypatch):
+    """Record (entry, width, rows_per_program, table rows) of every
+    kernel-wrapper call of ``ops/als``; the wrappers run on (on CPU
+    tensors, their plain versions)."""
     calls = []
     for name in ("als_fused_solve_cg", "als_solve_cg"):
         real = getattr(als.als_kernels, name)
 
         def spy(*a, _real=real, _name=name, **kw):
-            calls.append(_name)
+            calls.append((_name, a[1].shape[1], kw.get("rows_per_program"),
+                          a[0].shape[0]))
             return _real(*a, **kw)
 
         monkeypatch.setattr(als.als_kernels, name, spy)
-    _run_both(mixed_problem, 1, True)
-    assert {"als_fused_solve_cg", "als_solve_cg"} <= set(calls)
+    return calls
 
 
-def test_fused_routing_rule_is_the_l2_budget(mixed_problem, monkeypatch):
-    """The fused-routing rule, measured on the H100 (PERF.md §6):
-    with the kernels on and no routing given, both half-sweeps take the
-    fused entry, whatever the other side's table size; the L2 budget that
+#: users and items of :func:`wide_trees`, and its rank
+WIDE_U, WIDE_I, WIDE_K = 90, 70, 32
+
+
+@pytest.fixture(scope="module")
+def wide_trees():
+    """Buckets of width 8 to 64 on both sides at rank 32 (the R-row form
+    takes d ≤ 32 there), no split rows: (state, u_tree, i_tree)."""
+    rng = np.random.default_rng(21)
+    mask = rng.random((WIDE_U, WIDE_I)) < np.linspace(0.08, 0.8,
+                                                      WIDE_U)[:, None]
+    users, items = np.nonzero(mask)
+    ratings = rng.normal(3.5, 1, len(users)).astype(np.float32)
+    u_tree, i_tree, uh, ih = als.prepare_trees(users, items, ratings, WIDE_U,
+                                               WIDE_I, device=CPU)
+    assert uh is None and ih is None
+    widths = {c.shape[1] for tree in (u_tree, i_tree) for _r, c, _v, _m in tree}
+    assert {8, 16, 32, 64} <= widths, widths
+    state = convert.als_state_from_numpy(
+        (0.1 * rng.normal(size=(WIDE_U, WIDE_K))).astype(np.float32),
+        (0.1 * rng.normal(size=(WIDE_I, WIDE_K))).astype(np.float32),
+        device=CPU)
+    return state, u_tree, i_tree
+
+
+def test_kernel_routing_reaches_both_kernels(wide_trees, monkeypatch):
+    """With the kernels on, the fused entry on the user side only: buckets
+    up to ``ROWS_MAX_D`` (8-32 wide, where the R-row form takes rank 32)
+    take the R-row form on either half-sweep; the 64-wide ones take the
+    fused entry on the user half-sweep (the item table) and the two-stage
+    kernel's one-row form on the item half-sweep (the user table)."""
+    calls = _spy_entries(monkeypatch)
+    state, u_tree, i_tree = wide_trees
+    als._mixed_run(state, u_tree, i_tree, 0.05, 2, 1, True, torch.float32,
+                   None, None, use_kernel=True, use_fused=(True, False))
+    assert {(c[0], c[2]) for c in calls if c[1] <= 32} == {
+        ("als_solve_cg", 8)}
+    assert {(c[0], c[2], c[3]) for c in calls if c[1] == 64} == {
+        ("als_fused_solve_cg", None, WIDE_I), ("als_solve_cg", 1, WIDE_U)}
+
+
+def test_fused_routing_rule_is_the_l2_budget(wide_trees, monkeypatch):
+    """The routing rule, measured on the H100 (PERF.md §6): with the
+    kernels on and no routing given, a bucket's width and the rank alone
+    pick its entry, on both half-sweeps and whatever the other side's
+    table size: up to ``ROWS_MAX_D`` the two-stage kernel's R-row form
+    (``KERNEL_ROWS`` 8), above it the fused entry. The L2 budget that
     stood in for the TPU's VMEM rule is gone."""
     assert not hasattr(als, "FUSED_TABLE_BYTES")
     assert not hasattr(als, "_fused_fits")
-    calls = []
-    for name in ("als_fused_solve_cg", "als_solve_cg"):
-        real = getattr(als.als_kernels, name)
+    calls = _spy_entries(monkeypatch)
+    state, u_tree, i_tree = wide_trees
+    als._mixed_run(state, u_tree, i_tree, 0.05, 2, 1, True, torch.float32,
+                   None, None, use_kernel=True)
+    assert {(c[0], c[2]) for c in calls if c[1] <= 32} == {
+        ("als_solve_cg", 8)}
+    assert {(c[0], c[3]) for c in calls if c[1] > 32} == {
+        ("als_fused_solve_cg", WIDE_I), ("als_fused_solve_cg", WIDE_U)}
 
-        def spy(*a, _real=real, _name=name, **kw):
-            calls.append(_name)
-            return _real(*a, **kw)
 
-        monkeypatch.setattr(als.als_kernels, name, spy)
-    users, items, ratings, uf, vf, _jt, tt = mixed_problem
-    als._mixed_run(convert.als_state_from_numpy(uf, vf, device=CPU), tt[0],
-                   tt[1], 0.05, 2, 1, True, torch.float32, tt[2], tt[3],
-                   use_kernel=True, kernel_min_d=0)
-    assert calls and set(calls) == {"als_fused_solve_cg"}
+@pytest.mark.parametrize("k", [16, 128, 160])
+@pytest.mark.parametrize("d", [4, 8, 16, 32, 64, 128, 512])
+def test_sweep_side_routes_each_width_to_its_entry(d, k, monkeypatch):
+    """The decided routing (every bucket to a kernel, ``KERNEL_ROWS`` 8,
+    ``ROWS_MAX_D`` 32): ``_sweep_side`` on CPU tensors sends a bucket of
+    width up to 32 to the two-stage kernel's R-row form (its plain version
+    here) where that form takes it (d ≤ the padded rank ≤ 128), every
+    other bucket to the fused entry: at rank 16 the 32-wide bucket, above
+    rank 128 every width. With the kernels off, every width to the plain
+    route. Spied on the wrappers and on ``_solve_bucket``."""
+    assert not hasattr(als, "KERNEL_MIN_D")
+    assert (als.KERNEL_ROWS, als.ROWS_MAX_D) == (8, 32)
+    calls = _spy_entries(monkeypatch)
+    real_plain = als._solve_bucket
+
+    def plain(*a, **kw):
+        calls.append(("plain", a[1].shape[1], None, a[0].shape[0]))
+        return real_plain(*a, **kw)
+
+    monkeypatch.setattr(als, "_solve_bucket", plain)
+    rng = np.random.default_rng(d)
+    b = 5
+    tree = ((torch.arange(b), torch.from_numpy(
+        rng.integers(0, 30, (b, d)).astype(np.int32)),
+        torch.from_numpy(rng.normal(3.5, 1, (b, d)).astype(np.float32)),
+        torch.ones((b, d))),)
+    other = torch.from_numpy(rng.normal(0, 0.3, (30, k)).astype(np.float32))
+    rows8 = d <= 32 and k <= 128 and d <= als.als_kernels.padded_rank(k)
+    expect = "als_solve_cg" if rows8 else "als_fused_solve_cg"
+    outs = []
+    for use_kernel in (True, False):
+        calls.clear()
+        outs.append(als._sweep_side(b, other, tree, None, 0.05, True,
+                                    torch.float32, use_kernel=use_kernel,
+                                    use_fused=True))
+        want = expect if use_kernel else "plain"
+        assert [c[0] for c in calls] == [want], (use_kernel, calls)
+        if want == "als_solve_cg":
+            assert calls[0][2] == 8
+    # every route solves the same system: within 1e-3 of the plain route,
+    # or, with fewer observations than the rank (the Gram singular but for
+    # the ridge, the unconverged CG amplifying the order of sums), no more
+    # than 3x as far from the f64 solve as the plain route
+    if _rel(outs[0], outs[1]) > 1e-3:
+        assert d < k
+        x64 = als._solve_bucket(other.double(), tree[0][1],
+                                tree[0][2].double(), tree[0][3].double(),
+                                0.05, reg_nnz=True,
+                                compute_dtype=torch.float64)
+        assert _rel(outs[0], x64) <= 3 * _rel(outs[1], x64)
 
 
 def test_kernel_route_above_the_kernels_rank():

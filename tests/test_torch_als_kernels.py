@@ -135,6 +135,52 @@ def test_fused_empty_row_is_exactly_zero(jax_out, entry):
         assert (jax_out(entry, "f32", warm)[EMPTY] == 0.0).all()
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_rows_form_matches_jax_kernel_on_short_rows(d, k, dt):
+    """The R-row form's widths (d <= the padded rank, many short rows:
+    ops/sparse's buckets of 8-32), warm: the port's rows_per_program 8 (on
+    the CPU its plain version) against the JAX package's R = 8 Pallas
+    kernel in interpret mode, 11 rows (no multiple of 8, so the JAX kernel
+    pads its last row group), row 3 empty. Tolerances as above, but a
+    system with fewer observations than the rank is singular but for the
+    ridge, and 16 CG steps iterate on its rounding: there, as in
+    chip_smoke.als_tolerance, 1e-3 in f32 and, beyond it, the port no more
+    than 3x as far from the f64 solve of the same system as the JAX
+    kernel."""
+    assert ak.rows_form(d, k)
+    rng = np.random.default_rng(d * k)
+    b = 11
+    table = rng.normal(0, 0.3, (300, k)).astype(np.float32)
+    cols = rng.integers(0, 300, (b, d)).astype(np.int32)
+    vals = rng.normal(3.5, 1.0, (b, d)).astype(np.float32)
+    lens = rng.integers(d // 2 + 1, d + 1, b)
+    mask = (np.arange(d)[None, :] < lens[:, None]).astype(np.float32)
+    mask[EMPTY] = 0.0
+    x0 = rng.normal(0, 0.3, (b, k)).astype(np.float32)
+    ref = np.asarray(pk.als_solve_cg_pallas(
+        jnp.asarray(table).astype(JDT[dt]), jnp.asarray(cols),
+        jnp.asarray(vals), jnp.asarray(mask), L2, reg_nnz=True, iters=ITERS,
+        interpret=True, rows_per_program=8, x0=jnp.asarray(x0)), np.float32)
+    got = ak.als_solve_cg(
+        torch.from_numpy(table).to(TDT[dt]), torch.from_numpy(cols),
+        torch.from_numpy(vals), torch.from_numpy(mask), L2, reg_nnz=True,
+        iters=ITERS, rows_per_program=8, x0=torch.from_numpy(x0)).numpy()
+    tol = max(TOL[dt], 1e-3)  # d < k at every case
+    if _rel(got, ref) >= tol:
+        tab = torch.from_numpy(table).to(TDT[dt]).double()
+        t = tab[torch.from_numpy(cols)] * torch.from_numpy(mask).double()[
+            ..., None]
+        wv = (torch.from_numpy(vals * mask).to(TDT[dt])).double()
+        lam = L2 * torch.from_numpy(mask).double().sum(-1).clamp(min=1.0)
+        exact = ak.cg_plain(torch.einsum("bdk,bdl->bkl", t, t),
+                            torch.einsum("bd,bdk->bk", wv, t), lam, ITERS,
+                            torch.from_numpy(x0).double()).numpy()
+        assert _rel(got, exact) <= 3 * _rel(ref, exact) + 1e-6, (
+            d, k, dt, _rel(got, ref), _rel(got, exact), _rel(ref, exact))
+
+
 def test_two_stage_empty_row_keeps_the_kernels_rule(jax_out):
     """The two-stage entry has no guard: cold, an empty row is the CG's
     fixed point 0; warm, it is whatever the CG makes of λ·x = 0 from x0,
@@ -176,21 +222,33 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_bound_counts_the_symmetric_gram():
-    """One bound for both entries: the Gram's nnz·K·(K + 1) and the rhs's
-    2·nnz·K at the table dtype's peak (f32 at the 3xTF32 rate, or on the
-    FMA units when asked), (iters + warm)·2·B·K² of f32 CG; bytes of the
-    referenced rows, cols/vals/mask, x0 and the output."""
-    nnz, distinct, b, d, k, iters = 5_000_000, 26_000, 20_000, 512, 128, 16
-    for dt, peak, kw in ((torch.float32, 495e12 / 3, {}),
-                         (torch.float32, 67e12, {"f32_flops": 67e12}),
-                         (torch.bfloat16, 989e12, {})):
-        ms, by = ak.als_bound(nnz, distinct, b, d, k, iters, True, dt, **kw)
-        ops_s = (nnz * k * (k + 1) + 2 * nnz * k) / peak \
-            + (iters + 1) * 2 * b * k * k / 67e12
-        bytes_s = (distinct * k * (4 if dt == torch.float32 else 2)
-                   + 12 * b * d + 8 * b * k) / 3.35e12
-        assert ms == pytest.approx(1e3 * max(ops_s, bytes_s))
-        assert by == ("operations" if ops_s > bytes_s else "bytes")
+    """One bound for both entries, the lesser of the function's two ways:
+    the Gram's nnz·K·(K + 1) and the rhs's 2·nnz·K at the table dtype's
+    peak (f32 at the 3xTF32 rate, or on the FMA units when asked), then
+    (iters + warm)·2·B·K² of f32 CG; or, forming no Gram, (iters + warm +
+    1)·4·nnz·K on the FMA units. Bytes of the referenced rows,
+    cols/vals/mask, x0 and the output. A wide bucket takes the Gram's way
+    at the 3xTF32 rate and the Gram-free way on the FMA units; a narrow
+    one (d 8) the Gram-free way at any rate."""
+    k, iters = 128, 16
+    for nnz, distinct, b, d, gram_at_3xtf32 in (
+            (5_000_000, 26_000, 20_000, 512, True),
+            (120_000, 20_000, 16_384, 8, False)):
+        for dt, peak, kw in ((torch.float32, 495e12 / 3, {}),
+                             (torch.float32, 67e12, {"f32_flops": 67e12}),
+                             (torch.bfloat16, 989e12, {})):
+            ms, by = ak.als_bound(nnz, distinct, b, d, k, iters, True, dt,
+                                  **kw)
+            gram_s = (nnz * k * (k + 1) + 2 * nnz * k) / peak \
+                + (iters + 1) * 2 * b * k * k / 67e12
+            free_s = (iters + 2) * 4 * nnz * k / 67e12
+            ops_s = min(gram_s, free_s)
+            bytes_s = (distinct * k * (4 if dt == torch.float32 else 2)
+                       + 12 * b * d + 8 * b * k) / 3.35e12
+            assert ms == pytest.approx(1e3 * max(ops_s, bytes_s))
+            assert by == ("operations" if ops_s > bytes_s else "bytes")
+            if dt == torch.float32:
+                assert (gram_s < free_s) == (gram_at_3xtf32 and not kw)
     # a bucket's bound counts its observations and the distinct rows they
     # reference, not the padding
     cols = torch.tensor([[3, 3, 7, 0], [7, 1, 0, 0]], dtype=torch.int32)
@@ -258,6 +316,25 @@ def test_two_stage_plan_has_no_more_slices_than_slabs(b, d, k, n_sms):
     """The C entries refuse a plan with more slices than slabs of d."""
     plan = ak.solve_plan(b, d, k, n_sms)
     assert plan.slices <= -(-d // ak.slab_rows(plan.kp))
+
+
+@pytest.mark.parametrize("k,widths", [(10, (1, 16)), (24, (1, 8, 32)),
+                                      (64, (8, 16, 32, 64)),
+                                      (128, (8, 64, 128)), (129, ()),
+                                      (256, ())])
+def test_rows_form_takes_rows_up_to_the_padded_rank(k, widths):
+    """rows_per_program 8 takes the R-row form where d <= the padded rank
+    (at most ROWS_MAX_RANK, the source's constant), the one-row plan past
+    it."""
+    assert ak.ROWS_MAX_RANK == runtime.csrc_constants(
+        "als_solve.cu")["kRowsMaxRank"] == 128
+    kp = ak.padded_rank(k)
+    for d in (1, 8, 16, 32, 64, 128, 129, 4096):
+        assert ak.rows_form(d, k) == (d in widths or (kp <= 128 and
+                                                      d <= kp)), (k, d)
+    for d in widths:
+        assert ak.rows_form(d, k)
+    assert not ak.rows_form(kp + 1, k)
 
 
 def test_slab_rows_are_the_kernel_sources():

@@ -54,9 +54,13 @@ CASES = [
     # a left-padded window: every query before the first real key is dead
     ("left_padded", 2, 48, 48, 2, 16, True,
      np.arange(48)[None, :] >= np.array([[30], [0]]), 16, 16),
-    # a head wider than 128 (the kernel's D-tiled form), ragged validity
+    # heads wider than 128 (the kernel's wide form), ragged validity
     ("wide_head", 2, 40, 40, 2, 160, True,
      np.arange(40)[None, :] < np.array([[25], [40]]), 16, 16),
+    ("wide_head_256_left_padded", 2, 40, 40, 1, 256, True,
+     np.arange(40)[None, :] >= np.array([[39], [7]]), 16, 16),
+    ("wide_head_200_not_causal", 1, 24, 40, 2, 200, False,
+     np.arange(40)[None, :] % 3 != 1, 8, 16),
 ]
 
 

@@ -326,7 +326,10 @@ def test_als_two_stage_plan_matches_the_c_entry(dev):
 
 
 def test_als_launch_counts(dev):
+    """One count a call, by the kernel that ran: rows_per_program 8 on rows
+    longer than the padded rank takes the one-row plan and counts there."""
     table, cols, vals, mask, x0 = _als_problem(dev, 150, 24, 13, 300, 1)
+    short = _als_problem(dev, 150, 24, 13, 20, 3)
     counters = (als_kernels.ALS_SOLVE_CG_LAUNCHES,
                 als_kernels.ALS_SOLVE_CG_ROWS8_LAUNCHES,
                 als_kernels.ALS_FUSED_SOLVE_CG_LAUNCHES)
@@ -334,10 +337,84 @@ def test_als_launch_counts(dev):
     als_kernels.als_solve_cg(table, cols, vals, mask, 0.05)
     als_kernels.als_solve_cg(table, cols, vals, mask, 0.05,
                              rows_per_program=8, x0=x0)
+    als_kernels.als_solve_cg(*short[:4], 0.05, rows_per_program=8)
     als_kernels.als_fused_solve_cg(table, cols, vals, mask, 0.05)
     als_kernels.als_solve_cg_plain(table, cols, vals, mask, 0.05)
     als_kernels.als_fused_solve_cg_plain(table, cols, vals, mask, 0.05)
-    assert [c.value - v for c, v in zip(counters, before)] == [1, 1, 1]
+    assert [c.value - v for c, v in zip(counters, before)] == [2, 1, 1]
+
+
+# the R-row form's widths (d <= the padded rank) and one long d that takes
+# the one-row plan's slices; 21 rows, no multiple of any rows-a-block
+ROWS_D = [1, 8, 16, 32, 63, 64, 3000]
+#: most a D < K result past the tolerance may be from the nearer of the
+#: plain version and the f64 solve (chip_smoke.NARROW_CEILING)
+D_LT_K_CEILING = 3e-2
+
+
+@pytest.mark.parametrize("d", ROWS_D)
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_als_rows_form_matches_plain(dev, k, d, dtype):
+    """rows_per_program 8 against the plain version, cold and warm, on 0/1
+    masks (row 3 empty) and fractional ones: within 1e-4 of max|x| in f32
+    where d >= K, else 1e-3; beyond that a D < K system (the R-row form
+    forms no Gram, so its rounding differs from the plain version's) is
+    held to its f64 solve, no more than 3x as far from it as the plain
+    version, and within ``D_LT_K_CEILING`` of the nearer of the two. One
+    launch of the kernel that the width takes."""
+    b = 21
+    table, cols, vals, mask, x0 = _als_problem(dev, 500, k, b, d, k * d + 7)
+    table = table.to(dtype)
+    frac = torch.from_numpy(np.random.default_rng(d).choice(
+        np.float32([0.25, 0.5, 0.7, 1.0, 1.5]), (b, d))).to(dev)
+    rows8 = als_kernels.rows_form(d, k)
+    counter = (als_kernels.ALS_SOLVE_CG_ROWS8_LAUNCHES if rows8
+               else als_kernels.ALS_SOLVE_CG_LAUNCHES)
+    tol = 1e-4 if dtype == torch.float32 and d >= k else 1e-3
+    for weights in (mask, mask * frac):
+        for warm in (None, x0):
+            ref = als_kernels.als_solve_cg_plain(table, cols, vals, weights,
+                                                 0.05, x0=warm)
+            before = counter.value
+            got = als_kernels.als_solve_cg(table, cols, vals, weights, 0.05,
+                                           rows_per_program=8, x0=warm)
+            torch.cuda.synchronize()
+            assert counter.value == before + 1
+            assert bool(torch.isfinite(got).all())
+            if _rel(got, ref) >= tol and d < k:
+                exact = _f64_two_stage(table, cols, vals.to(dtype).float(),
+                                       weights, 0.05, 16, warm)
+                k_f64 = _rel(got.double(), exact)
+                assert k_f64 <= 3 * _rel(ref.double(), exact) + 1e-6
+                assert min(_rel(got, ref), k_f64) <= D_LT_K_CEILING, (
+                    warm is None)
+            else:
+                assert _rel(got, ref) < tol, (warm is None,)
+
+
+def test_als_rows_per_block_fit_shared_memory(dev):
+    """The R-row form's rows a block: 1 to 8, their blocks within 227 KB
+    of shared memory, 8 at the stored path's narrow widths in bf16, and 0
+    (the one-row plan) past the padded rank or above rank 128."""
+    lib = runtime.build_kernels()
+    for k in (16, 32, 64, 128):
+        kp = als_kernels.padded_rank(k)
+        for d in (1, 8, 16, 32, 64, 128):
+            for bf16, size in ((0, 4), (1, 2)):
+                r = lib.pio_als_group_rows(d, k, bf16)
+                if d > kp:
+                    assert r == 0
+                    continue
+                # the row's block, then its f64 vectors u and p
+                per = d * (kp + 16 // size) * size + 8 * (-(-d // 2) * 2
+                                                          + kp)
+                assert 1 <= r <= 8 and r * per <= 232_448, (k, d, bf16, r)
+                if d <= 64 and bf16:
+                    assert r == 8
+    assert lib.pio_als_group_rows(8, 160, 0) == 0
+    assert lib.pio_als_group_rows(129, 128, 1) == 0
 
 
 def test_als_wrong_dtype_or_device_raises(dev):
@@ -685,8 +762,14 @@ FLASH_WIDE = [
     (1, 300, 2, 256, None, torch.float32),
     (1, 300, 2, 256, (1,), torch.bfloat16),
     (1, 130, 1, 200, (0,), torch.float32),
+    (2, 130, 1, 200, (65, 0), torch.bfloat16),
+    (2, 333, 2, 192, (333, 64), torch.float32),
+    (2, 333, 2, 192, (1, 300), torch.bfloat16),
+    (1, 200, 1, 320, (150,), torch.float32),  # above 256: the D-tiled kernel
     (65_536, 16, 1, 8, None, torch.float32),
     (256, 20, 256, 16, None, torch.bfloat16),
+    (256, 20, 256, 160, (20, 3) * 128, torch.bfloat16),
+    (256, 20, 256, 256, None, torch.float32),
 ]
 
 
@@ -709,6 +792,79 @@ def test_flash_wide_heads_and_many_heads(dev, shape):
         for r, n in enumerate(lengths):
             # causal, left padded: queries before the first live key are 0
             assert (got[r, :s - n] == 0).all()
+
+
+# (name, b, s_q, s_kv, h, causal, valid [b, s_kv]): the tile skip, masks
+# and Sq != Skv at the widths of flash_wide_kernel
+WIDE_SKIP = [
+    ("holes", 2, 640, 640, 2, True, _holes(2, 640)),
+    ("holes_not_causal", 1, 640, 640, 2, False, _holes(1, 640)),
+    ("one_key", 2, 512, 512, 2, True, _one_key(2, 512, (192, 255))),
+    ("one_key_not_causal", 2, 512, 512, 1, False,
+     _one_key(2, 512, (0, 511))),
+    ("left_pads", 6, 1024, 1024, 2, True,
+     _left(6, 1024, (0, 1, 63, 64, 65, 1024))),
+    ("sq_lt_skv_pad", 2, 130, 700, 2, True, _holes(2, 700)),
+    ("sq_gt_skv_pad", 2, 700, 130, 2, True, _left(2, 130, (100, 0))),
+]
+
+
+@pytest.mark.parametrize("d", [160, 192, 200, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", WIDE_SKIP, ids=[c[0] for c in WIDE_SKIP])
+def test_flash_wide_skip_cases_match_plain(dev, case, dtype, d):
+    """Heads of 160-256 on the tensor cores: holes, one live key, left
+    padding, a row with no live key, Sq != Skv, causal and not, against
+    the plain version (1e-4 of max|out| in f32, 8e-3 in bf16), a query
+    with no live key exactly 0 and every other one not."""
+    name, b, s_q, s_kv, h, causal, valid_np = case
+    rng = np.random.default_rng(len(name) + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(dev).to(dtype)
+               for shape in ((b, s_q, h, d), (b, s_kv, h, d),
+                             (b, s_kv, h, d)))
+    valid = torch.from_numpy(valid_np).to(dev)
+    before = attention_kernels.FLASH_LAUNCHES.value
+    got = attention_kernels.flash_attention(q, k, v, causal=causal,
+                                            kv_valid=valid)
+    ref = attention_kernels.flash_attention_plain(q, k, v, causal=causal,
+                                                  kv_valid=valid)
+    torch.cuda.synchronize()
+    assert attention_kernels.FLASH_LAUNCHES.value == before + 1
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-4
+    assert (got.float() - ref.float()).abs().max() \
+        <= tol * ref.float().abs().max()
+    pos = torch.arange(s_q, device=dev)[:, None]
+    keys = torch.arange(s_kv, device=dev)[None, :]
+    live = (valid[:, None, :] & ((pos >= keys) if causal else True)).any(-1)
+    live = live.expand(b, s_q)
+    assert (got[~live] == 0).all()
+    assert (got[live].float().abs().sum(-1) > 0).all()
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_wide_strided_views_and_sdpa(dev, d, dtype):
+    """Wide heads read through strides (views of one fused [B, S, 3, H, D]
+    projection) give the contiguous inputs' output bit for bit, and agree
+    with SDPA on every key valid, causal, at the tolerance of the plain
+    version."""
+    rng = np.random.default_rng(d)
+    qkv = torch.from_numpy(rng.standard_normal((2, 300, 3, 2, d),
+                                               np.float32)).to(dev).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = attention_kernels.flash_attention(q, k, v)
+    ref = attention_kernels.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous())
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *(t.transpose(1, 2).float() for t in (q, k, v)),
+        is_causal=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-4
+    assert (got.float() - sdpa).abs().max() <= tol * sdpa.abs().max()
 
 
 def test_sequence_model_serves_through_the_kernel(dev):

@@ -79,9 +79,10 @@ def _close(got, ref, rtol=RTOL):
                                atol=rtol * np.abs(ref).max())
 
 
-# (d_model, n_heads, n_layers, window, pads)
+# (d_model, n_heads, n_layers, window, pads); d_model 256 in one head is
+# the head width of the flash kernel's wide form
 SHAPES = [(16, 2, 1, 8, [0, 3]), (32, 2, 2, 40, [0, 39, 17]),
-          (32, 4, 2, 24, [12])]
+          (32, 4, 2, 24, [12]), (256, 1, 2, 16, [0, 11])]
 
 
 @pytest.mark.parametrize("route", ["routed", "flash"])
@@ -148,17 +149,20 @@ def _assert_topk_alike(got_s, got_i, ref_s, ref_i, rtol=RTOL):
         assert near, (b, p, got_i[b, p], ref_i[b, p])
 
 
+@pytest.mark.parametrize("d_model,n_heads", [(32, 2), (256, 1)],
+                         ids=["d32", "head256"])
 @pytest.mark.parametrize("k", [5, 51])
-def test_sasrec_topk_matches_jax(k):
+def test_sasrec_topk_matches_jax(k, d_model, n_heads):
     """PAD and every history token excluded; k above the live count leaves
-    -inf slots, as lax.top_k does."""
-    fields = _jax_fields(3, 50, 16, 32, 2)
+    -inf slots, as lax.top_k does. Also at one head of 256 (the flash
+    kernel's wide form): scores within RTOL of the JAX engine's."""
+    fields = _jax_fields(3, 50, 16, d_model, 2)
     tok = _tokens(4, 3, 16, 50, [0, 12, 15])
-    ref_s, ref_i = jtr.sasrec_topk(_jax_weights(fields), jnp.asarray(tok), 2,
-                                   k=k)
+    ref_s, ref_i = jtr.sasrec_topk(_jax_weights(fields), jnp.asarray(tok),
+                                   n_heads, k=k)
     got_s, got_i = ttr.sasrec_topk(
         convert.transformer_weights_from_numpy(fields, device=CPU),
-        torch.from_numpy(tok), 2, k=k)
+        torch.from_numpy(tok), n_heads, k=k)
     _assert_topk_alike(got_s.numpy(), got_i.numpy(), ref_s, ref_i)
     for r in range(3):
         assert not set(got_i[r][torch.isfinite(got_s[r])].tolist()) & (
