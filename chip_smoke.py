@@ -112,7 +112,26 @@ Phases, each of which fails the run on any error or mismatch:
              same user without them twice (the history from the store,
              then from the TTL cache): identical answers, held to the plain
              attention's; the decoded weights the trained ones bit for bit.
-13. report — kernel, plain-version and library times (CUDA events, median
+13. quickstart — the README quickstart through the port's own CLI
+             (:func:`quickstart_phase`): ``pio app new``; ``pio eventserver
+             --batch-cap 500`` as a child process taking 250,000 planted
+             ratings over every ML-20M user and item through its three batch
+             legs (200,000 in bodies of 500 on the native body parse; 20,000
+             each in bodies of 50 with ``eventTime`` on the doc-level gate
+             and, carrying ``tags`` too, the generic per-event path) and
+             2,000 single events, a 51-event body refused (400) at the
+             reference's cap of 50, the child stopped (exit 0); 8,000
+             through ``pio import``; ``pio export`` reads every rating back
+             once with its value; ``pio build`` and ``pio train`` (rank
+             128, 4 sweeps, 2 bf16): the fused ALS and R-row kernels
+             launch, the fit within 1e-3 of the plain route's; ``pio
+             deploy`` as a child: 32 queries and an unknown user over HTTP
+             on ``cuda``, each against the plain top-k on the instance's
+             decoded factors, the child's score+top-k launches from its
+             ``GET /``; ``pio undeploy`` (exit 0). Prints each leg's
+             events/s, the instance's ``phase.*_s`` walls, deploy to first
+             answer and HTTP p50 / p99, then the card's line again.
+14. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
              line (flash: the engine's windows, also left-padded with 1 to
              4,096 live keys, and the bench's shapes; the repaired limits'
@@ -155,11 +174,13 @@ import functools
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1730,6 +1751,510 @@ def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
     return launches, err, stats
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+#: the port's CLI, as a user runs it
+CLI = [sys.executable, "-m", "incubator_predictionio_tpu_torch.cli.main"]
+#: the quickstart's ingest legs, as shares of its ratings: the native body
+#: parse (bodies of 500), the doc-level gate and the generic per-event path
+#: (bodies of 50 with ``eventTime``; the generic leg's also carry ``tags``),
+#: single POST /events.json, and the rest through ``pio import``
+QS_LEGS = (("native", 0.8), ("doc", 0.08), ("generic", 0.08),
+           ("single", 0.008))
+#: the three batch legs timed again at one body size each, into an app of
+#: their own: (events per leg and size, body sizes)
+QS_LEG_EVENTS, QS_LEG_SIZES = 10_000, (50, 500)
+#: warm queries to the deployed engine beyond the quickstart's 32, for
+#: the latency percentiles
+QS_WARM_QUERIES = 500
+
+
+def cli(*argv) -> str:
+    """One verb of the port's CLI in this process; returns its standard
+    output, and fails on a non-zero exit code."""
+    import io
+
+    from incubator_predictionio_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main.main(list(argv))
+    if rc != 0:
+        raise AssertionError(f"pio {' '.join(argv)} exited {rc}: "
+                             f"{out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+class Child:
+    """A CLI verb in a child process, its output in files under ``work``;
+    :meth:`wait_line` waits for a line of its standard output."""
+
+    def __init__(self, name: str, argv, work: str, env: dict,
+                 cwd: str = REPO):
+        self.name = name
+        self.out_path = os.path.join(work, f"{name}.out")
+        self.err_path = os.path.join(work, f"{name}.err")
+        with open(self.out_path, "wb") as out, \
+                open(self.err_path, "wb") as err:
+            self.proc = subprocess.Popen([*CLI, *argv], stdout=out,
+                                         stderr=err, env=env, cwd=cwd)
+
+    def tail(self) -> str:
+        with open(self.err_path, errors="replace") as f:
+            return f.read()[-3000:]
+
+    def wait_line(self, pattern: str, timeout: float) -> re.Match:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with open(self.out_path, errors="replace") as f:
+                m = re.search(pattern, f.read())
+            if m:
+                return m
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.1)
+        raise AssertionError(f"quickstart: {self.name} printed no "
+                             f"{pattern!r} (exit {self.proc.poll()}):\n"
+                             f"{self.tail()}")
+
+    def wait_exit(self, timeout: float = 120) -> None:
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"quickstart: {self.name} still running "
+                                 f"{timeout:.0f} s after it was stopped")
+        if rc != 0:
+            raise AssertionError(f"quickstart: {self.name} exited {rc}:\n"
+                                 f"{self.tail()}")
+
+    def kill(self) -> bool:
+        """Kill the child if it still runs; True when it did."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+            return True
+        return False
+
+
+def http_json(method: str, url: str, doc=None, timeout: float = 120):
+    """(status, parsed body) of one request; an HTTP error's too. ``doc``
+    is sent as JSON, or as it is when it is already ``bytes``."""
+    data = (doc if doc is None or isinstance(doc, bytes)
+            else json.dumps(doc).encode())
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Median host-clock ms of ``fn`` (host work only)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def rate_doc(u: int, i: int, r: float, when: str = None,
+             tags: bool = False) -> dict:
+    doc = {"event": "rate", "entityType": "user", "entityId": f"u{u}",
+           "targetEntityType": "item", "targetEntityId": f"i{i}",
+           "properties": {"rating": float(r)}}
+    if when is not None:
+        doc["eventTime"] = when
+    if tags:
+        doc["tags"] = []
+    return doc
+
+
+def leg_timings(url: str, app_out: str, users, items, ratings, base_t,
+                n: int) -> dict:
+    """The event server's three batch legs at each body size of
+    ``QS_LEG_SIZES``, ``n`` events each, into the app whose ``pio app new``
+    output is ``app_out``: the bodies are encoded before the clock starts,
+    and each (leg, size) cell is posted in two halves, the cells taking
+    turns, so that drift in the store's cost falls on all alike. Per leg,
+    from the two sizes: the fixed cost of a request and the cost of an
+    event in it (a least-squares line through the two per-request
+    walls)."""
+    from datetime import timedelta
+
+    from incubator_predictionio_tpu_torch.utils.times import format_iso8601
+
+    key = re.search(r"Access Key: (\S+)", app_out).group(1)
+    target = f"{url}/batch/events.json?accessKey={key}"
+    cells = {}
+    for size in QS_LEG_SIZES:
+        for leg in ("native", "doc", "generic"):
+            docs = [rate_doc(users[k], items[k], ratings[k],
+                             None if leg == "native" else format_iso8601(
+                                 base_t + timedelta(milliseconds=k)),
+                             tags=leg == "generic") for k in range(n)]
+            cells[leg, size] = {
+                "bodies": [json.dumps(docs[s:s + size]).encode()
+                           for s in range(0, n, size)],
+                "s": 0.0}
+    for half in (0, 1):
+        for (leg, size), cell in cells.items():
+            bodies = cell["bodies"]
+            part = bodies[:len(bodies) // 2] if half == 0 \
+                else bodies[len(bodies) // 2:]
+            t0 = time.perf_counter()
+            for body in part:
+                status, got = http_json("POST", target, body)
+                if status != 200 or any(g.get("status") != 201
+                                        for g in got):
+                    raise AssertionError(f"quickstart: {leg} body of "
+                                         f"{size}: {status} {got!r:.300}")
+            cell["s"] += time.perf_counter() - t0
+    out = {}
+    for leg in ("native", "doc", "generic"):
+        per_request = {}
+        for size in QS_LEG_SIZES:
+            cell = cells[leg, size]
+            per_request[size] = 1e3 * cell["s"] / len(cell["bodies"])
+            out[f"{leg}@{size}"] = {
+                "events": n, "s": cell["s"], "events_per_s": n / cell["s"],
+                "ms_per_request": per_request[size]}
+        slope, fixed = np.polyfit(list(per_request),
+                                  list(per_request.values()), 1)
+        out[leg] = {"ms_per_request_fixed": float(fixed),
+                    "ms_per_event": float(slope)}
+    return out
+
+
+def quickstart_phase(dev, runtime, kernels, als, planted,
+                     small: bool = False, seed: int = 3):
+    """The README quickstart through the port's own CLI, on a fresh SQLite
+    store: ``pio app new QsApp``; ``pio eventserver --batch-cap 500`` as a
+    child process taking 250,000 planted ratings (seed 7, every ML-20M user
+    and item rated, rounded to ML-20M's half-star scale so each travels as
+    a short JSON number) over its three batch legs and single events
+    (``QS_LEGS``), then the three legs timed again at bodies of 50 and 500
+    into an app of their own (:func:`leg_timings`), a 51-event body
+    refused with 400 by an event server at
+    the reference's cap of 50, the child stopped (exit 0); the rest through
+    ``pio import``; ``pio build`` and ``pio train`` in this process (rank
+    128, 4 sweeps, 2 in bf16, λ 0.03, as store-als); ``pio deploy`` as a
+    child process, 32 queries and one for an unknown user over HTTP, then
+    ``QS_WARM_QUERIES`` more for the warm latency percentiles (the first
+    query, cold, is reported on its own), ``GET /``'s device; ``pio undeploy`` (the child exits 0). Checks: ``pio
+    export`` reads back every rating once with its value; the store's
+    triples are the planted ones; the fused ALS, R-row and score+top-k
+    kernels launched; the fit within 1e-3 of the plain route's from the
+    same initial state, relative; every answer the plain top-k on the
+    instance's decoded factors. Returns (launches by kernel, max score
+    error, stats)."""
+    from datetime import timedelta
+
+    from incubator_predictionio_tpu_torch.data.storage import base as sbase
+    from incubator_predictionio_tpu_torch.models.recommendation import (
+        engine,
+    )
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.servers.event_server import (
+        EventServer,
+        EventServerConfig,
+    )
+    from incubator_predictionio_tpu_torch.utils.times import (
+        format_iso8601,
+        parse_iso8601,
+    )
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    if small:
+        n_users, n_items, nnz, rank = 400, 300, 10_000, 16
+    else:
+        n_users, n_items = ML20M["users"], ML20M["items"]
+        nnz, rank = 250_000, ML20M["rank"]
+    name = "QsApp"
+    t0 = time.perf_counter()
+    users, items, ratings, _ = planted.planted_ratings(
+        n_users=n_users, n_items=n_items, nnz=nnz, n_holdout=1000,
+        cover=True)
+    ratings = np.clip(np.round(ratings * 2) / 2, 0.5, 5.0).astype(np.float32)
+    gen_s = time.perf_counter() - t0
+    bounds, start = {}, 0
+    for leg, share in QS_LEGS:
+        bounds[leg] = (start, start + int(round(share * nnz)))
+        start = bounds[leg][1]
+    bounds["import"] = (start, nnz)
+    base_t = parse_iso8601(STORE_T0)
+
+    def docs_of(leg):
+        lo, hi = bounds[leg]
+        timed = leg in ("doc", "generic")
+        return [rate_doc(users[k], items[k], ratings[k],
+                         format_iso8601(base_t + timedelta(milliseconds=k))
+                         if timed else None, tags=leg == "generic")
+                for k in range(lo, hi)]
+
+    env_saved = os.environ.get("PIO_DEVICE")
+    if dev.type == "cpu":
+        os.environ["PIO_DEVICE"] = "cpu"  # the CLI's CPU switch
+    else:
+        os.environ.pop("PIO_DEVICE", None)
+    children = []
+    stats: dict = {"users": n_users, "items": n_items, "ratings": nnz,
+                   "rank": rank, "generate_s": gen_s}
+    cwd = os.getcwd()
+    try:
+        with temp_store() as home, \
+                tempfile.TemporaryDirectory(prefix="pio_qs_") as work:
+            env = dict(os.environ)
+            env["PYTHONPATH"] = os.pathsep.join(
+                [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+            out = cli("app", "new", name)
+            key = re.search(r"Access Key: (\S+)", out).group(1)
+
+            # -- the event server, a child at --batch-cap 500 -------------
+            es = Child("eventserver", ["eventserver", "--ip", "127.0.0.1",
+                                       "--port", "0", "--batch-cap", "500"],
+                       work, env)
+            children.append(es)
+            es_port = int(es.wait_line(r"running on http://[^:]+:(\d+)",
+                                       300).group(1))
+            url = f"http://127.0.0.1:{es_port}"
+            legs = {}
+            for leg, size in (("native", 500), ("doc", 50), ("generic", 50)):
+                docs = docs_of(leg)
+                body = json.dumps(docs[:size]).encode()
+                # the leg each body takes, by the server's own gates
+                native = sbase.uniform_interactions_from_body(body, 500)
+                by_docs = sbase.uniform_interactions_from_docs(docs[:size])
+                if (native is not None) != (leg == "native") or (
+                        by_docs is not None) != (leg != "generic"):
+                    raise AssertionError(f"quickstart: a {leg} body takes "
+                                         "another leg")
+                # the host cost of each gate on one body, in this process
+                gate_ms = {
+                    "native_parse_ms": host_ms(
+                        lambda: sbase.uniform_interactions_from_body(
+                            body, 500)),
+                    "json_and_doc_gate_ms": host_ms(
+                        lambda: sbase.uniform_interactions_from_docs(
+                            json.loads(body)))}
+                t0 = time.perf_counter()
+                for s in range(0, len(docs), size):
+                    status, got = http_json(
+                        "POST", f"{url}/batch/events.json?accessKey={key}",
+                        docs[s:s + size])
+                    if status != 200 or any(g.get("status") != 201
+                                            for g in got):
+                        raise AssertionError(f"quickstart: {leg} batch at "
+                                             f"{s}: {status} {got!r:.300}")
+                wall = time.perf_counter() - t0
+                legs[leg] = {"events": len(docs), "body": size,
+                             "s": wall, "events_per_s": len(docs) / wall,
+                             **gate_ms}
+            docs = docs_of("single")
+            t0 = time.perf_counter()
+            for doc in docs:
+                status, got = http_json(
+                    "POST", f"{url}/events.json?accessKey={key}", doc)
+                if status != 201:
+                    raise AssertionError(f"quickstart: single event: "
+                                         f"{status} {got}")
+            wall = time.perf_counter() - t0
+            legs["single"] = {"events": len(docs), "s": wall,
+                              "events_per_s": len(docs) / wall}
+            stats["ingest_by_body"] = leg_timings(
+                url, cli("app", "new", "QsLegs"), users, items, ratings,
+                base_t, 50 if small else QS_LEG_EVENTS)
+            # the reference's cap: 51 events to a server at the default 50
+            capped = EventServer(EventServerConfig(ip="127.0.0.1", port=0))
+            cap_port = capped.start_background()
+            try:
+                status, got = http_json(
+                    "POST", f"http://127.0.0.1:{cap_port}/batch/events.json"
+                    f"?accessKey={key}", docs[:1] * 51)
+            finally:
+                capped.stop()
+            if status != 400:
+                raise AssertionError(f"quickstart: a 51-event body got "
+                                     f"{status}, not 400")
+            es.proc.send_signal(signal.SIGTERM)
+            es.wait_exit()
+
+            # -- pio import, then pio export ------------------------------
+            path = os.path.join(work, "rest.jsonl")
+            with open(path, "w") as f:
+                for doc in docs_of("import"):
+                    f.write(json.dumps(doc) + "\n")
+            t0 = time.perf_counter()
+            cli("import", "--appid-or-name", name, "--input", path)
+            wall = time.perf_counter() - t0
+            n_imp = bounds["import"][1] - bounds["import"][0]
+            legs["import"] = {"events": n_imp, "s": wall,
+                              "events_per_s": n_imp / wall}
+            stats["ingest"] = legs
+            path = os.path.join(work, "export.jsonl")
+            t0 = time.perf_counter()
+            cli("export", "--appid-or-name", name, "--output", path)
+            stats["export_s"] = time.perf_counter() - t0
+            seen = {}
+            with open(path) as f:
+                for line in f:
+                    d = json.loads(line)
+                    pair = (int(d["entityId"][1:]),
+                            int(d["targetEntityId"][1:]))
+                    if pair in seen:
+                        raise AssertionError(f"quickstart: {pair} exported "
+                                             "twice")
+                    seen[pair] = d["properties"]["rating"]
+            want = dict(zip(zip(users.tolist(), items.tolist()),
+                            ratings.tolist()))
+            if seen != want:
+                raise AssertionError(
+                    f"quickstart: export holds {len(seen)} ratings, "
+                    f"{sum(seen.get(p) != r for p, r in want.items())} of "
+                    f"the {len(want)} planted missing or changed")
+
+            # -- pio build, pio train (this process: its launch counts) ----
+            engine_dir = os.path.join(work, "engine")
+            os.makedirs(engine_dir)
+            variant = os.path.join(engine_dir, "engine.json")
+            with open(variant, "w") as f:
+                json.dump({
+                    "id": "default",
+                    "engineFactory": "incubator_predictionio_tpu_torch."
+                                     "models.recommendation:"
+                                     "RecommendationEngine",
+                    "datasource": {"params": {"appName": name}},
+                    "algorithms": [{"name": "als", "params": {
+                        "rank": rank, "numIterations": 4, "lambda": 0.03,
+                        "bf16Sweeps": 2, "seed": seed}}],
+                }, f)
+            os.chdir(engine_dir)
+            cli("build")
+            runtime.reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            out = cli("train")
+            sync(dev)
+            stats["train_s"] = time.perf_counter() - t0
+            train_counts = runtime.launch_counts()
+            os.chdir(cwd)
+            iid = re.search(r"Engine instance ID: (\S+)", out).group(1)
+            from incubator_predictionio_tpu_torch.data.storage import Storage
+
+            conf = Storage.get_meta_data_engine_instances().get(
+                iid).runtime_conf
+            stats["phases_s"] = {k: float(v) for k, v in conf.items()
+                                 if k.startswith("phase.")}
+            model = CoreWorkflow.load_models(iid)[0]  # decoded, on the host
+            ctx = RuntimeContext(device=dev)
+            td = engine.RecommendationDataSource(
+                engine.DataSourceParams(app_name=name)).read_training(ctx)
+            inter = td.interactions
+            u_num = np.array([int(x[1:]) for x in inter.user_ids])[
+                inter.user_idx]
+            i_num = np.array([int(x[1:]) for x in inter.item_ids])[
+                inter.item_idx]
+            got = sorted(zip(u_num.tolist(), i_num.tolist(),
+                             inter.values.tolist()))
+            if got != sorted(zip(users.tolist(), items.tolist(),
+                                 ratings.tolist())):
+                raise AssertionError("quickstart: the store's triples are "
+                                     "not the planted ones")
+            pd = engine.RecommendationPreparator().prepare(ctx, td)
+
+            # -- pio deploy as a child; queries; pio undeploy --------------
+            t_deploy = time.perf_counter()
+            dep = Child("deploy", ["deploy", "--variant", variant, "--ip",
+                                   "127.0.0.1", "--port", "0"],
+                        work, env, cwd=engine_dir)
+            children.append(dep)
+            port = int(dep.wait_line(r"deployed on http://[^:]+:(\d+)",
+                                     600).group(1))
+            base = f"http://127.0.0.1:{port}"
+            rng = np.random.default_rng(9)
+            pick = rng.choice(n_users, 32, replace=False)
+            queries = [{"user": f"u{u}", "num": 10} for u in pick[:24]]
+            queries += [{"user": f"u{u}", "num": 100} for u in pick[24:]]
+            queries.append({"user": "nosuch-1", "num": 10})
+            queries += [{"user": f"u{u}", "num": 10} for u in rng.choice(
+                n_users, 20 if small else QS_WARM_QUERIES)]
+            walls, answers = [], []
+            for doc in queries:
+                t0 = time.perf_counter()
+                status, body = http_json("POST", f"{base}/queries.json", doc)
+                walls.append(time.perf_counter() - t0)
+                if status != 200:
+                    raise AssertionError(f"quickstart: query {doc}: {status}"
+                                         f" {body}")
+                answers.append(body)
+                if len(walls) == 1:
+                    stats["deploy_to_first_answer_s"] = (
+                        time.perf_counter() - t_deploy)
+            status, info = http_json("GET", f"{base}/")
+            if status != 200 or info["device"] != dev.type \
+                    or info["engineInstanceId"] != iid:
+                raise AssertionError(f"quickstart: GET / {status} {info}")
+            cli("undeploy", "--ip", "127.0.0.1", "--port", str(port))
+            dep.wait_exit()
+    finally:
+        os.chdir(cwd)
+        for child in children:
+            if child.kill():
+                raise AssertionError(f"quickstart: {child.name} was left "
+                                     "running")
+        if env_saved is None:
+            os.environ.pop("PIO_DEVICE", None)
+        else:
+            os.environ["PIO_DEVICE"] = env_saved
+
+    uf_t = torch.from_numpy(np.asarray(model.user_factors)).to(dev)
+    items_t = torch.from_numpy(np.asarray(model.item_factors)).to(dev)
+    err = 0.0
+    for i, (doc, body) in enumerate(zip(queries, answers)):
+        err = max(err, check_answer(kernels, dev, uf_t, items_t, doc, None,
+                                    body, f"quickstart query {i}",
+                                    model=model))
+    trees = als.prepare_trees(pd.users, pd.items, pd.ratings, n_users,
+                              n_items, device=dev)
+    state0 = als.als_init(torch.Generator().manual_seed(seed), n_users,
+                          n_items, rank, device=dev)
+    plain = als._mixed_run(state0, trees[0], trees[1], 0.03, 4, 2, True,
+                           torch.float32, trees[2], trees[3],
+                           use_kernel=False)
+    fit = als.rmse(als.ALSState(user_factors=uf_t, item_factors=items_t),
+                   pd.users, pd.items, pd.ratings)
+    fit_plain = als.rmse(plain, pd.users, pd.items, pd.ratings)
+    fit_rel = abs(fit - fit_plain) / fit_plain
+    if not fit_rel <= 1e-3:
+        raise AssertionError(f"quickstart: fit RMSE {fit!r} is "
+                             f"{fit_rel:.2e} from the plain route's "
+                             f"{fit_plain!r}")
+    launches = {e: train_counts[e] for e in ROUTE_ENTRY.values()}
+    launches["score_topk"] = info["kernelLaunches"].get("score_topk", 0)
+    if dev.type == "cuda" and (
+            launches["als_fused_solve_cg"] <= 0
+            or launches["als_solve_cg_rows8"] <= 0
+            or launches["score_topk"] < len(queries) - 1):
+        raise AssertionError(f"quickstart: launches {launches}")
+    warm = 1e3 * np.asarray(walls[1:])
+    stats.update({
+        "instance": iid, "queries": len(queries),
+        "http_first_query_ms": 1e3 * walls[0],
+        "http_warm_queries": len(warm),
+        "http_warm_p50_ms": float(np.percentile(warm, 50)),
+        "http_warm_p99_ms": float(np.percentile(warm, 99)),
+        "fit_rmse": fit, "fit_rmse_plain": fit_plain, "fit_rel_err": fit_rel,
+        "launches": launches, "on_path": path_entries(als, trees[:2], rank),
+        "served_device": info["device"]})
+    return launches, err, stats
+
+
 def f64_solve(ak, table, cols, vals, mask, l2, reg_nnz, iters, x0,
               fused: bool, implicit: bool = False, alpha: float = 1.0,
               yty=None):
@@ -2923,6 +3448,13 @@ def main() -> int:
     print(f"store-seq: {json.dumps(store_seq_stats)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    t0 = time.perf_counter()
+    qs_launches, err_qs, qs_stats = quickstart_phase(dev, runtime, kernels,
+                                                     als, planted)
+    print(f"quickstart: {json.dumps(qs_stats)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"quickstart-card: {card_line()}", flush=True)
+
     shapes = topk_timings(kernels, planted, dev)
     for s in shapes:
         print(f"time: {json.dumps(s)}", flush=True)
@@ -2947,8 +3479,8 @@ def main() -> int:
         "source": "incubator_predictionio_tpu_torch/csrc/score_topk.cu",
         "replaces": kernels.REPLACES,
         "launches": launches + trained_launches
-        + store_launches["score_topk"],
-        "max_abs_err": max(err_k, err_p, err_t, err_sa),
+        + store_launches["score_topk"] + qs_launches["score_topk"],
+        "max_abs_err": max(err_k, err_p, err_t, err_sa, err_qs),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
@@ -2966,7 +3498,7 @@ def main() -> int:
             "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
             "replaces": ak.REPLACES[entry],
             "launches": train_stats["launches"][entry]
-            + store_launches.get(entry, 0),
+            + store_launches.get(entry, 0) + qs_launches.get(entry, 0),
             "max_abs_err": max([als_errs[entry]]
                                + [r["max_abs_err"] for r in rows]),
             "ms": first["ms"],
@@ -2981,7 +3513,8 @@ def main() -> int:
                             "call computes a Gram and its CG solve)",
             "shapes": rows,
         })
-        if entry not in train_stats["on_path"] + store_stats["on_path"]:
+        if entry not in (train_stats["on_path"] + store_stats["on_path"]
+                         + qs_stats["on_path"]):
             entries[-1]["path_note"] = (
                 "off the main path (ops/als._route sends no bucket to it); "
                 "launched and held to its plain version by the als-kernel "

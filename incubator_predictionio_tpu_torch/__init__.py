@@ -16,5 +16,11 @@ engines read their training events from the event store (``data/store.py``
 over ``data/storage/``: memory, SQLite, local files), bucket ratings with a
 native C++ builder (``native/``), and go from ``workflow.CoreWorkflow.
 run_train`` to a checkpoint (``workflow/checkpoint.py``, the JAX package's
-v2 format) and back through ``load_models`` to the prediction server.
+v2 format) and back through ``load_models`` to the prediction server. The
+README quickstart's verbs run through the port's CLI (``python -m
+incubator_predictionio_tpu_torch.cli.main``): ``app new``, the event server
+(``servers/event_server.py``, with the native batch-body parse), ``import``
+/ ``export``, ``build``, ``train``, ``deploy`` and ``undeploy``.
 """
+
+__version__ = "0.1.0"

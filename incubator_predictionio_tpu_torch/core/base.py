@@ -9,6 +9,7 @@ from __future__ import annotations
 import abc
 import dataclasses
 import inspect
+import typing
 from typing import Any, Generic, List, Optional, Sequence, Tuple, Type, TypeVar
 
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
@@ -62,6 +63,35 @@ def doer(cls: Type[Any], params: Params) -> Any:
     if positional:
         return cls(params)
     return cls()
+
+
+def params_class_of(cls: Type[Any]) -> Optional[Type[Params]]:
+    """The Params dataclass a component's constructor expects, if any.
+
+    Resolution order: explicit ``params_class`` attribute, then the type
+    annotation of the first constructor argument. Used by
+    ``Engine.jvalue_to_engine_params`` to type engine.json params the way the
+    reference recovers them from manifest class info
+    (WorkflowUtils.extractParams, core/.../workflow/WorkflowUtils.scala:134).
+    """
+    explicit = getattr(cls, "params_class", None)
+    if explicit is not None:
+        return explicit
+    try:
+        hints = typing.get_type_hints(cls.__init__)
+    except Exception:
+        hints = {}
+    sig = inspect.signature(cls.__init__)
+    for name, p in list(sig.parameters.items())[1:]:
+        if p.kind in (
+            inspect.Parameter.POSITIONAL_ONLY,
+            inspect.Parameter.POSITIONAL_OR_KEYWORD,
+        ):
+            hint = hints.get(name)
+            if isinstance(hint, type) and issubclass(hint, Params):
+                return hint
+            return None
+    return None
 
 
 class _Component:

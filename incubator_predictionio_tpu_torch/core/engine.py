@@ -5,12 +5,16 @@ source, preparator, algorithm and serving slots and instantiates components
 through :func:`doer`. ``train`` is read → sanity → prepare → sanity →
 per-algorithm train → sanity; ``components`` gives the server its
 algorithms and serving component; ``prepare_deploy`` turns checkpointed
-models into servable ones (Engine.scala:199-269).
+models into servable ones (Engine.scala:199-269);
+``jvalue_to_engine_params`` reads an ``engine.json`` variant and
+``engine_params_from_instance`` a stored engine instance into typed
+``EngineParams`` (Engine.scala:357-470).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -19,18 +23,21 @@ from incubator_predictionio_tpu_torch.core.base import (
     Algorithm,
     DataSource,
     EmptyParams,
+    Params,
     Preparator,
     SanityCheck,
     Serving,
     StopAfterPrepareInterruption,
     StopAfterReadInterruption,
     doer,
+    params_class_of,
 )
 from incubator_predictionio_tpu_torch.core.params import (
     EngineParams,
     WorkflowParams,
 )
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
+from incubator_predictionio_tpu_torch.utils import json_codec
 
 logger = logging.getLogger(__name__)
 
@@ -168,9 +175,70 @@ class Engine:
             out.append(algo.prepare_model(ctx, model))
         return out
 
+    # -- engine.json params extraction (Engine.scala:357-420) ---------------
+    def jvalue_to_engine_params(self, variant: Dict[str, Any],
+                                lenient: bool = True) -> EngineParams:
+        """An ``engine.json`` variant → typed ``EngineParams``: each slot's
+        ``params`` extracted into its component's Params class."""
+        def one(slot: str, class_map: Dict[str, type],
+                obj: Any) -> Tuple[str, Params]:
+            if obj is None:
+                return ("", EmptyParams())
+            name = obj.get("name", "") if isinstance(obj, dict) else ""
+            raw = obj.get("params", {}) if isinstance(obj, dict) else {}
+            pcls = params_class_of(_select(class_map, name, slot))
+            if pcls is None:
+                return (name, EmptyParams() if not raw else raw)
+            return (name, json_codec.extract(pcls, raw, lenient=lenient))
+
+        return EngineParams(
+            data_source_params=one("dataSource", self.data_source_class_map,
+                                   variant.get("datasource")),
+            preparator_params=one("preparator", self.preparator_class_map,
+                                  variant.get("preparator")),
+            algorithm_params_list=[
+                one("algorithm", self.algorithm_class_map, spec)
+                for spec in variant.get("algorithms") or ()],
+            serving_params=one("serving", self.serving_class_map,
+                               variant.get("serving")),
+        )
+
+    def engine_params_from_instance(self, instance: Any) -> EngineParams:
+        """Typed ``EngineParams`` from a stored EngineInstance, whose slots
+        hold ``json_codec.dumps`` of ``(name, params)``
+        (Engine.engineInstanceToEngineParams, Engine.scala:422-470)."""
+        def typed(slot: str, class_map: Dict[str, type], name: str,
+                  params_obj: Any) -> Tuple[str, Params]:
+            pcls = params_class_of(_select(class_map, name, slot))
+            if pcls is None or not params_obj:
+                return (name, EmptyParams())
+            return (name, json_codec.extract(pcls, params_obj))
+
+        def one(slot: str, class_map: Dict[str, type],
+                raw: str) -> Tuple[str, Params]:
+            if not raw:
+                return ("", EmptyParams())
+            return typed(slot, class_map, *json.loads(raw))
+
+        return EngineParams(
+            data_source_params=one("dataSource", self.data_source_class_map,
+                                   instance.data_source_params),
+            preparator_params=one("preparator", self.preparator_class_map,
+                                  instance.preparator_params),
+            algorithm_params_list=[
+                typed("algorithm", self.algorithm_class_map, name, obj)
+                for name, obj in json.loads(instance.algorithms_params
+                                            or "[]")],
+            serving_params=one("serving", self.serving_class_map,
+                               instance.serving_params),
+        )
+
 
 class EngineFactory:
     """controller/EngineFactory.scala — subclass and implement ``apply``."""
 
     def apply(self) -> Engine:
         raise NotImplementedError
+
+    def engine_params(self, variant: Dict[str, Any]) -> EngineParams:
+        return self.apply().jvalue_to_engine_params(variant)

@@ -75,21 +75,6 @@ EventDataRepository = "EVENTDATA"
 ModelDataRepository = "MODELDATA"
 
 
-class UnsupportedMethodError(StorageError):
-    """An optional DAO capability this backend does not implement (e.g.
-    columnar ``insert_interactions`` on a backend without a columnar
-    write path). Crosses the remote-storage wire typed, so callers can
-    cache the capability answer instead of retrying per request."""
-
-
-class AmbiguousWriteError(StorageError):
-    """A non-idempotent remote write whose response was lost AFTER the
-    request hit the wire: the write may or may not have been applied.
-    Raised instead of retrying (a retry could double-apply); callers must
-    surface the ambiguity — falling back to a different write path would
-    silently duplicate the data."""
-
-
 def register_backend(type_name: str, module_path: str) -> None:
     """Register an external backend (replaces classpath reflection)."""
     _BACKENDS[type_name] = module_path

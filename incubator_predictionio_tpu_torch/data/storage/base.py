@@ -1,9 +1,10 @@
 """Storage SPI: metadata records and DAO contracts.
 
 The port's own copy of incubator_predictionio_tpu/data/storage/base.py, its
-imports rewritten to this package. The native batch-JSON body parse
-(``uniform_interactions_from_body``) is left out: it belongs to the event
-server's slice.
+imports rewritten to this package. One difference: the native batch-body
+parse (:func:`uniform_interactions_from_body`) raises where the native
+library cannot be built, where the JAX package's returns None and its
+caller takes ``json.loads``.
 
 Parity with the reference's storage traits:
 
@@ -487,6 +488,90 @@ def uniform_interactions_from_docs(docs):
         user_ids=IdTable.from_list(list(u_intern)),
         item_ids=IdTable.from_list(list(i_intern)))
     return inter, etype, tetype, name, vprop, times
+
+
+#: per-thread scratch buffers of the native body parser
+_BODY_PARSE_TLS = threading.local()
+#: jsonparse.cc ``kMaxField``: the longest id or name it accepts, in bytes
+_BODY_MAX_FIELD = 200
+
+
+def uniform_interactions_from_body(body: bytes, max_n: int):
+    """RAW request bytes → the ``(Interactions, etype, tetype, name,
+    vprop, times_ms)`` bundle through the NATIVE strict-subset parser
+    (``native/src/jsonparse.cc``, run with the GIL released), or None when
+    the parser declines the body (string escapes, ``eventTime``, reserved
+    prefixes, oversized fields, more than ``max_n`` docs…). A declined
+    body takes ``json.loads`` and :func:`uniform_interactions_from_docs`,
+    which own the full semantics: the native acceptance set is a strict
+    subset of theirs with identical output (pinned by the randomized
+    differential in tests/test_torch_event_server.py). ``times_ms`` is
+    always None here (an explicit ``eventTime`` is declined).
+
+    Counterpart of the JAX package's function of the same name, except
+    that a native library that cannot be built raises
+    (``native.load``): it is never a silent ``json.loads`` route."""
+    import ctypes
+
+    import numpy as np
+
+    from incubator_predictionio_tpu_torch import native
+
+    lib = native.load()
+    if max_n <= 0:
+        return None
+    cap = _BODY_MAX_FIELD
+    # thread-local scratch (the parser runs on pool threads): ~100 KB of
+    # buffers per call would otherwise dominate the wrapper's own cost
+    tl = _BODY_PARSE_TLS
+    bufs = getattr(tl, "bufs", None)
+    if bufs is None or bufs[0] < max_n:
+        bufs = (
+            max_n,
+            np.empty(max_n, np.int32), np.empty(max_n, np.int32),
+            np.empty(max_n, np.float32),
+            np.empty(max_n + 1, np.int64), np.empty(max_n + 1, np.int64),
+            ctypes.create_string_buffer(max_n * cap),
+            ctypes.create_string_buffer(max_n * cap),
+            ctypes.create_string_buffer(4 * cap),
+            (ctypes.c_int64 * 4)(),
+        )
+        tl.bufs = bufs
+    (cap_n, uidx, iidx, vals, uoffs, ioffs, ublob, iblob, scalars,
+     scalar_lens) = bufs
+    n_users = ctypes.c_int64()
+    n_items = ctypes.c_int64()
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    n = lib.pio_parse_uniform_batch(
+        body, len(body), max_n,
+        uidx.ctypes.data_as(i32p), iidx.ctypes.data_as(i32p),
+        vals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ublob, cap_n * cap, uoffs.ctypes.data_as(i64p),
+        ctypes.byref(n_users),
+        iblob, cap_n * cap, ioffs.ctypes.data_as(i64p),
+        ctypes.byref(n_items),
+        scalars, 4 * cap, scalar_lens,
+    )
+    if n < 1:
+        return None
+    nu, ni = n_users.value, n_items.value
+    # string_at copies only the used prefix (``.raw`` would copy the
+    # whole preallocated buffer per call)
+    inter = Interactions(
+        user_idx=uidx[:n].copy(), item_idx=iidx[:n].copy(),
+        values=vals[:n].copy(),
+        user_ids=IdTable(ctypes.string_at(ublob, int(uoffs[nu])),
+                         uoffs[:nu + 1].copy()),
+        item_ids=IdTable(ctypes.string_at(iblob, int(ioffs[ni])),
+                         ioffs[:ni + 1].copy()))
+    a, b, c, d = (int(v) for v in scalar_lens)
+    s = ctypes.string_at(scalars, a + b + c + d)
+    etype = s[:a].decode("utf-8")
+    name = s[a:a + b].decode("utf-8")
+    tetype = s[a + b:a + b + c].decode("utf-8")
+    vprop = s[a + b + c:a + b + c + d].decode("utf-8")
+    return inter, etype, tetype, name, vprop, None
 
 
 class VectorCursor(tuple):

@@ -1,11 +1,14 @@
-"""The port's native (C++) host library and its build: the CSR part of
-incubator_predictionio_tpu/native/__init__.py.
+"""The port's native (C++) host library and its build: the CSR builder and
+the batch-body parser of incubator_predictionio_tpu/native/__init__.py.
 
 ``src/csr_builder.cc`` turns COO triples into the degree-bucketed padded
-rows ALS trains on (``ops/sparse.py``; wrapper in ``native/csr.py``). It is
-compiled at first use with the host C++ compiler (``$CXX``, else ``g++``)
-into one shared library under the package's ``_build/``, cached by a hash
-of the source and the flags, and loaded with ctypes.
+rows ALS trains on (``ops/sparse.py``; wrapper in ``native/csr.py``).
+``src/jsonparse.cc`` parses a uniform ``POST /batch/events.json`` body
+straight into columnar arrays (``data/storage/base.
+uniform_interactions_from_body``, the event server's batch route). Both
+are compiled at first use with the host C++ compiler (``$CXX``, else
+``g++``) into one shared library under the package's ``_build/``, cached
+by a hash of the sources and the flags, and loaded with ctypes.
 
 Unlike the JAX package, which logs a failed build and falls back to its
 Python paths, :func:`load` raises: a caller that asked for the native route
@@ -24,7 +27,7 @@ from typing import Optional
 
 SRC_DIR = pathlib.Path(__file__).resolve().parent / "src"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("csr_builder.cc",)
+SOURCES = ("csr_builder.cc", "jsonparse.cc")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
@@ -86,6 +89,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         c.POINTER(c.c_int32), c.POINTER(c.c_int32), c.POINTER(c.c_float),
         c.c_int64, c.c_int64, c.c_int32, c.c_int32, c.c_int32, i64p,
         pp_i32, pp_i32, pp_f32, pp_f32,
+    ]
+    # the uniform-batch body parser (the event server's batch route)
+    lib.pio_parse_uniform_batch.restype = c.c_int64
+    lib.pio_parse_uniform_batch.argtypes = [
+        c.c_char_p, c.c_int64, c.c_int64,
+        c.POINTER(c.c_int32), c.POINTER(c.c_int32), c.POINTER(c.c_float),
+        c.c_char_p, c.c_int64, i64p, i64p,
+        c.c_char_p, c.c_int64, i64p, i64p,
+        c.c_char_p, c.c_int64, i64p,
     ]
 
 

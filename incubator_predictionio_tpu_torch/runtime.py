@@ -78,6 +78,14 @@ def default_device(device: Union[None, str, torch.device] = None
     return torch.device(device)
 
 
+def requested_device() -> Optional[str]:
+    """The device the CLI's ``train`` and ``deploy`` run on:
+    ``PIO_DEVICE`` when set (``cpu`` is the one switch to the CPU, the
+    counterpart of the JAX package's ``JAX_PLATFORMS=cpu``), else None,
+    which :func:`default_device` takes for CUDA."""
+    return os.environ.get("PIO_DEVICE") or None
+
+
 _SMS: Dict[int, int] = {}
 
 

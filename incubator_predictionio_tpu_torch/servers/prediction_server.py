@@ -3,61 +3,208 @@
 Port of incubator_predictionio_tpu/servers/prediction_server.py
 (:258-1213; reference core/.../workflow/CreateServer.scala):
 
-- ``GET  /``             → status JSON: engine, algorithms, device, request
-  count, average and last serving seconds;
+- ``GET  /``             → status JSON: engine instance, algorithms, device,
+  request count, average and last serving seconds, and this process's
+  kernel launches by kernel (``runtime.launch_counts``);
 - ``POST /queries.json`` → parse → supplement → predict (every algorithm)
-  → serve with the original query; 400 on a malformed body.
+  → serve with the original query; 400 on a malformed body;
+- ``POST /stop``         → shut down (``accessKey`` = the server key, else
+  server.conf's key when it enforces one; 401 otherwise).
 
 Queries are served in a batch when :meth:`_handle_batch` is given several
 bodies; it keeps the reference's split between the rendered-bytes fast
 path (``batch_serve_json``) and the object path. The HTTP front end is the
 standard library's ``ThreadingHTTPServer``: one thread per connection, each
-query one call of ``_handle_batch``. A deployed engine's models come from
-``workflow.CoreWorkflow.load_models`` (the checkpoint of a stored engine
-instance). Not ported yet: the continuous-batching scheduler, tenancy, the
-feedback loop, plugins and ``/reload``.
+query one call of ``_handle_batch``.
+
+Two ways to build one: from models in hand (``PredictionServer(engine,
+engine_params, models)``), or as ``pio deploy`` does, from a
+:class:`ServerConfig` (``PredictionServer(engine, config=...)``): the
+explicit engine instance or the latest COMPLETED one of the engine id,
+version and variant (:meth:`_resolve_instance`), its params read back
+(``Engine.engine_params_from_instance``) and its models restored on the
+device (``CoreWorkflow.load_models`` → ``Engine.prepare_deploy``) when the
+server starts; :meth:`undeploy_existing` first stops a server at the same
+address, and :func:`undeploy` is ``pio undeploy``. Not ported yet: the
+continuous-batching scheduler (ROADMAP.md Queue 1 item 3), tenancy,
+``/reload``, plugins, the feedback loop and ``--log-url`` (item 8; given
+either, :class:`PredictionServer` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import http.server
 import json
 import logging
 import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from typing import Any, List, Optional
 
+from incubator_predictionio_tpu_torch import runtime
 from incubator_predictionio_tpu_torch.core.base import Serving
 from incubator_predictionio_tpu_torch.core.engine import Engine
 from incubator_predictionio_tpu_torch.core.params import EngineParams
+from incubator_predictionio_tpu_torch.data.storage import (
+    EngineInstance,
+    Storage,
+)
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
 from incubator_predictionio_tpu_torch.utils import json_codec
+from incubator_predictionio_tpu_torch.workflow.workflow import CoreWorkflow
 
 logger = logging.getLogger(__name__)
 
 
-class PredictionServer:
-    """Serves ``models`` (one per algorithm of ``engine_params``) after
-    moving them to ``device`` (CUDA unless told otherwise)."""
+@dataclasses.dataclass
+class ServerConfig:
+    """What ``pio deploy`` passes (CreateServer.scala:89-113 ServerConfig;
+    the JAX package's, without its scheduler's ``micro_batch`` and
+    ``serve_workers``, ROADMAP.md Queue 1 item 3, and without the
+    feedback loop's event-server address and access key and the log
+    shipper's prefix, item 8)."""
 
-    def __init__(self, engine: Engine, engine_params: EngineParams,
-                 models: List[Any], device=None, host: str = "127.0.0.1",
-                 port: int = 0):
+    ip: str = "0.0.0.0"
+    port: int = 8000
+    engine_instance_id: Optional[str] = None  # default: latest COMPLETED
+    engine_id: str = "default"
+    engine_version: str = "NOT_VERSIONED"
+    engine_variant: str = "default"
+    feedback: bool = False
+    server_key: Optional[str] = None  # auth for /stop
+    log_url: Optional[str] = None
+
+
+class PredictionServer:
+    """Serves one model per algorithm of an engine's params on ``device``
+    (CUDA unless told otherwise): ``models`` in hand, moved to the device
+    here, or, with ``models`` None, the stored engine instance that
+    ``config`` names, restored when the server starts. With a ``config``
+    the server binds to its ``ip`` and ``port``, else to ``host`` and
+    ``port``."""
+
+    def __init__(self, engine: Engine,
+                 engine_params: Optional[EngineParams] = None,
+                 models: Optional[List[Any]] = None, device=None,
+                 host: str = "127.0.0.1", port: int = 0, *,
+                 config: Optional[ServerConfig] = None):
+        if config is not None and config.feedback:
+            raise NotImplementedError(
+                "deploy --feedback (the feedback loop) is not ported yet: "
+                "ROADMAP.md Queue 1 item 8")
+        if config is not None and config.log_url:
+            raise NotImplementedError(
+                "deploy --log-url (query-error shipping) is not ported "
+                "yet: ROADMAP.md Queue 1 item 8")
+        self.engine = engine
+        self.config = config or ServerConfig(ip=host, port=port)
         self.ctx = RuntimeContext(device=device)
-        self.algorithms, self.serving = engine.components(engine_params)
-        if len(models) != len(self.algorithms):
-            raise ValueError(f"{len(models)} models for "
-                             f"{len(self.algorithms)} algorithms")
-        self.models = [a.prepare_model(self.ctx, m)
-                       for a, m in zip(self.algorithms, models)]
+        self.engine_instance: Optional[EngineInstance] = None
+        self.engine_params = engine_params
+        self.algorithms: List[Any] = []
+        self.serving: Any = None
+        self.models: List[Any] = []
+        if models is not None:
+            if engine_params is None:
+                raise ValueError("models without their engine_params")
+            self.algorithms, self.serving = engine.components(engine_params)
+            if len(models) != len(self.algorithms):
+                raise ValueError(f"{len(models)} models for "
+                                 f"{len(self.algorithms)} algorithms")
+            self.models = [a.prepare_model(self.ctx, m)
+                           for a, m in zip(self.algorithms, models)]
         self._lock = threading.Lock()
         self.start_time = time.time()
         self.request_count = 0
         self.avg_serving_sec = 0.0
         self.last_serving_sec = 0.0
-        self._address = (host, port)
         self._httpd: Optional[http.server.ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._stopped = threading.Event()
+
+    # -- deploy lifecycle (CreateServer.scala:207-308) ---------------------
+    def _resolve_instance(self) -> EngineInstance:
+        """The explicit engine instance, else the latest COMPLETED one of
+        the config's engine id, version and variant."""
+        instances = Storage.get_meta_data_engine_instances()
+        c = self.config
+        if c.engine_instance_id:
+            instance = instances.get(c.engine_instance_id)
+            if instance is None:
+                raise ValueError(
+                    f"Invalid engine instance ID {c.engine_instance_id}.")
+            return instance
+        instance = instances.get_latest_completed(
+            c.engine_id, c.engine_version, c.engine_variant)
+        if instance is None:
+            raise ValueError(
+                "No valid engine instance found for engine "
+                f"{c.engine_id} {c.engine_version} {c.engine_variant}. The "
+                "engine id is derived from the engine directory's absolute "
+                "path: if the engine was trained from a different path, "
+                "its instances are keyed under a different id; deploy from "
+                "the training path or pass --engine-instance-id.")
+        return instance
+
+    def load_models(self) -> None:
+        """Resolve the instance, read its params back and restore its
+        models on the device (``CoreWorkflow.load_models`` →
+        ``Engine.prepare_deploy``); then serve them."""
+        instance = self._resolve_instance()
+        engine_params = self.engine.engine_params_from_instance(instance)
+        models = CoreWorkflow.load_models(instance.id, self.engine,
+                                          engine_params, ctx=self.ctx)
+        algorithms, serving = self.engine.components(engine_params)
+        with self._lock:
+            self.engine_instance = instance
+            self.engine_params = engine_params
+            self.algorithms, self.serving = algorithms, serving
+            self.models = models
+        logger.info("Deployed engine instance %s on %s", instance.id,
+                    self.ctx.device)
+
+    def _server_key(self) -> Optional[str]:
+        """The key ``/stop`` takes: the config's, else server.conf's when
+        it enforces one (KeyAuthentication.scala:39)."""
+        if self.config.server_key is not None:
+            return self.config.server_key
+        from incubator_predictionio_tpu_torch.utils.ssl_config import (
+            load_server_key,
+        )
+
+        conf = load_server_key()
+        return conf.key if conf.auth_enforced else None
+
+    def undeploy_existing(self) -> None:
+        """Stop an engine server already deployed at this address before
+        binding (MasterActor.undeploy, CreateServer.scala:283-308): 200 →
+        stopped; connection refused → nothing there; any other answer → a
+        foreign process holds the port, and the bind will say so."""
+        if self.config.port == 0:
+            return  # an ephemeral port: nothing can hold it
+        ip = self.config.ip if self.config.ip != "0.0.0.0" else "127.0.0.1"
+        try:
+            status = _stop_request(ip, self.config.port, self._server_key())
+        except (ConnectionRefusedError, urllib.error.URLError) as e:
+            reason = getattr(e, "reason", e)
+            if isinstance(reason, ConnectionRefusedError):
+                logger.debug("Nothing at %s:%d", ip, self.config.port)
+            else:
+                logger.warning("A process at %s:%d did not answer /stop "
+                               "(%s); unable to undeploy.", ip,
+                               self.config.port, reason)
+            return
+        if status == 200:
+            logger.info("Undeployed the engine server at %s:%d", ip,
+                        self.config.port)
+            time.sleep(0.5)  # the old process unbinds
+        else:
+            logger.error("Another process is using %s:%d (HTTP %d on "
+                         "/stop). Unable to undeploy.", ip,
+                         self.config.port, status)
 
     # -- query pipeline -----------------------------------------------------
     def _handle_batch(self, bodies: List[bytes]) -> List[Any]:
@@ -148,14 +295,23 @@ class PredictionServer:
 
     def status(self) -> dict:
         with self._lock:
+            instance = self.engine_instance
             return {
                 "status": "alive",
+                "engineInstanceId": instance.id if instance else None,
+                "engineFactory": instance.engine_factory if instance
+                else None,
+                "engineVariant": instance.engine_variant if instance
+                else None,
                 "algorithms": [type(a).__name__ for a in self.algorithms],
                 "device": str(self.ctx.device),
                 "startTime": self.start_time,
                 "requestCount": self.request_count,
                 "avgServingSec": self.avg_serving_sec,
                 "lastServingSec": self.last_serving_sec,
+                # this process's kernel launches by kernel (a deployed
+                # server is its own process: its counts are read here)
+                "kernelLaunches": runtime.launch_counts(),
             }
 
     # -- HTTP ---------------------------------------------------------------
@@ -184,7 +340,20 @@ class PredictionServer:
             def do_POST(self):  # noqa: N802
                 length = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(length)
-                if self.path.split("?", 1)[0] != "/queries.json":
+                path, _, query = self.path.partition("?")
+                if path == "/stop":
+                    key = server._server_key()
+                    given = urllib.parse.parse_qs(query).get("accessKey")
+                    if key is not None and (given or [None])[0] != key:
+                        return self._json(401,
+                                          {"message": "Invalid accessKey."})
+                    # after the answer is on its way; daemonized, so a
+                    # process torn down first is not held by the timer
+                    timer = threading.Timer(0.2, server.stop)
+                    timer.daemon = True
+                    timer.start()
+                    return self._json(200, {"message": "Shutting down."})
+                if path != "/queries.json":
                     return self._json(404, {"message": "Not Found"})
                 res = server._handle_batch([body])[0]
                 if isinstance(res, (bytes, bytearray)):
@@ -202,21 +371,68 @@ class PredictionServer:
 
         return Handler
 
+    def _bind(self) -> None:
+        """Restore the instance's models when there are none yet, stop a
+        server deployed at the same address, then bind."""
+        if self.engine_params is None:
+            self.load_models()
+        self.undeploy_existing()
+        self._httpd = http.server.ThreadingHTTPServer(
+            (self.config.ip, self.config.port), self._make_handler())
+        self._httpd.daemon_threads = True
+
     def start_background(self) -> int:
         """Bind and serve on a daemon thread; returns the bound port."""
-        self._httpd = http.server.ThreadingHTTPServer(
-            self._address, self._make_handler())
-        self._httpd.daemon_threads = True
+        self._bind()
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="pio-prediction-server",
             daemon=True)
         self._thread.start()
+        logger.info("PredictionServer started on %s:%d", self.config.ip,
+                    self._httpd.server_address[1])
         return self._httpd.server_address[1]
+
+    def serve_forever(self, on_started=None) -> None:
+        """Bind and serve on this thread until :meth:`stop` (``POST
+        /stop``); ``on_started(port)`` is called once bound."""
+        self._bind()
+        if on_started is not None:
+            on_started(self._httpd.server_address[1])
+        self._httpd.serve_forever()
+        self._stopped.wait()  # stop() closes the socket after the loop
 
     def stop(self) -> None:
         """Stop serving and close the socket."""
-        if self._httpd is not None:
-            self._httpd.shutdown()
-            self._httpd.server_close()
-            self._thread.join(timeout=10)
+        httpd = self._httpd
+        if httpd is not None:
             self._httpd = None
+            httpd.shutdown()
+            httpd.server_close()
+            if self._thread is not None:
+                self._thread.join(timeout=10)
+        self._stopped.set()
+
+
+def _stop_request(ip: str, port: int, server_key: Optional[str],
+                  timeout: float = 5.0) -> int:
+    """POST /stop → HTTP status (shared by ``pio undeploy`` and
+    :meth:`PredictionServer.undeploy_existing`). Raises when nothing
+    answers."""
+    url = f"http://{ip}:{port}/stop"
+    if server_key:
+        url += f"?accessKey={urllib.parse.quote(server_key, safe='')}"
+    req = urllib.request.Request(url, method="POST", data=b"")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def undeploy(ip: str, port: int, server_key: Optional[str] = None) -> bool:
+    """POST /stop to a running server (commands/Engine.undeploy:341):
+    True when it answered 200."""
+    try:
+        return _stop_request(ip, port, server_key) == 200
+    except Exception:
+        return False

@@ -77,6 +77,16 @@ def blob_module(name: str) -> str:
     return name
 
 
+def port_module(name: str) -> str:
+    """The module of this package that a module name of the JAX package
+    stands for, the same path under this package (found by name, never
+    imported); any other name is itself. The inverse of
+    :func:`blob_module`."""
+    if (name + ".").startswith(_JAX_PREFIX):
+        return _PORT_PREFIX[:-1] + name[len(_JAX_PREFIX) - 1:]
+    return name
+
+
 def _class_path(cls: type) -> str:
     """``module:qualname`` as blobs carry it (:func:`blob_module`)."""
     return f"{blob_module(cls.__module__)}:{cls.__qualname__}"
@@ -118,9 +128,7 @@ def resolve_loaded(mod_name: str, qual: str, path: str) -> Any:
     (deploy resolves the engine factory first), so a sys.modules miss
     means a truly foreign blob, and it is refused. ``path`` names the
     class in the error."""
-    if mod_name.startswith(_JAX_PREFIX):
-        mod_name = _PORT_PREFIX + mod_name[len(_JAX_PREFIX):]
-    mod = sys.modules.get(mod_name)
+    mod = sys.modules.get(port_module(mod_name))
     if mod is None:
         raise CheckpointError(
             f"model class {path!r} lives in a module that is not "

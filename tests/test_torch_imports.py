@@ -235,3 +235,69 @@ def test_kernel_resources_reads_the_ptxas_report(tmp_path, monkeypatch):
          "registers": 127, "static_smem": 1024},
         {"function": "_Z1gv", "registers": 8, "static_smem": 0}]
     assert runtime.kernel_resources("score_topk") == []
+
+
+_RESOLVE_ISOLATED = textwrap.dedent('''
+    import importlib.abc, json, sys
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if (name == "incubator_predictionio_tpu"
+                    or name.startswith("incubator_predictionio_tpu.")):
+                raise ImportError("the port imported " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    from incubator_predictionio_tpu_torch.cli import commands
+    variant = {"engineFactory": "incubator_predictionio_tpu.models."
+                                "recommendation:RecommendationEngine",
+               "datasource": {"params": {"appName": "MyApp1"}},
+               "algorithms": [{"name": "als", "params": {"rank": 10}}]}
+    engine, params = commands.engine_from_variant(variant)
+    leaked = sorted(m for m in sys.modules
+                    if m == "incubator_predictionio_tpu"
+                    or m.startswith("incubator_predictionio_tpu."))
+    print(json.dumps({"engine": type(engine).__module__,
+                      "rank": params.algorithm_params_list[0][1].rank,
+                      "leaked": leaked}))
+''')
+
+
+def test_a_jax_named_factory_resolves_to_the_port_importing_nothing_of_jax():
+    """The README's engine.json names the JAX package's factory; the port
+    maps it by name and never imports the JAX package to do so."""
+    proc = subprocess.run([sys.executable, "-c", _RESOLVE_ISOLATED],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"engine": "incubator_predictionio_tpu_torch.core.engine",
+                   "rank": 10, "leaked": []}
+
+
+@pytest.mark.parametrize("verb", ["train", "deploy"])
+def test_cli_train_and_deploy_refuse_without_cuda(verb, tmp_path,
+                                                  monkeypatch, capsys):
+    """Without CUDA, ``pio train`` and ``pio deploy`` stop at the device
+    check unless ``PIO_DEVICE=cpu`` asks for the CPU; with it they go on
+    (here to the missing engine.json)."""
+    from incubator_predictionio_tpu_torch.cli.main import main
+
+    def no_cuda():
+        raise RuntimeError("Torch not compiled with CUDA enabled")
+
+    monkeypatch.setattr(torch.cuda, "init", no_cuda)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("PIO_DEVICE", raising=False)
+    assert main([verb]) == 1
+    err = capsys.readouterr().err
+    assert "accelerator initialization failed" in err
+    assert "PIO_DEVICE=cpu" in err
+    monkeypatch.setenv("PIO_DEVICE", "cpu")
+    assert main([verb]) == 1
+    err = capsys.readouterr().err
+    assert "engine.json does not exist" in err
+    assert "accelerator" not in err
