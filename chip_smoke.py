@@ -131,7 +131,30 @@ Phases, each of which fails the run on any error or mismatch:
              ``GET /``; ``pio undeploy`` (exit 0). Prints each leg's
              events/s, the instance's ``phase.*_s`` walls, deploy to first
              answer and HTTP p50 / p99, then the card's line again.
-14. report — kernel, plain-version and library times (CUDA events, median
+14. retrain — the continuation retrain and implicit training. (a) On
+             the quickstart's store, after its ``pio train``
+             (:func:`retrain_cli_leg`): 2,500 ratings (2,000 new pairs, 250
+             from 100 new users, 250 on 50 new items) through a new ``pio
+             eventserver`` child on the native leg, in bodies of 500;
+             ``pio train`` again, which continues (``mode=continue``, 2 to
+             4 sweeps, ``phase.continue_seed_s``) and fits within 1.15 × a
+             fresh train's RMSE + 0.02; ``pio deploy`` of the continued
+             instance, 32 queries (one from a new user) against the plain
+             top-k; ``pio undeploy``. (b) In process at ML-20M width on the
+             train phase's ratings (:func:`retrain_loop_leg`):
+             ``als_retrain`` from the trained state (plan ``miss``), again
+             after a 1% tail of 200,000 new pairs (``reused``), the reused
+             trees equal to a fresh build bit for bit and the same sweeps
+             on both within ``als_tolerance``, a re-rate tail
+             ``invalidated``. (c) ``als_train_implicit`` on the same COO
+             (:func:`implicit_leg`; weights |r|, α 1, rank 128, 2 sweeps),
+             kernel and plain route from one initial state: the implicit
+             loss within 1e-6 relative, the fused entry launched and no
+             two-stage form; the fused entry against its plain version on
+             the heaviest chunk of every bucket width of both sides. The
+             same again on store-als's 1M ratings, whose buckets start at
+             d 8: no R-row launch there either.
+15. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
              line (flash: the engine's windows, also left-padded with 1 to
              4,096 live keys, and the bench's shapes; the repaired limits'
@@ -172,6 +195,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import logging
 import os
 import re
 import signal
@@ -1063,6 +1087,18 @@ def route_chunk(als, tree, route: str, chunk_elems: int):
     return best
 
 
+def heaviest_chunks_by_width(tree, rank: int, chunk_elems: int) -> dict:
+    """{D: (cols, vals, mask, row_ids)}: the fused route's chunk with the
+    most observations at each bucket width of one side."""
+    best = {}
+    for row_ids, cols, vals, mask in tree:
+        d = cols.shape[1]
+        n = fused_rows(d, rank, chunk_elems)
+        if d not in best or float(mask[:n].sum()) > float(best[d][2].sum()):
+            best[d] = (cols[:n], vals[:n], mask[:n], row_ids[:n])
+    return best
+
+
 def heaviest_chunk(tree, rank: int, chunk_elems: int, fused: bool):
     """(cols, vals, mask, row_ids) of the chunk with the most observations
     on one side of the main path."""
@@ -1180,6 +1216,41 @@ def same_trees(a, b, what: str) -> int:
         if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
             raise AssertionError(f"{what}: tensor {k} differs")
     return len(flat_a)
+
+
+def same_rows(a, b, what: str) -> int:
+    """Two sides' bucket trees (``(row_ids, cols, vals, mask)`` per
+    bucket) hold the same rows: each live row at the same width, with the
+    same cols, vals and mask, bit for bit, whatever the bucket layout (a
+    reused plan keeps cleared slots and appends buckets). Returns the rows
+    compared."""
+    def by_width(tree):
+        out: dict = {}
+        for rids, cols, vals, mask in tree:
+            live = rids >= 0
+            out.setdefault(cols.shape[1], []).append(
+                (rids[live], cols[live], vals[live], mask[live]))
+        merged = {}
+        for w, parts in out.items():
+            rids, cols, vals, mask = (torch.cat(x) for x in zip(*parts))
+            order = torch.argsort(rids)
+            merged[w] = (rids[order], cols[order], vals[order], mask[order])
+        return merged
+
+    wa, wb = by_width(a), by_width(b)
+    widths = sorted(set(wa) | set(wb))
+    rows = 0
+    for w in widths:
+        xa = wa.get(w, (torch.empty(0),) * 4)
+        xb = wb.get(w, (torch.empty(0),) * 4)
+        if xa[0].numel() == xb[0].numel() == 0:
+            continue
+        for x, y in zip(xa, xb):
+            if x.dtype != y.dtype or x.shape != y.shape or \
+                    not torch.equal(x, y):
+                raise AssertionError(f"{what}: the rows of width {w} differ")
+        rows += int(xa[0].numel())
+    return rows
 
 
 def numpy_latest_wins(users, items, n_items: int) -> np.ndarray:
@@ -1442,6 +1513,20 @@ def insert_events(events, app_id: int, chunk: int = 20_000) -> float:
     return time.perf_counter() - t0
 
 
+def store_als_ratings(planted, small: bool = False):
+    """(users, items, ratings, n_users, n_items) of store-als: 1,000,000
+    planted ratings over every ML-20M user and item (400 × 300 × 20,000
+    when ``small``)."""
+    if small:
+        n_users, n_items, nnz = 400, 300, 20_000
+    else:
+        n_users, n_items, nnz = ML20M["users"], ML20M["items"], 1_000_000
+    users, items, ratings, _ = planted.planted_ratings(
+        n_users=n_users, n_items=n_items, nnz=nnz, n_holdout=1000,
+        cover=True)
+    return users, items, ratings, n_users, n_items
+
+
 def store_als_phase(dev, runtime, kernels, als, engine, planted, params_mod,
                     context, server_mod, small: bool = False, seed: int = 3):
     """ALS through the event store at ML-20M width: an app made as ``pio
@@ -1469,18 +1554,14 @@ def store_als_phase(dev, runtime, kernels, als, engine, planted, params_mod,
         CoreWorkflow,
     )
 
-    if small:
-        n_users, n_items, nnz, rank = 400, 300, 20_000, 16
-    else:
-        n_users, n_items = ML20M["users"], ML20M["items"]
-        nnz, rank = 1_000_000, ML20M["rank"]
+    rank = 16 if small else ML20M["rank"]
     name = "store-als"
     with temp_store():
         app_id = new_app(name)
         t0 = time.perf_counter()
-        users, items, ratings, _ = planted.planted_ratings(
-            n_users=n_users, n_items=n_items, nnz=nnz, n_holdout=1000,
-            cover=True)
+        users, items, ratings, n_users, n_items = store_als_ratings(
+            planted, small)
+        nnz = len(ratings)
         user_ids = [f"u{k}" for k in range(n_users)]
         item_ids = [f"i{k}" for k in range(n_items)]
         gen_s = time.perf_counter() - t0
@@ -1929,7 +2010,7 @@ def leg_timings(url: str, app_out: str, users, items, ratings, base_t,
 
 
 def quickstart_phase(dev, runtime, kernels, als, planted,
-                     small: bool = False, seed: int = 3):
+                     small: bool = False, seed: int = 3, then=None):
     """The README quickstart through the port's own CLI, on a fresh SQLite
     store: ``pio app new QsApp``; ``pio eventserver --batch-cap 500`` as a
     child process taking 250,000 planted ratings (seed 7, every ML-20M user
@@ -1948,8 +2029,12 @@ def quickstart_phase(dev, runtime, kernels, als, planted,
     triples are the planted ones; the fused ALS, R-row and score+top-k
     kernels launched; the fit within 1e-3 of the plain route's from the
     same initial state, relative; every answer the plain top-k on the
-    instance's decoded factors. Returns (launches by kernel, max score
-    error, stats)."""
+    instance's decoded factors. ``then(qs)``, where given, runs on the same
+    store after ``pio undeploy``, ``qs`` a dict of what the quickstart made
+    (its work directory, environment, engine directory, variant, app and
+    access key, ratings, first instance and its walls, and the list of
+    child processes to stop). Returns (launches by kernel, max score
+    error, stats, what ``then`` returned)."""
     from datetime import timedelta
 
     from incubator_predictionio_tpu_torch.data.storage import base as sbase
@@ -2202,6 +2287,12 @@ def quickstart_phase(dev, runtime, kernels, als, planted,
                 raise AssertionError(f"quickstart: GET / {status} {info}")
             cli("undeploy", "--ip", "127.0.0.1", "--port", str(port))
             dep.wait_exit()
+            after = None if then is None else then(dict(
+                work=work, env=env, engine_dir=engine_dir, variant=variant,
+                name=name, key=key, users=users, items=items,
+                ratings=ratings, n_users=n_users, n_items=n_items,
+                rank=rank, seed=seed, iid=iid, train_s=stats["train_s"],
+                phases_s=stats["phases_s"], children=children, cwd=cwd))
     finally:
         os.chdir(cwd)
         for child in children:
@@ -2252,7 +2343,454 @@ def quickstart_phase(dev, runtime, kernels, als, planted,
         "fit_rmse": fit, "fit_rmse_plain": fit_plain, "fit_rel_err": fit_rel,
         "launches": launches, "on_path": path_entries(als, trees[:2], rank),
         "served_device": info["device"]})
-    return launches, err, stats
+    return launches, err, stats, after
+
+
+# -- retrain: the continuation retrain and implicit training -------------------
+
+#: the CLI leg's tail: new (user, item) pairs among existing ids, ratings
+#: from new users (and how many users), ratings on new items (and how many)
+RT_PAIRS, RT_NEW_USER_RATINGS, RT_NEW_USERS = 2_000, 250, 100
+RT_NEW_ITEM_RATINGS, RT_NEW_ITEMS = 250, 50
+#: the in-process leg: a 1% tail of new pairs on the train phase's
+#: 20,000,000 ratings, and the pairs re-rated in its last step
+RT_LOOP_TAIL, RT_RERATE = 200_000, 1_000
+#: bucket width of the in-process leg: a plan holds no split rows (as in
+#: the JAX package), and at 65,536 the most-rated planted item is split
+RT_MAX_WIDTH = 1 << 17
+
+
+def distinct_new_pairs(rng, users, items, n_users, n_items, n: int,
+                       draw=None) -> tuple:
+    """``n`` (user, item) pairs, none among (``users``, ``items``) nor
+    repeated, in draw order; ``draw(m)`` gives m candidate pairs (default:
+    uniform over ``n_users`` × ``n_items``)."""
+    taken = np.unique(np.asarray(users, np.int64) * n_items
+                      + np.asarray(items, np.int64))
+    if draw is None:
+        def draw(m):
+            return rng.integers(0, n_users, m), rng.integers(0, n_items, m)
+    got_u, got_i = np.empty(0, np.int64), np.empty(0, np.int64)
+    while len(got_u) < n:
+        u, i = draw(2 * (n - len(got_u)) + 64)
+        got_u = np.concatenate([got_u, np.asarray(u, np.int64)])
+        got_i = np.concatenate([got_i, np.asarray(i, np.int64)])
+        keys = got_u * n_items + got_i
+        _, first = np.unique(keys, return_index=True)
+        keep = np.sort(first)
+        at = np.minimum(np.searchsorted(taken, keys[keep]), len(taken) - 1)
+        keep = keep[taken[at] != keys[keep]] if len(taken) else keep
+        got_u, got_i = got_u[keep], got_i[keep]
+    return got_u[:n], got_i[:n]
+
+
+def cli_tail(rng, users, items, n_users: int, n_items: int):
+    """The CLI leg's 2,500 ratings on half stars, shuffled: 2,000 new pairs
+    among existing ids, 250 from 100 new users (each rates at least once)
+    on existing items, 250 by existing users on 50 new items (each rated
+    at least once)."""
+    u, i = distinct_new_pairs(rng, users, items, n_users, n_items, RT_PAIRS)
+
+    def new_ids(n_new, n_ratings, first, other):
+        ids = np.r_[np.arange(n_new),
+                    rng.integers(0, n_new, n_ratings - n_new)] + first
+        picks = np.empty(0, np.int64)
+        while True:   # distinct (new id, other) pairs
+            picks = rng.integers(0, other, n_ratings)
+            if len(np.unique(ids * other + picks)) == n_ratings:
+                return ids, picks
+
+    nu, nu_items = new_ids(RT_NEW_USERS, RT_NEW_USER_RATINGS, n_users,
+                           n_items)
+    ni, ni_users = new_ids(RT_NEW_ITEMS, RT_NEW_ITEM_RATINGS, n_items,
+                           n_users)
+    tu = np.r_[u, nu, ni_users]
+    ti = np.r_[i, nu_items, ni]
+    order = rng.permutation(len(tu))
+    r = rng.integers(1, 11, len(tu)) / 2.0
+    return tu[order], ti[order], r.astype(np.float32)
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages of a logger (and writes them to stderr) while
+    installed: ``with LogLines(name) as lines: ...``."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.logger = logging.getLogger(name)
+        self.lines: list = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        self.lines.append(msg)
+        print(f"{record.name}: {msg}", file=sys.stderr, flush=True)
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def retrain_cli_leg(qs, dev, runtime, kernels, als, small: bool = False):
+    """Retrain leg (a), on the quickstart's store after its ``pio train``:
+    2,500 ratings (:func:`cli_tail`) through a new ``pio eventserver``
+    child on the native batch leg, in bodies of 500 (the leg declines an
+    explicit ``eventTime``, so the server stamps each at its arrival,
+    after every earlier event); ``pio train`` again with the same
+    engine.json, which must continue (its log line: ``mode=continue``, 2
+    to 4 sweeps) and record ``phase.continue_seed_s``; the fit over all
+    252,500 ratings within 1.15 × a fresh fixed-budget ``als_train`` of
+    the same prepared data + 0.02 (tests/test_retrain_continue.py:285);
+    ``pio deploy`` of the continued instance: 32 queries, one from a new
+    user, each against the plain top-k on its decoded factors; ``pio
+    undeploy``. Returns (launches by kernel, max score error, stats)."""
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+    from incubator_predictionio_tpu_torch.data.storage import base as sbase
+    from incubator_predictionio_tpu_torch.models.recommendation import (
+        engine,
+    )
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    t_leg = time.perf_counter()
+    n_users, n_items, rank = qs["n_users"], qs["n_items"], qs["rank"]
+    rng = np.random.default_rng(21)
+    tu, ti, tr = cli_tail(rng, qs["users"], qs["items"], n_users, n_items)
+    es = Child("eventserver-tail", ["eventserver", "--ip", "127.0.0.1",
+                                    "--port", "0", "--batch-cap", "500"],
+               qs["work"], qs["env"])
+    qs["children"].append(es)
+    url = "http://127.0.0.1:%d" % int(es.wait_line(
+        r"running on http://[^:]+:(\d+)", 300).group(1))
+    t0 = time.perf_counter()
+    for s0 in range(0, len(tu), 500):
+        body = json.dumps([rate_doc(u, i, r) for u, i, r in zip(
+            tu[s0:s0 + 500], ti[s0:s0 + 500], tr[s0:s0 + 500])]).encode()
+        if sbase.uniform_interactions_from_body(body, 500) is None:
+            raise AssertionError("retrain: a tail body left the native leg")
+        status, got = http_json(
+            "POST", f"{url}/batch/events.json?accessKey={qs['key']}", body)
+        if status != 200 or any(g.get("status") != 201 for g in got):
+            raise AssertionError(f"retrain: tail body at {s0}: {status} "
+                                 f"{got!r:.300}")
+    tail_s = time.perf_counter() - t0
+    es.proc.send_signal(signal.SIGTERM)
+    es.wait_exit()
+
+    os.chdir(qs["engine_dir"])
+    try:
+        with LogLines("incubator_predictionio_tpu_torch.models."
+                      "recommendation.engine") as lines:
+            runtime.reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            out = cli("train")
+            sync(dev)
+            train_s = time.perf_counter() - t0
+            counts = runtime.launch_counts()
+    finally:
+        os.chdir(qs["cwd"])
+    iid = re.search(r"Engine instance ID: (\S+)", out).group(1)
+    said = [m for m in map(re.compile(
+        r"ALS continuation retrain: .* (\d+) sweeps \(mode=(\w+), "
+        r"delta=(\S+)\)").search, lines) if m]
+    if len(said) != 1 or said[0].group(2) != "continue" \
+            or not 2 <= int(said[0].group(1)) <= 4:
+        raise AssertionError(f"retrain: the second pio train logged "
+                             f"{lines}")
+    conf = Storage.get_meta_data_engine_instances().get(iid).runtime_conf
+    phases = {k: float(v) for k, v in conf.items() if k.startswith("phase.")}
+    if "phase.continue_seed_s" not in phases:
+        raise AssertionError(f"retrain: no continue_seed phase in {phases}")
+    model = CoreWorkflow.load_models(iid)[0]
+    ctx = RuntimeContext(device=dev)
+    pd = engine.RecommendationPreparator().prepare(
+        ctx, engine.RecommendationDataSource(engine.DataSourceParams(
+            app_name=qs["name"])).read_training(ctx))
+    n_total = len(qs["ratings"]) + len(tr)
+    if len(pd.ratings) != n_total or len(pd.user_bimap) != \
+            n_users + RT_NEW_USERS or len(pd.item_bimap) != \
+            n_items + RT_NEW_ITEMS:
+        raise AssertionError(
+            f"retrain: {len(pd.ratings)} ratings over "
+            f"{len(pd.user_bimap)} × {len(pd.item_bimap)}")
+    uf_t = torch.from_numpy(np.asarray(model.user_factors)).to(dev)
+    items_t = torch.from_numpy(np.asarray(model.item_factors)).to(dev)
+    fit = als.rmse(als.ALSState(user_factors=uf_t, item_factors=items_t),
+                   pd.users, pd.items, pd.ratings)
+    fresh, _ = als.als_train(pd.users, pd.items, pd.ratings,
+                             len(pd.user_bimap), len(pd.item_bimap),
+                             rank=rank, iterations=4, l2=0.03,
+                             seed=qs["seed"], bf16_sweeps=2, device=dev)
+    fit_fresh = als.rmse(fresh, pd.users, pd.items, pd.ratings)
+    if not fit <= 1.15 * fit_fresh + 0.02:
+        raise AssertionError(f"retrain: continued fit {fit!r} against a "
+                             f"fresh train's {fit_fresh!r}")
+
+    dep = Child("deploy-continued", ["deploy", "--variant", qs["variant"],
+                                     "--ip", "127.0.0.1", "--port", "0"],
+                qs["work"], qs["env"], cwd=qs["engine_dir"])
+    qs["children"].append(dep)
+    port = int(dep.wait_line(r"deployed on http://[^:]+:(\d+)",
+                             600).group(1))
+    base = f"http://127.0.0.1:{port}"
+    status, info = http_json("GET", f"{base}/")
+    if status != 200 or info["engineInstanceId"] != iid:
+        raise AssertionError(f"retrain: the deployed child serves {info}")
+    queries = [{"user": f"u{n_users}", "num": 10}]
+    queries += [{"user": f"u{u}", "num": 10}
+                for u in rng.choice(np.unique(tu[tu < n_users]), 15)]
+    queries += [{"user": f"u{u}", "num": 20}
+                for u in rng.choice(n_users + RT_NEW_USERS, 16)]
+    err = 0.0
+    for k, doc in enumerate(queries):
+        status, body = http_json("POST", f"{base}/queries.json", doc)
+        if status != 200:
+            raise AssertionError(f"retrain: query {doc}: {status} {body}")
+        err = max(err, check_answer(kernels, dev, uf_t, items_t, doc, None,
+                                    body, f"retrain query {k}", model=model))
+    status, info = http_json("GET", f"{base}/")
+    cli("undeploy", "--ip", "127.0.0.1", "--port", str(port))
+    dep.wait_exit()
+    launches = {e: counts[e] for e in ROUTE_ENTRY.values()}
+    launches["score_topk"] = info["kernelLaunches"].get("score_topk", 0)
+    if dev.type == "cuda" and (launches["als_fused_solve_cg"] <= 0
+                               or launches["score_topk"] < len(queries)):
+        raise AssertionError(f"retrain: launches {launches}")
+    return launches, err, {
+        "tail": len(tr), "tail_s": tail_s,
+        "tail_events_per_s": len(tr) / tail_s, "ratings": n_total,
+        "users": len(pd.user_bimap), "items": len(pd.item_bimap),
+        "sweeps_used": int(said[0].group(1)),
+        "final_delta": float(said[0].group(3)), "instance": iid,
+        "first_train_s": qs["train_s"], "train_s": train_s,
+        "first_phases_s": qs["phases_s"], "phases_s": phases,
+        "fit_rmse": fit, "fit_rmse_fresh": fit_fresh,
+        "queries": len(queries), "launches": launches,
+        "wall_s": time.perf_counter() - t_leg}
+
+
+def retrain_loop_leg(dev, runtime, als, planted, pd, trained, small=False,
+                     rank: int = ML20M["rank"], seed: int = 3):
+    """Retrain leg (b), in process at ML-20M width on the train phase's
+    planted ratings (``pd``, the trained state ``trained``; rank 128, 4
+    sweeps, 2 bf16, λ 0.03, buckets up to ``RT_MAX_WIDTH``): ``als_retrain``
+    from the trained state (prep ``"miss"``), then again after a 1% tail
+    of new pairs (prep ``"reused"``, ``prep_delta_rows`` 200,000). Then,
+    outside the counted run: the reused trees against a fresh build of the
+    same COO, row for row and bit for bit (:func:`same_rows`: the layout
+    differs, cleared slots and appended buckets); the same sweeps from the same state on both,
+    within ``als_tolerance``; a tail that re-rates pairs, through the
+    preparator's latest-wins dedup, must invalidate the plan. Returns
+    (launches by kernel, stats)."""
+    from incubator_predictionio_tpu_torch.ops import retrain, sparse
+
+    n_users, n_items = len(pd.user_bimap), len(pd.item_bimap)
+    if small:
+        rank = trained.user_factors.shape[1]
+    n_tail = max(len(pd.ratings) // 100, 1) if small else RT_LOOP_TAIL
+    rng = np.random.default_rng(31)
+    t0 = time.perf_counter()
+    tu, ti = distinct_new_pairs(
+        rng, pd.users, pd.items, n_users, n_items, n_tail,
+        draw=lambda m: planted._sample_pairs(rng, m, n_users, n_items))
+    pred = (trained.user_factors[torch.from_numpy(tu).to(dev)]
+            * trained.item_factors[torch.from_numpy(ti).to(dev)]).sum(-1)
+    tr = (pred.cpu().numpy() + rng.normal(0, 0.35, len(tu))).astype(
+        np.float32)
+    u2 = np.concatenate([pd.users, tu.astype(pd.users.dtype)])
+    i2 = np.concatenate([pd.items, ti.astype(pd.items.dtype)])
+    r2 = np.concatenate([pd.ratings, tr])
+    tail_gen_s = time.perf_counter() - t0
+    kw = dict(rank=rank, iterations=4, l2=0.03, seed=seed, bf16_sweeps=2,
+              max_width=RT_MAX_WIDTH, plan_key="ml20m", device=dev)
+    retrain.drop_plans()
+    runtime.reset_launch_counts()
+    first, second = {}, {}
+    sync(dev)
+    t0 = time.perf_counter()
+    st1 = retrain.als_retrain(pd.users, pd.items, pd.ratings, n_users,
+                              n_items, prev_state=trained, stats=first, **kw)
+    sync(dev)
+    first["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st2 = retrain.als_retrain(u2, i2, r2, n_users, n_items, prev_state=st1,
+                              stats=second, **kw)
+    sync(dev)
+    second["wall_s"] = time.perf_counter() - t0
+    counts = runtime.launch_counts()
+    for what, st in (("first", first), ("second", second)):
+        st.pop("touched_item_rows", None)
+        st["sweeps_wall_s"] = st["wall_s"] - st["prep_wall_s"]
+    if first["prep_plan"] != "miss" or first["mode"] != "continue" \
+            or second["prep_plan"] != "reused" or second["mode"] != \
+            "continue" or second["prep_delta_rows"] != len(tr):
+        raise AssertionError(f"retrain loop: {first} then {second}")
+    if not all(bool(torch.isfinite(f).all())
+               for f in (st2.user_factors, st2.item_factors)):
+        raise AssertionError("retrain loop: non-finite factors")
+
+    reused = retrain._PLAN_CACHE["ml20m"].trees() + (None, None)
+    sync(dev)
+    t0 = time.perf_counter()
+    fresh = retrain.prepare_with_reuse(u2, i2, r2, n_users, n_items,
+                                       max_width=RT_MAX_WIDTH, device=dev)
+    sync(dev)
+    fresh_prep_s = time.perf_counter() - t0
+    if fresh[2] is not None or fresh[3] is not None:
+        raise AssertionError("retrain loop: split rows at RT_MAX_WIDTH")
+    n_rows = sum(same_rows(x, y, f"reused against fresh {side} trees")
+                 for x, y, side in ((reused[0], fresh[0], "user"),
+                                    (reused[1], fresh[1], "item")))
+    outs = [als._mixed_run(st1, t[0], t[1], 0.03, 4, 2, True, torch.float32,
+                           t[2], t[3]) for t in (reused, fresh)]
+    factor_rel = {}
+    for f in ("user_factors", "item_factors"):
+        rel = _rel_err(getattr(outs[0], f), getattr(outs[1], f))[1]
+        tol = als_tolerance(torch.bfloat16, 0, rank, trained=True)
+        if not rel <= tol:
+            raise AssertionError(f"retrain loop: {f} from the reused trees "
+                                 f"{rel:.3e} from the fresh build's")
+        factor_rel[f] = rel
+    del outs, fresh
+
+    # re-rated pairs: latest wins moves each to the tail, the prefix breaks
+    pick = rng.choice(len(pd.ratings), RT_RERATE if not small else 10,
+                      replace=False)
+    u3 = np.concatenate([u2, pd.users[pick]])
+    i3 = np.concatenate([i2, pd.items[pick]])
+    r3 = np.concatenate([r2, np.full(len(pick), 5.0, np.float32)])
+    keep = sparse.latest_wins(u3, i3, n_items, dev)
+    third = {}
+    retrain.prepare_with_reuse(u3[keep], i3[keep], r3[keep], n_users,
+                               n_items, max_width=RT_MAX_WIDTH,
+                               plan_key="ml20m", stats=third, device=dev)
+    if third["prep_plan"] != "invalidated":
+        raise AssertionError(f"retrain loop: a re-rate tail gave {third}")
+    retrain.drop_plans()
+    launches = {e: counts[e] for e in ROUTE_ENTRY.values()}
+    if dev.type == "cuda" and launches["als_fused_solve_cg"] <= 0:
+        raise AssertionError(f"retrain loop: launches {launches}")
+    return launches, {
+        "ratings": len(pd.ratings), "tail": len(tr),
+        "tail_generate_s": tail_gen_s, "first": first, "second": second,
+        "fresh_prep_s": fresh_prep_s, "same_rows": n_rows,
+        "factor_rel_err": factor_rel, "rerate": int(len(pick)),
+        "rerate_plan": third["prep_plan"], "launches": launches}
+
+
+#: the implicit loss of the kernel route against the plain route's, from
+#: one initial state, relative: the two routes do the same arithmetic in
+#: another order, and at ML-20M width (2 sweeps, rank 128) they read 1.4e-9
+#: apart (PERF.md §6), so a fault in a share of the rows shows above this
+IMPLICIT_LOSS_TOL = 1e-6
+
+
+def implicit_routes(dev, runtime, als, users, items, w, n_users: int,
+                    n_items: int, rank: int, seed: int, alpha: float,
+                    l2: float, what: str):
+    """``als_train_implicit`` (2 sweeps) on the kernel route and on the
+    plain route from the same initial state → (kernel state, plain state,
+    stats). Fails unless the implicit loss agrees within
+    ``IMPLICIT_LOSS_TOL`` relative and, on the card, the kernel route
+    launched the fused entry and no two-stage form (which has no YᵀY
+    term)."""
+    runtime.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    st = als.als_train_implicit(users, items, w, n_users, n_items,
+                                rank=rank, iterations=2, l2=l2, alpha=alpha,
+                                seed=seed, device=dev)
+    sync(dev)
+    kernel_s = time.perf_counter() - t0
+    counts = runtime.launch_counts()
+    t0 = time.perf_counter()
+    plain = als.als_train_implicit(users, items, w, n_users, n_items,
+                                   rank=rank, iterations=2, l2=l2,
+                                   alpha=alpha, seed=seed, device=dev,
+                                   use_kernel=False)
+    sync(dev)
+    plain_s = time.perf_counter() - t0
+    loss = als.implicit_loss(st, users, items, w, alpha, l2)
+    loss_plain = als.implicit_loss(plain, users, items, w, alpha, l2)
+    rel = abs(loss - loss_plain) / abs(loss_plain)
+    if not (np.isfinite(loss) and rel <= IMPLICIT_LOSS_TOL):
+        raise AssertionError(f"implicit ({what}): loss {loss!r} against the "
+                             f"plain route's {loss_plain!r}")
+    launches = {e: counts[e] for e in ROUTE_ENTRY.values()}
+    if dev.type == "cuda" and (launches["als_fused_solve_cg"] <= 0
+                               or launches["als_solve_cg_rows8"]
+                               or launches["als_solve_cg"]):
+        raise AssertionError(f"implicit ({what}): launches {launches}")
+    factor_rel = max(
+        _rel_err(st.user_factors, plain.user_factors)[1],
+        _rel_err(st.item_factors, plain.item_factors)[1])
+    return st, plain, {
+        "nnz": int(len(w)), "kernel_s": kernel_s, "plain_s": plain_s,
+        "loss": loss, "loss_plain": loss_plain, "loss_rel_err": rel,
+        "factor_rel_err": factor_rel, "launches": launches}
+
+
+def implicit_leg(dev, runtime, ak, als, pd, small: bool = False,
+                 rank: int = ML20M["rank"], seed: int = 3,
+                 alpha: float = 1.0, l2: float = 0.03, narrow_coo=None):
+    """Retrain leg (c): :func:`implicit_routes` on the train phase's COO
+    (weights |r|, α 1.0, rank 128, 2 sweeps). The ML-20M ratings have no
+    bucket narrower than 128, so the same runs again on ``narrow_coo``
+    ((users, items, ratings, n_users, n_items): store-als's 1M ratings,
+    every width from 8, those of 8–32 the explicit path's R-row form),
+    where no R-row launch shows that ``_route(implicit=True)`` keeps the
+    narrow buckets on the fused entry. Then, on the card, the fused entry
+    against its plain version (:func:`check_als_chunk`) on the heaviest
+    chunk of every bucket width of both sides of each, the kernel route's
+    factors as the table and the plain route's as the warm start
+    (``width_checks``). Returns (fused launches of the ML-20M run, stats,
+    the heaviest implicit fused chunk's timing row)."""
+    if small:
+        rank = 16
+    runs = [("ml20m", pd.users, pd.items, pd.ratings, len(pd.user_bimap),
+             len(pd.item_bimap))]
+    if narrow_coo is not None:
+        runs.append(("store-als", *narrow_coo))
+    out, row, checks = {}, None, []
+    for what, users, items, ratings, n_users, n_items in runs:
+        w = np.abs(ratings).astype(np.float32)
+        st, plain, out[what] = implicit_routes(
+            dev, runtime, als, users, items, w, n_users, n_items, rank, seed,
+            alpha, l2, what)
+        if dev.type != "cuda":
+            continue
+        u_tree, i_tree = als.prepare_trees(users, items, w, n_users,
+                                           n_items, device=dev)[:2]
+        for side, tree, table, prev in (
+                ("user", u_tree, st.item_factors, plain.user_factors),
+                ("item", i_tree, st.user_factors, plain.item_factors)):
+            for d, chunk in sorted(heaviest_chunks_by_width(
+                    tree, rank, als.CHUNK_ELEMS).items()):
+                errs = check_als_chunk(ak, als, "als_fused_solve_cg", table,
+                                       chunk, prev, implicit=True,
+                                       alpha=alpha)
+                checks.append({"run": what, "side": side, "D": d,
+                               "B": int(chunk[0].shape[0]),
+                               "nnz": int(chunk[2].sum()), **errs})
+        if what == "ml20m":
+            chunk = heaviest_chunk(u_tree, rank, als.CHUNK_ELEMS, fused=True)
+            row = dict(shape="implicit_path", **time_als(
+                ak, als, "als_fused_solve_cg", st.item_factors, chunk,
+                plain.user_factors, implicit=True, alpha=alpha))
+        del u_tree, i_tree
+    return out["ml20m"]["launches"]["als_fused_solve_cg"], {
+        "rank": rank, "sweeps": 2, "alpha": alpha, "l2": l2, **out,
+        "width_checks": checks}, row
 
 
 def f64_solve(ak, table, cols, vals, mask, l2, reg_nnz, iters, x0,
@@ -2279,32 +2817,29 @@ def f64_solve(ak, table, cols, vals, mask, l2, reg_nnz, iters, x0,
         else x
 
 
-def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True):
-    """ms of one kernel call (and its device time, ``graph_ms``), of its
-    plain version and of the Gram alone as one ``torch.bmm(g.mT, g)`` on
-    the same gathered block (``library_ms``, TF32 off), on a chunk (warm
-    start from ``prev``), with its bound (and, with an f32 table, the bound
-    on the FMA units beside it). The kernel must agree with the plain
-    version within :func:`als_tolerance`; on a D < K chunk the rows beyond
-    it may instead be no more than 3x as far from their f64 solve as the
-    plain version (``rows_beyond``, ``beyond_f64_rel_err``,
-    ``beyond_plain_f64_rel_err``). With an f32 table and ``exact``, also
-    each one's distance from the f64 solve on the chunk's first 1,024 rows
-    (``f64_rel_err``, ``plain_f64_rel_err``), held to the same 3x."""
-    from incubator_predictionio_tpu_torch import runtime
-
+def als_calls(ak, als, entry, table, chunk, prev, implicit: bool = False,
+              alpha: float = 1.0):
+    """(kernel call, plain call, CG steps, YᵀY) of one ALS entry on a chunk,
+    warm-started from ``prev``. ``implicit`` (the fused entry): the
+    confidences α·vals, the table's YᵀY and twice the CG steps."""
     cols, vals, mask, row_ids = chunk
     x0 = als._gather_x0(prev, row_ids)
     iters = als.CG_ITERS if table.dtype == torch.float32 \
         else als.CG_ITERS_BF16
+    yty = als._gram_all(table) if implicit else None
+    if implicit:
+        iters *= 2
     if entry == "als_fused_solve_cg":
         def fn():
             return ak.als_fused_solve_cg(table, cols, vals, mask, 0.03,
-                                         iters=iters, x0=x0)
+                                         iters=iters, implicit=implicit,
+                                         alpha=alpha, yty=yty, x0=x0)
 
         def plain():
             return ak.als_fused_solve_cg_plain(table, cols, vals, mask,
-                                               0.03, iters=iters, x0=x0)
+                                               0.03, iters=iters,
+                                               implicit=implicit,
+                                               alpha=alpha, yty=yty, x0=x0)
     else:
         rows = 8 if entry == "als_solve_cg_rows8" else 1
 
@@ -2316,6 +2851,24 @@ def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True):
         def plain():
             return ak.als_solve_cg_plain(table, cols, vals, mask, 0.03,
                                          iters=iters, x0=x0)
+    return fn, plain, iters, yty
+
+
+def check_als_chunk(ak, als, entry, table, chunk, prev, exact=True,
+                    implicit: bool = False, alpha: float = 1.0) -> dict:
+    """The kernel against its plain version on a chunk (warm start from
+    ``prev``), within :func:`als_tolerance`; on a D < K chunk the rows
+    beyond it may instead be no more than 3x as far from their f64 solve
+    as the plain version (``rows_beyond``, ``beyond_f64_rel_err``,
+    ``beyond_plain_f64_rel_err``). With an f32 table and ``exact``, also
+    each one's distance from the f64 solve on the chunk's first 1,024 rows
+    (``f64_rel_err``, ``plain_f64_rel_err``), held to the same 3x. Raises
+    on a disagreement; returns the errors (``max_abs_err``,
+    ``max_rel_err``, and those above)."""
+    cols, vals, mask, row_ids = chunk
+    fn, plain, iters, yty = als_calls(ak, als, entry, table, chunk, prev,
+                                      implicit, alpha)
+    x0 = als._gather_x0(prev, row_ids)
     got, ref = fn(), plain()
     err, rel = _rel_err(got, ref)
     f64 = {}
@@ -2332,13 +2885,14 @@ def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True):
             ref64 = torch.cat([
                 f64_solve(ak, table.float(), cols[r], vals[r].to(
                     table.dtype).float(), mask[r], 0.03, True, iters, x0[r],
-                    entry == "als_fused_solve_cg")
+                    entry == "als_fused_solve_cg", implicit, alpha, yty)
                 for r in beyond.split(2048)])
             k64 = _rel_err(got[beyond].double(), ref64)[1]
             p64 = _rel_err(ref[beyond].double(), ref64)[1]
         if k64 is None or k64 > 3 * p64 + 1e-6:
             raise AssertionError(f"{entry} {table.dtype} on the chunk (B "
-                                 f"{cols.shape[0]}, D {cols.shape[1]}): max "
+                                 f"{cols.shape[0]}, D {cols.shape[1]}"
+                                 f"{', implicit' if implicit else ''}): max "
                                  f"error {err:.3e} is {rel:.3e} of "
                                  f"max|x_plain|; on its {len(beyond)} rows "
                                  f"beyond {tol}, {k64} from the f64 solve, "
@@ -2348,40 +2902,70 @@ def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True):
     if exact and table.dtype == torch.float32:
         n = 1024
         exact = f64_solve(ak, table, cols[:n], vals[:n], mask[:n], 0.03,
-                          True, iters, x0[:n], entry == "als_fused_solve_cg")
+                          True, iters, x0[:n], entry == "als_fused_solve_cg",
+                          implicit, alpha, yty)
         f64.update(f64_rel_err=_rel_err(got[:n].double(), exact)[1],
                    plain_f64_rel_err=_rel_err(ref[:n].double(), exact)[1])
         if f64["f64_rel_err"] > 3 * f64["plain_f64_rel_err"] + 1e-6:
-            raise AssertionError(f"{entry} on the main path's chunk is "
+            raise AssertionError(f"{entry} on the main path's chunk (B "
+                                 f"{cols.shape[0]}, D {cols.shape[1]}"
+                                 f"{', implicit' if implicit else ''}) is "
                                  f"further from the f64 solve than the "
                                  f"plain version: {f64}")
+    return {"max_abs_err": err, "max_rel_err": rel, **f64}
+
+
+def time_als(ak, als, entry, table, chunk, prev, reps=10, exact=True,
+             implicit: bool = False, alpha: float = 1.0):
+    """ms of one kernel call (and its device time, ``graph_ms``), of its
+    plain version and of the Gram alone as one ``torch.bmm(g.mT, g)`` on
+    the same gathered block (``library_ms``, TF32 off), on a chunk (warm
+    start from ``prev``), with its bound (and, with an f32 table, the bound
+    on the FMA units beside it), after :func:`check_als_chunk`.
+    ``implicit`` (the fused entry): the confidences α·vals, the table's
+    YᵀY and twice the CG steps, and the library call the weighted Gram
+    plus YᵀY, one ``torch.baddbmm``."""
+    from incubator_predictionio_tpu_torch import runtime
+
+    cols, vals, mask, _ = chunk
+    errs = check_als_chunk(ak, als, entry, table, chunk, prev, exact,
+                           implicit, alpha)
+    fn, plain, iters, yty = als_calls(ak, als, entry, table, chunk, prev,
+                                      implicit, alpha)
     b, d = cols.shape
     k = table.shape[1]
     bound_ms, bound_by = ak.bucket_bound(cols, mask, k, iters, True,
-                                         table.dtype)
+                                         table.dtype, implicit=implicit)
     fma = {}
     if table.dtype == torch.float32:
         fma_ms, fma_by = ak.bucket_bound(cols, mask, k, iters, True,
                                          table.dtype,
-                                         f32_flops=runtime.F32_FLOPS)
+                                         f32_flops=runtime.F32_FLOPS,
+                                         implicit=implicit)
         fma = {"bound_fma_ms": fma_ms, "bound_fma_by": fma_by}
     # the library yardstick: the Gram alone, one bmm on the gathered block
+    # (implicit: the confidence-weighted Gram plus YᵀY, one baddbmm)
     g = table[cols] * mask[..., None].to(table.dtype)
+    if implicit:
+        wg = g * (alpha * vals)[..., None]
 
-    def gram():
-        return torch.bmm(g.mT, g)
+        def gram():
+            return torch.baddbmm(yty, wg.mT, g)
+    else:
+        def gram():
+            return torch.bmm(g.mT, g)
 
     calls = max(1, min(10, int(2e8 // max(g.numel(), 1))))
     device_ms = graph_ms(fn, calls=calls, reps=reps)
     return {"dtype": str(table.dtype).replace("torch.", ""), "B": b, "D": d,
             "K": k, "nnz": int(mask.sum()), "iters": iters,
+            **({"implicit": True, "alpha": alpha} if implicit else {}),
             "ms": median_ms(fn, reps=reps, warm=2),
             "graph_ms": device_ms, "us_per_row": 1e3 * device_ms / b,
             "plain_ms": median_ms(plain, reps=reps, warm=2),
             "library_ms": median_ms(gram, reps=reps, warm=2),
             "library_graph_ms": graph_ms(gram, calls=calls, reps=reps),
-            "bound_ms": bound_ms, "bound_by": bound_by, **fma,
-            "max_abs_err": err, "max_rel_err": rel, **f64}
+            "bound_ms": bound_ms, "bound_by": bound_by, **fma, **errs}
 
 
 def als_timings(ak, als, paths, chunk_elems):
@@ -3449,11 +4033,26 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    qs_launches, err_qs, qs_stats = quickstart_phase(dev, runtime, kernels,
-                                                     als, planted)
+    qs_launches, err_qs, qs_stats, (rt_cli_launches, err_rt, rt_cli) = \
+        quickstart_phase(dev, runtime, kernels, als, planted,
+                         then=lambda qs: retrain_cli_leg(
+                             qs, dev, runtime, kernels, als))
     print(f"quickstart: {json.dumps(qs_stats)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0 - rt_cli['wall_s']:.1f} s)",
+          flush=True)
     print(f"quickstart-card: {card_line()}", flush=True)
+
+    t0 = time.perf_counter()
+    rt_loop_launches, rt_loop = retrain_loop_leg(
+        dev, runtime, als, planted, pd,
+        als.ALSState(user_factors=model.user_factors,
+                     item_factors=model.item_factors))
+    imp_launches, imp_stats, imp_row = implicit_leg(
+        dev, runtime, ak, als, pd, narrow_coo=store_als_ratings(planted))
+    rt_stats = dict(cli=rt_cli, loop=rt_loop, implicit=imp_stats)
+    print(f"retrain: {json.dumps(rt_stats)} "
+          f"({rt_cli['wall_s'] + time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
     shapes = topk_timings(kernels, planted, dev)
     for s in shapes:
@@ -3479,8 +4078,9 @@ def main() -> int:
         "source": "incubator_predictionio_tpu_torch/csrc/score_topk.cu",
         "replaces": kernels.REPLACES,
         "launches": launches + trained_launches
-        + store_launches["score_topk"] + qs_launches["score_topk"],
-        "max_abs_err": max(err_k, err_p, err_t, err_sa, err_qs),
+        + store_launches["score_topk"] + qs_launches["score_topk"]
+        + rt_cli_launches["score_topk"],
+        "max_abs_err": max(err_k, err_p, err_t, err_sa, err_qs, err_rt),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
@@ -3498,7 +4098,8 @@ def main() -> int:
             "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
             "replaces": ak.REPLACES[entry],
             "launches": train_stats["launches"][entry]
-            + store_launches.get(entry, 0) + qs_launches.get(entry, 0),
+            + store_launches.get(entry, 0) + qs_launches.get(entry, 0)
+            + rt_cli_launches.get(entry, 0) + rt_loop_launches.get(entry, 0),
             "max_abs_err": max([als_errs[entry]]
                                + [r["max_abs_err"] for r in rows]),
             "ms": first["ms"],
@@ -3520,6 +4121,30 @@ def main() -> int:
                 "launched and held to its plain version by the als-kernel "
                 "and als-rank phases, timed here on the main path's "
                 "heaviest item chunk")
+    imp_line = dict(name="als_fused_solve_cg_implicit", **imp_row)
+    print(f"time: {json.dumps(imp_line)}", flush=True)
+    entries.append({
+        "name": "als_fused_solve_cg_implicit",
+        "route": "cuda",
+        "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
+        "replaces": ak.REPLACES["als_fused_solve_cg"],
+        "launches": imp_launches,
+        "max_abs_err": imp_row["max_abs_err"],
+        "ms": imp_row["ms"],
+        "graph_ms": imp_row["graph_ms"],
+        "plain_ms": imp_row["plain_ms"],
+        "bound_ms": imp_row["bound_ms"],
+        "bound_by": imp_row["bound_by"],
+        "bound_fma_ms": imp_row["bound_fma_ms"],
+        "library_ms": imp_row["library_ms"],
+        "library_note": "the confidence-weighted Gram plus YtY: one "
+                        "torch.baddbmm(yty, (alpha*r*g).mT, g) on the "
+                        "gathered block, TF32 off",
+        "path_note": "the fused entry's implicit variant (YtY in the "
+                     "matvec), launched by als_train_implicit in the "
+                     "retrain phase; timed on its heaviest user chunk",
+        "shapes": [imp_row],
+    })
     flash_rows = flash_timings(fa, dev)
     for row in flash_rows:
         print(f"time: {json.dumps(dict(name='flash_attention', **row))}",

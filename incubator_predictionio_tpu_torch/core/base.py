@@ -139,6 +139,15 @@ class Algorithm(_Component, Generic[M, Q, P]):
     def train(self, ctx: RuntimeContext, prepared_data: Any) -> M:
         raise NotImplementedError
 
+    def train_with_previous(self, ctx: RuntimeContext, prepared_data: Any,
+                            prev_model: Any) -> M:
+        """Continuation-retrain hook: train with the previous run's model
+        at hand as a warm start (ops/retrain.py). The default ignores
+        ``prev_model`` and trains fresh. An implementation checks itself
+        that the previous model can seed this one (rank, index-space
+        prefix) and trains fresh where it cannot."""
+        return self.train(ctx, prepared_data)
+
     def predict(self, model: M, query: Q) -> P:
         raise NotImplementedError
 

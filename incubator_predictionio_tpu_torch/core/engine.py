@@ -100,10 +100,14 @@ class Engine:
         return self._algorithms(engine_params), serving
 
     def train(self, ctx: RuntimeContext, engine_params: EngineParams,
-              params: Optional[WorkflowParams] = None) -> List[Any]:
+              params: Optional[WorkflowParams] = None,
+              prev_models: Optional[List[Any]] = None) -> List[Any]:
         """Read, prepare and train every algorithm → one model each
         (Engine.scala:625-712). The wall of each phase lands in
-        ``ctx.timings`` (the JAX package's ``tracing.phase`` names)."""
+        ``ctx.timings`` (the JAX package's ``tracing.phase`` names).
+        ``prev_models`` (aligned with the algorithm list) hands each
+        algorithm its previous model through
+        ``Algorithm.train_with_previous``, the continuation retrain."""
         params = params or WorkflowParams()
         ctx.timings.clear()
         ds_name, ds_params = engine_params.data_source_params
@@ -133,8 +137,12 @@ class Engine:
 
         models = []
         for i, algo in enumerate(algorithms):
+            prev = (prev_models[i]
+                    if prev_models is not None and i < len(prev_models)
+                    else None)
             with _phase(ctx, f"train.algo{i}"):
-                models.append(algo.train(ctx, pd))
+                models.append(algo.train_with_previous(ctx, pd, prev)
+                              if prev is not None else algo.train(ctx, pd))
         for model in models:
             _sanity(model, params.skip_sanity_check)
         return models

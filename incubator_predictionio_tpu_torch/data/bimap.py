@@ -89,6 +89,17 @@ class BiMap(Generic[K, V]):
             out[k] = v
         return BiMap(out)
 
+    def is_index_prefix_of(self, other: "BiMap[K, int]") -> bool:
+        """True when every (key → index) pair of this map holds in
+        ``other``: this map's dense index space is an exact prefix of the
+        other's. The gate of the continuation retrain (ops/retrain.py): a
+        previous model's factor row i seeds the new row i only if i still
+        names the same entity. Order-independent, O(len(self))."""
+        if len(self) > len(other):
+            return False
+        get = other._fwd.get
+        return all(get(k) == v for k, v in self._fwd.items())
+
     def __eq__(self, other: object) -> bool:
         return isinstance(other, BiMap) and self._fwd == other._fwd
 

@@ -19,18 +19,25 @@ repeated (user, item) pairs runs on the context's device
 (``ops/sparse.latest_wins``), with the same kept rows as the JAX package's
 ``np.unique``.
 
-Not ported yet: continuation retrain, the sharded trainer, evaluation
-reads (``read_eval``), the speed-layer overlay, the host-mirror serving of
-small models and the MIPS index. The host mirror is left out on purpose: on the
-card it would hide the kernel for small models, and on the CPU the plain
-version already is the path.
+A second ``pio train`` with equal params continues from the last
+instance (``ALSAlgorithm.train_with_previous``, JAX :418-474): warm
+factors where the previous id space is a prefix of the new one, the
+early stop, and the plan reuse of ``ops/retrain.py``.
+
+Not ported yet: the sharded trainer, evaluation reads (``read_eval``),
+the speed-layer overlay, the host-mirror serving of small models and the
+MIPS index (and with it the index refresh after a retrain). The host
+mirror is left out on purpose: on the card it would hide the kernel for
+small models, and on the CPU the plain version already is the path.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,7 +59,7 @@ from incubator_predictionio_tpu_torch.core.self_cleaning import (
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.interactions import Interactions
 from incubator_predictionio_tpu_torch.data.store import EventStore
-from incubator_predictionio_tpu_torch.ops import als
+from incubator_predictionio_tpu_torch.ops import als, retrain
 from incubator_predictionio_tpu_torch.ops.sparse import latest_wins
 from incubator_predictionio_tpu_torch.ops.topk import (
     batch_score_top_k,
@@ -62,6 +69,7 @@ from incubator_predictionio_tpu_torch.ops.topk import (
 )
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
 
+logger = logging.getLogger(__name__)
 
 # ---------------------------------------------------------------------------
 # Query / result model (Engine.scala:23-28)
@@ -297,6 +305,56 @@ class ALSAlgorithm(Algorithm):
             bf16_sweeps=self.params.bf16_sweeps, device=ctx.device,
             stats=ctx.timings)
         return self._assemble_model(pd, state)
+
+    def train_with_previous(self, ctx: RuntimeContext, pd: PreparedData,
+                            prev_model: Any) -> ALSModel:
+        """Continuation retrain (ops/retrain.py ``als_retrain``): seed from
+        the previous model's factors when its id space is an exact prefix
+        of this PreparedData's, and let the early stop turn the warm start
+        into fewer sweeps; any incompatibility (another rank, a rebuilt
+        index space, another model class) trains fresh. No prep plan is
+        kept: each ``pio train`` is a new process, so one would never be
+        reused, and at a 1% tail of ML-20M a reuse loses to a fresh build
+        on the H100 (PERF.md §7)."""
+        prev_state = self._continuation_seed(pd, prev_model)
+        if prev_state is None:
+            return self.train(ctx, pd)
+        seed = self.params.seed if self.params.seed is not None else ctx.seed
+        n_users, n_items = len(pd.user_bimap), len(pd.item_bimap)
+        stats: Dict[str, Any] = {}
+        t0 = time.perf_counter()
+        state = retrain.als_retrain(
+            pd.users, pd.items, pd.ratings, n_users, n_items,
+            rank=self.params.rank, iterations=self.params.num_iterations,
+            l2=self.params.lambda_, seed=seed,
+            bf16_sweeps=self.params.bf16_sweeps, prev_state=prev_state,
+            stats=stats, device=ctx.device)
+        als._sync(state.user_factors.device)
+        ctx.timings["als.prep"] = stats["prep_wall_s"]
+        ctx.timings["als.sweeps"] = (time.perf_counter() - t0
+                                     - stats["prep_wall_s"])
+        logger.info(
+            "ALS continuation retrain: %d users × %d items, rank %d, "
+            "%s sweeps (mode=%s, delta=%.3e)", n_users, n_items,
+            self.params.rank, stats.get("sweeps_used"), stats.get("mode"),
+            stats.get("final_delta", float("nan")))
+        return self._assemble_model(pd, state)
+
+    def _continuation_seed(self, pd: PreparedData,
+                           prev_model: Any) -> Optional[als.ALSState]:
+        """The previous factors as an (ungrown) ALSState, host numpy or
+        tensors as they came, or None when they cannot seed this run."""
+        if not isinstance(prev_model, ALSModel):
+            return None
+        uf, vf = prev_model.user_factors, prev_model.item_factors
+        if (uf.ndim != 2 or vf.ndim != 2 or uf.shape[1] != vf.shape[1]
+                or uf.shape[1] != self.params.rank):
+            return None
+        if not (prev_model.user_bimap.is_index_prefix_of(pd.user_bimap)
+                and prev_model.item_bimap.is_index_prefix_of(
+                    pd.item_bimap)):
+            return None
+        return als.ALSState(user_factors=uf, item_factors=vf)
 
     @staticmethod
     def _assemble_model(pd: PreparedData, state: als.ALSState) -> ALSModel:

@@ -154,8 +154,8 @@ def solve_plan(b: int, d: int, k: int, n_sms: int) -> SolvePlan:
 
 def als_bound(nnz: float, distinct_rows: int, b: int, d: int, k: int,
               iters: int, warm: bool, dtype,
-              f32_flops: float = runtime.F32_3XTF32_FLOPS
-              ) -> Tuple[float, str]:
+              f32_flops: float = runtime.F32_3XTF32_FLOPS,
+              implicit: bool = False) -> Tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take
     for one explicit bucket solve, either entry, with a ``dtype`` table.
     Bytes: the ``distinct_rows`` table rows the bucket references,
@@ -169,30 +169,37 @@ def als_bound(nnz: float, distinct_rows: int, b: int, d: int, k: int,
       (iters + warm) matvecs of 2·b·K² in f32 for the CG.
     - Without it (the R-row form's way): the rhs and the Jacobi diagonal,
       4·nnz·K, and (iters + warm) matvecs Tᵀ(T p) of 4·nnz·K, all in f32
-      on the FMA units (matrix-vector products)."""
+      on the FMA units (matrix-vector products).
+    ``implicit`` adds the shared [K, K] YᵀY, read once, to the bytes. The
+    Gram way folds it into each row's Gram, b·K² adds once, and its CG
+    matvecs stay 2·b·K² a step; the Gram-free way cannot fold it and adds
+    its matvec, 2·b·K² a step."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = (distinct_rows * k * itemsize + 3 * 4 * b * d
-              + 4 * b * k * (2 if warm else 1))
+              + 4 * b * k * (2 if warm else 1) + (4 * k * k if implicit
+                                                  else 0))
     peak = runtime.BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
     steps = iters + int(warm)
     t_bytes = nbytes / runtime.HBM_BYTES_PER_S
+    fold = float(b) * k * k / runtime.F32_FLOPS if implicit else 0.0
+    t_yty = steps * 2.0 * b * k * k / runtime.F32_FLOPS if implicit else 0.0
     t_gram = (float(nnz) * k * (k + 1) + 2.0 * nnz * k) / peak \
-        + steps * 2.0 * b * k * k / runtime.F32_FLOPS
-    t_free = (steps + 1) * 4.0 * nnz * k / runtime.F32_FLOPS
+        + steps * 2.0 * b * k * k / runtime.F32_FLOPS + fold
+    t_free = (steps + 1) * 4.0 * nnz * k / runtime.F32_FLOPS + t_yty
     t_ops = min(t_gram, t_free)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def bucket_bound(cols, mask, k: int, iters: int, warm: bool, dtype,
-                 f32_flops: float = runtime.F32_3XTF32_FLOPS
-                 ) -> Tuple[float, str]:
+                 f32_flops: float = runtime.F32_3XTF32_FLOPS,
+                 implicit: bool = False) -> Tuple[float, str]:
     """:func:`als_bound` of one bucket (or chunk) as the data holds it:
     its observations and the distinct table rows they reference."""
     b, d = cols.shape
     distinct = int(torch.unique(cols[mask > 0]).numel())
     return als_bound(float(mask.sum()), distinct, b, d, k, iters, warm, dtype,
-                     f32_flops)
+                     f32_flops, implicit)
 
 
 def _ridge(mask: torch.Tensor, l2: float, reg_nnz: bool

@@ -3,20 +3,20 @@ port of incubator_predictionio_tpu/workflow/workflow.py (``run_train``
 :112, ``load_models`` :294; reference workflow/CoreWorkflow.scala:45-160).
 
 ``run_train``: register an INIT EngineInstance → TRAINING → build the
-RuntimeContext → ``engine.train`` → checkpoint the models into MODELDATA
-→ mark COMPLETED (ABORTED on any error). The instance keeps the engine
-params as the JAX package writes them (``json_codec.dumps`` of each slot),
-so ``EngineInstances.get_latest_completed`` finds it for deploy, and the
-run's phase walls (``ctx.timings``) in its ``runtime_conf``.
+RuntimeContext → the continuation seed (the last COMPLETED instance's
+models, :func:`_continuation_models`) → ``engine.train`` → checkpoint the
+models into MODELDATA → mark COMPLETED (ABORTED on any error). The
+instance keeps the engine params as the JAX package writes them
+(``json_codec.dumps`` of each slot), so
+``EngineInstances.get_latest_completed`` finds it for deploy, and the
+run's phase walls (``ctx.timings``, ``continue_seed`` among them) in its
+``runtime_conf``.
 
 ``load_models``: the instance's blob → models → ``Engine.prepare_deploy``
 on the context's device.
 
-Not ported: the multi-host pod branch (ROADMAP Queue 1, multi-device),
-``run_evaluation`` (Queue 1, evaluation) and the continuation retrain
-(Queue 1 item 5): a second train with equal params trains from scratch
-here, where the JAX package continues from the last COMPLETED instance by
-default (``PIO_RETRAIN_CONTINUE``).
+Not ported: the multi-host pod branch (ROADMAP Queue 1, multi-device) and
+``run_evaluation`` (Queue 1, evaluation).
 """
 
 from __future__ import annotations
@@ -42,6 +42,50 @@ from incubator_predictionio_tpu_torch.utils.times import now_utc
 from incubator_predictionio_tpu_torch.workflow import checkpoint
 
 logger = logging.getLogger(__name__)
+
+
+def _continuation_models(engine_params: EngineParams, engine_id: str,
+                         engine_version: str,
+                         engine_variant: str) -> Optional[List[Any]]:
+    """The last COMPLETED run's models (decoded, arrays in host numpy),
+    to seed the continuation retrain, or None where continuation is off
+    (``PIO_RETRAIN_CONTINUE=0``) or does not apply (JAX workflow.py:45).
+
+    Any difference in the stored data-source, preparator or algorithm
+    params turns it off: a changed rank or λ makes the factors unusable,
+    and a changed data spec rebuilds the id space the prefix mapping
+    relies on. A model that fails to load degrades to a fresh train:
+    continuation is an optimization, never a correctness dependency."""
+    from incubator_predictionio_tpu_torch.ops.retrain import (
+        continue_enabled,
+    )
+
+    if not continue_enabled():
+        return None
+    try:
+        prev = Storage.get_meta_data_engine_instances().get_latest_completed(
+            engine_id, engine_version, engine_variant)
+        if prev is None:
+            return None
+        current = (json_codec.dumps(engine_params.data_source_params),
+                   json_codec.dumps(engine_params.preparator_params),
+                   json_codec.dumps(engine_params.algorithm_params_list))
+        stored = (prev.data_source_params, prev.preparator_params,
+                  prev.algorithms_params)
+        if current != stored:
+            logger.info("continuation disabled: engine params changed "
+                        "since instance %s", prev.id)
+            return None
+        blob = Storage.get_model_data_models().get(prev.id)
+        if blob is None:
+            return None
+        models = checkpoint.deserialize_models(blob.models)
+        logger.info("continuation: seeding retrain from instance %s",
+                    prev.id)
+        return models
+    except Exception:
+        logger.exception("continuation model load failed; training fresh")
+        return None
 
 
 def make_runtime_context(workflow_params: Optional[WorkflowParams] = None,
@@ -75,13 +119,16 @@ class CoreWorkflow:
     ) -> str:
         """Train, checkpoint, register. Returns the engine instance id.
         ``ctx`` (or else a context on ``device``, CUDA by default) carries
-        the device and, after the run, its phase walls: ``read``,
-        ``prepare``, ``train.algo<i>``, what the algorithms add, and
-        ``checkpoint``."""
-        if prev_models is not None:
-            raise NotImplementedError(
-                "continuation retrain (prev_models) is not ported yet: "
-                "ROADMAP.md Queue 1 item 5")
+        the device and, after the run, its phase walls: ``continue_seed``,
+        ``read``, ``prepare``, ``train.algo<i>``, what the algorithms add,
+        and ``checkpoint``.
+
+        ``prev_models`` is the explicit continuation seam: those models
+        seed the retrain directly, for a caller that holds (and vouches
+        for) a compatible model, with no instance lookup and no params
+        check. None, the normal path, loads the last COMPLETED instance's
+        models behind ``PIO_RETRAIN_CONTINUE`` and the params check
+        (:func:`_continuation_models`)."""
         params = params or WorkflowParams()
         ctx = ctx or make_runtime_context(params, device)
         train_start = now_utc()
@@ -112,7 +159,14 @@ class CoreWorkflow:
         try:
             instances.update(dataclasses.replace(
                 instance, status=CoreWorkflow.TRAIN_STATUS_TRAINING))
-            models = engine.train(ctx, engine_params, params)
+            t0 = time.perf_counter()
+            if prev_models is None:
+                prev_models = _continuation_models(
+                    engine_params, engine_id, engine_version, engine_variant)
+            seed_s = time.perf_counter() - t0
+            models = engine.train(ctx, engine_params, params,
+                                  prev_models=prev_models)
+            ctx.timings["continue_seed"] = seed_s
             algo_params = [p for _n, p in engine_params.algorithm_params_list]
             t0 = time.perf_counter()
             blob = checkpoint.serialize_models(models, instance_id, ctx,

@@ -257,6 +257,32 @@ def test_bound_counts_the_symmetric_gram():
         == ak.als_bound(5.0, 3, 2, 4, 8, 3, False, torch.float32)
 
 
+def test_implicit_bound_folds_yty_into_the_gram():
+    """Implicit: the shared YᵀY adds K² f32 bytes once. The Gram way
+    folds it into each row's Gram (B·K² adds once), its CG matvecs stay
+    2·B·K² a step; the Gram-free way adds its matvec, 2·B·K² a step. The
+    heaviest implicit ML-20M chunk (B 14,563, D 256, K 128) takes the
+    Gram way, 32 warm steps."""
+    k, iters = 128, 32
+    for nnz, distinct, b, d in ((3_003_525, 26_744, 14_563, 256),
+                                (120_000, 20_000, 16_384, 8)):
+        ms, by = ak.als_bound(nnz, distinct, b, d, k, iters, True,
+                              torch.float32, implicit=True)
+        steps = iters + 1
+        gram_s = (nnz * k * (k + 1) + 2 * nnz * k) / (495e12 / 3) \
+            + steps * 2 * b * k * k / 67e12 + b * k * k / 67e12
+        free_s = (steps + 1) * 4 * nnz * k / 67e12 \
+            + steps * 2 * b * k * k / 67e12
+        bytes_s = (distinct * k * 4 + 12 * b * d + 8 * b * k
+                   + 4 * k * k) / 3.35e12
+        ops_s = min(gram_s, free_s)
+        assert ms == pytest.approx(1e3 * max(ops_s, bytes_s))
+        assert by == ("operations" if ops_s > bytes_s else "bytes")
+        explicit, _ = ak.als_bound(nnz, distinct, b, d, k, iters, True,
+                                   torch.float32)
+        assert explicit < ms
+
+
 def test_replaces_names_the_tpu_kernels():
     src = open(pk.__file__).read().splitlines()
     for entry, body in (("als_solve_cg", "_als_cg_kernel("),

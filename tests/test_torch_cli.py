@@ -263,6 +263,75 @@ def test_build_train_from_engine_json(tmp_path, monkeypatch, capsys,
     assert main(["unregister"]) == 1
 
 
+def test_train_twice_continues_from_the_first_instance(tmp_path,
+                                                      monkeypatch, capsys):
+    """``pio train`` twice with continuation on (the default), through
+    both CLIs on stores of their own: the first train is fresh, the second,
+    after a tail of ratings, continues from the first instance (as the JAX
+    CLI's does) and records its ``continue_seed`` phase, and the latest
+    COMPLETED instance, the one ``pio deploy`` loads, is the continued
+    one."""
+    from incubator_predictionio_tpu.data.datamap import DataMap as JDataMap
+    from incubator_predictionio_tpu.data.event import Event as JEvent
+    from incubator_predictionio_tpu.obs import metrics as jmetrics
+    from incubator_predictionio_tpu_torch.data import store
+    from incubator_predictionio_tpu_torch.obs import metrics
+
+    monkeypatch.delenv("PIO_RETRAIN_CONTINUE")
+    jstore = __import__("incubator_predictionio_tpu.data.store",
+                        fromlist=["EventStore"])
+    _both(capsys, "app", "new", "MyApp1")
+    for mod, ev, dm in ((store, Event, DataMap), (jstore, JEvent, JDataMap)):
+        _seed_quickstart_events(mod, ev, dm, "MyApp1")
+
+    def sweeps(registry, mode):
+        m = registry.REGISTRY.get("pio_train_sweeps_total")
+        return 0.0 if m is None else m.labels(mode=mode).value
+
+    for cli, reg, storage, mod, ev, dm, factory in (
+            (main, metrics, Storage, store, Event, DataMap, PORT_FACTORY),
+            (jmain, jmetrics, JStorage, jstore, JEvent, JDataMap,
+             JAX_FACTORY)):
+        variant = {
+            "id": "twice", "engineFactory": factory,
+            "datasource": {"params": {"appName": "MyApp1"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": 8, "numIterations": 4, "lambda": 0.05, "seed": 1}}],
+        }
+        work = tmp_path / ("port" if cli is main else "jax")
+        work.mkdir()
+        (work / "engine.json").write_text(json.dumps(variant))
+        monkeypatch.chdir(work)
+        engine_id = commands.engine_id_for_variant_path(
+            str(work / "engine.json"), variant)
+        c0, f0 = sweeps(reg, "continue"), sweeps(reg, "fresh")
+        assert cli(["build"]) == 0
+        assert cli(["train"]) == 0
+        assert (sweeps(reg, "continue"), sweeps(reg, "fresh")) == (c0, f0 + 4)
+        first = storage.get_meta_data_engine_instances().get_latest_completed(
+            engine_id, "NOT_VERSIONED", "twice")
+        mod.EventStore.write([ev(
+            event="rate", entity_type="user", entity_id=f"u{u}",
+            target_entity_type="item", target_entity_id="i20",
+            properties=dm({"rating": 4.0})) for u in range(30)],
+            app_name="MyApp1")
+        assert cli(["train"]) == 0
+        assert sweeps(reg, "fresh") == f0 + 4
+        assert 1 <= sweeps(reg, "continue") - c0 <= 4
+        latest = storage.get_meta_data_engine_instances() \
+            .get_latest_completed(engine_id, "NOT_VERSIONED", "twice")
+        assert latest.id != first.id
+        if cli is main:
+            assert "phase.continue_seed_s" in latest.runtime_conf
+            from incubator_predictionio_tpu_torch.workflow.workflow import (
+                CoreWorkflow,
+            )
+
+            [model] = CoreWorkflow.load_models(latest.id)
+            assert model.item_factors.shape == (21, 8)
+    capsys.readouterr()
+
+
 def test_train_missing_engine_json(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert main(["train"]) == 1

@@ -588,6 +588,107 @@ def test_als_train_on_the_card_matches_plain_route(dev):
     assert fits[0] < 0.1, fits
 
 
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("k", [16, 64, 128])
+def test_als_implicit_sweep_takes_the_fused_entry(dev, d, k):
+    """An implicit half-sweep on the card: every bucket, however narrow,
+    through the fused entry with the shared YᵀY (never the R-row form,
+    which has no YᵀY term), within 1e-3 of max|x| of the plain route on
+    the same tensors."""
+    rng = np.random.default_rng(d * 1000 + k)
+    m, b = 600, 300
+    cols = torch.from_numpy(rng.integers(0, m, (b, d)).astype(np.int32))
+    lens = rng.integers(1, d + 1, b)
+    mask = torch.from_numpy(
+        (np.arange(d)[None, :] < lens[:, None]).astype(np.float32))
+    vals = torch.from_numpy(rng.uniform(0.5, 5, (b, d)).astype(np.float32))
+    tree = ((torch.arange(b).to(dev), cols.to(dev), (vals * mask).to(dev),
+             mask.to(dev)),)
+    other = torch.from_numpy(
+        (0.3 * rng.standard_normal((m, k))).astype(np.float32)).to(dev)
+    prev = torch.from_numpy(
+        (0.1 * rng.standard_normal((b, k))).astype(np.float32)).to(dev)
+    outs = []
+    for use_kernel in (True, False):
+        runtime.reset_launch_counts()
+        outs.append(als._sweep_side(b, other, tree, None, 0.05, True,
+                                    torch.float32, use_kernel=use_kernel,
+                                    prev_factors=prev, use_fused=True,
+                                    implicit=True, alpha=1.0))
+        counts = runtime.launch_counts()
+        assert counts["als_fused_solve_cg"] == int(use_kernel)
+        assert counts["als_solve_cg_rows8"] == counts["als_solve_cg"] == 0
+    err = float((outs[0] - outs[1]).abs().max() / outs[1].abs().max())
+    assert err < 1e-3, err
+
+
+def _live_rows(tree):
+    """{width: (row_ids, cols, vals, mask)} of a side's live rows, in row
+    order."""
+    out = {}
+    for rids, cols, vals, mask in tree:
+        live = rids >= 0
+        if bool(live.any()):
+            out.setdefault(cols.shape[1], []).append(
+                (rids[live], cols[live], vals[live], mask[live]))
+    merged = {}
+    for w, parts in out.items():
+        rids, cols, vals, mask = (torch.cat(x) for x in zip(*parts))
+        order = torch.argsort(rids)
+        merged[w] = (rids[order], cols[order], vals[order], mask[order])
+    return merged
+
+
+def test_plan_reuse_on_the_device(dev):
+    """``prepare_with_reuse`` on the card: after a tail (new pairs, new
+    users and items), the spliced resident trees equal a fresh build bit
+    for bit, and a continuation from a state on the card trains from
+    them."""
+    from incubator_predictionio_tpu_torch.ops import retrain
+
+    rng = np.random.default_rng(13)
+    n_u, n_i = 400, 300
+    users = rng.integers(0, n_u, 12_000)
+    items = rng.integers(0, n_i, 12_000)
+    vals = rng.uniform(1, 5, 12_000).astype(np.float32)
+    t_u = np.r_[rng.integers(0, n_u, 600), np.arange(n_u, n_u + 20)]
+    t_i = np.r_[rng.integers(0, n_i, 600), rng.integers(0, n_i + 10, 20)]
+    t_v = rng.uniform(1, 5, 620).astype(np.float32)
+    u2, i2, v2 = (np.r_[users, t_u], np.r_[items, t_i], np.r_[vals, t_v])
+    retrain.drop_plans()
+    try:
+        base = retrain.als_retrain(users, items, vals, n_u, n_i, rank=16,
+                                   iterations=3, l2=0.05, plan_key="dev",
+                                   device=dev)
+        stats = {}
+        got = retrain.prepare_with_reuse(u2, i2, v2, n_u + 20, n_i + 10,
+                                         plan_key="dev", stats=stats,
+                                         device=dev)
+        assert stats["prep_plan"] == "reused"
+        assert stats["prep_delta_rows"] == 620
+        fresh = als.prepare_trees(u2, i2, v2, n_u + 20, n_i + 10,
+                                  device=dev)
+        # the same rows at the same widths, the same entries in the same
+        # slots, bit for bit (the layout differs: cleared slots, appended
+        # buckets)
+        for x, y in zip(got[:2], fresh[:2]):
+            rx, ry = _live_rows(x), _live_rows(y)
+            assert set(rx) == set(ry)
+            for w in rx:
+                for p, q in zip(rx[w], ry[w]):
+                    assert p.device.type == "cuda" and torch.equal(p, q)
+        stats = {}
+        st = retrain.als_retrain(u2, i2, v2, n_u + 20, n_i + 10, rank=16,
+                                 iterations=3, l2=0.05, prev_state=base,
+                                 stats=stats, device=dev)
+        assert stats["mode"] == "continue"
+        assert st.user_factors.device.type == "cuda"
+        assert tuple(st.user_factors.shape) == (n_u + 20, 16)
+        assert torch.isfinite(st.user_factors).all()
+    finally:
+        retrain.drop_plans()
+
+
 # -- flash attention (ops/attention_kernels.py → csrc/flash_attention.cu) -----
 
 # (b, s_q, s_kv, h, d, causal, valid lengths or None, dtype)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package (every
-module of it imports, and the served and the stored paths run on the CPU,
+module of it imports, ``ops/retrain.py`` among them, and the served and the
+stored paths run on the CPU, a second train continuing from the first,
 with both blocked), and its entry points refuse to pick the CPU on their
 own."""
 
@@ -120,7 +121,12 @@ _ISOLATED = textwrap.dedent('''
         algorithm_params_list=[("als", engine.ALSAlgorithmParams(
             rank=2, num_iterations=2, seed=0))])
     eng = engine.RecommendationEngine().apply()
+    CoreWorkflow.run_train(eng, ep, device="cpu")
+    # the second train continues from the first (ops/retrain.py)
     iid = CoreWorkflow.run_train(eng, ep, device="cpu")
+    from incubator_predictionio_tpu_torch.obs import metrics
+    continued = metrics.REGISTRY.get("pio_train_sweeps_total").labels(
+        mode="continue").value
     srv = PredictionServer(eng, ep, CoreWorkflow.load_models(
         iid, eng, ep, device="cpu"), device="cpu")
     port = srv.start_background()
@@ -159,6 +165,7 @@ _ISOLATED = textwrap.dedent('''
                       "stored_items": len(stored_body["itemScores"]),
                       "seq_stored_items": len(
                           seq_stored_body["itemScores"]),
+                      "continued": continued,
                       "leaked": leaked}))
 ''')
 
@@ -175,6 +182,7 @@ def test_port_imports_and_serves_without_jax_or_the_jax_package():
     assert out["seq_items"] == 4
     assert out["stored_items"] == 2
     assert out["seq_stored_items"] == 3
+    assert out["continued"] >= 1
     assert out["leaked"] == []
 
 

@@ -8,8 +8,14 @@ zero-config default both packages read) → ``CoreWorkflow.run_train`` →
   repeated ratings resolved latest-wins.
 - The port's store-trained ALS model fits within the parity bound of the
   JAX package's store-trained one (``PERF.md`` §2: fit < max(1.15·ref,
-  ref + 0.02)); both with ``PIO_RETRAIN_CONTINUE=0``, as the port has no
-  continuation retrain.
+  ref + 0.02)); both with ``PIO_RETRAIN_CONTINUE=0`` on their shared
+  store, so that neither package continues from the other's instance.
+- The continuation retrain (each package on a memory store of its own,
+  the same events): a second ``run_train`` with equal params continues,
+  a changed λ or ``PIO_RETRAIN_CONTINUE=0`` trains fresh, the explicit
+  ``prev_models`` seam seeds anyway, a model that fails to load trains
+  fresh, and ``pio_train_sweeps_total{mode}`` counts the sweeps, as in
+  the JAX package (tests/test_retrain_continue.py:318-492).
 - A model the JAX package's ``run_train`` stored is deployed by the port's
   ``load_models`` and answers the JAX package's top-k for the same queries:
   ids equal except near-ties, scores within rtol 1e-5.
@@ -23,10 +29,12 @@ from datetime import timedelta
 
 import numpy as np
 import pytest
+import torch
 
 from incubator_predictionio_tpu.core.params import (
     EngineParams as JEngineParams,
 )
+from incubator_predictionio_tpu.data.bimap import BiMap as JBiMap
 from incubator_predictionio_tpu.data.storage import Storage as JStorage
 from incubator_predictionio_tpu.models.recommendation import engine as jeng
 from incubator_predictionio_tpu.parallel.context import (
@@ -39,6 +47,7 @@ from incubator_predictionio_tpu_torch.core.params import (
     EngineParams,
     WorkflowParams,
 )
+from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.datamap import DataMap
 from incubator_predictionio_tpu_torch.data.event import Event
 from incubator_predictionio_tpu_torch.data.interactions import Interactions
@@ -253,10 +262,237 @@ def test_a_failed_train_is_recorded_aborted(stores):
         "default", "NOT_VERSIONED", "default") is None
 
 
-def test_continuation_is_not_ported(stores):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        CoreWorkflow.run_train(teng.RecommendationEngine().apply(),
-                               _port_params(), device=CPU, prev_models=[])
+MEMORY = {
+    "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+    "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "m",
+    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "e",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "d",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM",
+}
+CONT_ALS = dict(rank=4, num_iterations=3, seed=7)
+
+
+def _cont_events(event_cls, datamap_cls, tail: bool):
+    """tests/test_retrain_continue.py's app: 8 users × 6 items at 0.8
+    density, or its tail (every user rates a new item ``i6``)."""
+    if tail:
+        return [event_cls(event="rate", entity_type="user",
+                          entity_id=f"u{u}", target_entity_type="item",
+                          target_entity_id="i6",
+                          properties=datamap_cls({"rating": 5.0}))
+                for u in range(8)]
+    rng = np.random.default_rng(0)
+    out = []
+    for u in range(8):
+        for i in range(6):
+            if rng.random() < 0.8:
+                out.append(event_cls(
+                    event="rate", entity_type="user", entity_id=f"u{u}",
+                    target_entity_type="item", target_entity_id=f"i{i}",
+                    properties=datamap_cls(
+                        {"rating": float(rng.integers(1, 6))})))
+    return out
+
+
+class _Pkg:
+    """One package's side of a continuation test: its storage, events,
+    engine, workflow and sweep counter."""
+
+    def __init__(self, jax_side: bool):
+        if jax_side:
+            from incubator_predictionio_tpu.data.datamap import DataMap as DM
+            from incubator_predictionio_tpu.data.event import Event as Ev
+            from incubator_predictionio_tpu.data.storage import App as A
+            from incubator_predictionio_tpu.obs import metrics
+
+            self.storage, self.eng_mod, self.wf = JStorage, jeng, \
+                JCoreWorkflow
+            self.params_cls, self.app_cls = JEngineParams, A
+        else:
+            from incubator_predictionio_tpu_torch.obs import metrics
+
+            DM, Ev = DataMap, Event
+            self.storage, self.eng_mod, self.wf = Storage, teng, CoreWorkflow
+            self.params_cls, self.app_cls = EngineParams, App
+        self.metrics, self.event_cls, self.datamap_cls = metrics, Ev, DM
+        self.jax_side = jax_side
+        self.storage.configure(dict(MEMORY))
+        self.app_id = self.storage.get_meta_data_apps().insert(
+            self.app_cls(0, "contapp"))
+        self.storage.get_events().init(self.app_id)
+        self.add_events(tail=False)
+        self.engine = self.eng_mod.RecommendationEngine().apply()
+
+    def add_events(self, tail: bool):
+        dao = self.storage.get_events()
+        for e in _cont_events(self.event_cls, self.datamap_cls, tail):
+            dao.insert(e, self.app_id)
+
+    def params(self, lambda_=0.05, **als_kw):
+        return self.params_cls(
+            data_source_params=("", self.eng_mod.DataSourceParams(
+                app_name="contapp")),
+            algorithm_params_list=[("als", self.eng_mod.ALSAlgorithmParams(
+                **dict(CONT_ALS, lambda_=lambda_, **als_kw)))])
+
+    def train(self, params=None, **kw):
+        if not self.jax_side:
+            kw.setdefault("device", CPU)
+        return self.wf.run_train(self.engine, params or self.params(), **kw)
+
+    def sweeps(self, mode: str) -> float:
+        m = self.metrics.REGISTRY.get("pio_train_sweeps_total")
+        return 0.0 if m is None else m.labels(mode=mode).value
+
+
+@pytest.fixture
+def cont_pkgs(monkeypatch):
+    """Both packages on memory stores of their own, the same app and
+    events, continuation on (the default)."""
+    monkeypatch.delenv("PIO_RETRAIN_CONTINUE", raising=False)
+    Storage.reset()
+    JStorage.reset()
+    yield _Pkg(jax_side=True), _Pkg(jax_side=False)
+    Storage.reset()
+    JStorage.reset()
+
+
+def _engaged(pkg, fn):
+    """(continue sweeps, fresh sweeps) booked while ``fn`` ran."""
+    c0, f0 = pkg.sweeps("continue"), pkg.sweeps("fresh")
+    out = fn()
+    return (pkg.sweeps("continue") - c0, pkg.sweeps("fresh") - f0), out
+
+
+def test_workflow_explicit_prev_models_seam(cont_pkgs):
+    """``run_train(prev_models=)``: a caller holding models seeds the
+    continuation directly, even on a variant with no earlier COMPLETED
+    instance (tests/test_retrain_continue.py:414-437), in both packages
+    alike; the continued instance records its ``continue_seed`` phase."""
+    seen = []
+    for pkg in cont_pkgs:
+        iid1 = pkg.train(engine_variant="seam-a")
+        models = pkg.wf.load_models(iid1)
+        fresh, _ = _engaged(pkg, lambda: pkg.train(engine_variant="seam-b"))
+        seeded, iid3 = _engaged(pkg, lambda: pkg.train(
+            engine_variant="seam-c", prev_models=models))
+        assert fresh == (0, CONT_ALS["num_iterations"])
+        assert seeded[0] > 0 and seeded[1] == 0
+        seen.append((fresh, seeded[1]))
+        inst = pkg.storage.get_meta_data_engine_instances().get(iid3)
+        assert inst.status == "COMPLETED"
+        if not pkg.jax_side:
+            assert "phase.continue_seed_s" in inst.runtime_conf
+            [model] = pkg.wf.load_models(iid3)
+            assert model.user_factors.shape == (8, 4)
+    assert seen[0] == seen[1]
+
+
+def test_a_continuation_keeps_no_prep_plan(cont_pkgs):
+    """``ALSAlgorithm.train_with_previous`` keeps no prep plan: each ``pio
+    train`` is a process of its own, so a plan would never be reused. A
+    continuation after a tail continues and leaves the plan cache
+    empty."""
+    from incubator_predictionio_tpu_torch.ops import retrain
+
+    pkg = cont_pkgs[1]
+    retrain.drop_plans()
+    pkg.train()
+    pkg.add_events(tail=True)
+    (cont, fresh), _ = _engaged(pkg, pkg.train)
+    assert cont > 0 and fresh == 0
+    assert not retrain._PLAN_CACHE
+
+
+def test_workflow_continuation_and_spec_change_auto_disable(cont_pkgs,
+                                                            monkeypatch):
+    """The first train is fresh; after a tail, a train with equal params
+    continues (from the decoded instance, host arrays) and the continued
+    model serves; a changed λ trains fresh; so does
+    ``PIO_RETRAIN_CONTINUE=0`` with equal params. The same in both
+    packages, sweep for sweep where the data decides nothing."""
+    booked = []
+    for pkg in cont_pkgs:
+        first, iid1 = _engaged(pkg, lambda: pkg.train(engine_variant="c"))
+        pkg.add_events(tail=True)
+        second, iid2 = _engaged(pkg, lambda: pkg.train(engine_variant="c"))
+        assert iid2 != iid1 and second[0] > 0 and second[1] == 0
+        [model] = pkg.wf.load_models(iid2, pkg.engine, pkg.params(),
+                                     **({} if pkg.jax_side
+                                        else {"device": CPU}))
+        algo = pkg.engine.algorithms(pkg.params())[0] if pkg.jax_side \
+            else pkg.eng_mod.ALSAlgorithm(pkg.params().algorithm_params_list
+                                          [0][1])
+        assert algo.predict(model, pkg.eng_mod.Query(user="u1", num=3)
+                            ).item_scores
+        changed, _ = _engaged(pkg, lambda: pkg.train(
+            pkg.params(lambda_=0.2), engine_variant="c"))
+        monkeypatch.setenv("PIO_RETRAIN_CONTINUE", "0")
+        off, _ = _engaged(pkg, lambda: pkg.train(
+            pkg.params(lambda_=0.2), engine_variant="c"))
+        monkeypatch.delenv("PIO_RETRAIN_CONTINUE")
+        booked.append((first, changed, off))
+        assert first == changed == off == (0, CONT_ALS["num_iterations"])
+    assert booked[0] == booked[1]
+
+
+@pytest.mark.parametrize("case", ["ok", "tensor", "rank", "prefix",
+                                  "foreign"])
+def test_engine_continuation_compat_gate(case):
+    """A rank change, a reordered id space or another model class trains
+    fresh; matching host arrays or in-process tensors seed: as the JAX
+    package's ``_continuation_seed`` rules on the same cases."""
+    users, items, vals = (np.random.default_rng(8).integers(0, 10, 200),
+                          np.random.default_rng(9).integers(0, 8, 200),
+                          np.ones(200, np.float32))
+    ubm = {f"u{k}": k for k in range(10)}
+    ibm = {f"i{k}": k for k in range(8)}
+    rank = 6 if case == "rank" else 4
+    if case == "prefix":
+        ubm_prev = {f"u{k}": (k + 1) % 10 for k in range(10)}
+    else:
+        ubm_prev = ubm
+    out = []
+    for mod, bimap in ((jeng, JBiMap), (teng, BiMap)):
+        pd = mod.PreparedData(
+            users=users.astype(np.int32), items=items.astype(np.int32),
+            ratings=vals, user_bimap=bimap(ubm), item_bimap=bimap(ibm),
+            item_years={}, item_categories={})
+        algo = mod.ALSAlgorithm(mod.ALSAlgorithmParams(
+            rank=4, num_iterations=2, seed=1))
+        uf = np.zeros((10, rank), np.float32)
+        vf = np.zeros((8, rank), np.float32)
+        if case == "tensor" and mod is teng:
+            uf, vf = torch.from_numpy(uf), torch.from_numpy(vf)
+        prev = object() if case == "foreign" else mod.ALSModel(
+            user_factors=uf, item_factors=vf, user_bimap=bimap(ubm_prev),
+            item_bimap=bimap(ibm), item_years={}, item_categories={})
+        out.append(algo._continuation_seed(pd, prev) is None)
+        if mod is teng and case == "foreign":
+            model = algo.train_with_previous(RuntimeContext(device=CPU), pd,
+                                             prev)
+            assert model.user_factors.shape == (10, 4)
+    assert out[0] == out[1] == (case in ("rank", "prefix", "foreign"))
+
+
+def test_a_model_that_fails_to_load_trains_fresh(cont_pkgs, monkeypatch):
+    """Continuation is an optimization: a blob that cannot be decoded
+    gives a fresh train, not a failed one."""
+    from incubator_predictionio_tpu_torch.workflow import checkpoint
+
+    _jax, pkg = cont_pkgs
+    pkg.train()
+
+    def broken(_blob):
+        raise ValueError("corrupt blob")
+
+    monkeypatch.setattr(checkpoint, "deserialize_models", broken)
+    booked, iid = _engaged(pkg, pkg.train)
+    assert booked == (0, CONT_ALS["num_iterations"])
+    assert pkg.storage.get_meta_data_engine_instances().get(
+        iid).status == "COMPLETED"
 
 
 def _same_top(got, ref):
