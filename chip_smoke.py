@@ -3,8 +3,8 @@
 template (serving, ALS training through ``Engine.train``, serving the
 trained model), the sequence engine (SASRec served and trained through
 the flash-attention kernel), and both through the event store: events in
-SQLite → ``CoreWorkflow.run_train`` → the checkpoint → ``load_models`` →
-/queries.json.
+SQLite or the native log (cpplog) → ``CoreWorkflow.run_train`` → the
+checkpoint → ``load_models`` → /queries.json.
 
     python3 chip_smoke.py
 
@@ -14,8 +14,9 @@ Phases, each of which fails the run on any error or mismatch:
              ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
              gives them; turns TF32 off.
 2. build   — compiles the port's CUDA sources (``runtime.build_kernels``)
-             and its native host library (``native.load``: the bucket
-             builder, ``native/src/csr_builder.cc``, with ``g++``).
+             and its native host library (``native.load``: the event log,
+             the bucket builder and the body parser, ``native/src/*.cc``,
+             with ``g++``).
 3. kernel  — the score+top-k kernel against its plain PyTorch version on
              the card: the reference's four kernel test cases, duplicate-row
              ties, the ML-20M width (26,744 items x rank 128) and a
@@ -111,7 +112,11 @@ Phases, each of which fails the run on any error or mismatch:
              (:func:`store_seq_phase`): one query with ``recentItems``, the
              same user without them twice (the history from the store,
              then from the TTL cache): identical answers, held to the plain
-             attention's; the decoded weights the trained ones bit for bit.
+             attention's; the decoded weights the trained ones bit for bit;
+             then the same views in a cpplog store and the query without
+             them twice more through the engine (the history from the log,
+             then the cache), the same answer, ``n_layers`` flash launches
+             each.
 13. quickstart — the README quickstart through the port's own CLI
              (:func:`quickstart_phase`): ``pio app new``; ``pio eventserver
              --batch-cap 500`` as a child process taking 250,000 planted
@@ -154,7 +159,23 @@ Phases, each of which fails the run on any error or mismatch:
              the heaviest chunk of every bucket width of both sides. The
              same again on store-als's 1M ratings, whose buckets start at
              d 8: no R-row launch there either.
-15. report — kernel, plain-version and library times (CUDA events, median
+15. cpplog — the quickstart's verbs with the events on the native log
+             (:func:`cpplog_phase`; metadata on SQLite, models on localfs):
+             ``pio import`` of store-als's 1,000,000 ratings on the native
+             columnar path (which writes the training projection); ``pio
+             train`` (store-als's params), its read the sharded scan, held
+             to store-als's SQLite read as triples and its fit within 1e-3
+             of store-als's; ``pio eventserver`` as a child on the log: the
+             three batch legs at bodies of 50 and 500, 1,000 single events,
+             ``GET /stats.json``'s group-commit counters, the retrain leg's
+             2,500 ratings, which ``read_interactions_since`` returns
+             exactly; the projection-served read (the projection plus a
+             2,500-row tail) equal to the full scan byte for byte; ``pio
+             train`` again (``mode=continue``); ``pio deploy``, 32 queries
+             against the plain top-k, ``pio undeploy``; ``pio upgrade`` and
+             the same read after it. Prints each figure beside the SQLite
+             phases' and the card's line again.
+16. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
              line (flash: the engine's windows, also left-padded with 1 to
              4,096 live keys, and the bench's shapes; the repaired limits'
@@ -1542,7 +1563,9 @@ def store_als_phase(dev, runtime, kernels, als, engine, planted, params_mod,
     of it, relative (each factor table's distance from the plain route's
     is reported), and the fused
     ALS and score+top-k kernels launched on the path. Returns (launches by
-    kernel, max score error, stats)."""
+    kernel, max score error, stats, the trees, trained and plain states of
+    the ALS timings, and the SQLite reference of the cpplog phase: the
+    read's (user, item, value) triples, the fit and the walls)."""
     from incubator_predictionio_tpu_torch.data.datamap import DataMap
     from incubator_predictionio_tpu_torch.data.event import Event
     from incubator_predictionio_tpu_torch.data.interactions import (
@@ -1695,6 +1718,11 @@ def store_als_phase(dev, runtime, kernels, als, engine, planted, params_mod,
                                or launches["score_topk"] < device_queries):
         raise AssertionError(f"store-als: launches {launches}, on the path "
                              f"{on_path}")
+    sqlite_ref = {"triples": (u_num, i_num, np.asarray(inter.values)),
+                  "fit": fit, "figures": {
+                      "store_als_import_events_per_s": nnz / import_s,
+                      "store_als_read_s": timings.get("read"),
+                      "store_als_run_train_s": train_s}}
     stats = {"users": n_users, "items": n_items, "ratings": nnz,
              "rank": rank, "generate_s": gen_s, "import_s": import_s,
              "import_events_per_s": nnz / import_s, "set_events": n_items,
@@ -1707,7 +1735,8 @@ def store_als_phase(dev, runtime, kernels, als, engine, planted, params_mod,
              "fit_rel_err": fit_rel, "factor_rel_err": factor_rel,
              "launches": launches, "on_path": on_path,
              "warm_sweeps_s": sweeps_s}
-    return launches, err, stats, (trees[0], trees[1], trained, plain)
+    return (launches, err, stats, (trees[0], trees[1], trained, plain),
+            sqlite_ref)
 
 
 def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
@@ -1718,8 +1747,11 @@ def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
     window 8,192, 26,744 items, batch 8, 1 epoch) → ``load_models`` →
     ``PredictionServer``: one query with ``recentItems``, then the same
     user without them twice, the history read from the store through
-    ``find_by_entity`` and the second time through the TTL cache. The three
-    answers must be identical and agree with the plain attention's; the
+    ``find_by_entity`` and the second time through the TTL cache; then the
+    same views inserted into a cpplog store (:func:`cpplog_store`) and the
+    query without them served twice again through the engine, the history
+    read from the log. The five answers must be identical and agree with
+    the plain attention's; the
     decoded weights are the trained ones bit for bit; the flash kernel
     launches ``n_layers`` times a training step and a query. Returns
     (flash launches, max score error, stats)."""
@@ -1749,7 +1781,6 @@ def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
                   for j, t in enumerate(row)]
         make_s = time.perf_counter() - t0
         import_s = insert_events(events, app_id)
-        del events
 
         eng = seq_engine.SequenceEngine().apply()
         kept = keep_trained(eng)
@@ -1802,9 +1833,31 @@ def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
         finally:
             srv.stop()
         launches = runtime.launch_counts()["flash_attention"]
-    if not answers[0] == answers[1] == answers[2]:
+    # the same views on the native log: the query without recentItems
+    # served again through the engine, its history read from cpplog
+    with cpplog_store():
+        log_app = new_app(name)
+        log_import_s = insert_events(events, log_app)
+        del events
+        srv = server_mod.PredictionServer(eng, ep, models, device=dev)
+        port = srv.start_background()
+        try:
+            log_walls = []
+            for doc in (stored, stored):
+                t0 = time.perf_counter()
+                answers.append(post(port, doc))
+                log_walls.append(time.perf_counter() - t0)
+            log_hits = srv.algorithms[0]._history_cache.hits
+        finally:
+            srv.stop()
+        log_launches = runtime.launch_counts()["flash_attention"] - launches
+    if not answers[0] == answers[1] == answers[2] == answers[3] == \
+            answers[4]:
         raise AssertionError("store-seq: the answer from the store's history "
                              "differs from the one with recentItems")
+    if log_hits < 1:
+        raise AssertionError("store-seq: the second history read from the "
+                             "log missed the TTL cache")
     if cache_hits < 1:
         raise AssertionError("store-seq: the second history read missed the "
                              "TTL cache")
@@ -1814,10 +1867,12 @@ def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
     steps = -(-n_sessions // batch)
     n_layers = SEQ["n_layers"]
     if dev.type == "cuda" and (train_launches != n_layers * steps
-                               or launches != train_launches + 3 * n_layers):
+                               or launches != train_launches + 3 * n_layers
+                               or log_launches != 2 * n_layers):
         raise AssertionError(f"store-seq: flash_attention launched "
-                             f"{train_launches} times in training and "
-                             f"{launches - train_launches} in 3 queries")
+                             f"{train_launches} times in training, "
+                             f"{launches - train_launches} in 3 queries "
+                             f"and {log_launches} in 2 from the log")
     stats = {"sessions": n_sessions, "length": max_len,
              "events": n_sessions * max_len, "make_events_s": make_s,
              "import_s": import_s,
@@ -1826,10 +1881,15 @@ def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
              "blob_bytes": blob_bytes, "load_models_s": load_s,
              "http_ms": {"recent_items": 1e3 * walls[0],
                          "store_history": 1e3 * walls[1],
-                         "cached_history": 1e3 * walls[2]},
+                         "cached_history": 1e3 * walls[2],
+                         "cpplog_store_history": 1e3 * log_walls[0],
+                         "cpplog_cached_history": 1e3 * log_walls[1]},
+             "cpplog_import_s": log_import_s,
+             "cpplog_import_events_per_s":
+                 n_sessions * max_len / log_import_s,
              "cache_hits": cache_hits, "final_loss": model.final_loss,
-             "launches": launches}
-    return launches, err, stats
+             "launches": launches + log_launches}
+    return launches + log_launches, err, stats
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2577,6 +2637,494 @@ def retrain_cli_leg(qs, dev, runtime, kernels, als, small: bool = False):
         "fit_rmse": fit, "fit_rmse_fresh": fit_fresh,
         "queries": len(queries), "launches": launches,
         "wall_s": time.perf_counter() - t_leg}
+
+
+# -- cpplog: the quickstart's verbs on the native event log ------------------
+
+#: single POST /events.json events the cpplog phase times
+LOG_SINGLE_EVENTS = 1_000
+
+
+@contextlib.contextmanager
+def cpplog_store():
+    """The port's Storage with events in a cpplog log, metadata in SQLite
+    and models on localfs, under a fresh temporary ``PIO_HOME``, set in the
+    environment so child processes open the same stores; put back as it
+    was afterwards."""
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+
+    def ours(k):
+        return k == "PIO_HOME" or k.startswith("PIO_STORAGE_")
+
+    saved = {k: v for k, v in os.environ.items() if ours(k)}
+    with tempfile.TemporaryDirectory(prefix="pio_home_") as home:
+        for k in saved:
+            del os.environ[k]
+        os.environ.update({
+            "PIO_HOME": home,
+            "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_SQL_PATH": os.path.join(home, "pio.db"),
+            "PIO_STORAGE_SOURCES_LOG_TYPE": "cpplog",
+            "PIO_STORAGE_SOURCES_LOG_PATH": os.path.join(home, "cpplog"),
+            "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+            "PIO_STORAGE_SOURCES_FS_PATH": os.path.join(home, "models"),
+            "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "pio_meta",
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio_event",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio_model",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+        })
+        Storage.reset()
+        try:
+            yield home
+        finally:
+            Storage.reset()
+            for k in [k for k in os.environ if ours(k)]:
+                del os.environ[k]
+            os.environ.update(saved)
+
+
+class ScanStats:
+    """The stats of every cpplog ``scan_interactions`` call made while
+    installed (``with ScanStats() as calls:``): its ``scan_*`` numbers,
+    rows and wall. Nothing else about the call changes."""
+
+    def __enter__(self):
+        from incubator_predictionio_tpu_torch.data.storage import cpplog
+
+        self.cls = cpplog.CppLogEvents
+        self.orig = orig = self.cls.scan_interactions
+        calls = self.calls = []
+
+        def scan(dao, *args, stats=None, **kw):
+            stats = {} if stats is None else stats
+            t0 = time.perf_counter()
+            out = orig(dao, *args, stats=stats, **kw)
+            calls.append({"wall_s": time.perf_counter() - t0,
+                          "rows": len(out),
+                          **{k: v for k, v in stats.items()
+                             if k.startswith("scan_")}})
+            return out
+
+        self.cls.scan_interactions = scan
+        return calls
+
+    def __exit__(self, *exc):
+        self.cls.scan_interactions = self.orig
+
+
+def id_triples(inter) -> tuple:
+    """(user number, item number, value) arrays of an ``Interactions``
+    whose ids are ``u<k>`` and ``i<k>``, in its row order."""
+    u_num = np.array([int(x[1:]) for x in inter.user_ids])[inter.user_idx]
+    i_num = np.array([int(x[1:]) for x in inter.item_ids])[inter.item_idx]
+    return u_num, i_num, np.asarray(inter.values)
+
+
+def same_triple_sets(a: tuple, b: tuple) -> bool:
+    """The two (user, item, value) triple lists hold the same triples."""
+    def canon(t):
+        order = np.lexsort((t[2], t[1], t[0]))
+        return [np.asarray(x)[order] for x in t]
+
+    if len(a[0]) != len(b[0]):
+        return False
+    return all(np.array_equal(x, y) for x, y in zip(canon(a), canon(b)))
+
+
+def same_interactions(a, b) -> bool:
+    """Byte-identical reads: rows, values and both id tables."""
+    return (np.array_equal(a.user_idx, b.user_idx)
+            and np.array_equal(a.item_idx, b.item_idx)
+            and np.array_equal(a.values, b.values)
+            and all(bytes(x.blob) == bytes(y.blob)
+                    and np.array_equal(x.offsets, y.offsets)
+                    for x, y in ((a.user_ids, b.user_ids),
+                                 (a.item_ids, b.item_ids))))
+
+
+def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
+                 small: bool = False, seed: int = 3):
+    """The quickstart's verbs through the port's CLI with the events on
+    the native log (``cpplog``; metadata on SQLite, models on localfs)
+    under a fresh ``PIO_HOME``: ``pio app new``; ``pio import`` of
+    store-als's 1,000,000 planted ratings (one ``eventTime`` each, 1 ms
+    apart, the order store-als's SQLite import gives them), which must take
+    the native columnar path and write the training projection; ``pio
+    build`` and ``pio train`` (rank 128, 4 sweeps, 2 bf16, λ 0.03, seed 3:
+    store-als's), whose read is the sharded scan of the log (the
+    recommendation data source reads two event names, ``rate`` and
+    ``buy`` at a fixed value, which the projection does not serve, as in
+    the JAX package); the read held to store-als's SQLite read as sets of
+    (user, item, value) triples and the fit within 1e-3 of store-als's,
+    relative; ``pio eventserver`` as a child on the store: the three batch
+    legs at bodies of 50 and 500 and ``LOG_SINGLE_EVENTS`` single events
+    into an app of their own (:func:`leg_timings`), ``GET /stats.json``'s
+    group-commit counters, then the retrain leg's 2,500 ratings
+    (:func:`cli_tail`) on the native leg, which ``read_interactions_since``
+    from a cursor taken before them must return exactly; the read the
+    projection serves (``rate`` alone, its stored value), which must come
+    from the projection plus a tail of exactly those rows and equal the
+    full scan of the same query byte for byte; ``pio train`` again, which
+    must continue from the first instance; ``pio deploy`` as a child, 32
+    queries each held to the
+    plain top-k on the instance's decoded factors, ``pio undeploy``; ``pio
+    upgrade`` (the log's live-record rewrite) and a read equal byte for
+    byte to the one before it. ``sqlite``: store-als's triples and fit.
+    Returns (launches by kernel, max score error, stats)."""
+    from datetime import timedelta
+
+    from incubator_predictionio_tpu_torch.data.storage import (
+        Storage,
+        traincache,
+    )
+    from incubator_predictionio_tpu_torch.data.storage import base as sbase
+    from incubator_predictionio_tpu_torch.data.store import EventStore
+    from incubator_predictionio_tpu_torch.models.recommendation import (
+        engine,
+    )
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.utils.times import (
+        format_iso8601,
+        parse_iso8601,
+    )
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    t_phase = time.perf_counter()
+    rank = 16 if small else ML20M["rank"]
+    users, items, ratings, n_users, n_items = store_als_ratings(planted,
+                                                                small)
+    nnz = len(ratings)
+    name, legs_name = "LogApp", "LogLegs"
+    base_t = parse_iso8601(STORE_T0)
+    min_nnz = traincache.MIN_NNZ
+    if small:  # the projection at the rehearsal's size too
+        traincache.MIN_NNZ = min(min_nnz, nnz)
+    env_saved = os.environ.get("PIO_DEVICE")
+    if dev.type == "cpu":
+        os.environ["PIO_DEVICE"] = "cpu"
+    else:
+        os.environ.pop("PIO_DEVICE", None)
+    children = []
+    stats: dict = {"users": n_users, "items": n_items, "ratings": nnz,
+                   "rank": rank}
+    cwd = os.getcwd()
+    try:
+        with cpplog_store(), \
+                tempfile.TemporaryDirectory(prefix="pio_log_") as work:
+            env = dict(os.environ)
+            env["PYTHONPATH"] = os.pathsep.join(
+                [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+            key = re.search(r"Access Key: (\S+)",
+                            cli("app", "new", name)).group(1)
+            legs_out = cli("app", "new", legs_name)
+            app_id = Storage.get_meta_data_apps().get_by_name(name).id
+            dao = Storage.get_events()
+            log_path = dao.client._file(dao.ns, app_id, None)
+            cpath = traincache.path_for(log_path)
+
+            # -- pio import: the columnar path writes the projection ------
+            path = os.path.join(work, "ratings.jsonl")
+            t0 = time.perf_counter()
+            with open(path, "w") as f:
+                for k in range(nnz):
+                    f.write(json.dumps(rate_doc(
+                        users[k], items[k], ratings[k], format_iso8601(
+                            base_t + timedelta(milliseconds=k)))) + "\n")
+            stats["write_file_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = cli("import", "--appid-or-name", name, "--input", path)
+            import_s = time.perf_counter() - t0
+            if f"Imported {nnz} events (native columnar path)." not in out:
+                raise AssertionError(f"cpplog: pio import said {out!r}")
+            cache = traincache.load(cpath)
+            if cache is None or (cache.raw_count, len(cache)) != (nnz, nnz):
+                raise AssertionError("cpplog: the import wrote no "
+                                     "projection of its ratings")
+            stats["import"] = {"events": nnz, "s": import_s,
+                               "events_per_s": nnz / import_s}
+
+            # -- pio build, pio train: the sharded scan of the log --------
+            engine_dir = os.path.join(work, "engine")
+            os.makedirs(engine_dir)
+            variant = os.path.join(engine_dir, "engine.json")
+            with open(variant, "w") as f:
+                json.dump({
+                    "id": "default",
+                    "engineFactory": "incubator_predictionio_tpu_torch."
+                                     "models.recommendation:"
+                                     "RecommendationEngine",
+                    "datasource": {"params": {"appName": name}},
+                    "algorithms": [{"name": "als", "params": {
+                        "rank": rank, "numIterations": 4, "lambda": 0.03,
+                        "bf16Sweeps": 2, "seed": seed}}],
+                }, f)
+
+            def train(what):
+                os.chdir(engine_dir)
+                try:
+                    with LogLines("incubator_predictionio_tpu_torch.models."
+                                  "recommendation.engine") as lines, \
+                            ScanStats() as scans:
+                        runtime.reset_launch_counts()
+                        sync(dev)
+                        t0 = time.perf_counter()
+                        out = cli("train")
+                        sync(dev)
+                        wall = time.perf_counter() - t0
+                        counts = runtime.launch_counts()
+                finally:
+                    os.chdir(cwd)
+                if len(scans) != 1:
+                    raise AssertionError(f"cpplog: the {what} pio train "
+                                         f"scanned {len(scans)} times")
+                iid = re.search(r"Engine instance ID: (\S+)", out).group(1)
+                conf = Storage.get_meta_data_engine_instances().get(
+                    iid).runtime_conf
+                return {"instance": iid, "train_s": wall,
+                        "phases_s": {k: float(v) for k, v in conf.items()
+                                     if k.startswith("phase.")},
+                        "scan": scans[0],
+                        "launches": {e: counts[e]
+                                     for e in ROUTE_ENTRY.values()}}, lines
+
+            os.chdir(engine_dir)
+            try:
+                cli("build")
+            finally:
+                os.chdir(cwd)
+            first, _ = train("first")
+            if first["scan"].get("scan_source") != "scan":
+                raise AssertionError(f"cpplog: the first train read "
+                                     f"{first['scan']}")
+            ctx = RuntimeContext(device=dev)
+            td = engine.RecommendationDataSource(
+                engine.DataSourceParams(app_name=name)).read_training(ctx)
+            if not same_triple_sets(id_triples(td.interactions),
+                                    sqlite["triples"]):
+                raise AssertionError("cpplog: the log's ratings differ from "
+                                     "the SQLite store's")
+            pd = engine.RecommendationPreparator().prepare(ctx, td)
+            model = CoreWorkflow.load_models(first["instance"])[0]
+            fit = als.rmse(als.ALSState(
+                user_factors=torch.as_tensor(model.user_factors).to(dev),
+                item_factors=torch.as_tensor(model.item_factors).to(dev)),
+                pd.users, pd.items, pd.ratings)
+            fit_rel = abs(fit - sqlite["fit"]) / fit
+            if not fit_rel <= 1e-3:
+                raise AssertionError(f"cpplog: fit RMSE {fit!r} is "
+                                     f"{fit_rel:.2e} from the SQLite "
+                                     f"store's {sqlite['fit']!r}")
+            first.update(fit_rmse=fit, fit_rmse_sqlite=sqlite["fit"],
+                         fit_rel_err=fit_rel)
+            stats["first"] = first
+
+            # -- pio eventserver on the log: legs, stats, the tail --------
+            cursor = Storage.get_events().tail_cursor(app_id)
+            Storage.reset()  # the child owns the log while it runs
+            es = Child("eventserver-log", [
+                "eventserver", "--ip", "127.0.0.1", "--port", "0",
+                "--batch-cap", "500", "--stats"], work, env)
+            children.append(es)
+            url = "http://127.0.0.1:%d" % int(es.wait_line(
+                r"running on http://[^:]+:(\d+)", 300).group(1))
+            stats["ingest_by_body"] = leg_timings(
+                url, legs_out, users, items, ratings, base_t,
+                50 if small else QS_LEG_EVENTS)
+            legs_key = re.search(r"Access Key: (\S+)", legs_out).group(1)
+            n_single = 50 if small else LOG_SINGLE_EVENTS
+            t0 = time.perf_counter()
+            for k in range(n_single):
+                status, got = http_json(
+                    "POST", f"{url}/events.json?accessKey={legs_key}",
+                    rate_doc(users[k], items[k], ratings[k]))
+                if status != 201:
+                    raise AssertionError(f"cpplog: single event: {status} "
+                                         f"{got}")
+            wall = time.perf_counter() - t0
+            stats["single"] = {"events": n_single, "s": wall,
+                               "events_per_s": n_single / wall}
+            tu, ti, tr = cli_tail(np.random.default_rng(21), users, items,
+                                  n_users, n_items)
+            # the child's first touch of the 1M-record log opens it (the
+            # native index is rebuilt from the record headers)
+            t0 = time.perf_counter()
+            status, got = http_json(
+                "GET", f"{url}/events.json?accessKey={key}&limit=1")
+            if status != 200 or len(got) != 1:
+                raise AssertionError(f"cpplog: GET /events.json {status}")
+            child_open_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for s0 in range(0, len(tu), 500):
+                body = json.dumps([rate_doc(u, i, r) for u, i, r in zip(
+                    tu[s0:s0 + 500], ti[s0:s0 + 500],
+                    tr[s0:s0 + 500])]).encode()
+                if sbase.uniform_interactions_from_body(body, 500) is None:
+                    raise AssertionError("cpplog: a tail body left the "
+                                         "native leg")
+                status, got = http_json(
+                    "POST", f"{url}/batch/events.json?accessKey={key}",
+                    body)
+                if status != 200 or any(g.get("status") != 201
+                                        for g in got):
+                    raise AssertionError(f"cpplog: tail body at {s0}: "
+                                         f"{status} {got!r:.300}")
+            tail_s = time.perf_counter() - t0
+            status, st = http_json("GET",
+                                   f"{url}/stats.json?accessKey={key}")
+            if status != 200 or "groupCommit" not in st:
+                raise AssertionError(f"cpplog: GET /stats.json {status} "
+                                     f"{st!r:.300}")
+            stats["group_commit"] = st["groupCommit"]
+            es.proc.send_signal(signal.SIGTERM)
+            es.wait_exit()
+
+            t0 = time.perf_counter()
+            dao = Storage.get_events()
+            dao.init(app_id)   # reopens the log
+            reopen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tail, _times, _append, _cur, reset = \
+                dao.read_interactions_since(cursor, app_id,
+                                            value_prop="rating")
+            tail_read_s = time.perf_counter() - t0
+            got_t = id_triples(tail)
+            # as a set: the server stamps each body from its arrival, and
+            # a read restores time order where two bodies' stamps overlap
+            if reset or not same_triple_sets(got_t, (tu, ti, tr)):
+                raise AssertionError(f"cpplog: the tail read gave "
+                                     f"{len(tail)} rows (reset {reset}), "
+                                     f"not the {len(tr)} posted")
+            stats["tail"] = {"events": len(tr), "s": tail_s,
+                             "events_per_s": len(tr) / tail_s,
+                             "child_open_s": child_open_s,
+                             "reopen_s": reopen_s,
+                             "read_interactions_since_s": tail_read_s}
+
+            # -- the read the projection serves: one event name, its
+            # stored value (the import's projection plus the tail), held
+            # to the full scan of the same query
+            reads = {}
+            for how, kw in (("cache", {}), ("scan", dict(
+                    use_cache=False, seed_cache=False))):
+                st: dict = {}
+                t0 = time.perf_counter()
+                reads[how] = EventStore.interactions(
+                    app_name=name, value_prop="rating", stats=st, **kw)
+                st = {k: v for k, v in st.items() if k.startswith("scan_")}
+                stats[f"{how}_read"] = dict(st, s=time.perf_counter() - t0)
+            if (stats["cache_read"].get("scan_source") != "cache"
+                    or stats["cache_read"].get("scan_tail_rows") != len(tr)
+                    or not same_interactions(reads["cache"],
+                                             reads["scan"])):
+                raise AssertionError(f"cpplog: the projection's read "
+                                     f"{stats['cache_read']} against the "
+                                     f"scan's {stats['scan_read']}")
+
+            # -- pio train again: the scan, continued from the first ------
+            second, lines = train("second")
+            if second["scan"].get("scan_source") != "scan":
+                raise AssertionError(f"cpplog: the second train read "
+                                     f"{second['scan']}")
+            said = [m for m in map(re.compile(
+                r"ALS continuation retrain: .* (\d+) sweeps \(mode=(\w+), "
+                r"delta=(\S+)\)").search, lines) if m]
+            if len(said) != 1 or said[0].group(2) != "continue":
+                raise AssertionError(f"cpplog: the second pio train logged "
+                                     f"{lines}")
+            if "phase.continue_seed_s" not in second["phases_s"]:
+                raise AssertionError("cpplog: no continue_seed phase")
+            second["sweeps_used"] = int(said[0].group(1))
+            stats["second"] = second
+            model = CoreWorkflow.load_models(second["instance"])[0]
+            if (len(model.user_bimap), len(model.item_bimap)) != (
+                    n_users + RT_NEW_USERS, n_items + RT_NEW_ITEMS):
+                raise AssertionError("cpplog: the continued model holds "
+                                     f"{len(model.user_bimap)} × "
+                                     f"{len(model.item_bimap)}")
+
+            # -- pio deploy, queries, pio undeploy ------------------------
+            t0 = time.perf_counter()
+            dep = Child("deploy-log", ["deploy", "--variant", variant,
+                                       "--ip", "127.0.0.1", "--port", "0"],
+                        work, env, cwd=engine_dir)
+            children.append(dep)
+            port = int(dep.wait_line(r"deployed on http://[^:]+:(\d+)",
+                                     600).group(1))
+            base = f"http://127.0.0.1:{port}"
+            rng = np.random.default_rng(23)
+            queries = [{"user": f"u{u}", "num": 10}
+                       for u in rng.choice(n_users, 16, replace=False)]
+            queries += [{"user": f"u{u}", "num": 20} for u in rng.choice(
+                np.unique(tu[tu >= n_users]), 16)]
+            answers, walls = [], []
+            for doc in queries:
+                t1 = time.perf_counter()
+                status, body = http_json("POST", f"{base}/queries.json", doc)
+                walls.append(time.perf_counter() - t1)
+                if status != 200:
+                    raise AssertionError(f"cpplog: query {doc}: {status} "
+                                         f"{body}")
+                answers.append(body)
+            status, info = http_json("GET", f"{base}/")
+            if status != 200 or info["engineInstanceId"] != \
+                    second["instance"]:
+                raise AssertionError(f"cpplog: GET / {status} {info}")
+            cli("undeploy", "--ip", "127.0.0.1", "--port", str(port))
+            dep.wait_exit()
+            stats["deploy"] = {"queries": len(queries),
+                               "wall_s": time.perf_counter() - t0,
+                               "http_p50_ms": 1e3 * statistics.median(walls)}
+
+            # -- pio upgrade: the live-record rewrite; the same read ------
+            before = reads["cache"]
+            t0 = time.perf_counter()
+            out = cli("upgrade")
+            upgrade_s = time.perf_counter() - t0
+            if "live events rewritten" not in out:
+                raise AssertionError(f"cpplog: pio upgrade said {out!r}")
+            t0 = time.perf_counter()
+            after = EventStore.interactions(app_name=name,
+                                            value_prop="rating")
+            reread_s = time.perf_counter() - t0
+            if not same_interactions(before, after) or \
+                    len(after) != nnz + len(tr):
+                raise AssertionError("cpplog: the read after pio upgrade "
+                                     "differs from the one before")
+            stats["upgrade"] = {"s": upgrade_s, "reread_s": reread_s,
+                                "said": out.strip().splitlines()}
+    finally:
+        traincache.MIN_NNZ = min_nnz
+        os.chdir(cwd)
+        for child in children:
+            if child.kill():
+                raise AssertionError(f"cpplog: {child.name} was left "
+                                     "running")
+        if env_saved is None:
+            os.environ.pop("PIO_DEVICE", None)
+        else:
+            os.environ["PIO_DEVICE"] = env_saved
+
+    uf_t = torch.from_numpy(np.asarray(model.user_factors)).to(dev)
+    items_t = torch.from_numpy(np.asarray(model.item_factors)).to(dev)
+    err = 0.0
+    for k, (doc, body) in enumerate(zip(queries, answers)):
+        err = max(err, check_answer(kernels, dev, uf_t, items_t, doc, None,
+                                    body, f"cpplog query {k}", model=model))
+    launches = {e: first["launches"][e] + second["launches"][e]
+                for e in ROUTE_ENTRY.values()}
+    launches["score_topk"] = info["kernelLaunches"].get("score_topk", 0)
+    if dev.type == "cuda" and (launches["als_fused_solve_cg"] <= 0
+                               or launches["score_topk"] < len(queries)):
+        raise AssertionError(f"cpplog: launches {launches}")
+    stats.update(launches=launches, sqlite=sqlite["figures"],
+                 wall_s=time.perf_counter() - t_phase)
+    return launches, err, stats
 
 
 def retrain_loop_leg(dev, runtime, als, planted, pd, trained, small=False,
@@ -4019,9 +4567,9 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    store_launches, err_sa, store_stats, store_path = store_als_phase(
-        dev, runtime, kernels, als, engine, planted, params_mod, context,
-        server_mod)
+    store_launches, err_sa, store_stats, store_path, sqlite_ref = \
+        store_als_phase(dev, runtime, kernels, als, engine, planted,
+                        params_mod, context, server_mod)
     print(f"store-als: {json.dumps(store_stats)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -4041,6 +4589,19 @@ def main() -> int:
           f"({time.perf_counter() - t0 - rt_cli['wall_s']:.1f} s)",
           flush=True)
     print(f"quickstart-card: {card_line()}", flush=True)
+
+    sqlite_ref["figures"].update(
+        quickstart_import_events_per_s=qs_stats["ingest"]["import"][
+            "events_per_s"],
+        quickstart_read_s=qs_stats["phases_s"].get("phase.read_s"),
+        quickstart_train_s=qs_stats["train_s"],
+        retrain_read_s=rt_cli["phases_s"].get("phase.read_s"),
+        retrain_train_s=rt_cli["train_s"])
+    log_launches, err_log, log_stats = cpplog_phase(
+        dev, runtime, kernels, als, planted, sqlite_ref)
+    print(f"cpplog: {json.dumps(log_stats)} ({log_stats['wall_s']:.1f} s)",
+          flush=True)
+    print(f"cpplog-card: {card_line()}", flush=True)
 
     t0 = time.perf_counter()
     rt_loop_launches, rt_loop = retrain_loop_leg(
@@ -4079,8 +4640,9 @@ def main() -> int:
         "replaces": kernels.REPLACES,
         "launches": launches + trained_launches
         + store_launches["score_topk"] + qs_launches["score_topk"]
-        + rt_cli_launches["score_topk"],
-        "max_abs_err": max(err_k, err_p, err_t, err_sa, err_qs, err_rt),
+        + rt_cli_launches["score_topk"] + log_launches["score_topk"],
+        "max_abs_err": max(err_k, err_p, err_t, err_sa, err_qs, err_rt,
+                           err_log),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
@@ -4099,7 +4661,8 @@ def main() -> int:
             "replaces": ak.REPLACES[entry],
             "launches": train_stats["launches"][entry]
             + store_launches.get(entry, 0) + qs_launches.get(entry, 0)
-            + rt_cli_launches.get(entry, 0) + rt_loop_launches.get(entry, 0),
+            + rt_cli_launches.get(entry, 0) + rt_loop_launches.get(entry, 0)
+            + log_launches.get(entry, 0),
             "max_abs_err": max([als_errs[entry]]
                                + [r["max_abs_err"] for r in rows]),
             "ms": first["ms"],

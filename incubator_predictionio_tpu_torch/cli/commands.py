@@ -538,15 +538,46 @@ def _iter_import_file(input_path: str, format: str):
                 yield f"{input_path}:{line_no}", doc
 
 
+#: minimum batch size for the columnar import fast path (below it the
+#: Python interning pass costs more than the per-event path saves)
+_FAST_IMPORT_MIN = int(os.environ.get("PIO_IMPORT_FAST_MIN", "10000"))
+
+
+def _as_uniform_interactions(events):
+    """Events → (Interactions, entity_type, target_type, name, value_prop,
+    times_ms) when the columnar bulk import is observably equivalent to
+    per-event inserts, else None.
+
+    The equivalence conditions live in ``base.uniform_interactions``,
+    shared with the cpplog REST batch gate so the two cannot drift.
+    Export round-trips carry eventIds (upsert semantics) and therefore
+    never take this path; an explicit creationTime is screened by the
+    caller (the parsed Event cannot tell it from the defaulted one)."""
+    if len(events) < _FAST_IMPORT_MIN:
+        return None  # interning overhead beats the win on small files
+    from incubator_predictionio_tpu_torch.data.storage.base import (
+        uniform_interactions,
+    )
+
+    return uniform_interactions(events)
+
+
 def import_events(app_name: str, input_path: str,
                   channel: Optional[str] = None,
                   format: str = "json") -> int:
     from incubator_predictionio_tpu_torch.data.event import validate_event
+    from incubator_predictionio_tpu_torch.data.storage import (
+        base as storage_base,
+    )
     from incubator_predictionio_tpu_torch.data.store import EventStore
 
     app_name = _appid_or_name_to_name(app_name)
 
     events = []
+    # doc-level screen for the fast path: a parsed Event cannot tell an
+    # explicit creationTime from the defaulted one, and creationTime is
+    # exactly what the columnar renderer would rewrite
+    plain_docs = True
     for location, doc in _iter_import_file(input_path, format):
         try:
             event = Event.from_jsonable(doc)
@@ -554,6 +585,25 @@ def import_events(app_name: str, input_path: str,
             events.append(event)
         except ValueError as e:
             raise CommandError(f"{location}: invalid event: {e}") from e
+        plain_docs = plain_docs and "creationTime" not in doc
+    dao = Storage.get_events()
+    fast = (
+        _as_uniform_interactions(events)
+        # only a backend with a NATIVE columnar import (cpplog): the base
+        # version converts straight back to Events, paying twice
+        if plain_docs and type(dao).import_interactions
+        is not storage_base.Events.import_interactions else None)
+    if fast is not None:
+        from incubator_predictionio_tpu_torch.data.store import _resolve
+
+        inter, etype, tetype, name, vprop, times = fast
+        app_id, channel_id = _resolve(app_name, channel)
+        n = dao.import_interactions(
+            inter, app_id, channel_id, entity_type=etype,
+            target_entity_type=tetype, event_name=name, value_prop=vprop,
+            times=times)
+        print(f"Imported {n} events (native columnar path).")
+        return n
     EventStore.write(events, app_name=app_name, channel_name=channel)
     print(f"Imported {len(events)} events.")
     return len(events)
@@ -567,9 +617,10 @@ def upgrade(appid_or_name: Optional[str] = None) -> List[Dict[str, Any]]:
     """Rewrite event stores in the current on-disk format — the store
     migration verb (the reference's HBase upgrade tool role,
     data/.../storage/hbase/upgrade/Upgrade.scala). Delegates to the
-    backend's ``compact`` (sqlite: VACUUM; the native log is not ported
-    yet); backends without a migration (memory) are skipped. Covers the default channel plus
-    every named channel of each selected app."""
+    backend's ``compact`` (cpplog: the live-record rewrite, dropping
+    tombstoned records and giving bare-JSON records their sidecar; sqlite:
+    VACUUM); backends without a migration (memory) are skipped. Covers the
+    default channel plus every named channel of each selected app."""
     events = Storage.get_events()
     if not hasattr(events, "compact"):
         return []

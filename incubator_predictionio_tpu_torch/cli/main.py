@@ -14,7 +14,7 @@ touch the device.
 
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
 item: ``eval`` (Queue 1 item 6), ``adminserver`` and ``dashboard`` (item
-8), ``storageserver`` (item 1.6), ``train``/``deploy --hosts`` (the pod
+8), ``storageserver`` (item 1.6b), ``train``/``deploy --hosts`` (the pod
 launch) and ``train --model-parallelism`` above 1 (item 9), and ``deploy
 --feedback`` / ``--log-url`` (item 8, raised by the prediction server;
 the options that only those use, ``--event-server-ip``,
@@ -199,7 +199,7 @@ _NOT_PORTED = {
     "adminserver": "the admin server, ROADMAP.md Queue 1 item 8",
     "dashboard": "the dashboard, ROADMAP.md Queue 1 item 8",
     "storageserver": "the remote storage backends, ROADMAP.md Queue 1 "
-                     "item 1.6",
+                     "item 1.6b",
 }
 
 

@@ -1,12 +1,15 @@
 """Storage registry — env-driven backend selection and DAO factory: the
 port's own copy of incubator_predictionio_tpu/data/storage/__init__.py. It
-registers ``memory``, ``sqlite`` and ``localfs``; ``cpplog``, ``remote`` and
-``gcs`` raise until their slice of the port (ROADMAP.md, Queue 1).
+registers ``memory``, ``sqlite``, ``localfs`` and ``cpplog`` (the native
+event log: events only, so metadata and models stay on sqlite, memory or
+localfs, as in the JAX package); ``remote`` and ``gcs`` raise until their
+slice of the port (ROADMAP.md, Queue 1, item 1.6b).
 
 Parity: data/.../storage/Storage.scala:117-407. Configuration comes from the
 same env-var scheme as the reference:
 
-- ``PIO_STORAGE_SOURCES_<NAME>_TYPE``  — backend type (memory | sqlite | localfs)
+- ``PIO_STORAGE_SOURCES_<NAME>_TYPE``  — backend type (memory | sqlite | localfs
+  | cpplog)
 - ``PIO_STORAGE_SOURCES_<NAME>_<KEY>`` — backend properties (e.g. ``PATH``)
 - ``PIO_STORAGE_REPOSITORIES_<REPO>_NAME`` / ``_SOURCE`` for
   ``<REPO>`` ∈ {METADATA, EVENTDATA, MODELDATA}
@@ -61,11 +64,12 @@ _BACKENDS: Dict[str, str] = {
     "memory": "incubator_predictionio_tpu_torch.data.storage.memory",
     "sqlite": "incubator_predictionio_tpu_torch.data.storage.sqlite",
     "localfs": "incubator_predictionio_tpu_torch.data.storage.localfs",
+    # native append-only event log (the HBase-driver role; events only)
+    "cpplog": "incubator_predictionio_tpu_torch.data.storage.cpplog",
 }
 
 #: backends of the JAX package that this package has not ported yet
 _NOT_PORTED: Dict[str, str] = {
-    "cpplog": "the native append-only event log",
     "remote": "the network client of a shared StorageServer",
     "gcs": "the GCS model-blob store",
 }
@@ -181,8 +185,8 @@ class Storage:
                 raise StorageError(
                     f"storage backend {type_name!r} "
                     f"({_NOT_PORTED[type_name]}) is not ported yet: it is "
-                    "queued in ROADMAP.md, Queue 1 (use memory, sqlite or "
-                    "localfs)")
+                    "queued in ROADMAP.md, Queue 1, item 1.6b (use memory, "
+                    "sqlite, localfs or cpplog)")
             if module_path is None:
                 raise StorageError(
                     f"Unknown storage backend type {type_name!r} "

@@ -209,7 +209,7 @@ class SeqRecAlgorithm(Algorithm):
             raise ValueError(f"unknown seq_parallel mode: {mode!r}")
         raise NotImplementedError(
             f"seq_parallel={mode!r} comes with the port's multi-device slice "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP Queue 1 item 9)")
 
     def train(self, ctx: RuntimeContext, pd: PreparedData) -> SeqRecModel:
         seed = self.params.seed if self.params.seed is not None else ctx.seed

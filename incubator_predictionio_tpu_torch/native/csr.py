@@ -30,9 +30,13 @@ def bucket_counts_from_degrees(
     """Per-bucket segment counts from a per-row degree histogram — the
     same numbers ``pio_csr_plan`` derives from one O(nnz) pass over the
     rows array, computed instead from degrees alone (O(n_rows),
-    vectorized), for a caller that already holds the histogram. No path
-    of this package passes one yet: in the JAX package it is continuation
-    retrain's (ROADMAP Queue 1)."""
+    vectorized), for a caller that already holds the histogram:
+    ``ops/sparse.build_both_sides(user_degrees=, item_degrees=)``, and
+    through it ``ops/sparse.StreamingPrep.finish``, whose histograms come
+    from the cpplog scan's ``shard_sink``. The histograms the cpplog scan
+    keeps in its prep-plan sidecar (its stats' ``plan_user_degrees`` /
+    ``plan_item_degrees``) are passed by no training path, in this
+    package as in the JAX one."""
     d = np.asarray(degrees, np.int64)
     counts = np.zeros(n_buckets, np.int64)
     # rows longer than max_width split into full-width segments + a tail

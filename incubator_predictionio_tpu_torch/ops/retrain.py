@@ -28,9 +28,11 @@ the buckets of a cold train.
 
 What the JAX module has and this one has not: the mesh-sharded plans and
 the ring layout (``_RingPlan``, ``_als_retrain_placed``; ROADMAP Queue 1
-item 9), the scan's prep-plan sidecar degrees and the digest skip of an
-append-only caller (``verify_prefix``; item 1.6), and what exists
-only to serve XLA dispatches: ``_pad_pow2`` (bounded jit shapes), the
+item 9); two parameters that no caller of the JAX package passes, so
+there is nothing to port: ``verify_prefix=False`` (the digest skip) and
+``prepare_with_reuse``'s ``user_degrees``/``item_degrees`` (the cpplog
+scan's prep-plan sidecar degrees reach no training path there); and what
+exists only to serve XLA dispatches: ``_pad_pow2`` (bounded jit shapes), the
 deferred splice fused into the training dispatch
 (``pending_splices``, ``commit_spliced_trees``) and its pins
 ``train_dispatches`` / ``one_dispatch``. Here the splice is applied to

@@ -1,5 +1,5 @@
 """Host-side sparse → degree-bucketed padded rows: the port's own copy of
-incubator_predictionio_tpu/ops/sparse.py:22-277, both routes.
+incubator_predictionio_tpu/ops/sparse.py:22-350, both routes.
 
 Rows (users or items) are grouped into buckets by degree ceiling (powers of
 two from ``min_width``), each bucket padded to its ceiling: padding waste
@@ -16,6 +16,11 @@ package, a native library that cannot be built raises: the numpy route is
 taken only when asked for (``impl="numpy"``) or when an index does not fit
 in int32. The numpy route replaces the JAX package's per-segment Python
 loops with array operations.
+
+:func:`build_both_sides` builds both orientations at once and takes the
+per-side degree histograms of the scan, and :class:`StreamingPrep`
+accumulates those histograms from the cpplog scan's ``shard_sink`` while
+the scan runs.
 
 :func:`latest_wins` is the preparator's dedup of (user, item) pairs, the
 last occurrence kept, on a torch device.
@@ -139,6 +144,7 @@ def build_padded_rows(
     max_width: int = 4096,
     row_multiple: int = 8,
     impl: str = "auto",
+    degrees: Optional[np.ndarray] = None,
 ) -> List[PaddedRows]:
     """COO triplets → degree-bucketed :class:`PaddedRows`, in ascending
     width; within a bucket, segments in row order. Rows of degree above
@@ -149,7 +155,13 @@ def build_padded_rows(
     ``impl``: "auto" takes the native builder from ``NATIVE_MIN_NNZ``
     triples up and numpy below; "native" and "numpy" force a route. The
     native route raises when its library cannot be built, and falls to
-    numpy only where an index exceeds int32."""
+    numpy only where an index exceeds int32.
+
+    ``degrees``: an optional per-row nnz histogram (int64[n_rows], sum ==
+    nnz) that replaces the native plan pass (``native/csr.py``); the
+    numpy route has no plan pass and ignores it. A wrong histogram is
+    detected natively and the exact plan is taken, so the buckets never
+    depend on it."""
     if impl not in ("auto", "native", "numpy"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "native" or (impl == "auto" and len(rows) >= NATIVE_MIN_NNZ):
@@ -159,7 +171,7 @@ def build_padded_rows(
 
         buckets = build_buckets_native(
             np.asarray(rows), np.asarray(cols), np.asarray(vals), n_rows,
-            min_width, max_width)
+            min_width, max_width, degrees=degrees)
         if buckets is not None:
             return [PaddedRows(row_ids=r, cols=c, vals=v, mask=m)
                     .pad_rows_to(row_multiple)
@@ -214,20 +226,102 @@ def build_both_sides(
     row_multiple: int = 8,
     split_row_multiple: int = 8,
     impl: str = "auto",
+    user_degrees: Optional[np.ndarray] = None,
+    item_degrees: Optional[np.ndarray] = None,
+    on_side=None,
 ):
     """Both training orientations, built in two threads (the native
     builder's ctypes calls release the GIL) →
-    ((user_light, user_heavy), (item_light, item_heavy))."""
-    def side(rows, cols, n_rows):
-        return split_heavy(
+    ((user_light, user_heavy), (item_light, item_heavy)).
+
+    ``user_degrees``/``item_degrees``: optional per-row histograms (see
+    :func:`build_padded_rows`). ``on_side(side, light, heavy)``, side in
+    {"user", "item"}, fires from the worker thread as soon as that side is
+    built, so a consumer can start copying one side's buckets to the
+    device while the other side is still padding."""
+    def side(name, rows, cols, n_rows, degrees):
+        out = split_heavy(
             build_padded_rows(rows, cols, vals, n_rows, max_width=max_width,
-                              row_multiple=row_multiple, impl=impl),
+                              row_multiple=row_multiple, impl=impl,
+                              degrees=degrees),
             row_multiple=split_row_multiple)
+        if on_side is not None:
+            on_side(name, out[0], out[1])
+        return out
 
     with ThreadPoolExecutor(max_workers=2) as pool:
-        fu = pool.submit(side, users, items, n_users)
-        fi = pool.submit(side, items, users, n_items)
+        fu = pool.submit(side, "user", users, items, n_users, user_degrees)
+        fi = pool.submit(side, "item", items, users, n_items, item_degrees)
         return fu.result(), fi.result()
+
+
+class StreamingPrep:
+    """Scan→prep pipeline sink: consumes scan shards as they land (the
+    JAX package's ``ops/sparse.StreamingPrep``).
+
+    The sharded event-log scan (``data/storage/cpplog.py`` ``shard_sink``)
+    hands over each completed shard, its indices already remapped into the
+    global id tables, while later shards are still scanning with the GIL
+    released. This sink does the prep work that one shard allows: the
+    per-side degree histograms that replace the native csr plan pass
+    (:func:`build_padded_rows` ``degrees``). ``overlap_s`` records the
+    prep wall absorbed into the scan.
+
+    ``finish(inter)`` then runs :func:`build_both_sides` on the final
+    arrays. The histograms are used only when the scan did NOT reorder
+    rows (``scan_reordered`` in the scan's stats): a reorder re-interns
+    the ids, so the histograms would index a permuted table; they are
+    dropped and the degrees recomputed natively."""
+
+    def __init__(self) -> None:
+        self.user_degrees = np.zeros(0, np.int64)
+        self.item_degrees = np.zeros(0, np.int64)
+        self.overlap_s = 0.0
+        self.shards = 0
+
+    def _accumulate(self, hist: np.ndarray, idx: np.ndarray) -> np.ndarray:
+        add = np.bincount(idx, minlength=len(hist)).astype(np.int64)
+        if len(add) > len(hist):
+            add[:len(hist)] += hist
+            return add
+        hist += add
+        return hist
+
+    def add_shard(self, k: int, uidx, iidx, vals, times=None) -> None:
+        import time
+
+        t0 = time.perf_counter()
+        self.user_degrees = self._accumulate(self.user_degrees, uidx)
+        self.item_degrees = self._accumulate(self.item_degrees, iidx)
+        self.shards += 1
+        self.overlap_s += time.perf_counter() - t0
+
+    def finish(
+        self,
+        inter,
+        max_width: int = 4096,
+        row_multiple: int = 8,
+        split_row_multiple: int = 8,
+        reordered: bool = False,
+        on_side=None,
+    ):
+        """→ the ((user_light, user_heavy), (item_light, item_heavy))
+        tuple of :func:`build_both_sides`, fed the accumulated histograms
+        while they still hold for ``inter``."""
+        n_users, n_items = len(inter.user_ids), len(inter.item_ids)
+        ud = id_ = None
+        if not reordered and self.shards:
+            mu = min(n_users, len(self.user_degrees))
+            ud = np.zeros(n_users, np.int64)
+            ud[:mu] = self.user_degrees[:mu]
+            mi = min(n_items, len(self.item_degrees))
+            id_ = np.zeros(n_items, np.int64)
+            id_[:mi] = self.item_degrees[:mi]
+        return build_both_sides(
+            inter.user_idx, inter.item_idx, inter.values, n_users, n_items,
+            max_width=max_width, row_multiple=row_multiple,
+            split_row_multiple=split_row_multiple,
+            user_degrees=ud, item_degrees=id_, on_side=on_side)
 
 
 def latest_wins(users, items, n_items: int, device) -> np.ndarray:

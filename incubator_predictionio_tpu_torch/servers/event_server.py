@@ -21,9 +21,14 @@ the port's storage, HTTP layer and native body parser. ``GET /recorder``
 (the flight recorder, ROADMAP.md Queue 1 item 8) is not ported. A batch of
 8 or more uniform interactions takes the native body parse
 (``uniform_interactions_from_body``) and one columnar insert where the
-event store has one (the port's SQLite store has; a missing native library
-raises); a body the parser declines takes the doc-level gate, then the
-generic per-event path.
+event store has one (the port's SQLite and cpplog stores have; a missing
+native library raises); a body the parser declines takes the doc-level
+gate, then the generic per-event path. The dispatch reads the store's
+declared flags as the JAX server does: ``FAST_LOCAL`` (memory) ingests on
+the event loop, ``GROUP_COMMIT`` (cpplog) sends every ingest route to the
+pool so concurrent batches merge into one native append, whose counters
+``GET /stats.json`` shows as ``groupCommit``; ``POST /reload`` syncs a
+store whose client can (cpplog's fdatasync).
 
 Auth (EventServer.scala:93-131): ``accessKey`` query param (with optional
 ``channel``), or HTTP Basic where the username is the access key. 401
@@ -522,8 +527,8 @@ class EventServer:
             client = getattr(self.events, "client", None)
             sync = getattr(client, "sync", None)
             if sync is None:
-                # sqlite and memory: every write is already at its
-                # durability point; the drain itself was the reload
+                # sqlite and memory: no buffered appends to push; the
+                # drain itself was the reload
                 return Response(200, {"message": "Reloaded",
                                       "synced": False})
             try:

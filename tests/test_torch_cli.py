@@ -404,3 +404,184 @@ def test_deploy_feedback_options_are_refused(capsys, flag, value):
         main(["deploy", flag, value])
     assert e.value.code == 2
     assert flag in capsys.readouterr().err
+
+
+# -- the native event log (cpplog) under the CLI ----------------------------
+
+def _cpplog_env(path):
+    """Events on a cpplog log under ``path``; metadata and models in
+    memory."""
+    return {**MEMORY, "PIO_STORAGE_SOURCES_LOG_TYPE": "cpplog",
+            "PIO_STORAGE_SOURCES_LOG_PATH": str(path),
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG"}
+
+
+def _import_docs(n, timed=True):
+    rng = np.random.default_rng(n)
+    return [{"event": "rate", "entityType": "user",
+             "entityId": f"u{int(rng.integers(0, 40))}",
+             "targetEntityType": "item",
+             "targetEntityId": f"i{int(rng.integers(0, 25))}",
+             "properties": {"rating": float(rng.integers(1, 11)) / 2},
+             **({"eventTime": f"2020-01-01T00:{k // 60 % 60:02d}:"
+                              f"{k % 60:02d}.{k % 1000:03d}Z"}
+                if timed else {})}
+            for k in range(n)]
+
+
+@pytest.mark.parametrize("case,columnar", [
+    ("at_the_floor", True), ("below_the_floor", False),
+    ("creation_time", False), ("no_event_time", True)])
+def test_import_on_cpplog_matches_jax(tmp_path, monkeypatch, capsys, case,
+                                      columnar):
+    """``pio import`` onto cpplog stores through both CLIs: a uniform file
+    of ``_FAST_IMPORT_MIN`` events or more takes the native columnar
+    path (its own output line), a smaller one or one carrying
+    ``creationTime`` the per-event path, as in the JAX package; the scan
+    and the stored events are the JAX package's."""
+    from incubator_predictionio_tpu.cli import commands as jcommands
+
+    assert commands._FAST_IMPORT_MIN == jcommands._FAST_IMPORT_MIN == 10_000
+    for mod in (commands, jcommands):
+        monkeypatch.setattr(mod, "_FAST_IMPORT_MIN", 120)
+    n = 119 if case == "below_the_floor" else 150
+    docs = _import_docs(n, timed=case != "no_event_time")
+    if case == "creation_time":
+        docs[3]["creationTime"] = "2020-02-02T00:00:00.000Z"
+    src = tmp_path / "events.jsonl"
+    src.write_text("\n".join(json.dumps(d) for d in docs))
+    for storage, sub in ((Storage, "port"), (JStorage, "jax")):
+        storage.configure(_cpplog_env(tmp_path / sub))
+    _both(capsys, "app", "new", "LogApp")
+    out = _both(capsys, "import", "--appid-or-name", "LogApp", "--input",
+                str(src))
+    assert out == (f"Imported {n} events (native columnar path).\n"
+                   if columnar else f"Imported {n} events.\n")
+    kw = dict(app_id=1, event_names=("rate",), value_prop="rating")
+    got = Storage.get_events().scan_interactions(**kw)
+    ref = JStorage.get_events().scan_interactions(**kw)
+    assert list(got.user_ids) == list(ref.user_ids)
+    assert list(got.item_ids) == list(ref.item_ids)
+    for f in ("user_idx", "item_idx", "values"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f))
+    assert len(got) == n
+
+    def stored(storage):
+        return sorted((json.dumps({k: v for k, v in e.to_jsonable().items()
+                                   if k not in ("eventId", "creationTime")
+                                   and not (case == "no_event_time"
+                                            and k == "eventTime")},
+                                  sort_keys=True)
+                       for e in storage.get_events().find(app_id=1)))
+
+    assert stored(Storage) == stored(JStorage)
+
+
+def test_train_twice_on_cpplog(tmp_path, monkeypatch, capsys):
+    """``pio train`` twice on a cpplog store, a tail between: each train's
+    read is the sharded scan of the log, as the JAX package's (the
+    recommendation read names two events, ``rate`` and ``buy`` at a fixed
+    value, which the projection does not serve), the second continues from
+    the first; the single-event read the projection does serve gives,
+    after the tail, the projection plus exactly the tail's rows, equal to
+    a read that bypasses the projection, and the same factors from the
+    same seed."""
+    from incubator_predictionio_tpu.data.storage import cpplog as jcpplog
+    from incubator_predictionio_tpu.data.storage import (
+        traincache as jtraincache,
+    )
+    from incubator_predictionio_tpu_torch.data import store
+    from incubator_predictionio_tpu_torch.data.storage import (
+        cpplog,
+        traincache,
+    )
+    from incubator_predictionio_tpu_torch.ops import als
+
+    monkeypatch.delenv("PIO_RETRAIN_CONTINUE")
+    monkeypatch.setattr(commands, "_FAST_IMPORT_MIN", 100)
+    monkeypatch.setattr(traincache, "MIN_NNZ", 100)
+    monkeypatch.setattr(jtraincache, "MIN_NNZ", 100)
+    Storage.configure(_cpplog_env(tmp_path / "log"))
+    assert main(["app", "new", "MyApp1"]) == 0
+    src = tmp_path / "events.jsonl"
+    src.write_text("\n".join(json.dumps(d) for d in _import_docs(240)))
+    assert main(["import", "--appid-or-name", "MyApp1", "--input",
+                 str(src)]) == 0
+    assert "native columnar path" in capsys.readouterr().out
+    dao = Storage.get_events()
+    cpath = traincache.path_for(dao.client._file(dao.ns, 1, None))
+    assert traincache.load(cpath).raw_count == 240  # written at import
+
+    scans = []
+    real = cpplog.CppLogEvents.scan_interactions
+
+    def recording(self, *a, stats=None, **kw):
+        stats = {} if stats is None else stats
+        out = real(self, *a, stats=stats, **kw)
+        scans.append(dict(stats, kw=dict(kw)))
+        return out
+
+    monkeypatch.setattr(cpplog.CppLogEvents, "scan_interactions", recording)
+    variant = {"id": "log", "engineFactory": PORT_FACTORY,
+               "datasource": {"params": {"appName": "MyApp1"}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": 6, "numIterations": 3, "lambda": 0.05,
+                   "seed": 2}}]}
+    (tmp_path / "engine.json").write_text(json.dumps(variant))
+    monkeypatch.chdir(tmp_path)
+    assert main(["build"]) == 0
+    assert main(["train"]) == 0
+    store.EventStore.write([Event(
+        event="rate", entity_type="user", entity_id=f"new{u}",
+        target_entity_type="item", target_entity_id=f"i{u % 25}",
+        properties=DataMap({"rating": 4.0})) for u in range(6)],
+        app_name="MyApp1")
+    assert main(["train"]) == 0
+    assert [s["scan_source"] for s in scans] == ["scan", "scan"]
+    assert [s["scan_rows"] for s in scans] == [240, 246]
+    assert scans[0]["kw"]["event_names"] == ("rate", "buy")
+    # the JAX package's cpplog takes the same read the same way
+    jclient = jcpplog.StorageClient(_JConfig(tmp_path / "log"))
+    try:
+        jstats = {}
+        jcpplog.CppLogEvents(jclient, None, prefix="e_").scan_interactions(
+            app_id=1, event_names=("rate", "buy"), value_prop="rating",
+            event_values={"buy": 4.0}, stats=jstats)
+        assert jstats["scan_source"] == "scan"
+    finally:
+        jclient.close()
+    latest = Storage.get_meta_data_engine_instances().get_latest_completed(
+        commands.engine_id_for_variant_path(str(tmp_path / "engine.json"),
+                                            variant), "NOT_VERSIONED", "log")
+    assert "phase.continue_seed_s" in latest.runtime_conf
+    # the read the projection serves: rate alone, its stored value
+    monkeypatch.setattr(cpplog.CppLogEvents, "scan_interactions", real)
+    stats = {}
+    served = store.EventStore.interactions(app_name="MyApp1",
+                                           value_prop="rating", stats=stats)
+    assert (stats["scan_source"], stats["scan_tail_rows"]) == ("cache", 6)
+    bypass = store.EventStore.interactions(app_name="MyApp1",
+                                           value_prop="rating",
+                                           use_cache=False, seed_cache=False)
+    for f in ("user_idx", "item_idx", "values"):
+        np.testing.assert_array_equal(getattr(served, f), getattr(bypass, f))
+    assert list(served.user_ids) == list(bypass.user_ids)
+    assert list(served.item_ids) == list(bypass.item_ids)
+    fits = [als.als_train(r.user_idx, r.item_idx, r.values,
+                          len(r.user_ids), len(r.item_ids), rank=6,
+                          iterations=3, l2=0.05, seed=2, device="cpu")[0]
+            for r in (served, bypass)]
+    for f in ("user_factors", "item_factors"):
+        assert torch_equal(getattr(fits[0], f), getattr(fits[1], f))
+
+
+def _JConfig(path):
+    from incubator_predictionio_tpu.data.storage import StorageClientConfig
+
+    return StorageClientConfig(properties={"PATH": str(path)})
+
+
+def torch_equal(a, b):
+    import torch
+
+    return torch.equal(torch.as_tensor(a), torch.as_tensor(b))

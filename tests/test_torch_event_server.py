@@ -1,6 +1,8 @@
 """The port's event server against the JAX package's, on the CPU.
 
-- Both servers, each on its own SQLite store, take the same seeded
+- Both servers, each on its own SQLite store (or with the events on a
+  cpplog log of its own, where the group commit's counters show at
+  ``GET /stats.json``), take the same seeded
   requests: auth (access key, Basic header, channels, allowed events),
   single events (create, get, delete, find), batches on every leg (the
   native body parse, the doc-level gate, the generic per-event path; the
@@ -42,19 +44,26 @@ from incubator_predictionio_tpu_torch.data.storage import (
     Storage,
 )
 from incubator_predictionio_tpu_torch.data.storage import base as tbase
+from incubator_predictionio_tpu_torch.data.storage.cpplog import CppLogEvents
 from incubator_predictionio_tpu_torch.servers.event_server import (
     EventServer,
     EventServerConfig,
 )
 
 
-def _sqlite_env(path):
+def _sqlite_env(path, events_dir=None):
+    """Everything on one SQLite file; with ``events_dir``, the events on a
+    cpplog log there instead (metadata and models stay on SQLite)."""
     env = {"PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
            "PIO_STORAGE_SOURCES_SQL_PATH": str(path)}
     for repo, name in (("METADATA", "m"), ("EVENTDATA", "e"),
                        ("MODELDATA", "d")):
         env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = name
         env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "SQL"
+    if events_dir is not None:
+        env["PIO_STORAGE_SOURCES_LOG_TYPE"] = "cpplog"
+        env["PIO_STORAGE_SOURCES_LOG_PATH"] = str(events_dir)
+        env["PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE"] = "LOG"
     return env
 
 
@@ -71,10 +80,23 @@ def _seed_app(storage, app_cls, key_cls, channel_cls):
 @pytest.fixture
 def servers(tmp_path):
     """(JAX server, port server, app id), each on its own SQLite store."""
+    yield from _servers(tmp_path, log=False)
+
+
+@pytest.fixture
+def log_servers(tmp_path):
+    """The same, with each store's events on a cpplog log of its own
+    (metadata on SQLite)."""
+    yield from _servers(tmp_path, log=True)
+
+
+def _servers(tmp_path, log):
     JStorage.reset()
     Storage.reset()
-    JStorage.configure(_sqlite_env(tmp_path / "jax.db"))
-    Storage.configure(_sqlite_env(tmp_path / "port.db"))
+    JStorage.configure(_sqlite_env(tmp_path / "jax.db",
+                                   tmp_path / "jax_log" if log else None))
+    Storage.configure(_sqlite_env(tmp_path / "port.db",
+                                  tmp_path / "port_log" if log else None))
     app_j = _seed_app(JStorage, JApp, JAccessKey, JChannel)
     app_t = _seed_app(Storage, App, AccessKey, Channel)
     assert app_j == app_t
@@ -269,7 +291,15 @@ def test_batch_legs_answer_and_store_alike(servers, leg):
     # the SDKs' plural spelling of the route
     _both(servers, "POST", "/batches/events.json?accessKey=testkey",
           [_rate(rng, k) for k in range(9)])
-    _both(servers, "GET", "/stats.json?accessKey=testkey")
+    (_js, jstats), (_ts, tstats) = _both(servers, "GET",
+                                         "/stats.json?accessKey=testkey")
+    if isinstance(Storage.get_events(), CppLogEvents):
+        # the group commit's counters, where the JAX server shows them
+        assert tstats["groupCommit"] == jstats["groupCommit"]
+        if leg == "native":
+            assert tstats["groupCommit"]["events"] == 78 + 9
+    else:
+        assert "groupCommit" not in tstats
     stored = _same_stores(servers)
     if leg == "native":
         assert len(stored) == 78 + 9
@@ -308,6 +338,26 @@ def test_webhooks_stats_plugins_and_routes(servers):
     _both(servers, "DELETE", "/events.json?accessKey=testkey")      # 405
     _both(servers, "POST", "/reload?accessKey=testkey")
     assert len(_same_stores(servers)) == 2
+
+
+# -- the same requests with the events on cpplog ----------------------------
+
+def test_alive_and_auth_on_cpplog(log_servers):
+    test_alive_and_auth(log_servers)
+
+
+def test_single_event_create_get_delete_find_on_cpplog(log_servers):
+    test_single_event_create_get_delete_find(log_servers)
+
+
+@pytest.mark.parametrize("leg", ["native", "doc", "generic", "mixed",
+                                 "refused"])
+def test_batch_legs_answer_and_store_alike_on_cpplog(log_servers, leg):
+    test_batch_legs_answer_and_store_alike(log_servers, leg)
+
+
+def test_webhooks_stats_plugins_and_routes_on_cpplog(log_servers):
+    test_webhooks_stats_plugins_and_routes(log_servers)
 
 
 def test_stats_off_and_metrics(tmp_path):

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (every
-module of it imports, ``ops/retrain.py`` among them, and the served and the
-stored paths run on the CPU, a second train continuing from the first,
-with both blocked), and its entry points refuse to pick the CPU on their
-own."""
+module of it imports, ``ops/retrain.py``, ``data/storage/cpplog.py``,
+``data/storage/traincache.py`` and the native loader among them, and the
+served and the stored paths run on the CPU, a second train continuing from
+the first, a train on the native event log, with both blocked), and its
+entry points refuse to pick the CPU on their own."""
 
 import subprocess
 import sys
@@ -156,6 +157,47 @@ _ISOLATED = textwrap.dedent('''
             seq_stored_body = json.loads(resp.read())
     finally:
         srv.stop()
+    # the native event log (cpplog; metadata on SQLite, models on
+    # localfs): a columnar import, a train, a tail, and the read its
+    # training projection serves
+    from incubator_predictionio_tpu_torch.data.storage import traincache
+    from incubator_predictionio_tpu_torch.data.store import EventStore
+    traincache.MIN_NNZ = 4
+    log_home = tempfile.mkdtemp()
+    Storage.configure({
+        "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_SQL_PATH": os.path.join(log_home, "pio.db"),
+        "PIO_STORAGE_SOURCES_LOG_TYPE": "cpplog",
+        "PIO_STORAGE_SOURCES_LOG_PATH": os.path.join(log_home, "log"),
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": os.path.join(log_home, "models"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "m",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "e",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "d",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS"})
+    log_app = Storage.get_meta_data_apps().insert(App(0, "app"))
+    Storage.get_events().init(log_app)
+    Storage.get_events().import_interactions(Interactions(
+        user_idx=rng.integers(0, 5, 40).astype(np.int32),
+        item_idx=rng.integers(0, 9, 40).astype(np.int32),
+        values=rng.integers(1, 6, 40).astype(np.float32),
+        user_ids=[f"u{i}" for i in range(5)],
+        item_ids=[f"i{i}" for i in range(9)]), log_app,
+        times=1_700_000_000_000 + np.arange(40))
+    log_iid = CoreWorkflow.run_train(eng, ep, device="cpu")
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    Storage.get_events().insert(Event(
+        event="rate", entity_type="user", entity_id="u9",
+        target_entity_type="item", target_entity_id="i1",
+        properties=DataMap({"rating": 4.0})), log_app)
+    log_stats = {}
+    log_rows = len(EventStore.interactions(
+        app_name="app", value_prop="rating", stats=log_stats))
+    log_models = len(CoreWorkflow.load_models(log_iid, eng, ep,
+                                              device="cpu"))
+    log_type = type(Storage.get_events()).__module__
     Storage.reset()
     leaked = sorted(m for m in sys.modules
                     if m == "incubator_predictionio_tpu"
@@ -166,6 +208,9 @@ _ISOLATED = textwrap.dedent('''
                       "seq_stored_items": len(
                           seq_stored_body["itemScores"]),
                       "continued": continued,
+                      "log": [log_type, log_stats["scan_source"],
+                              log_stats["scan_tail_rows"], log_rows,
+                              log_models],
                       "leaked": leaked}))
 ''')
 
@@ -183,6 +228,8 @@ def test_port_imports_and_serves_without_jax_or_the_jax_package():
     assert out["stored_items"] == 2
     assert out["seq_stored_items"] == 3
     assert out["continued"] >= 1
+    assert out["log"] == ["incubator_predictionio_tpu_torch.data.storage."
+                          "cpplog", "cache", 1, 41, 1]
     assert out["leaked"] == []
 
 

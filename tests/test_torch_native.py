@@ -9,7 +9,14 @@ bit, on seeded numpy inputs:
   exact plan redone, indices beyond int32 sent to the numpy route;
 - the preparator's latest-wins dedup (``ops/sparse.latest_wins``, on the
   context's device, here the CPU) against the JAX preparator's
-  ``_prepare_columnar`` on seeded duplicates.
+  ``_prepare_columnar`` on seeded duplicates;
+- ``build_both_sides`` given the per-side degree histograms: the trees it
+  builds without them, and the JAX package's;
+- the event log (``native/src/eventlog.cc`` under ``data/storage/
+  cpplog.py``): tests/test_native.py's durability, compact-record,
+  threaded bulk-append, every-byte truncation and uniform-batch classes,
+  with the JAX package reading the port's logs and rendering the same
+  bytes where the ids and times are fixed.
 """
 
 import numpy as np
@@ -253,3 +260,430 @@ def test_dedup_of_nothing():
     empty = np.empty(0, np.int32)
     assert tsparse.latest_wins(empty, empty, 5, torch.device("cpu")
                                ).tolist() == []
+
+
+# -- the degree histograms of build_both_sides ------------------------------
+
+@pytest.mark.parametrize("impl", ["native", "numpy", "auto"])
+@pytest.mark.parametrize("case", ["mixed", "heavy_rows_split", "power_law"])
+def test_both_sides_with_degrees_equal_without(case, impl):
+    """``build_both_sides(user_degrees=, item_degrees=)``: the same trees
+    as the build without them, bit for bit, and as the JAX package's build
+    given the same histograms; ``on_side`` fires once a side."""
+    seed, n_rows, n_cols, nnz, max_width = CASES[case]
+    rows, cols, vals = _coo(seed, n_rows, n_cols, nnz,
+                            skew=case == "power_law")
+    ud = np.bincount(rows, minlength=n_rows).astype(np.int64)
+    id_ = np.bincount(cols, minlength=n_cols).astype(np.int64)
+    seen = []
+    with_deg = tsparse.build_both_sides(
+        rows, cols, vals, n_rows, n_cols, max_width=max_width, impl=impl,
+        user_degrees=ud, item_degrees=id_,
+        on_side=lambda side, light, heavy: seen.append(side))
+    plain = tsparse.build_both_sides(rows, cols, vals, n_rows, n_cols,
+                                     max_width=max_width, impl=impl)
+    ref = jsparse.build_both_sides(rows, cols, vals, n_rows, n_cols,
+                                   max_width=max_width, user_degrees=ud,
+                                   item_degrees=id_)
+    assert sorted(seen) == ["item", "user"]
+    for other in (plain, ref):
+        for (light, heavy), (olight, oheavy) in zip(with_deg, other):
+            _same(light, olight)
+            assert (heavy is None) == (oheavy is None)
+            if heavy is not None:
+                for f in ("seg_ids", "row_ids", "cols", "vals", "mask"):
+                    np.testing.assert_array_equal(
+                        getattr(heavy, f), getattr(oheavy, f), err_msg=f)
+
+
+def test_a_wrong_histogram_through_build_both_sides():
+    """A histogram that disagrees with the triples is detected natively
+    and the exact plan taken: the same trees as without one."""
+    rows, cols, vals = _coo(8, 40, 30, 900)
+    bad = np.roll(np.bincount(rows, minlength=40).astype(np.int64), 3)
+    got = tsparse.build_both_sides(rows, cols, vals, 40, 30, max_width=32,
+                                   impl="native", user_degrees=bad)
+    want = tsparse.build_both_sides(rows, cols, vals, 40, 30, max_width=32,
+                                    impl="numpy")
+    for (light, _h), (wlight, _wh) in zip(got, want):
+        _same(light, wlight)
+
+
+# -- the event log (tests/test_native.py's event-log classes) --------------
+
+from datetime import timedelta  # noqa: E402
+
+from incubator_predictionio_tpu.data.storage import cpplog as jcpplog  # noqa: E402,E501
+from incubator_predictionio_tpu.data.storage import (  # noqa: E402
+    traincache as jtraincache,
+)
+from incubator_predictionio_tpu_torch.data.datamap import DataMap  # noqa: E402,E501
+from incubator_predictionio_tpu_torch.data.event import Event  # noqa: E402
+from incubator_predictionio_tpu_torch.data.storage import (  # noqa: E402
+    StorageClientConfig,
+    cpplog,
+    traincache,
+)
+from incubator_predictionio_tpu_torch.data.storage.base import (  # noqa: E402,E501
+    IdTable,
+)
+from incubator_predictionio_tpu_torch.utils.times import (  # noqa: E402
+    parse_iso8601,
+)
+
+T0 = parse_iso8601("2021-06-01T00:00:00Z")
+
+
+def _client(path):
+    return cpplog.StorageClient(
+        StorageClientConfig(properties={"PATH": str(path)}))
+
+
+def _events(client):
+    return cpplog.CppLogEvents(client, client.config, prefix="t_")
+
+
+def _jevents_at(path):
+    from incubator_predictionio_tpu.data.storage import (
+        StorageClientConfig as JConfig,
+    )
+
+    client = jcpplog.StorageClient(JConfig(properties={"PATH": str(path)}))
+    return client, jcpplog.CppLogEvents(client, client.config, prefix="t_")
+
+
+def ev(name="rate", eid="u1", minutes=0, target=None, props=None):
+    return Event(
+        event=name, entity_type="user", entity_id=eid,
+        target_entity_type="item" if target else None,
+        target_entity_id=target, properties=DataMap(props or {}),
+        event_time=T0 + timedelta(minutes=minutes))
+
+
+def _ids(dao):
+    return [e.event_id for e in dao.find(app_id=1)]
+
+
+class TestEventLogDurability:
+    def test_events_survive_reopen(self, tmp_path):
+        c1 = _client(tmp_path)
+        d1 = _events(c1)
+        d1.init(1)
+        ids = [d1.insert(ev(minutes=i, eid=f"u{i}"), 1) for i in range(5)]
+        d1.delete(ids[2], 1)
+        c1.close()
+        c2 = _client(tmp_path)
+        d2 = _events(c2)
+        assert _ids(d2) == [ids[0], ids[1], ids[3], ids[4]]
+        assert d2.get(ids[2], 1) is None
+        assert d2.get(ids[3], 1).entity_id == "u3"
+        c2.close()
+        jc, jd = _jevents_at(tmp_path)   # the JAX package sees the same
+        assert _ids(jd) == [ids[0], ids[1], ids[3], ids[4]]
+        jc.close()
+
+    def test_upsert_replaces_across_reopen(self, tmp_path):
+        c1 = _client(tmp_path)
+        d1 = _events(c1)
+        d1.init(1)
+        eid = d1.insert(ev(props={"rating": 1}), 1)
+        d1.insert(ev(props={"rating": 9}).with_id(eid), 1)
+        assert d1.get(eid, 1).properties.get("rating") == 9
+        assert len(_ids(d1)) == 1
+        c1.close()
+        c2 = _client(tmp_path)
+        d2 = _events(c2)
+        assert d2.get(eid, 1).properties.get("rating") == 9
+        assert len(_ids(d2)) == 1
+        c2.close()
+
+    def test_torn_tail_truncated_on_reopen(self, tmp_path):
+        import struct
+
+        c1 = _client(tmp_path)
+        d1 = _events(c1)
+        d1.init(1)
+        good = [d1.insert(ev(minutes=i, eid=f"u{i}"), 1) for i in range(3)]
+        c1.close()
+        log_file = next(tmp_path.glob("*.log"))
+        intact = log_file.stat().st_size
+        with open(log_file, "ab") as f:
+            f.write(struct.pack("<qQQQQIi", 12345, 2, 3, 4, 5, 500, 0))
+            f.write(b"x" * 10)
+        c2 = _client(tmp_path)
+        d2 = _events(c2)
+        assert _ids(d2) == good
+        assert log_file.stat().st_size == intact
+        extra = d2.insert(ev(minutes=9, eid="u9"), 1)
+        c2.close()
+        c3 = _client(tmp_path)
+        assert _ids(_events(c3)) == good + [extra]
+        c3.close()
+
+    def test_torn_header_truncated_on_reopen(self, tmp_path):
+        c1 = _client(tmp_path)
+        d1 = _events(c1)
+        d1.init(1)
+        good = d1.insert(ev(minutes=0, eid="u0"), 1)
+        c1.close()
+        log_file = next(tmp_path.glob("*.log"))
+        intact = log_file.stat().st_size
+        with open(log_file, "ab") as f:
+            f.write(b"\x01" * 20)
+        c2 = _client(tmp_path)
+        assert _ids(_events(c2)) == [good]
+        assert log_file.stat().st_size == intact
+        c2.close()
+
+    def test_out_of_order_times_sorted_and_limited(self, tmp_path):
+        c = _client(tmp_path)
+        d = _events(c)
+        d.init(1)
+        for m in (5, 1, 9, 3, 7):
+            d.insert(ev(minutes=m, eid=f"u{m}"), 1)
+        assert [e.entity_id for e in d.find(app_id=1)] == [
+            "u1", "u3", "u5", "u7", "u9"]
+        assert [e.entity_id for e in d.find(app_id=1, reversed=True,
+                                            limit=2)] == ["u9", "u7"]
+        assert [e.entity_id for e in d.find(
+            app_id=1, start_time=T0 + timedelta(minutes=3),
+            until_time=T0 + timedelta(minutes=9))] == ["u3", "u5", "u7"]
+        c.close()
+
+
+class TestCompactRecords:
+    """Compact interaction records: sidecar only, JSON rendered on read."""
+
+    def test_rendered_json_matches_canonical_shape(self, tmp_path):
+        import json
+
+        client = _client(tmp_path)
+        dao = _events(client)
+        inter = Interactions(
+            user_idx=np.array([0, 1], np.int32),
+            item_idx=np.array([1, 0], np.int32),
+            values=np.array([4.5, 2.0], np.float32),
+            user_ids=IdTable.from_list(['u"quote', "uplain"]),
+            item_ids=IdTable.from_list(["i\\back", "iplain"]))
+        assert dao.import_interactions(inter, 1, event_name="rate",
+                                       value_prop="rating") == 2
+        got = sorted(dao.find(app_id=1), key=lambda e: e.entity_id)
+        for e in got:
+            doc = e.to_jsonable()
+            assert Event.from_jsonable(
+                json.loads(json.dumps(doc))).to_jsonable() == doc
+        assert got[0].entity_id == 'u"quote'
+        assert got[0].target_entity_id == "iplain"
+        assert got[1].target_entity_id == "i\\back"
+        assert got[0].properties.get("rating") == 4.5
+        assert got[0].event_id and len(got[0].event_id) == 32
+        size = sum(f.stat().st_size for f in tmp_path.iterdir())
+        assert size < 2 * 250, size
+        client.close()
+        jc, jd = _jevents_at(tmp_path)   # rendered alike by the JAX package
+        assert [e.to_jsonable() for e in sorted(
+            jd.find(app_id=1), key=lambda e: e.entity_id)] == \
+            [e.to_jsonable() for e in got]
+        jc.close()
+
+    def test_compact_records_survive_reopen_and_tombstone(self, tmp_path):
+        client = _client(tmp_path)
+        dao = _events(client)
+        inter = Interactions(
+            user_idx=np.arange(5, dtype=np.int32),
+            item_idx=np.zeros(5, np.int32), values=np.ones(5, np.float32),
+            user_ids=IdTable.from_list([f"u{k}" for k in range(5)]),
+            item_ids=IdTable.from_list(["i0"]))
+        dao.import_interactions(inter, 1, event_name="rate",
+                                value_prop="rating")
+        first = next(iter(dao.find(app_id=1, limit=1)))
+        assert dao.delete(first.event_id, 1)
+        client.close()
+        client2 = _client(tmp_path)
+        dao2 = _events(client2)
+        live = list(dao2.find(app_id=1))
+        assert len(live) == 4
+        assert first.event_id not in {e.event_id for e in live}
+        assert len(dao2.scan_interactions(
+            app_id=1, event_names=("rate",), value_prop="rating")) == 4
+        client2.close()
+
+
+class TestParallelBulkAppend:
+    """The threaded render of ``pio_evlog_append_interactions``: more than
+    2M events span two super-batches; ``PIO_NATIVE_THREADS`` sets the
+    pool."""
+
+    N = 2_100_000
+
+    def test_two_superbatches_threaded_roundtrip(self, tmp_path,
+                                                 monkeypatch):
+        monkeypatch.setenv("PIO_NATIVE_THREADS", "4")
+        monkeypatch.setattr(traincache, "MIN_NNZ", self.N * 10)
+        rng = np.random.default_rng(3)
+        nu, ni = 5_000, 1_200
+        users = rng.integers(0, nu, self.N).astype(np.int32)
+        items = rng.integers(0, ni, self.N).astype(np.int32)
+        vals = rng.random(self.N).astype(np.float32)
+        client = _client(tmp_path)
+        try:
+            events = _events(client)
+            assert events.import_interactions(Interactions(
+                user_idx=users, item_idx=items, values=vals,
+                user_ids=IdTable.from_list([f"u{k}" for k in range(nu)]),
+                item_ids=IdTable.from_list([f"i{k}" for k in range(ni)])),
+                1, event_name="rate", value_prop="rating",
+                base_time=T0) == self.N
+            out = events.scan_interactions(
+                app_id=1, event_names=("rate",), value_prop="rating")
+        finally:
+            client.close()
+        assert len(out) == self.N
+        u_names = np.array([f"u{k}" for k in range(nu)])
+        assert (np.asarray(out.user_ids.tolist())[out.user_idx]
+                == u_names[users]).all()
+        i_names = np.array([f"i{k}" for k in range(ni)])
+        assert (np.asarray(out.item_ids.tolist())[out.item_idx]
+                == i_names[items]).all()
+        np.testing.assert_allclose(out.values, vals, rtol=1e-6)
+
+    def test_threaded_matches_single_thread_bytes(self, tmp_path,
+                                                  monkeypatch):
+        """The same seed renders the same log at 1 and 4 threads, and the
+        JAX package renders those bytes too."""
+        import hashlib
+
+        rng = np.random.default_rng(5)
+        n = 200_000
+        monkeypatch.setattr(traincache, "MIN_NNZ", n * 10)
+        monkeypatch.setattr(jtraincache, "MIN_NNZ", n * 10)
+        cols = dict(user_idx=rng.integers(0, 50, n).astype(np.int32),
+                    item_idx=rng.integers(0, 20, n).astype(np.int32),
+                    values=rng.random(n).astype(np.float32),
+                    user_ids=[f"u{k}" for k in range(50)],
+                    item_ids=[f"i{k}" for k in range(20)])
+
+        def digest(path):
+            return [(p.name, hashlib.sha256(p.read_bytes()).hexdigest())
+                    for p in sorted(path.iterdir())]
+
+        def run(sub, threads, jax=False):
+            monkeypatch.setenv("PIO_NATIVE_THREADS", str(threads))
+            path = tmp_path / sub
+            path.mkdir()
+            if jax:
+                client, events = _jevents_at(path)
+                inter = JInteractions(**cols)
+            else:
+                client = _client(path)
+                events, inter = _events(client), Interactions(**cols)
+            events.import_interactions(inter, 1, event_name="rate",
+                                       value_prop="rating", base_time=T0,
+                                       id_seed=12345)
+            client.close()
+            return digest(path)
+
+        one = run("t1", 1)
+        assert one == run("t4", 4) == run("jax", 4, jax=True)
+
+
+class TestRandomTruncationRecovery:
+    """A cut at every byte of a log reopens to a whole-event prefix, and an
+    append after the recovery frames correctly."""
+
+    def test_every_cut_point_recovers_prefix(self, tmp_path):
+        import shutil
+
+        base = tmp_path / "orig"
+        base.mkdir()
+        c1 = _client(base)
+        d1 = _events(c1)
+        d1.init(1)
+        ids = [d1.insert(ev(minutes=i, eid=f"u{i}"), 1) for i in range(3)]
+        c1.close()
+        blob = next(base.glob("*.log")).read_bytes()
+        prev = -1
+        for cut in range(len(blob) + 1):
+            work = tmp_path / f"cut{cut}"
+            shutil.copytree(base, work)
+            next(work.glob("*.log")).write_bytes(blob[:cut])
+            c = _client(work)
+            d = _events(c)
+            found = _ids(d)
+            assert found == ids[:len(found)]
+            assert len(found) >= prev
+            extra = d.insert(ev(minutes=99, eid="u99"), 1)
+            c.close()
+            c2 = _client(work)
+            assert _ids(_events(c2)) == ids[:len(found)] + [extra]
+            c2.close()
+            prev = len(found)
+            shutil.rmtree(work)
+        assert prev == 3
+
+
+class TestUniformBatchFastPath:
+    """``insert_batch`` sends uniform id-less interaction batches through
+    the columnar import; the ids it returns are the stored ones."""
+
+    def _batch(self, n, name="rate"):
+        return [ev(name=name, eid=f"u{k % 5}", minutes=k,
+                   target=f"i{k % 3}", props={"rating": float(k % 4)})
+                for k in range(n)]
+
+    def test_fast_path_ids_resolve_and_scan_matches(self, tmp_path,
+                                                    monkeypatch):
+        calls = []
+        real = cpplog.CppLogEvents._append_columnar_any
+        monkeypatch.setattr(cpplog.CppLogEvents, "_append_columnar_any",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        c = _client(tmp_path)
+        d = _events(c)
+        d.init(1)
+        ids = d.insert_batch(self._batch(20), 1)
+        assert calls == [1]
+        assert len(ids) == 20 and len(set(ids)) == 20
+        for k, eid in enumerate(ids):
+            got = d.get(eid, 1)
+            assert got is not None and got.event_id == eid
+            assert got.entity_id == f"u{k % 5}"
+            assert got.properties.get("rating") == float(k % 4)
+        assert len(d.scan_interactions(
+            app_id=1, event_names=("rate",), value_prop="rating")) == 20
+        assert d.delete(ids[3], 1)
+        assert d.get(ids[3], 1) is None
+        c.close()
+
+    def test_non_utc_batches_take_the_generic_path(self, tmp_path):
+        import dataclasses
+        from datetime import timezone as _tz
+
+        c = _client(tmp_path)
+        d = _events(c)
+        d.init(1)
+        jst = _tz(timedelta(hours=9))
+        batch = [dataclasses.replace(e, event_time=e.event_time.astimezone(
+            jst)) for e in self._batch(12)]
+        ids = d.insert_batch(batch, 1)
+        assert len(ids) == 12
+        for src, eid in zip(batch, ids):
+            got = d.get(eid, 1)
+            assert got.event_time == src.event_time
+            assert got.event_time.utcoffset() == timedelta(hours=9)
+        c.close()
+
+    def test_non_uniform_batches_take_the_generic_path(self, tmp_path):
+        c = _client(tmp_path)
+        d = _events(c)
+        d.init(1)
+        mixed = self._batch(10)
+        mixed[4] = ev(name="view", eid="u1", minutes=4, target="i1",
+                      props={"rating": 1.0})
+        ids = d.insert_batch(mixed, 1)
+        assert len(ids) == 10
+        assert all(d.get(e, 1) is not None for e in ids)
+        explicit = [e.with_id(f"{k:032d}")
+                    for k, e in enumerate(self._batch(10))]
+        assert d.insert_batch(explicit, 1) == [f"{k:032d}"
+                                               for k in range(10)]
+        c.close()

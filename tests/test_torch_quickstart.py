@@ -9,6 +9,7 @@
   unedited (it names the JAX package's factory, mapped by name), with
   ``import_events.py`` run as a subprocess against ``pio eventserver`` and
   ``pio deploy`` / ``pio undeploy`` as child processes, each exiting 0;
+  on SQLite, and again with the events on the native log (cpplog);
 - an instance the JAX package's CLI trained, deployed by the port's
   server by ``engine_instance_id``: its answers are the JAX server's (ids
   equal, scores rtol 1e-5);
@@ -178,12 +179,49 @@ def test_quickstart_full_pipeline(sqlite_home, tmp_path, monkeypatch,
     assert len(out_file.read_text().splitlines()) == 250
 
 
+@pytest.fixture
+def cpplog_home(sqlite_home, monkeypatch):
+    """The events on a cpplog log under the temporary ``PIO_HOME``;
+    metadata and models on SQLite there (child processes read the same)."""
+    env = {"PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_SQL_PATH": str(sqlite_home / "pio.db"),
+           "PIO_STORAGE_SOURCES_LOG_TYPE": "cpplog",
+           "PIO_STORAGE_SOURCES_LOG_PATH": str(sqlite_home / "cpplog")}
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = f"pio_{repo.lower()}"
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = (
+            "LOG" if repo == "EVENTDATA" else "SQL")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    Storage.reset()
+    yield sqlite_home
+    Storage.reset()
+
+
 def test_readme_quickstart_unedited(sqlite_home, tmp_path, capsys):
     """The README's steps as a user runs them: the example's engine.json
     byte for byte, ``import_events.py`` unchanged, the servers as child
     processes stopped by a signal and by ``pio undeploy``."""
+    _readme_quickstart(tmp_path, capsys)
+
+
+def test_readme_quickstart_on_cpplog(cpplog_home, tmp_path, capsys):
+    """The same steps with the events on the native log: the event server
+    child appends to it, ``pio train`` reads it, and the log holds every
+    event the example posted."""
+    from incubator_predictionio_tpu_torch.data.storage import cpplog
+
+    _readme_quickstart(tmp_path, capsys)
+    events = Storage.get_events()
+    assert isinstance(events, cpplog.CppLogEvents)
+    assert (cpplog_home / "cpplog" / "pio_eventdata_app1_ch0.log").exists()
+    assert len(list(events.find(app_id=1, event_names=["rate"]))) == 360
+
+
+def _readme_quickstart(tmp_path, capsys):
     assert main(["app", "new", "MyApp1"]) == 0
     key = _access_key(capsys.readouterr().out)
+    Storage.reset()  # a cpplog log is written by one process at a time
     es = _child(["eventserver", "--ip", "127.0.0.1", "--port", "0"],
                 str(tmp_path), str(tmp_path / "es.log"))
     try:

@@ -1,4 +1,4 @@
-"""The port's event storage (``data/storage/{memory,sqlite}.py``,
+"""The port's event storage (``data/storage/{memory,sqlite,cpplog}.py``,
 ``data/store.py``) against the JAX package's, on the same seeded events.
 
 Each case builds one list of event specs from a numpy seed and inserts it
@@ -21,6 +21,7 @@ from incubator_predictionio_tpu.data.storage import (
     StorageClientConfig as JConfig,
 )
 from incubator_predictionio_tpu.data.storage import base as jbase
+from incubator_predictionio_tpu.data.storage import cpplog as jcpplog
 from incubator_predictionio_tpu.data.storage import memory as jmemory
 from incubator_predictionio_tpu.data.storage import sqlite as jsqlite
 from incubator_predictionio_tpu.utils.times import parse_iso8601 as jparse
@@ -31,6 +32,7 @@ from incubator_predictionio_tpu_torch.data.storage import (
     StorageError,
 )
 from incubator_predictionio_tpu_torch.data.storage import base as tbase
+from incubator_predictionio_tpu_torch.data.storage import cpplog as tcpplog
 from incubator_predictionio_tpu_torch.data.storage import memory as tmemory
 from incubator_predictionio_tpu_torch.data.storage import sqlite as tsqlite
 from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
@@ -90,16 +92,21 @@ def _events(specs, event_cls, datamap_cls, parse):
     return out
 
 
-_BACKENDS = {"memory": (jmemory, tmemory), "sqlite": (jsqlite, tsqlite)}
+_BACKENDS = {"memory": (jmemory, tmemory), "sqlite": (jsqlite, tsqlite),
+             "cpplog": (jcpplog, tcpplog)}
 
 
 @pytest.fixture(params=sorted(_BACKENDS))
-def pair(request):
+def pair(request, tmp_path):
     """(JAX Events DAO, the port's Events DAO), one backend type, each on
-    its own fresh store."""
+    its own fresh store (cpplog: a log directory of its own under
+    ``tmp_path``)."""
     jmod, tmod = _BACKENDS[request.param]
-    jconf = JConfig(test=True, properties={"PATH": ":memory:"})
-    tconf = StorageClientConfig(test=True, properties={"PATH": ":memory:"})
+    jpath = tpath = ":memory:"
+    if request.param == "cpplog":
+        jpath, tpath = str(tmp_path / "jax"), str(tmp_path / "port")
+    jconf = JConfig(test=True, properties={"PATH": jpath})
+    tconf = StorageClientConfig(test=True, properties={"PATH": tpath})
     jclient, tclient = jmod.StorageClient(jconf), tmod.StorageClient(tconf)
     jdao = jmod.DATA_OBJECTS["Events"](jclient, jconf, prefix="t_")
     tdao = tmod.DATA_OBJECTS["Events"](tclient, tconf, prefix="t_")
@@ -283,7 +290,7 @@ def test_import_interactions_round_trips_like_jax(pair):
     np.testing.assert_array_equal(got.values, cols["values"])
 
 
-@pytest.mark.parametrize("kind", ["cpplog", "remote", "gcs"])
+@pytest.mark.parametrize("kind", ["remote", "gcs"])
 def test_unported_backends_raise_naming_the_queue(tmp_path, monkeypatch,
                                                   kind):
     from incubator_predictionio_tpu_torch.data.storage import Storage
@@ -293,7 +300,40 @@ def test_unported_backends_raise_naming_the_queue(tmp_path, monkeypatch,
                        "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "ev",
                        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "X"})
     try:
-        with pytest.raises(StorageError, match="Queue 1"):
+        with pytest.raises(StorageError, match="Queue 1, item 1.6b"):
             Storage.get_events()
+    finally:
+        Storage.reset()
+
+
+@pytest.mark.parametrize("path", ["explicit", "pio_home"])
+def test_cpplog_type_gives_the_ports_cpplog_events(tmp_path, monkeypatch,
+                                                   path):
+    """``TYPE=cpplog`` is the port's own ``CppLogEvents`` (never the JAX
+    package's class), its log under ``PATH`` or ``$PIO_HOME/cpplog``; an
+    event written through it reads back."""
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+
+    monkeypatch.setenv("PIO_HOME", str(tmp_path / "home"))
+    env = {"PIO_STORAGE_SOURCES_LOG_TYPE": "cpplog",
+           "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "ev",
+           "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG"}
+    where = tmp_path / "home" / "cpplog"
+    if path == "explicit":
+        where = tmp_path / "logs"
+        env["PIO_STORAGE_SOURCES_LOG_PATH"] = str(where)
+    Storage.configure(env)
+    try:
+        events = Storage.get_events()
+        assert type(events) is tcpplog.CppLogEvents
+        assert type(events).__module__ == \
+            "incubator_predictionio_tpu_torch.data.storage.cpplog"
+        assert events.init(APP)
+        eid = events.insert(Event(
+            event="rate", entity_type="user", entity_id="u1",
+            target_entity_type="item", target_entity_id="i1",
+            properties=DataMap({"rating": 4.0})), APP)
+        assert events.get(eid, APP).entity_id == "u1"
+        assert (where / f"ev_app{APP}_ch0.log").exists()
     finally:
         Storage.reset()
