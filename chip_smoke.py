@@ -2,9 +2,11 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the recommendation
 template (serving, ALS training through ``Engine.train``, serving the
 trained model), the sequence engine (SASRec served and trained through
-the flash-attention kernel), and both through the event store: events in
+the flash-attention kernel), both through the event store: events in
 SQLite or the native log (cpplog) → ``CoreWorkflow.run_train`` → the
-checkpoint → ``load_models`` → /queries.json.
+checkpoint → ``load_models`` → /queries.json, and the speed layer behind
+/queries.json (new events folded in on the fused ALS kernel), with the
+ecommerce template's implicit fold-in.
 
     python3 chip_smoke.py
 
@@ -175,6 +177,34 @@ Phases, each of which fails the run on any error or mismatch:
              against the plain top-k, ``pio undeploy``; ``pio upgrade`` and
              the same read after it. Prints each figure beside the SQLite
              phases' and the card's line again.
+    speed  — the speed layer on the cpplog phase's store, in this process
+             (:func:`speed_phase`; run by that phase's ``then`` hook):
+             ``FoldInSolver`` on the card against the same solver on CPU
+             tensors at every ladder width × batch 1 / 8 / 64, explicit and
+             implicit, at rank 128 (the served items) and 10 (planted), a
+             700-observation history, empty rows (exactly 0), 65 rows (two
+             launches) (:func:`foldin_kernel_cases`), and the fused entry's
+             timing rows at fold-in shapes (:func:`foldin_timings`); then
+             ``PredictionServer(config=...)`` with its overlay and an
+             in-process ``EventServer``: 64 known users' new ratings and 5 s
+             of 16 new users × 8 ratings every 50 ms, polled by hand, each
+             folded vector held to the plain fold-in, 64 overlay users' and
+             32 base users' answers over HTTP and one mixed 64-body batch
+             against the plain top-k, an unknown user, a re-fold after a new
+             event, ``GET /``'s ``speedOverlay`` and ``modelStalenessSec``,
+             ``load_models()`` again (the hot swap: the adopted users
+             re-solved), 4 s behind the server's own 1 s poller
+             (``pio_freshness_seconds``), the launch counts; then the
+             ecommerce template (:func:`ecommerce_leg`): 1,000,000 planted
+             views (every 8th also a buy) trained by the example's
+             engine.json (implicit, rank 10, 20 iterations) and held to the
+             plain route's implicit loss, its narrow buckets to the f64
+             rule, deployed with the implicit overlay, new users folded and
+             served, a known, a recent-views, a popularity user and an
+             ``unavailableItems`` constraint against the plain scoring.
+             Prints the poll wall by part, fold-ins, hit rate, cursor lag,
+             freshness p95, HTTP p50 of overlay and base users, and the
+             card's line again.
 16. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
              line (flash: the engine's windows, also left-padded with 1 to
@@ -2745,7 +2775,7 @@ def same_interactions(a, b) -> bool:
 
 
 def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
-                 small: bool = False, seed: int = 3):
+                 small: bool = False, seed: int = 3, then=None):
     """The quickstart's verbs through the port's CLI with the events on
     the native log (``cpplog``; metadata on SQLite, models on localfs)
     under a fresh ``PIO_HOME``: ``pio app new``; ``pio import`` of
@@ -2772,7 +2802,11 @@ def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
     plain top-k on the instance's decoded factors, ``pio undeploy``; ``pio
     upgrade`` (the log's live-record rewrite) and a read equal byte for
     byte to the one before it. ``sqlite``: store-als's triples and fit.
-    Returns (launches by kernel, max score error, stats)."""
+    ``then(log)``, where given, runs last on the same store, ``log`` a dict
+    of what the phase made (the app's name, id and access key, the
+    continued instance, the ratings); its wall is not the phase's.
+    Returns (launches by kernel, max score error, stats, what ``then``
+    returned)."""
     from datetime import timedelta
 
     from incubator_predictionio_tpu_torch.data.storage import (
@@ -3098,6 +3132,12 @@ def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
                                      "differs from the one before")
             stats["upgrade"] = {"s": upgrade_s, "reread_s": reread_s,
                                 "said": out.strip().splitlines()}
+            t_then = time.perf_counter()
+            after = None if then is None else then(dict(
+                name=name, app_id=app_id, key=key,
+                instance=second["instance"], users=users, items=items,
+                n_users=n_users, n_items=n_items, rank=rank))
+            then_s = time.perf_counter() - t_then
     finally:
         traincache.MIN_NNZ = min_nnz
         os.chdir(cwd)
@@ -3123,8 +3163,1109 @@ def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
                                or launches["score_topk"] < len(queries)):
         raise AssertionError(f"cpplog: launches {launches}")
     stats.update(launches=launches, sqlite=sqlite["figures"],
-                 wall_s=time.perf_counter() - t_phase)
-    return launches, err, stats
+                 wall_s=time.perf_counter() - t_phase - then_s)
+    return launches, err, stats, after
+
+
+# -- speed: the speed layer's fold-in, its overlay, the ecommerce template ----
+
+#: the hand-polled leg's writer: batches of new users, each with this many
+#: half-star ratings on random items, one batch every SPEED_WRITER_GAP_S
+#: for SPEED_WRITER_S (the JAX bench's speed leg, bench.py:855-876, runs
+#: 8 s; cut to 5 because the hot swap re-folds every user it wrote, each
+#: through a history read of the whole log, and the script has a time
+#: limit)
+SPEED_USERS_PER_BATCH, SPEED_EVENTS_PER_USER = 16, 8
+SPEED_WRITER_S, SPEED_WRITER_GAP_S = 5.0, 0.05
+#: known users that rate new items before the leg (their history comes
+#: from the log), and how many items each
+SPEED_KNOWN_USERS, SPEED_KNOWN_EVENTS = 64, 4
+#: the leg behind the server's own poller (``PIO_SPEED_POLL_S`` 1)
+SPEED_POLLER_S = 4.0
+#: the ecommerce leg: cold users and views each
+ECOM_COLD_USERS, ECOM_COLD_VIEWS = 32, 6
+
+
+def rating_doc(user: str, item: str, r: float) -> dict:
+    return {"event": "rate", "entityType": "user", "entityId": user,
+            "targetEntityType": "item", "targetEntityId": item,
+            "properties": {"rating": float(r)}}
+
+
+def foldin_dispatches(foldin, rows) -> int:
+    """The fused-entry launches ``FoldInSolver.solve(rows)`` makes: one a
+    (ladder width, up to ``max_batch`` rows) bucket."""
+    widths = foldin._width_ladder()
+    per_width: dict = {}
+    for cols, _vals in rows:
+        d = min(len(cols), widths[-1])
+        if d:
+            w = next(x for x in widths if d <= x)
+            per_width[w] = per_width.get(w, 0) + 1
+    mb = foldin.max_batch()
+    return sum(-(-n // mb) for n in per_width.values())
+
+
+def pack_rows(rows, dev):
+    """(cols, vals, mask) [B, max degree] tensors on ``dev`` of (cols, vals)
+    rows, padding under mask 0."""
+    d = max(max((len(c) for c, _v in rows), default=1), 1)
+    cols = np.zeros((len(rows), d), np.int32)
+    vals = np.zeros((len(rows), d), np.float32)
+    mask = np.zeros((len(rows), d), np.float32)
+    for r, (c, v) in enumerate(rows):
+        cols[r, :len(c)], vals[r, :len(v)], mask[r, :len(c)] = c, v, 1.0
+    return tuple(torch.from_numpy(a).to(dev) for a in (cols, vals, mask))
+
+
+def hold_foldin(ak, als, table, rows, got, ref, l2: float, implicit: bool,
+                alpha: float, what: str, trained: bool = True) -> dict:
+    """Fold-in vectors ``got`` (the kernel's) against ``ref`` (the plain
+    version's) of the same rows (each at most the ladder's widest, as the
+    solver keeps them) within :func:`als_tolerance` (the trained table's
+    rule, or an f32 table's), relative to max|ref|. Rows beyond it must be
+    no more than 3x as far from the f64 solve of their system as the
+    plain version, and rows with fewer observations than the rank also
+    within ``NARROW_CEILING`` of the plain version or of the f64 solve.
+    Raises on a disagreement; returns the errors."""
+    got_t, ref_t = torch.as_tensor(got).double(), torch.as_tensor(ref).double()
+    k = table.shape[1]
+    d_min = min((len(c) for c, _v in rows if len(c)), default=k)
+    err, rel = _rel_err(got_t, ref_t)
+    tol = als_tolerance(torch.float32, d_min, k, trained=trained)
+    out = {"rows": len(rows), "max_abs_err": err, "max_rel_err": rel}
+    if rel <= tol:
+        return out
+    scale = float(ref_t.abs().max())
+    beyond = [r for r in range(len(rows))
+              if float((got_t[r] - ref_t[r]).abs().max()) > tol * scale]
+    sub = [rows[r] for r in beyond]
+    cols, vals, mask = pack_rows(sub, table.device)
+    yty = als._gram_all(table) if implicit else None
+    iters = als.CG_ITERS * (2 if implicit else 1)
+    ref64 = f64_solve(ak, table.float(), cols.long(), vals, mask, l2, True,
+                      iters, None, True, implicit, alpha, yty).cpu()
+    k64 = _rel_err(got_t[beyond], ref64)[1]
+    p64 = _rel_err(ref_t[beyond], ref64)[1]
+    narrow = all(len(c) < k for c, _v in sub)
+    if k64 > 3 * p64 + 1e-6 or not narrow or min(rel, k64) > NARROW_CEILING:
+        raise AssertionError(f"{what}: max error {err:.3e} is {rel:.3e} of "
+                             f"max|x_plain|; its {len(beyond)} rows beyond "
+                             f"{tol} are {k64} from the f64 solve, the "
+                             f"plain version {p64}")
+    out.update(rows_beyond=len(beyond), beyond_f64_rel_err=k64,
+               beyond_plain_f64_rel_err=p64)
+    return out
+
+
+def dense_distance(foldin, table_np, rows, vecs, l2, implicit, alpha,
+                   n: int = 4) -> float:
+    """Largest relative distance of the first ``n`` fold-ins from the dense
+    f64 least-squares solve of their rows (``dense_reference_solve``): the
+    gap 16 (32) cold CG steps leave; printed, not held."""
+    worst = 0.0
+    for (cols, vals), vec in list(zip(rows, vecs))[:n]:
+        if not len(cols):
+            continue
+        ref = foldin.dense_reference_solve(table_np, cols[-512:],
+                                           vals[-512:], l2,
+                                           implicit=implicit, alpha=alpha)
+        worst = max(worst, float(np.abs(vec - ref).max()
+                                 / max(np.abs(ref).max(), 1e-30)))
+    return worst
+
+
+def foldin_case_rows(rng, m: int, lo: int, hi: int, b: int,
+                     implicit: bool):
+    """``b`` rows of lo..hi observations on a table of ``m`` rows: half
+    stars, or for implicit the weights 1 to 4."""
+    out = []
+    for d in rng.integers(lo, hi + 1, b):
+        cols = rng.integers(0, m, d).astype(np.int32)
+        vals = (rng.integers(1, 5, d) if implicit
+                else rng.integers(1, 11, d) / 2.0).astype(np.float32)
+        out.append((cols, vals))
+    return out
+
+
+def foldin_kernel_cases(dev, runtime, ak, als, foldin, planted, table,
+                        l2: float, small: bool = False) -> list:
+    """``FoldInSolver`` on the card against the same solver on CPU tensors
+    (the fused entry's plain version), by :func:`hold_foldin`: every
+    ladder width × padded batch 1 / 8 / 64, explicit (λ·nnz) and implicit
+    (YᵀY, α 1) on ``table`` (the served model's items), implicit again at
+    rank 10 (padded rank 16) on planted factors; one fused launch a case;
+    then a 700-observation history (the newest 512 kept), a batch with
+    empty histories (exactly 0) and 65 rows of one width (two launches).
+    Each case's distance to the dense solve is printed, not held."""
+    rng = np.random.default_rng(41)
+    widths = foldin._width_ladder()
+    batches = (1, 8) if small else (1, 8, 64)
+    m = table.shape[0]
+    rank10 = torch.from_numpy(planted.planted_item_factors(
+        m, 10, seed=43)).to(table.device)
+    cases = []
+    for implicit, tab, trained in ((False, table, True), (True, table, True),
+                                   (True, rank10, False)):
+        kw = dict(l2=l2, implicit=implicit, alpha=1.0)
+        card = foldin.FoldInSolver(tab, **kw)
+        host = foldin.FoldInSolver(tab.cpu(), **kw)
+        tab_np = tab.cpu().numpy()
+        lo = 1
+        for width in widths:
+            for b in batches:
+                rows = foldin_case_rows(rng, m, lo, width, b, implicit)
+                before = runtime.launch_counts()["als_fused_solve_cg"]
+                got = card.solve(rows)
+                launches = (runtime.launch_counts()["als_fused_solve_cg"]
+                            - before)
+                if dev.type == "cuda" and launches != 1:
+                    raise AssertionError(f"speed: width {width}, B {b}: "
+                                         f"{launches} fused launches")
+                ref = host.solve(rows)
+                what = (f"speed fold-in {'implicit' if implicit else 'explicit'}"
+                        f" K {tab.shape[1]} width {width} B {b}")
+                cases.append(dict(
+                    implicit=implicit, K=int(tab.shape[1]), width=width, B=b,
+                    launches=launches, **hold_foldin(
+                        ak, als, tab, rows, got, ref, l2, implicit, 1.0,
+                        what, trained),
+                    dense_rel_err=dense_distance(foldin, tab_np, rows, got,
+                                                 l2, implicit, 1.0)))
+            lo = width + 1
+    card = foldin.FoldInSolver(table, l2=l2)
+    host = foldin.FoldInSolver(table.cpu(), l2=l2)
+    long = foldin_case_rows(rng, m, 700, 700, 1, False)
+    got = card.solve(long)
+    newest = [(c[-widths[-1]:], v[-widths[-1]:]) for c, v in long]
+    if not np.array_equal(host.solve(long), host.solve(newest)):
+        raise AssertionError("speed: a 700-observation history did not "
+                             "keep its newest 512")
+    cases.append(dict(case="history_700", **hold_foldin(
+        ak, als, table, newest, got, host.solve(long), l2, False, 1.0,
+        "speed fold-in of 700 observations")))
+    rows = foldin_case_rows(rng, m, 1, 30, 5, False)
+    for r in (0, 2, 4):
+        rows[r] = (np.empty(0, np.int32), np.empty(0, np.float32))
+    got = card.solve(rows)
+    if (got[[0, 2, 4]] != 0).any():
+        raise AssertionError("speed: an empty history did not fold to 0")
+    cases.append(dict(case="empty_rows", **hold_foldin(
+        ak, als, table, rows, got, host.solve(rows), l2, False, 1.0,
+        "speed fold-in with empty rows")))
+    rows = foldin_case_rows(rng, m, 9, 32, 65, False)
+    before = runtime.launch_counts()["als_fused_solve_cg"]
+    got = card.solve(rows)
+    launches = runtime.launch_counts()["als_fused_solve_cg"] - before
+    if dev.type == "cuda" and launches != 2:
+        raise AssertionError(f"speed: 65 rows of width 32 took {launches} "
+                             "launches")
+    cases.append(dict(case="rows_65", launches=launches, **hold_foldin(
+        ak, als, table, rows, got, host.solve(rows), l2, False, 1.0,
+        "speed fold-in of 65 rows")))
+    return cases
+
+
+def foldin_timings(dev, ak, als, foldin, table, l2: float,
+                   reps: int = 10) -> list:
+    """The fused entry at fold-in shapes (B 1 / 64 at D 8 / 512, explicit
+    and implicit, every row full, cold): ms of one call (CUDA events) and
+    its device time (``graph_ms``), the plain version's on the same
+    tensors, the library yardstick (the Gram alone, one ``torch.bmm``;
+    implicit the weighted Gram plus YᵀY, one ``torch.baddbmm``), the
+    bound (``ak.bucket_bound`` of this run's inputs, and on the FMA units
+    beside it), and the wall of one ``FoldInSolver.solve`` of the same
+    rows from numpy (``solve_ms``: the host's packing, copies and result
+    fetch around the launch)."""
+    from incubator_predictionio_tpu_torch import runtime
+
+    rng = np.random.default_rng(45)
+    m, k = table.shape
+    out = []
+    for implicit in (False, True):
+        yty = als._gram_all(table) if implicit else None
+        iters = als.CG_ITERS * (2 if implicit else 1)
+        solver = foldin.FoldInSolver(table, l2=l2, implicit=implicit,
+                                     alpha=1.0)
+        for b in (1, 64):
+            for d in (8, 512):
+                rows = foldin_case_rows(rng, m, d, d, b, implicit)
+                cols, vals, mask = pack_rows(rows, dev)
+                kw = dict(iters=iters, implicit=implicit, alpha=1.0,
+                          yty=yty)
+
+                def fn():
+                    return ak.als_fused_solve_cg(table, cols, vals, mask, l2,
+                                                 **kw)
+
+                def plain():
+                    return ak.als_fused_solve_cg_plain(table, cols, vals,
+                                                       mask, l2, **kw)
+
+                g = table[cols] * mask[..., None]
+                if implicit:
+                    wg = g * vals[..., None]
+
+                    def gram():
+                        return torch.baddbmm(yty, wg.mT, g)
+                else:
+                    def gram():
+                        return torch.bmm(g.mT, g)
+
+                bound_ms, bound_by = ak.bucket_bound(
+                    cols, mask, k, iters, False, table.dtype,
+                    implicit=implicit)
+                fma_ms, fma_by = ak.bucket_bound(
+                    cols, mask, k, iters, False, table.dtype,
+                    f32_flops=runtime.F32_FLOPS, implicit=implicit)
+                err, _rel = _rel_err(fn(), plain())
+                walls = []
+                for _ in range(reps + 2):
+                    t0 = time.perf_counter()
+                    solver.solve(rows)
+                    walls.append(1e3 * (time.perf_counter() - t0))
+                out.append({
+                    "shape": "foldin", "dtype": "float32", "B": b, "D": d,
+                    "K": k, "nnz": b * d, "iters": iters, "cold": True,
+                    **({"implicit": True, "alpha": 1.0} if implicit
+                       else {}),
+                    "ms": median_ms(fn, reps=reps, warm=2),
+                    "graph_ms": graph_ms(fn, calls=10, reps=reps),
+                    "plain_ms": median_ms(plain, reps=reps, warm=2),
+                    "library_ms": median_ms(gram, reps=reps, warm=2),
+                    "library_graph_ms": graph_ms(gram, calls=10, reps=reps),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_fma_ms": fma_ms, "bound_fma_by": fma_by,
+                    "solve_ms": statistics.median(walls[2:]),
+                    "max_abs_err": err})
+    return out
+
+
+def hist_quantile(bounds, counts, q: float):
+    """A quantile of histogram bucket counts (the registry's
+    interpolation), for the difference of two snapshots."""
+    total = sum(counts)
+    if not total:
+        return None
+    rank, cum = q * total, 0
+    for i, c in enumerate(counts):
+        if c and cum + c >= rank:
+            if i >= len(bounds):
+                return bounds[-1]
+            lo = bounds[i - 1] if i else 0.0
+            return lo + (bounds[i] - lo) * max(rank - cum, 0.0) / c
+        cum += c
+    return bounds[-1]
+
+
+class FoldinDispatches:
+    """Counts, while open, the fused-entry launches every
+    ``FoldInSolver.solve`` on a card makes (:func:`foldin_dispatches`; a
+    warm-up's too), whichever thread solves: what the launch counter must
+    show."""
+
+    def __init__(self, foldin):
+        import threading
+
+        self.cls, self.n = foldin.FoldInSolver, 0
+        self.orig = self.cls.solve
+        lock = threading.Lock()
+
+        def solve(solver, rows):
+            if solver.device.type != "cpu":   # the checks' plain solves
+                with lock:
+                    self.n += foldin_dispatches(foldin, rows)
+            return self.orig(solver, rows)
+
+        self.cls.solve = solve
+
+    def close(self) -> int:
+        self.cls.solve = self.orig
+        return self.n
+
+
+class PollSplit:
+    """Times an overlay's polls by part while installed, whichever thread
+    polls: the tail read (``read_interactions_since``), the history reads
+    (``_history``), the solve (``solver.solve``, its result fetched) and
+    the publish (the rest of ``_fold_in``); keeps each fold's published
+    vectors (without a lookup, so the overlay's hit counts stay the
+    traffic's)."""
+
+    def __init__(self, overlay, store_cls):
+        self.ov, self.store = overlay, store_cls
+        self.polls: list = []
+        self.vectors: dict = {}
+        self._cur: dict = {}
+
+    def _timed(self, part, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._cur[part] = self._cur.get(part, 0.0) + (
+                    time.perf_counter() - t0)
+        return call
+
+    def __enter__(self):
+        ov = self.ov
+        self.orig_read = self.store.__dict__["read_interactions_since"]
+        self.store.read_interactions_since = staticmethod(
+            self._timed("tail_s", self.orig_read.__func__))
+        ov._history = self._timed("history_s", ov._history)
+        ov.solver.solve = self._timed("solve_s", ov.solver.solve)
+        fold = self._timed("fold_s", ov._fold_in)
+
+        def fold_in(pending, cursor):
+            n = fold(pending, cursor)
+            with ov._lock:
+                self.vectors.update({k: ov._vectors[k][0]
+                                     for k, _c in pending
+                                     if k in ov._vectors})
+            return n
+
+        ov._fold_in = fold_in
+        self._poll = ov.poll
+        ov.poll = self.poll   # the overlay's own poller thread too
+        return self
+
+    def poll(self, **kw) -> dict:
+        self._cur = {}
+        t0 = time.perf_counter()
+        s = self._poll(**kw)
+        wall = time.perf_counter() - t0
+        part = dict(self._cur)
+        part["publish_s"] = (part.get("fold_s", 0.0)
+                             - part.get("history_s", 0.0)
+                             - part.get("solve_s", 0.0))
+        self.polls.append(dict(wall_s=wall, solved=s.get("solved", 0),
+                               **part))
+        return s
+
+    def __exit__(self, *exc):
+        self.store.read_interactions_since = self.orig_read
+        for name in ("_history", "_fold_in", "poll"):
+            self.ov.__dict__.pop(name, None)
+        self.ov.solver.__dict__.pop("solve", None)
+
+    def split(self, start: int = 0, end=None) -> dict:
+        """p50 / p95 / max of each part over the polls ``start:end`` that
+        folded keys in."""
+        polls = self.polls[start:end]
+        folded = [p for p in polls if p["solved"]]
+        out = {"polls": len(polls), "folding_polls": len(folded)}
+        for part in ("wall_s", "tail_s", "history_s", "solve_s",
+                     "publish_s"):
+            xs = [p.get(part, 0.0) for p in folded]
+            if xs:
+                out[part.replace("_s", "_ms")] = {
+                    "p50": 1e3 * float(np.percentile(xs, 50)),
+                    "p95": 1e3 * float(np.percentile(xs, 95)),
+                    "max": 1e3 * float(max(xs))}
+        return out
+
+
+def check_vec_answer(kernels, dev, vec, items_t, allowed, doc, body,
+                     what, model) -> float:
+    """One served answer against the plain top-k of a query vector over
+    the item table (``allowed`` a [I] bool mask or None); ids through the
+    item BiMap of ``model``."""
+    got = body["itemScores"]
+    num = doc["num"]
+    n_live = num if allowed is None else min(num, int(allowed.sum()))
+    ref_s, ref_i = kernels.score_topk_plain(
+        torch.as_tensor(vec).reshape(1, -1).to(dev), items_t,
+        None if allowed is None else allowed.to(dev),
+        min(num + 1, items_t.shape[0]))
+    if len(got) != n_live:
+        raise AssertionError(f"{what}: {len(got)} items, expected {n_live}")
+    got_s = np.array([[x["score"] for x in got]])
+    got_i = np.array([[model.item_bimap[x["item"]] for x in got]])
+    return check_topk(got_s, got_i, ref_s.cpu()[:, :n_live + 1],
+                      ref_i.cpu()[:, :n_live + 1], n_live, what)
+
+
+def speed_phase(dev, runtime, kernels, als, ak, planted, log: dict,
+                small: bool = False) -> tuple:
+    """The speed layer on the cpplog phase's store (``log``: its app,
+    access key and continued instance, rank 128 at ML-20M width), the
+    writer, the event server and the prediction server in this process.
+    (1) :func:`foldin_kernel_cases` and :func:`foldin_timings` on the
+    served item table. (2) ``PredictionServer(config=...)`` with the
+    overlay ``_build_speed_overlays`` made (``PIO_SPEED_POLL_S`` 3600: the
+    phase polls by hand) and an ``EventServer``: 64 known users rate 4 new
+    items each, then batches of 16 new users × 8 half-star ratings go to
+    ``/batch/events.json`` every 50 ms for 5 s while the overlay polls,
+    every ingested user looked up after each poll (:class:`PollSplit`
+    times each poll by part). Checks: (a) every folded vector against
+    the plain fold-in of its history (the posted ratings; a known user's
+    read through ``EventStore.find``) by :func:`hold_foldin`; (b) 64 folded
+    users' ``/queries.json`` answers (16 with ``excludeSeen``) against
+    the plain top-k of the overlay's own vector; (c) one 64-body
+    ``_handle_batch`` of overlay users (the object path) and base users
+    (the fast path); (d) a user with no events gets no items; (e) a new
+    event makes a folded user miss after ``poll(max_keys=0)`` and the
+    next poll folds it again; (g) ``GET /``'s ``speedOverlay`` is the
+    overlay's ``stats()`` and ``modelStalenessSec`` ≥ 0; (f) a second
+    ``load_models()`` empties and stops the old overlay, the new one
+    covers no one until it polls, then re-solves the adopted new users;
+    its overlay then behind the server's own poller (``PIO_SPEED_POLL_S``
+    1): the adopted users re-folded first, then 4 s of the same writer,
+    each folded user queried once (``pio_freshness_seconds`` p95 of that
+    leg); (h) over all of it, the fused entry launched exactly the
+    polls' dispatches and the hot swap's warm-up, the two-stage and
+    R-row forms never, score+top-k at least once an overlay user's
+    query. (3) :func:`ecommerce_leg`.
+    Returns (launches by kernel, max score error, stats)."""
+    import threading
+
+    from incubator_predictionio_tpu_torch.data.store import EventStore
+    from incubator_predictionio_tpu_torch.models.recommendation import (
+        engine,
+    )
+    from incubator_predictionio_tpu_torch.obs import freshness
+    from incubator_predictionio_tpu_torch.servers.event_server import (
+        EventServer,
+        EventServerConfig,
+    )
+    from incubator_predictionio_tpu_torch.servers.prediction_server import (
+        PredictionServer,
+        ServerConfig,
+    )
+    from incubator_predictionio_tpu_torch.speed import foldin
+
+    t_phase = time.perf_counter()
+    writer_s = 2.0 if small else SPEED_WRITER_S
+    poller_s = 2.5 if small else SPEED_POLLER_S
+    saved_poll = os.environ.get("PIO_SPEED_POLL_S")
+    os.environ["PIO_SPEED_POLL_S"] = "3600"
+    stats: dict = {}
+    server = es = counter = None
+    stop = threading.Event()
+    threads: list = []
+    try:
+        t0 = time.perf_counter()
+        server = PredictionServer(
+            engine.RecommendationEngine().apply(), device=dev,
+            config=ServerConfig(ip="127.0.0.1", port=0,
+                                engine_instance_id=log["instance"]))
+        port = server.start_background()
+        stats["deploy_s"] = time.perf_counter() - t0
+        [ov] = server._speed_overlays
+        if ov is None or not ov.enabled:
+            raise AssertionError("speed: the server built no overlay")
+        model = server.models[0]
+        items_t, uf_t = model.item_factors, model.user_factors
+        l2 = ov.config.l2
+        if ov.solver.other_factors.data_ptr() != items_t.data_ptr():
+            raise AssertionError("speed: the overlay copied the item table")
+        es = EventServer(EventServerConfig(ip="127.0.0.1", port=0,
+                                           max_batch=500))
+        es_url = f"http://127.0.0.1:{es.start_background()}"
+        base = f"http://127.0.0.1:{port}"
+
+        # -- (1) the fused entry at fold-in shapes -------------------------
+        t0 = time.perf_counter()
+        stats["kernel_cases"] = foldin_kernel_cases(
+            dev, runtime, ak, als, foldin, planted, items_t, l2, small)
+        stats["kernel_cases_s"] = time.perf_counter() - t0
+        timings = ([] if dev.type != "cuda" else
+                   foldin_timings(dev, ak, als, foldin, items_t, l2))
+
+        # -- (2) the served path, hand-polled ------------------------------
+        rng = np.random.default_rng(47)
+        n_items = len(model.item_bimap)
+        inv_users = model.user_bimap.inverse
+        inv_items = model.item_bimap.inverse
+        posted: dict = {}       # new user -> (item rows, ratings)
+        ingested: list = []
+
+        def post(app_key, docs):
+            status, got = http_json(
+                "POST", f"{es_url}/batch/events.json?accessKey={app_key}",
+                json.dumps(docs).encode())
+            if status != 200 or any(g.get("status") != 201 for g in got):
+                raise AssertionError(f"speed: a batch got {status} "
+                                     f"{got!r:.300}")
+
+        def writer(prefix, seconds, errors):
+            j, t_end = 0, time.perf_counter() + seconds
+            try:
+                while time.perf_counter() < t_end and not stop.is_set():
+                    docs, batch = [], []
+                    for u in range(SPEED_USERS_PER_BATCH):
+                        uid = f"{prefix}{j + u}"
+                        its = rng.choice(n_items, SPEED_EVENTS_PER_USER,
+                                         replace=False).astype(np.int32)
+                        rs = (rng.integers(1, 11, len(its)) / 2.0).astype(
+                            np.float32)
+                        docs += [rating_doc(uid, inv_items[int(i)], r)
+                                 for i, r in zip(its, rs)]
+                        batch.append((uid, (its, rs)))
+                    post(log["key"], docs)
+                    posted.update(batch)
+                    ingested.extend(uid for uid, _h in batch)
+                    j += SPEED_USERS_PER_BATCH
+                    stop.wait(SPEED_WRITER_GAP_S)
+            except Exception as e:  # raised again by the main thread
+                errors.append(e)
+
+        def run_writer(prefix, seconds):
+            errors: list = []
+            t = threading.Thread(target=writer, args=(prefix, seconds,
+                                                      errors), daemon=True)
+            threads.append(t)
+            t.start()
+            return t, errors
+
+        def join_writer(t, errors):
+            t.join(60)
+            if t.is_alive() or errors:
+                raise AssertionError(f"speed: the writer {errors or 'hung'}")
+
+        runtime.reset_launch_counts()
+        counter = FoldinDispatches(foldin)
+        known = [inv_users[int(r)] for r in rng.choice(
+            len(model.user_bimap), SPEED_KNOWN_USERS, replace=False)]
+        docs = []
+        for u in known:
+            for i in rng.choice(n_items, SPEED_KNOWN_EVENTS, replace=False):
+                docs.append(rating_doc(u, inv_items[int(i)],
+                                       rng.integers(1, 11) / 2.0))
+        post(log["key"], docs)
+        max_lag = 0
+        with PollSplit(ov, EventStore) as split:
+            wt = run_writer("s", writer_s)
+            while wt[0].is_alive():
+                s = split.poll()
+                max_lag = max(max_lag, int(s.get("lag", 0)))
+                for uid in list(ingested):
+                    ov.lookup(uid)
+            join_writer(*wt)
+            for _ in range(100):
+                s = split.poll()
+                if not s.get("dirty"):
+                    break
+            for uid in list(ingested):
+                ov.lookup(uid)
+            st = ov.stats()
+            looked = st["hits"] + st["misses"]
+            stats["hand_polled"] = {
+                "writer_s": writer_s, "new_users": len(ingested),
+                "known_users": len(known), "foldins": st["foldins"],
+                "hit_rate": st["hits"] / looked if looked else None,
+                "worst_cursor_lag_events": max_lag,
+                "poll_split": split.split()}
+            if st["dirty"] or not set(ingested) <= set(split.vectors) \
+                    or not set(known) <= set(split.vectors):
+                raise AssertionError(f"speed: not every user folded in: "
+                                     f"{st}")
+
+            # (a) every folded vector against the plain fold-in
+            def history(u):
+                if u in posted:
+                    return posted[u]
+                cols, vals = [], []
+                for e in EventStore.find(
+                        app_name=log["name"], entity_type="user",
+                        entity_id=u, target_entity_type="item",
+                        event_names=["rate", "buy"], limit=512,
+                        reversed=True):
+                    col = model.item_bimap.get(e.target_entity_id)
+                    if col is None:
+                        continue
+                    cols.append(col)
+                    vals.append(4.0 if e.event == "buy" else float(
+                        e.properties.to_jsonable()["rating"]))
+                return (np.asarray(cols[::-1], np.int32),
+                        np.asarray(vals[::-1], np.float32))
+
+            host = foldin.FoldInSolver(items_t.cpu(), l2=l2)
+            keys = sorted(split.vectors)
+            rows = [history(u) for u in keys]
+            got = np.stack([split.vectors[u] for u in keys])
+            stats["hand_polled"]["vs_plain"] = hold_foldin(
+                ak, als, items_t, rows, got, host.solve(rows), l2, False,
+                1.0, "speed: the hand-polled fold-ins")
+            stats["hand_polled"]["dense_rel_err"] = dense_distance(
+                foldin, items_t.cpu().numpy(), rows, got, l2, False, 1.0)
+
+            # (b) 64 folded users over HTTP, (d) one with no events
+            err = 0.0
+            cold = ingested[:48]
+            ov_docs = [{"user": u, "num": 10} for u in cold] + [
+                {"user": u, "num": 10, "excludeSeen": True}
+                for u in known[:16]]
+            ov_walls = []
+            for doc in ov_docs:
+                t1 = time.perf_counter()
+                status, body = http_json("POST", f"{base}/queries.json", doc)
+                ov_walls.append(time.perf_counter() - t1)
+                if status != 200:
+                    raise AssertionError(f"speed: {doc}: {status} {body}")
+                allowed = None
+                if doc.get("excludeSeen"):
+                    allowed = torch.ones(n_items, dtype=torch.bool)
+                    allowed[torch.from_numpy(np.asarray(
+                        model.user_seen[model.user_bimap[doc["user"]]],
+                        np.int64))] = False
+                err = max(err, check_vec_answer(
+                    kernels, dev, split.vectors[doc["user"]], items_t,
+                    allowed, doc, body, f"speed query {doc}", model))
+            base_users = [inv_users[int(r)] for r in rng.choice(
+                len(model.user_bimap), 64, replace=False)
+                if inv_users[int(r)] not in split.vectors]
+            base_walls = []
+            for u in base_users[:32]:
+                doc = {"user": u, "num": 10}
+                t1 = time.perf_counter()
+                status, body = http_json("POST", f"{base}/queries.json", doc)
+                base_walls.append(time.perf_counter() - t1)
+                err = max(err, check_answer(kernels, dev, uf_t, items_t, doc,
+                                            None, body, f"speed base {u}",
+                                            model=model))
+            status, body = http_json("POST", f"{base}/queries.json",
+                                     {"user": "nosuch-speed", "num": 5})
+            if status != 200 or body["itemScores"]:
+                raise AssertionError(f"speed: an unknown user got {body}")
+
+            # (c) one batch of overlay and base users
+            mixed = [u for pair in zip(cold[:32], base_users[:32])
+                     for u in pair]
+            results = server._handle_batch([json.dumps(
+                {"user": u, "num": 5}).encode() for u in mixed])
+            for u, res in zip(mixed, results):
+                doc = {"user": u, "num": 5}
+                if u in split.vectors:
+                    if not isinstance(res, dict):
+                        raise AssertionError(f"speed: overlay user {u} in "
+                                             f"the batch took {type(res)}")
+                    err = max(err, check_vec_answer(
+                        kernels, dev, split.vectors[u], items_t, None, doc,
+                        res, f"speed batch {u}", model))
+                else:
+                    if not isinstance(res, (bytes, bytearray)):
+                        raise AssertionError(f"speed: base user {u} in the "
+                                             f"batch took {type(res)}")
+                    err = max(err, check_answer(
+                        kernels, dev, uf_t, items_t, doc, None,
+                        json.loads(res), f"speed batch {u}", model=model))
+
+            # (e) a new event: a miss after poll(max_keys=0), then a re-fold
+            u = cold[0]
+            extra = int(rng.integers(n_items))
+            post(log["key"], [rating_doc(u, inv_items[extra], 5.0)])
+            split.poll(max_keys=0)
+            if ov.covers(u) or ov.lookup(u) is not None:
+                raise AssertionError("speed: a dirtied user still hit")
+            if split.poll().get("solved", 0) < 1 or not ov.covers(u):
+                raise AssertionError("speed: the dirtied user was not "
+                                     "folded again")
+            cols, vals = posted[u]
+            posted[u] = (np.r_[cols, np.int32(extra)].astype(np.int32),
+                         np.r_[vals, np.float32(5.0)].astype(np.float32))
+            hold_foldin(ak, als, items_t, [posted[u]],
+                        split.vectors[u][None], host.solve([posted[u]]), l2,
+                        False, 1.0, "speed: the re-folded user")
+
+            # (g) GET /
+            status, info = http_json("GET", f"{base}/")
+            so, st = info["speedOverlay"], ov.stats()
+            if status != 200 or so["overlays"] != 1 or any(
+                    so[k] != st[k] for k in ("size", "hits", "misses",
+                                             "foldins")) \
+                    or not info["modelStalenessSec"] >= 0:
+                raise AssertionError(f"speed: GET / {so} against {st}, "
+                                     f"staleness "
+                                     f"{info.get('modelStalenessSec')}")
+            stats["status"] = {"speedOverlay": so,
+                               "modelStalenessSec":
+                                   info["modelStalenessSec"]}
+        stats["http_overlay_p50_ms"] = 1e3 * statistics.median(ov_walls)
+        stats["http_base_p50_ms"] = 1e3 * statistics.median(base_walls)
+
+        # (f) the hot swap, a second load_models(), its overlay behind the
+        # server's own poller (PIO_SPEED_POLL_S 1)
+        os.environ["PIO_SPEED_POLL_S"] = "1"
+        old = ov
+        t0 = time.perf_counter()
+        server.load_models()
+        stats["hot_swap_s"] = time.perf_counter() - t0
+        [ov] = server._speed_overlays
+        adopted = list(posted)
+        # the poller's first poll comes a second after the swap
+        st = ov.stats()
+        if old.stats()["size"] or old._thread is not None or ov is old \
+                or any(ov.covers(u) for u in adopted[:64]) \
+                or st["dirty"] != len(adopted) or st["foldins"]:
+            raise AssertionError(f"speed: after the swap, the old overlay "
+                                 f"{old.stats()}, the new {st}")
+        fam = freshness.FRESHNESS_SECONDS.labels(engine="recommendation")
+        with PollSplit(ov, EventStore) as split3:
+            # the poller first re-folds the adopted users, each through a
+            # history read of the log (they are new to this overlay's
+            # tail); the writer starts once they are done
+            deadline = time.perf_counter() + 240
+            while (ov.stats()["dirty"] or not split3.polls) \
+                    and time.perf_counter() < deadline:
+                time.sleep(0.05)
+            if ov.stats()["dirty"]:
+                raise AssertionError(f"speed: the poller left "
+                                     f"{ov.stats()['dirty']} adopted users")
+            adopted_s = time.perf_counter() - t0
+            adopted_polls = len(split3.polls)
+            if set(split3.vectors) != set(adopted):
+                raise AssertionError("speed: the new overlay re-solved "
+                                     f"{len(split3.vectors)} of "
+                                     f"{len(adopted)} adopted users")
+            host = foldin.FoldInSolver(server.models[0].item_factors.cpu(),
+                                       l2=l2)
+            rows = [posted[u] for u in adopted]
+            stats["hot_swap"] = {
+                "adopted": len(adopted), "refold_s": adopted_s,
+                "vs_plain": hold_foldin(
+                    ak, als, server.models[0].item_factors, rows,
+                    np.stack([split3.vectors[u] for u in adopted]),
+                    host.solve(rows), l2, False, 1.0,
+                    "speed: the adopted users' fold-ins"),
+                "poll_split": split3.split(0, adopted_polls)}
+            before = fam.snapshot()
+            n0 = len(ingested)
+            wt = run_writer("p", poller_s)
+            served: set = set()
+
+            def serve_folded():
+                for uid in ingested[n0:]:
+                    if uid not in served and ov.covers(uid):
+                        status, body = http_json(
+                            "POST", f"{base}/queries.json",
+                            {"user": uid, "num": 10})
+                        if status != 200 or len(body["itemScores"]) != 10:
+                            raise AssertionError(f"speed: {uid}: {status}")
+                        served.add(uid)
+
+            while wt[0].is_alive():
+                serve_folded()
+                time.sleep(0.05)
+            join_writer(*wt)
+            deadline = time.perf_counter() + 10
+            while len(served) < len(ingested) - n0 \
+                    and time.perf_counter() < deadline:
+                serve_folded()
+                time.sleep(0.05)
+            ov.stop()   # no poll runs past the count below
+        after = fam.snapshot()
+        counts = [a - b for a, b in zip(after[0], before[0])]
+        stats["poller"] = {
+            "seconds": poller_s, "new_users": len(ingested) - n0,
+            "served": len(served),
+            "polls": len(split3.polls) - adopted_polls,
+            "freshness_observations": after[2] - before[2],
+            "freshness_p50_s": hist_quantile(fam._bounds, counts, 0.5),
+            "freshness_p95_s": hist_quantile(fam._bounds, counts, 0.95),
+            "poll_split": split3.split(adopted_polls)}
+        if len(served) != len(ingested) - n0:
+            raise AssertionError(f"speed: {len(served)} of "
+                                 f"{len(ingested) - n0} users folded "
+                                 "behind the poller")
+
+        # (h) the launches of the whole path
+        got = runtime.launch_counts()
+        launches = {e: got[e] for e in ROUTE_ENTRY.values()}
+        launches["score_topk"] = got["score_topk"]
+        dispatches = counter.close()
+        launches["expected_fused"] = dispatches
+        n_ov_queries = len(ov_docs) + 32 + len(served)
+        if dev.type == "cuda" and (
+                got["als_fused_solve_cg"] != dispatches
+                or got["als_solve_cg"] or got["als_solve_cg_rows8"]
+                or got["score_topk"] < n_ov_queries):
+            raise AssertionError(f"speed: launches {launches} (overlay "
+                                 f"queries {n_ov_queries})")
+        stats["launches"] = launches
+        stats["recommendation_s"] = time.perf_counter() - t_phase
+
+        # -- (3) the ecommerce template ------------------------------------
+        os.environ["PIO_SPEED_POLL_S"] = "3600"
+        server.stop()
+        server = None
+        t0 = time.perf_counter()
+        ecom_launches, err_e, stats["ecommerce"] = ecommerce_leg(
+            dev, runtime, als, ak, planted, es_url, post, small)
+        stats["ecommerce"]["wall_s"] = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(30)
+        if counter is not None:
+            counter.close()
+        if server is not None:
+            server.stop()
+        if es is not None:
+            es.stop()
+        if saved_poll is None:
+            os.environ.pop("PIO_SPEED_POLL_S", None)
+        else:
+            os.environ["PIO_SPEED_POLL_S"] = saved_poll
+    stats["wall_s"] = time.perf_counter() - t_phase
+    return (launches, ecom_launches, timings), max(err, err_e), stats
+
+
+def ecommerce_leg(dev, runtime, als, ak, planted, es_url: str, post,
+                  small: bool = False) -> tuple:
+    """The ecommerce template on the same store: a new app (``pio app
+    new``) holding store-als's 1,000,000 planted (user, item) pairs as
+    ``view`` events, every 8th also a ``buy``, and the items' ``$set``
+    categories; ``CoreWorkflow.run_train`` with
+    ``examples/ecommerce-quickstart/engine.json``'s algorithm (rank 10,
+    20 iterations, λ 0.01, α 1, seed 3; the factory by its JAX name, as
+    the CLI maps it): every bucket on the fused entry, the implicit loss
+    within ``IMPLICIT_LOSS_TOL`` of the plain route's from the same
+    initial state, and the fused entry against its plain version on the
+    heaviest chunk of every bucket width of both sides
+    (:func:`check_als_chunk`, the widths from 1). Then deployed in this
+    process with its implicit overlay: 32 new users' views folded in at a
+    poll (implicit, padded rank 16; held to the plain fold-in), 8 of them
+    served over HTTP against the plain scoring (items · vector, the
+    freshly read seen set masked, ``top_k_with_exclusions``); a known
+    user; a user with recent views the overlay has not folded; a user
+    with no events (popularity); and the known user again under an
+    ``unavailableItems`` constraint. Returns (launches by kernel, max
+    score error, stats)."""
+    from incubator_predictionio_tpu_torch.cli import commands
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.interactions import (
+        Interactions,
+    )
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+    from incubator_predictionio_tpu_torch.data.store import EventStore
+    from incubator_predictionio_tpu_torch.models.ecommerce import (
+        engine as ecom,
+    )
+    from incubator_predictionio_tpu_torch.ops.topk import (
+        top_k_with_exclusions,
+    )
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.servers.prediction_server import (
+        PredictionServer,
+        ServerConfig,
+    )
+    from incubator_predictionio_tpu_torch.speed import foldin
+    from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    name = "EcomApp"
+    stats: dict = {}
+    key = re.search(r"Access Key: (\S+)", cli("app", "new", name)).group(1)
+    app_id = Storage.get_meta_data_apps().get_by_name(name).id
+    users, items, _r, n_users, n_items = store_als_ratings(planted, small)
+    user_ids = [f"u{k}" for k in range(n_users)]
+    item_ids = [f"i{k}" for k in range(n_items)]
+    dao = Storage.get_events()
+    t0 = time.perf_counter()
+    buys = np.arange(0, len(users), 8)
+    for ev, sel in (("view", slice(None)), ("buy", buys)):
+        dao.import_interactions(Interactions(
+            user_idx=users[sel], item_idx=items[sel],
+            values=np.ones(len(users[sel]), np.float32), user_ids=user_ids,
+            item_ids=item_ids), app_id, event_name=ev, value_prop="w",
+            base_time=parse_iso8601(STORE_T0))
+    dao.insert_batch([Event(
+        event="$set", entity_type="item", entity_id=i,
+        properties=DataMap({"categories": [f"c{k % 7}"]}))
+        for k, i in enumerate(item_ids)], app_id)
+    stats["import_s"] = time.perf_counter() - t0
+    stats["events"] = len(users) + len(buys) + n_items
+    variant = json.load(open(os.path.join(
+        REPO, "examples", "ecommerce-quickstart", "engine.json")))
+    variant["datasource"]["params"]["appName"] = name
+    variant["algorithms"][0]["params"]["appName"] = name
+    eng, ep = commands.engine_from_variant(variant)
+    p = ep.algorithm_params_list[0][1]
+    runtime.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    iid = CoreWorkflow.run_train(eng, ep, device=dev)
+    sync(dev)
+    stats["train_s"] = time.perf_counter() - t0
+    counts = runtime.launch_counts()
+    train_launches = {e: counts[e] for e in ROUTE_ENTRY.values()}
+    if dev.type == "cuda" and (train_launches["als_fused_solve_cg"] <= 0
+                               or train_launches["als_solve_cg"]
+                               or train_launches["als_solve_cg_rows8"]):
+        raise AssertionError(f"ecommerce: training launched "
+                             f"{train_launches}")
+    ctx = RuntimeContext(device=dev)
+    pd = ecom.ECommercePreparator().prepare(ctx, ecom.ECommerceDataSource(
+        ep.data_source_params[1]).read_training(ctx))
+    [model] = CoreWorkflow.load_models(iid, eng, ep, device=dev)
+    nu, ni = len(pd.user_bimap), len(pd.item_bimap)
+    t0 = time.perf_counter()
+    plain = als.als_train_implicit(
+        pd.users, pd.items, pd.weights, nu, ni, rank=p.rank,
+        iterations=p.num_iterations, l2=p.lambda_, alpha=p.alpha,
+        seed=p.seed, device=dev, use_kernel=False)
+    sync(dev)
+    stats["plain_train_s"] = time.perf_counter() - t0
+    st = als.ALSState(user_factors=model.user_factors,
+                      item_factors=model.item_factors)
+    loss = als.implicit_loss(st, pd.users, pd.items, pd.weights, p.alpha,
+                             p.lambda_)
+    loss_plain = als.implicit_loss(plain, pd.users, pd.items, pd.weights,
+                                   p.alpha, p.lambda_)
+    rel = abs(loss - loss_plain) / abs(loss_plain)
+    stats.update(rank=p.rank, iterations=p.num_iterations, users=nu,
+                 items=ni, nnz=len(pd.weights), loss=loss,
+                 loss_plain=loss_plain, loss_rel_err=rel,
+                 train_launches=train_launches)
+    if not (np.isfinite(loss) and rel <= IMPLICIT_LOSS_TOL):
+        raise AssertionError(f"ecommerce: implicit loss {loss!r} against "
+                             f"the plain route's {loss_plain!r}")
+    checks = []
+    if dev.type == "cuda":
+        u_tree, i_tree = als.prepare_trees(pd.users, pd.items, pd.weights,
+                                           nu, ni, device=dev)[:2]
+        for side, tree, table, prev in (
+                ("user", u_tree, model.item_factors, plain.user_factors),
+                ("item", i_tree, model.user_factors, plain.item_factors)):
+            for d, chunk in sorted(heaviest_chunks_by_width(
+                    tree, p.rank, als.CHUNK_ELEMS).items()):
+                errs = check_als_chunk(ak, als, "als_fused_solve_cg", table,
+                                       chunk, prev, implicit=True,
+                                       alpha=p.alpha)
+                checks.append({"side": side, "D": d,
+                               "B": int(chunk[0].shape[0]), **errs})
+        del u_tree, i_tree
+    stats["width_checks"] = checks
+
+    # -- served, with the implicit overlay --------------------------------
+    server = PredictionServer(eng, device=dev, config=ServerConfig(
+        ip="127.0.0.1", port=0, engine_instance_id=iid))
+    try:
+        base = f"http://127.0.0.1:{server.start_background()}"
+        [ov] = server._speed_overlays
+        if ov is None or not ov.config.implicit:
+            raise AssertionError("ecommerce: no implicit overlay")
+        model = server.models[0]
+        items_t = model.item_factors
+        rng = np.random.default_rng(49)
+        runtime.reset_launch_counts()
+        cold = {}
+        docs = []
+        for k in range(ECOM_COLD_USERS):
+            its = rng.choice(n_items, ECOM_COLD_VIEWS, replace=False)
+            cold[f"w{k}"] = its
+            docs += [{"event": "view", "entityType": "user",
+                      "entityId": f"w{k}", "targetEntityType": "item",
+                      "targetEntityId": f"i{int(i)}"} for i in its]
+        post(key, docs)
+        s = ov.poll()
+        if s.get("solved") != ECOM_COLD_USERS:
+            raise AssertionError(f"ecommerce: the poll said {s}")
+        rows = [(np.asarray([model.item_bimap[f"i{int(i)}"] for i in its],
+                            np.int32), np.ones(len(its), np.float32))
+                for its in cold.values()]
+        with ov._lock:
+            got = np.stack([ov._vectors[u][0] for u in cold])
+        host = foldin.FoldInSolver(items_t.cpu(), l2=p.lambda_,
+                                   implicit=True, alpha=p.alpha)
+        stats["foldin_vs_plain"] = hold_foldin(
+            ak, als, items_t, rows, got, host.solve(rows), p.lambda_, True,
+            p.alpha, "ecommerce: the implicit fold-ins", trained=True)
+        stats["foldin_dense_rel_err"] = dense_distance(
+            foldin, items_t.cpu().numpy(), rows, got, p.lambda_, True,
+            p.alpha)
+        fold_dispatches = foldin_dispatches(foldin, rows)
+
+        def expect(vec, seen=(), unavailable=(), num=5):
+            mask = torch.ones(len(model.item_bimap), dtype=torch.bool)
+            for idx in list(seen) + list(unavailable):
+                mask[int(idx)] = False
+            scores = (torch.as_tensor(model.item_popularity,
+                                      device=items_t.device)
+                      if vec is None else items_t @ vec)
+            s_, i_ = top_k_with_exclusions(scores, num, allowed_mask=mask)
+            inv = model.item_bimap.inverse
+            return [(inv[int(i)], float(v)) for v, i in
+                    zip(s_.cpu(), i_.cpu()) if v > -1e37]
+
+        def check(doc, want, what):
+            status, body = http_json("POST", f"{base}/queries.json", doc)
+            got_ = [(x["item"], x["score"]) for x in body["itemScores"]]
+            if status != 200 or len(got_) != len(want):
+                raise AssertionError(f"ecommerce {what}: {status} {body}")
+            np.testing.assert_allclose([g[1] for g in got_],
+                                       [w[1] for w in want], rtol=1e-5,
+                                       atol=1e-6, err_msg=what)
+            ws = {w[0]: w[1] for w in want}
+            for (gi, gs), (wi, wv) in zip(got_, want):
+                if gi != wi and abs(ws.get(gi, np.inf) - wv) > 1e-5 * abs(
+                        wv) + 1e-6:
+                    raise AssertionError(f"ecommerce {what}: {got_} against "
+                                         f"{want}")
+            return body
+
+        def seen_of(u):
+            return {model.item_bimap[e.target_entity_id]
+                    for e in EventStore.find_by_entity(
+                        app_name=name, entity_type="user", entity_id=u,
+                        event_names=list(p.seen_events))
+                    if e.target_entity_id in model.item_bimap}
+
+        walls = []
+        for u in list(cold)[:8]:
+            vec = torch.from_numpy(ov._vectors[u][0]).to(items_t.device)
+            t1 = time.perf_counter()
+            check({"user": u, "num": 5}, expect(vec, seen_of(u)),
+                  f"cold {u}")
+            walls.append(time.perf_counter() - t1)
+        stats["http_overlay_p50_ms"] = 1e3 * statistics.median(walls)
+        known = model.user_bimap.inverse[int(rng.integers(nu))]
+        row = model.user_bimap[known]
+        want = expect(model.user_factors[row], model.user_seen.get(row, ()))
+        check({"user": known, "num": 5}, want, f"known {known}")
+        post(key, [{"event": "view", "entityType": "user",
+                    "entityId": "recent0", "targetEntityType": "item",
+                    "targetEntityId": f"i{int(i)}"}
+                   for i in rng.choice(n_items, 3, replace=False)])
+        recent = [model.item_bimap[e.target_entity_id] for e in
+                  EventStore.find_by_entity(
+                      app_name=name, entity_type="user",
+                      entity_id="recent0", event_names=["view"],
+                      limit=p.num_recent_events, latest=True)]
+        check({"user": "recent0", "num": 5},
+              expect(items_t[torch.as_tensor(recent, device=items_t.device)]
+                     .mean(0)), "recent views (not folded)")
+        check({"user": "nobody-ecom", "num": 5}, expect(None),
+              "popularity")
+        first = want[0][0]
+        post(key, [{"event": "$set", "entityType": "constraint",
+                    "entityId": "unavailableItems",
+                    "properties": {"items": [first]}}])
+        body = check({"user": known, "num": 5}, expect(
+            model.user_factors[row], model.user_seen.get(row, ()),
+            [model.item_bimap[first]]), "known, unavailable")
+        if first in {x["item"] for x in body["itemScores"]}:
+            raise AssertionError("ecommerce: an unavailable item served")
+        counts = runtime.launch_counts()
+        launches = {"als_fused_solve_cg": counts["als_fused_solve_cg"],
+                    "expected_fused": fold_dispatches,
+                    "train": train_launches}
+        if dev.type == "cuda" and (counts["als_fused_solve_cg"]
+                                   != fold_dispatches
+                                   or counts["als_solve_cg"]
+                                   or counts["als_solve_cg_rows8"]):
+            raise AssertionError(f"ecommerce: serving launched {counts}")
+    finally:
+        server.stop()
+    stats["launches"] = launches
+    return launches, 0.0, stats
 
 
 def retrain_loop_leg(dev, runtime, als, planted, pd, trained, small=False,
@@ -4597,11 +5738,21 @@ def main() -> int:
         quickstart_train_s=qs_stats["train_s"],
         retrain_read_s=rt_cli["phases_s"].get("phase.read_s"),
         retrain_train_s=rt_cli["train_s"])
-    log_launches, err_log, log_stats = cpplog_phase(
-        dev, runtime, kernels, als, planted, sqlite_ref)
+    log_launches, err_log, log_stats, speed_out = cpplog_phase(
+        dev, runtime, kernels, als, planted, sqlite_ref,
+        then=lambda log: speed_phase(dev, runtime, kernels, als, ak, planted,
+                                     log))
     print(f"cpplog: {json.dumps(log_stats)} ({log_stats['wall_s']:.1f} s)",
           flush=True)
     print(f"cpplog-card: {card_line()}", flush=True)
+    (speed_launches, ecom_launches, foldin_rows), err_speed, speed_stats = \
+        speed_out
+    for row in foldin_rows:
+        line = dict(name="als_fused_solve_cg_foldin", **row)
+        print(f"time: {json.dumps(line)}", flush=True)
+    print(f"speed: {json.dumps(speed_stats)} ({speed_stats['wall_s']:.1f} s)",
+          flush=True)
+    print(f"speed-card: {card_line()}", flush=True)
 
     t0 = time.perf_counter()
     rt_loop_launches, rt_loop = retrain_loop_leg(
@@ -4640,9 +5791,10 @@ def main() -> int:
         "replaces": kernels.REPLACES,
         "launches": launches + trained_launches
         + store_launches["score_topk"] + qs_launches["score_topk"]
-        + rt_cli_launches["score_topk"] + log_launches["score_topk"],
+        + rt_cli_launches["score_topk"] + log_launches["score_topk"]
+        + speed_launches["score_topk"],
         "max_abs_err": max(err_k, err_p, err_t, err_sa, err_qs, err_rt,
-                           err_log),
+                           err_log, err_speed),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
@@ -4691,7 +5843,8 @@ def main() -> int:
         "route": "cuda",
         "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
         "replaces": ak.REPLACES["als_fused_solve_cg"],
-        "launches": imp_launches,
+        "launches": imp_launches
+        + ecom_launches["train"]["als_fused_solve_cg"],
         "max_abs_err": imp_row["max_abs_err"],
         "ms": imp_row["ms"],
         "graph_ms": imp_row["graph_ms"],
@@ -4705,8 +5858,38 @@ def main() -> int:
                         "gathered block, TF32 off",
         "path_note": "the fused entry's implicit variant (YtY in the "
                      "matvec), launched by als_train_implicit in the "
-                     "retrain phase; timed on its heaviest user chunk",
+                     "retrain phase and by the ecommerce template's "
+                     "training in the speed phase; timed on its heaviest "
+                     "user chunk",
         "shapes": [imp_row],
+    })
+    fold_head = next(r for r in foldin_rows
+                     if r["B"] == 64 and r["D"] == 512
+                     and not r.get("implicit"))
+    entries.append({
+        "name": "als_fused_solve_cg_foldin",
+        "route": "cuda",
+        "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
+        "replaces": ak.REPLACES["als_fused_solve_cg"],
+        "launches": speed_launches["als_fused_solve_cg"]
+        + ecom_launches["als_fused_solve_cg"],
+        "max_abs_err": max(r["max_abs_err"] for r in foldin_rows),
+        "ms": fold_head["ms"],
+        "graph_ms": fold_head["graph_ms"],
+        "plain_ms": fold_head["plain_ms"],
+        "bound_ms": fold_head["bound_ms"],
+        "bound_by": fold_head["bound_by"],
+        "bound_fma_ms": fold_head["bound_fma_ms"],
+        "library_ms": fold_head["library_ms"],
+        "library_note": "the Gram alone: one torch.bmm(g.mT, g) on the "
+                        "gathered block (implicit rows: torch.baddbmm with "
+                        "YtY), TF32 off",
+        "path_note": "the fused entry at the speed layer's fold-in shapes "
+                     "(speed/foldin.py: ladder widths 8-512, pow2 batches "
+                     "up to 64, cold CG), launched by the overlays' polls "
+                     "in the speed phase (recommendation explicit, "
+                     "ecommerce implicit)",
+        "shapes": foldin_rows,
     })
     flash_rows = flash_timings(fa, dev)
     for row in flash_rows:

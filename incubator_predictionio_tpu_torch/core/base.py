@@ -175,10 +175,27 @@ class Algorithm(_Component, Generic[M, Q, P]):
         """Deploy-time hook that runs the serving paths once per shape
         (optional, default no-op)."""
 
+    def make_speed_overlay(self, model: M, app_name: Optional[str],
+                           channel_name: Optional[str],
+                           data_source_params: Any = None):
+        """Speed-layer hook (``speed/``): a configured ``SpeedOverlay``
+        over this model's frozen factors, or None (the default) when the
+        algorithm has no fold-in. Called by the PredictionServer at
+        deploy with the app and channel of the engine's data-source
+        params (and those params, for event weights kept there). The
+        overlay must use the event shape and regularization training
+        used. The server owns its life cycle and attaches it with
+        :meth:`attach_speed_overlay`."""
+        return None
+
+    def attach_speed_overlay(self, overlay) -> None:
+        """Bind (or clear, with None) the overlay the predict paths
+        consult before the base model."""
+        self._speed_overlay = overlay
+
     @property
     def speed_overlay(self):
-        """The speed layer is not ported: no overlay is ever attached."""
-        return None
+        return getattr(self, "_speed_overlay", None)
 
     #: Query dataclass the server extracts request bodies into (None:
     #: the algorithm takes the parsed JSON as it is)

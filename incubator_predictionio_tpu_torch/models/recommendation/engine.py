@@ -24,11 +24,16 @@ instance (``ALSAlgorithm.train_with_previous``, JAX :418-474): warm
 factors where the previous id space is a prefix of the new one, the
 early stop, and the plan reuse of ``ops/retrain.py``.
 
+A deployed model serves with the speed layer's overlay
+(``make_speed_overlay``, JAX :567-594): a user whose events reached the
+log after training is folded in on the fused ALS kernel, and ``predict``
+scores the folded vector first, through the score+top-k kernel.
+
 Not ported yet: the sharded trainer, evaluation reads (``read_eval``),
-the speed-layer overlay, the host-mirror serving of small models and the
-MIPS index (and with it the index refresh after a retrain). The host
-mirror is left out on purpose: on the card it would hide the kernel for
-small models, and on the CPU the plain version already is the path.
+the host-mirror serving of small models and the MIPS index (and with it
+the index refresh after a retrain). The host mirror is left out on
+purpose: on the card it would hide the kernel for small models, and on
+the CPU the plain version already is the path.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from incubator_predictionio_tpu_torch.ops.topk import (
     batch_score_top_k,
     ladder_rungs,
     pad_exclude,
+    score_and_top_k,
     score_user_and_top_k,
 )
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
@@ -385,6 +391,36 @@ class ALSAlgorithm(Algorithm):
             model, user_factors=put(model.user_factors),
             item_factors=put(model.item_factors))
 
+    # -- speed layer -------------------------------------------------------
+    def make_speed_overlay(self, model: ALSModel, app_name, channel_name,
+                           data_source_params=None):
+        """Explicit fold-in over the frozen item factors, with the
+        training read's event shape (``rate`` at its ``rating``, ``buy``
+        at ``buy_rating``) and the trainer's ALS-WR ridge (λ·nnz). The
+        item table goes to the solver as the device tensor it is."""
+        if app_name is None:
+            return None
+        from incubator_predictionio_tpu_torch.speed.overlay import (
+            SpeedOverlay,
+            SpeedOverlayConfig,
+        )
+
+        buy_rating = float(getattr(data_source_params, "buy_rating", 4.0))
+        return SpeedOverlay(
+            SpeedOverlayConfig(
+                app_name=app_name, channel_name=channel_name,
+                engine="recommendation",
+                entity_type="user", target_entity_type="item",
+                event_names=("rate", "buy"), value_prop="rating",
+                event_values={"buy": buy_rating},
+                key_side="entity",
+                l2=self.params.lambda_, reg_nnz=True, implicit=False,
+            ),
+            other_factors=model.item_factors,
+            other_index=model.item_bimap,
+            key_index=model.user_bimap,
+        )
+
     # -- serving ----------------------------------------------------------
     def _allowed_mask(
         self, model: ALSModel, query: Query
@@ -432,7 +468,11 @@ class ALSAlgorithm(Algorithm):
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         user_idx = model.user_bimap.get(query.user)
-        if user_idx is None:
+        # speed layer: a folded-in vector (a new user, or one with events
+        # newer than the model) goes before the base row
+        ov = self.speed_overlay
+        ov_vec = ov.lookup(query.user) if ov is not None else None
+        if user_idx is None and ov_vec is None:
             # unknown user → empty result (ALSAlgorithm.scala predict miss)
             return PredictedResult(item_scores=())
         k = min(query.num, len(model.item_bimap))
@@ -440,16 +480,23 @@ class ALSAlgorithm(Algorithm):
             return PredictedResult(item_scores=())
         mask = self._allowed_mask(model, query)
         seen = None
-        if query.exclude_seen:
+        if query.exclude_seen and user_idx is not None:
             seen = model.user_seen.get(user_idx)
             if seen is not None and not len(seen):
                 seen = None
         dev = model.item_factors.device
-        packed = score_user_and_top_k(  # one dispatch, one fetch
-            model.user_factors, model.item_factors, int(user_idx), k=k,
-            exclude=None if seen is None else pad_exclude(seen, dev),
-            allowed_mask=None if mask is None else torch.from_numpy(mask),
-        ).cpu().numpy()
+        exclude = None if seen is None else pad_exclude(seen, dev)
+        allowed = None if mask is None else torch.from_numpy(mask)
+        if ov_vec is not None:
+            packed = score_and_top_k(
+                torch.from_numpy(np.asarray(ov_vec, np.float32)).to(dev),
+                model.item_factors, k=k, exclude=exclude,
+                allowed_mask=allowed)
+        else:
+            packed = score_user_and_top_k(  # one dispatch, one fetch
+                model.user_factors, model.item_factors, int(user_idx), k=k,
+                exclude=exclude, allowed_mask=allowed)
+        packed = packed.cpu().numpy()
         return self._pack_scores(model, packed[0],
                                  packed[1].astype(np.int64))
 
@@ -457,12 +504,16 @@ class ALSAlgorithm(Algorithm):
         self, model: ALSModel, queries: Sequence[Tuple[int, Query]]
     ) -> List[Tuple[int, PredictedResult]]:
         """One [B, K]×[K, I] scoring + top-k for all unfiltered queries of
-        known users; filtered queries go through ``predict`` one by one."""
+        known users; filtered queries, and users the speed overlay covers
+        (their folded vector is fresher than the base row), go through
+        ``predict`` one by one."""
+        ov = self.speed_overlay
         plain = [
             (qx, q) for qx, q in queries
             if q.creation_year is None and not q.categories
             and not q.whitelist and not q.blacklist and not q.exclude_seen
             and model.user_bimap.get(q.user) is not None
+            and (ov is None or not ov.covers(q.user))
         ]
         out: List[Tuple[int, PredictedResult]] = []
         if plain:
@@ -515,8 +566,10 @@ class ALSAlgorithm(Algorithm):
         """Columnar fast path: plain ``{"user": ..., "num": ...}`` docs of
         known users render straight from the batched top-k arrays to
         response bytes, byte-identical to ``json.dumps(to_jsonable(...))``
-        of the object path; any other doc stays None."""
+        of the object path; any other doc, and a user the speed overlay
+        covers, stays None."""
         get_row = model.user_bimap.get
+        ov = self.speed_overlay
         plain = []  # (slot, row, num)
         for slot, d in enumerate(docs):
             if (type(d) is dict and len(d) == 2 and "user" in d
@@ -525,7 +578,10 @@ class ALSAlgorithm(Algorithm):
                 if (isinstance(u, str) and isinstance(num, int)
                         and not isinstance(num, bool) and num > 0):
                     row = get_row(u)
-                    if row is not None:
+                    # an overlay user's bytes must reflect the folded
+                    # vector: the object path serves it
+                    if row is not None and (ov is None
+                                            or not ov.covers(u)):
                         plain.append((slot, row, num))
         out: list = [None] * len(docs)
         if not plain:

@@ -4,8 +4,10 @@ Port of incubator_predictionio_tpu/servers/prediction_server.py
 (:258-1213; reference core/.../workflow/CreateServer.scala):
 
 - ``GET  /``             → status JSON: engine instance, algorithms, device,
-  request count, average and last serving seconds, and this process's
-  kernel launches by kernel (``runtime.launch_counts``);
+  request count, average and last serving seconds, this process's
+  kernel launches by kernel (``runtime.launch_counts``), the speed
+  overlays' counts summed (``speedOverlay``) and the seconds since the
+  served instance finished training (``modelStalenessSec``);
 - ``POST /queries.json`` → parse → supplement → predict (every algorithm)
   → serve with the original query; 400 on a malformed body;
 - ``POST /stop``         → shut down (``accessKey`` = the server key, else
@@ -25,10 +27,22 @@ version and variant (:meth:`_resolve_instance`), its params read back
 (``Engine.engine_params_from_instance``) and its models restored on the
 device (``CoreWorkflow.load_models`` → ``Engine.prepare_deploy``) when the
 server starts; :meth:`undeploy_existing` first stops a server at the same
-address, and :func:`undeploy` is ``pio undeploy``. Not ported yet: the
-continuous-batching scheduler (ROADMAP.md Queue 1 item 3), tenancy,
-``/reload``, plugins, the feedback loop and ``--log-url`` (item 8; given
-either, :class:`PredictionServer` raises ``NotImplementedError``).
+address, and :func:`undeploy` is ``pio undeploy``.
+
+:meth:`load_models` also builds the speed layer: one overlay per
+algorithm that offers one (``PIO_SPEED_LAYER``, default on), polling the
+event log's tail on a thread of its own (``PIO_SPEED_POLL_S``). Calling
+:meth:`load_models` again is the hot swap: the new overlays adopt the
+old ones' keys, and the old ones are emptied and stopped. The writer of
+the log must be this process (an ``EventServer`` on the same store):
+one cpplog log is never opened by two live processes, and the remote
+backend that lets ``pio deploy`` read another process's log is not
+ported (ROADMAP.md Queue 1 item 1.6b).
+
+Not ported yet: the continuous-batching scheduler (ROADMAP.md Queue 1
+item 3), tenancy, ``/reload``, plugins, the feedback loop and
+``--log-url`` (item 8; given either, :class:`PredictionServer` raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -37,12 +51,13 @@ import dataclasses
 import http.server
 import json
 import logging
+import os
 import threading
 import time
 import urllib.error
 import urllib.parse
 import urllib.request
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from incubator_predictionio_tpu_torch import runtime
 from incubator_predictionio_tpu_torch.core.base import Serving
@@ -54,6 +69,10 @@ from incubator_predictionio_tpu_torch.data.storage import (
 )
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
 from incubator_predictionio_tpu_torch.utils import json_codec
+from incubator_predictionio_tpu_torch.utils.times import (
+    ensure_aware,
+    now_utc,
+)
 from incubator_predictionio_tpu_torch.workflow.workflow import CoreWorkflow
 
 logger = logging.getLogger(__name__)
@@ -107,6 +126,9 @@ class PredictionServer:
         self.algorithms: List[Any] = []
         self.serving: Any = None
         self.models: List[Any] = []
+        #: algorithm-aligned speed overlays (None where an algorithm has
+        #: none), built by :meth:`load_models`
+        self._speed_overlays: List[Any] = []
         if models is not None:
             if engine_params is None:
                 raise ValueError("models without their engine_params")
@@ -152,19 +174,88 @@ class PredictionServer:
     def load_models(self) -> None:
         """Resolve the instance, read its params back and restore its
         models on the device (``CoreWorkflow.load_models`` →
-        ``Engine.prepare_deploy``); then serve them."""
+        ``Engine.prepare_deploy``), build their speed overlays, then serve
+        them. Called again, it is the hot swap (JAX :448-505): the new
+        overlays adopt the old ones' keys, which they re-solve against
+        the new factors, and the old overlays are emptied and stopped."""
         instance = self._resolve_instance()
         engine_params = self.engine.engine_params_from_instance(instance)
         models = CoreWorkflow.load_models(instance.id, self.engine,
                                           engine_params, ctx=self.ctx)
         algorithms, serving = self.engine.components(engine_params)
+        overlays = self._build_speed_overlays(engine_params, algorithms,
+                                              models)
         with self._lock:
             self.engine_instance = instance
             self.engine_params = engine_params
             self.algorithms, self.serving = algorithms, serving
             self.models = models
-        logger.info("Deployed engine instance %s on %s", instance.id,
-                    self.ctx.device)
+            old_overlays = self._speed_overlays
+            self._speed_overlays = overlays
+        # both lists are algorithm-aligned, so adoption never pairs
+        # overlays of two algorithms
+        for old, ov in zip(old_overlays, overlays):
+            if old is not None and ov is not None:
+                ov.adopt_keys(old.known_keys())
+        for ov in old_overlays:
+            if ov is not None:
+                ov.invalidate_all()
+                ov.stop()
+        for ov in overlays:
+            if ov is not None:
+                ov.start()
+        logger.info("Deployed engine instance %s on %s (%d speed overlays)",
+                    instance.id, self.ctx.device,
+                    sum(ov is not None for ov in overlays))
+
+    def _build_speed_overlays(self, engine_params, algorithms,
+                              models) -> List[Any]:
+        """One overlay per algorithm that offers one
+        (``Algorithm.make_speed_overlay``), attached to the algorithm;
+        the list is algorithm-aligned (None where there is none).
+        ``PIO_SPEED_LAYER=0`` turns them off. A store without a tail
+        read (SQLite, localfs: ``enabled`` False) gives no overlay, as in
+        the JAX package; unlike it (JAX :567-571), any other error of the
+        construction raises instead of being logged away — on the card
+        it comes from the kernel or the device, and serving without the
+        overlay would hide it."""
+        dsp = engine_params.data_source_params[1]
+        app_name = getattr(dsp, "app_name", None)
+        channel_name = getattr(dsp, "channel_name", None)
+        disabled = os.environ.get("PIO_SPEED_LAYER", "1").lower() in (
+            "0", "off", "false")
+        overlays: List[Any] = []
+        for algo, model in zip(algorithms, models):
+            overlay = None
+            if not disabled:
+                overlay = algo.make_speed_overlay(
+                    model, app_name, channel_name, data_source_params=dsp)
+                if overlay is not None and not overlay.enabled:
+                    overlay = None  # a store without a tail read
+                if overlay is not None:
+                    # the kernels are built here, at deploy, never by
+                    # the poller's first fold-in
+                    overlay.solver.warmup()
+            algo.attach_speed_overlay(overlay)
+            overlays.append(overlay)
+        return overlays
+
+    def _speed_status_locked(self) -> Dict[str, Any]:
+        """The overlays' counts for ``GET /`` (the caller holds the
+        lock): size, hits, misses and fold-ins summed, the worst cursor
+        lag (JAX :809-829)."""
+        overlays = [ov for ov in self._speed_overlays if ov is not None]
+        out = {"overlays": len(overlays), "size": 0,
+               "hits": 0, "misses": 0, "foldins": 0, "cursorLagEvents": 0}
+        for ov in overlays:
+            s = ov.stats()
+            out["size"] += s["size"]
+            out["hits"] += s["hits"]
+            out["misses"] += s["misses"]
+            out["foldins"] += s["foldins"]
+            out["cursorLagEvents"] = max(out["cursorLagEvents"],
+                                         s["cursorLagEvents"])
+        return out
 
     def _server_key(self) -> Optional[str]:
         """The key ``/stop`` takes: the config's, else server.conf's when
@@ -312,6 +403,13 @@ class PredictionServer:
                 # this process's kernel launches by kernel (a deployed
                 # server is its own process: its counts are read here)
                 "kernelLaunches": runtime.launch_counts(),
+                # seconds since the served instance finished training:
+                # what the speed layer makes tolerable
+                "modelStalenessSec": (
+                    max((now_utc() - ensure_aware(instance.end_time))
+                        .total_seconds(), 0.0)
+                    if instance is not None else None),
+                "speedOverlay": self._speed_status_locked(),
             }
 
     # -- HTTP ---------------------------------------------------------------
@@ -402,7 +500,11 @@ class PredictionServer:
         self._stopped.wait()  # stop() closes the socket after the loop
 
     def stop(self) -> None:
-        """Stop serving and close the socket."""
+        """Stop serving, the speed overlays' pollers with it, and close
+        the socket."""
+        for ov in self._speed_overlays:
+            if ov is not None:
+                ov.stop()
         httpd = self._httpd
         if httpd is not None:
             self._httpd = None

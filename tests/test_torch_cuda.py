@@ -1000,3 +1000,117 @@ def test_sequence_model_serves_through_the_kernel(dev):
         [f"i{int(i) - 1}" for i in top.indices[:5]]
     np.testing.assert_allclose([s.score for s in got.item_scores],
                                top.values[:5].numpy(), rtol=1e-4)
+
+
+# -- the speed layer's fold-in (speed/foldin.py → the fused entry) ----------
+
+@pytest.mark.parametrize("width", [8, 32, 128, 512])
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("rank", [10, 128])
+def test_foldin_on_the_card_matches_plain(dev, width, batch, implicit, rank):
+    """``FoldInSolver`` on a CUDA table against the same solver on the
+    CPU (the fused entry's plain version): every ladder width at batch 1,
+    8 and 64, explicit and implicit, at rank 10 and 128; one fused
+    launch a bucket; empty rows exactly 0. Held by
+    ``chip_smoke.hold_foldin``: ``chip_smoke.als_tolerance``, and rows
+    beyond it (only rows with fewer observations than the rank may be) no
+    more than 3x as far from the f64 solve as the plain version."""
+    import chip_smoke
+    from incubator_predictionio_tpu_torch.speed.foldin import FoldInSolver
+
+    rng = np.random.default_rng(width * batch + rank)
+    table = rng.normal(0, 0.3, (3000, rank)).astype(np.float32)
+    rows = []
+    for r in range(batch):
+        d = 0 if r == batch - 1 and batch > 1 else int(
+            rng.integers(width // 4 + 1, width + 1))
+        rows.append((rng.integers(0, 3000, d).astype(np.int32),
+                     np.abs(rng.normal(3.0, 1.0, d)).astype(np.float32)))
+    kw = dict(l2=0.05, implicit=implicit, alpha=1.0)
+    before = als_kernels.ALS_FUSED_SOLVE_CG_LAUNCHES.value
+    got = FoldInSolver(torch.from_numpy(table).to(dev), **kw).solve(rows)
+    assert als_kernels.ALS_FUSED_SOLVE_CG_LAUNCHES.value == before + 1
+    ref = FoldInSolver(table, device="cpu", **kw).solve(rows)
+    chip_smoke.hold_foldin(als_kernels, als, torch.from_numpy(table).to(dev),
+                           rows, got, ref, 0.05, implicit, 1.0,
+                           f"fold-in width {width} B {batch}", trained=False)
+    if batch > 1:
+        assert (got[-1] == 0).all()
+
+
+def test_foldin_overlay_polls_on_a_thread_while_queries_score(dev,
+                                                              monkeypatch):
+    """The overlay's poller launches the fused kernel from its own thread
+    while another thread launches score+top-k; both agree with their
+    plain versions."""
+    import threading
+
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.storage import App, Storage
+    from incubator_predictionio_tpu_torch.data.store import EventStore
+    from incubator_predictionio_tpu_torch.speed.foldin import FoldInSolver
+    from incubator_predictionio_tpu_torch.speed.overlay import (
+        SpeedOverlay,
+        SpeedOverlayConfig,
+    )
+
+    Storage.configure({
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "m",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "e",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "d",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM"})
+    try:
+        Storage.get_meta_data_apps().insert(App(0, "thr"))
+        rng = np.random.default_rng(0)
+        items = torch.from_numpy(
+            rng.normal(0, 0.3, (5000, 64)).astype(np.float32)).to(dev)
+        ov = SpeedOverlay(SpeedOverlayConfig(
+            app_name="thr", value_prop="rating", l2=0.05), items,
+            {f"i{k}": k for k in range(5000)})
+        ov.start(interval_s=0.01)
+        stop = threading.Event()
+        errors = []
+
+        def query():
+            while not stop.is_set():
+                q = items[int(rng.integers(5000))][None]
+                s, _i = kernels.score_topk(q, items, None, 10)
+                r, _j = kernels.score_topk_plain(q, items, None, 10)
+                if not torch.allclose(s, r, rtol=1e-5, atol=1e-5):
+                    errors.append((s, r))
+
+        t = threading.Thread(target=query)
+        t.start()
+        hist = {}
+        for u in range(40):
+            its = rng.choice(5000, 6, replace=False)
+            hist[f"u{u}"] = its
+            EventStore.write([Event(
+                event="rate", entity_type="user", entity_id=f"u{u}",
+                target_entity_type="item", target_entity_id=f"i{i}",
+                properties=DataMap({"rating": 4.0})) for i in its], "thr")
+        import time
+
+        # a user's events may reach two polls (the writes are not one
+        # append), so wait until every user is covered and none is dirty
+        deadline = time.monotonic() + 30
+        while (ov.stats()["dirty"] or not all(ov.covers(u) for u in hist)) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        stop.set()
+        t.join()
+        ov.stop()
+        assert not errors and ov.stats()["foldins"] >= 40
+        plain = FoldInSolver(items.cpu(), l2=0.05)
+        for u, its in hist.items():
+            ref = plain.solve([(its.astype(np.int32),
+                                np.full(6, 4.0, np.float32))])[0]
+            assert np.max(np.abs(ov.lookup(u) - ref)) <= \
+                1e-3 * np.max(np.abs(ref))
+    finally:
+        Storage.reset()

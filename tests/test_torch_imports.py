@@ -356,3 +356,92 @@ def test_cli_train_and_deploy_refuse_without_cuda(verb, tmp_path,
     err = capsys.readouterr().err
     assert "engine.json does not exist" in err
     assert "accelerator" not in err
+
+
+_SPEED_ISOLATED = textwrap.dedent('''
+    import importlib, importlib.abc, json, sys
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if (name == "incubator_predictionio_tpu"
+                    or name.startswith("incubator_predictionio_tpu.")):
+                raise ImportError("the port imported " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    module = sys.argv[1]
+    importlib.import_module(module)
+    out = {"module": module}
+    if module.endswith("ecommerce"):
+        # the template trained on a memory store, deployed with its
+        # implicit overlay, a cold user folded in and served
+        import numpy as np
+        from incubator_predictionio_tpu_torch.core.params import EngineParams
+        from incubator_predictionio_tpu_torch.data.event import Event
+        from incubator_predictionio_tpu_torch.data.storage import App, Storage
+        from incubator_predictionio_tpu_torch.data.store import EventStore
+        from incubator_predictionio_tpu_torch.models.ecommerce import engine
+        from incubator_predictionio_tpu_torch.servers.prediction_server import (
+            PredictionServer, ServerConfig)
+        from incubator_predictionio_tpu_torch.workflow.workflow import (
+            CoreWorkflow)
+        Storage.configure({
+            "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+            "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "m",
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "e",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "d",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM"})
+        Storage.get_meta_data_apps().insert(App(0, "shop"))
+        rng = np.random.default_rng(0)
+        EventStore.write([Event(
+            event="view", entity_type="user", entity_id=f"u{k % 7}",
+            target_entity_type="item", target_entity_id=f"i{int(i)}")
+            for k, i in enumerate(rng.integers(0, 12, 60))], "shop")
+        ep = EngineParams(
+            data_source_params=("", engine.DataSourceParams(app_name="shop")),
+            algorithm_params_list=[("ecomm", engine.ECommAlgorithmParams(
+                app_name="shop", rank=3, num_iterations=2, seed=0))])
+        eng = engine.ECommerceEngine().apply()
+        CoreWorkflow.run_train(eng, ep, device="cpu")
+        srv = PredictionServer(eng, device="cpu", config=ServerConfig(port=0))
+        srv.load_models()
+        EventStore.write([Event(
+            event="view", entity_type="user", entity_id="walkin",
+            target_entity_type="item", target_entity_id="i3")], "shop")
+        out["solved"] = srv._speed_overlays[0].poll()["solved"]
+        out["items"] = len(srv._handle_batch(
+            [b'{"user": "walkin", "num": 2}'])[0]["itemScores"])
+        srv.stop()
+        Storage.reset()
+    out["leaked"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None and (
+            m in ("jax", "jaxlib") or m == "incubator_predictionio_tpu"
+            or m.startswith("incubator_predictionio_tpu.")))
+    print(json.dumps(out))
+''')
+
+
+@pytest.mark.parametrize("module", [
+    "incubator_predictionio_tpu_torch.speed",
+    "incubator_predictionio_tpu_torch.speed.foldin",
+    "incubator_predictionio_tpu_torch.speed.overlay",
+    "incubator_predictionio_tpu_torch.obs.freshness",
+    "incubator_predictionio_tpu_torch.models.ecommerce",
+])
+def test_speed_layer_and_ecommerce_import_nothing_of_jax(module):
+    """Each module of the speed layer and the ecommerce template imports
+    with JAX and the JAX package blocked; the template also trains,
+    deploys with its overlay, folds a cold user in and serves it."""
+    proc = subprocess.run([sys.executable, "-c", _SPEED_ISOLATED, module],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    if module.endswith("ecommerce"):
+        assert (out["solved"], out["items"]) == (1, 2)
