@@ -21,7 +21,8 @@ Phases, each of which fails the run on any error or mismatch:
              with ``g++``).
 3. kernel  — the score+top-k kernel against its plain PyTorch version on
              the card: the reference's four kernel test cases, duplicate-row
-             ties, the ML-20M width (26,744 items x rank 128) and a
+             ties, the ML-20M width (26,744 items x rank 128; B 1, 64 and
+             the scheduler's rungs 128, 256 and 512) and a
              1,048,576-item rank-64 catalogue, then the edges of its design
              (:func:`topk_edge_cases`: ties either side of a tile and of a
              block's item range, threshold ties in later tiles, catalogues
@@ -62,6 +63,22 @@ Phases, each of which fails the run on any error or mismatch:
              HTTP queries to /queries.json and one 64-body batch through
              ``_handle_batch``, every answer checked against the plain
              version on the same factors, and the kernel's launch count read.
+    serve-load — the same model under concurrent load
+             (:func:`serve_load_phase`): closed-loop keep-alive clients
+             in child processes at 1, 16, 64 and 256 for 4 s each through
+             the scheduler (ladder cap 512) and again with
+             ``micro_batch=0``, 64 with two dispatcher threads: queries/s,
+             p50 / p99 on the client's clock, the fused width
+             (``pio_serve_batch_size``), queue-wait p99, the server's CPU
+             per answer by thread, score+top-k launches against answers
+             (fewer at 64 clients, or it fails); the shed (the
+             ``serve_p99`` objective at 2 ms, 256 clients: every non-200 a
+             503 with ``Retry-After``, as many as
+             ``pio_serve_shed_total{reason="overload"}``); two tenants
+             (weights 3 and 1, 32 clients each: 401 for a wrong and a
+             missing key, the dispatched shares, the weight-1 tenant at
+             least 10%). Every answer of every leg against the plain
+             top-k; a query after each leg's load answered.
 7. train   — 20,000,000 planted ratings at ML-20M width trained through
              ``Engine.train`` (rank 128, 4 sweeps, 2 in bf16; the buckets
              from the native builder, the latest-wins dedup on the card),
@@ -192,8 +209,9 @@ Phases, each of which fails the run on any error or mismatch:
              32 base users' answers over HTTP and one mixed 64-body batch
              against the plain top-k, an unknown user, a re-fold after a new
              event, ``GET /``'s ``speedOverlay`` and ``modelStalenessSec``,
-             ``load_models()`` again (the hot swap: the adopted users
-             re-solved), 4 s behind the server's own 1 s poller
+             ``POST /reload`` while 16 clients query (the hot swap, every
+             answer across it a 200: the adopted users re-solved), 4 s
+             behind the server's own 1 s poller
              (``pio_freshness_seconds``), the launch counts; then the
              ecommerce template (:func:`ecommerce_leg`): 1,000,000 planted
              views (every 8th also a buy) trained by the example's
@@ -426,6 +444,11 @@ def kernel_phase(dev, kernels, planted, small: bool = False):
         q = planted.planted_queries(items, b, seed=12 + b)
         for k in (10, 100, 128):
             cases.append((f"ml20m_b{b}_k{k}", q, items, None, k))
+    # the scheduler's upper rungs: 16 to 64 row groups of 8
+    for b in (128, 256, 512):
+        q = planted.planted_queries(items, b, seed=12 + b)
+        for k in (10, 128):
+            cases.append((f"ml20m_b{b}_k{k}", q, items, None, k))
     mask = rng.random(n_items) > 0.3
     cases.append(("ml20m_b64_k128_masked",
                   planted.planted_queries(items, 64, seed=20), items, mask,
@@ -541,10 +564,11 @@ def post(port: int, doc) -> dict:
 
 
 def path_phase(dev, runtime, kernels, planted, convert, engine, params_mod,
-               server_mod, users, n_items, rank):
-    """Serve the main path; returns (kernel launches, max error, stats)."""
-    model, uf, items, seen = build_model(planted, convert, dev, users,
-                                         n_items, rank)
+               server_mod, users, n_items, rank, built=None):
+    """Serve the main path (on ``built``, :func:`build_model`'s result,
+    when given); returns (kernel launches, max error, stats)."""
+    model, uf, items, seen = built or build_model(planted, convert, dev,
+                                                  users, n_items, rank)
     uf_t = torch.from_numpy(uf).to(dev)
     items_t = torch.from_numpy(items).to(dev)
     srv = server_mod.PredictionServer(
@@ -566,7 +590,8 @@ def path_phase(dev, runtime, kernels, planted, convert, engine, params_mod,
             walls.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         batch_out = srv._handle_batch(
-            [json.dumps(d).encode() for d in batch_docs])
+            [json.dumps(d).encode() for d in batch_docs], "default",
+            "default")
         batch_wall = time.perf_counter() - t0
         counts = runtime.launch_counts()
     finally:
@@ -592,6 +617,373 @@ def path_phase(dev, runtime, kernels, planted, convert, engine, params_mod,
              "http_max_ms": 1e3 * max(walls),
              "batch64_ms": 1e3 * batch_wall, "counts": counts}
     return counts["score_topk"], err, stats
+
+
+# -- concurrent load through the serving scheduler -------------------------------
+
+#: closed-loop keep-alive load generator, standard library only, run as
+#: ``python -c LOAD_CLIENT <config JSON>``: ``threads`` clients, each on
+#: one keep-alive connection, POST ``{"user": "u<row>", "num": num}`` for
+#: random rows from ``start_at`` to ``stop_at`` (``time.monotonic``, which
+#: every process of the host shares) and write one record per answer to
+#: ``out``: [row, status, seconds, Retry-After, X-PIO-Queue-Depth, body of
+#: a 200].
+LOAD_CLIENT = r'''
+import http.client, json, random, sys, threading, time
+cfg = json.loads(sys.argv[1])
+records, lock = [], threading.Lock()
+
+def client(tid):
+    rng = random.Random(cfg["seed"] * 100003 + tid)
+    conn = http.client.HTTPConnection("127.0.0.1", cfg["port"], timeout=120)
+    mine = []
+    while time.monotonic() < cfg["start_at"]:
+        time.sleep(0.001)
+    while time.monotonic() < cfg["stop_at"]:
+        row = rng.randrange(cfg["users"])
+        body = json.dumps({"user": "u%d" % row, "num": cfg["num"]})
+        t0 = time.perf_counter()
+        conn.request("POST", cfg["path"], body,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        rec = [row, resp.status, time.perf_counter() - t0,
+               resp.getheader("Retry-After"),
+               resp.getheader("X-PIO-Queue-Depth")]
+        if resp.status == 200:
+            rec.append(data.decode())
+        mine.append(rec)
+    conn.close()
+    with lock:
+        records.extend(mine)
+
+threads = [threading.Thread(target=client, args=(t,))
+           for t in range(cfg["threads"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+with open(cfg["out"], "w") as f:
+    json.dump(records, f)
+'''
+
+#: client counts of the serve-load legs, and the seconds each runs
+LOAD_CLIENTS = (1, 16, 64, 256)
+LOAD_SECONDS = 4.0
+#: client processes a leg's clients are spread over (the host's cores
+#: are shared with the server's process)
+LOAD_PROCS = 4
+
+
+def run_clients(port: int, users: int, clients: int, seconds: float,
+                seed: int, work: str, path: str = "/queries.json",
+                num: int = 10, procs: int = LOAD_PROCS) -> list:
+    """Closed-loop clients (:data:`LOAD_CLIENT`) in ``min(procs,
+    clients)`` processes; returns their records."""
+    n_procs = min(procs, clients)
+    start_at = time.monotonic() + 1.0 + 0.05 * n_procs
+    children = []
+    for p in range(n_procs):
+        out = os.path.join(work, f"load-{seed}-{p}.json")
+        cfg = dict(port=port, users=users, num=num, path=path,
+                   threads=clients // n_procs + (p < clients % n_procs),
+                   seed=seed * 64 + p, start_at=start_at,
+                   stop_at=start_at + seconds, out=out)
+        children.append((out, subprocess.Popen(
+            [sys.executable, "-c", LOAD_CLIENT, json.dumps(cfg)])))
+    records = []
+    for out, proc in children:
+        if proc.wait(seconds + 300) != 0:
+            raise AssertionError(f"serve-load: a client process exited "
+                                 f"{proc.returncode}")
+        with open(out) as f:
+            records += json.load(f)
+        os.remove(out)
+    return records
+
+
+def check_load_answers(kernels, dev, uf_t, items_t, records, num: int,
+                       what: str) -> float:
+    """Every 200 of ``records`` against the plain top-k of its row, in
+    batches of 2,048 rows; returns the largest score error."""
+    ok = [r for r in records if r[1] == 200]
+    err = 0.0
+    for lo in range(0, len(ok), 2048):
+        part = ok[lo:lo + 2048]
+        rows = torch.tensor([r[0] for r in part], device=dev)
+        ref_s, ref_i = kernels.score_topk_plain(uf_t[rows], items_t, None,
+                                                num + 1)
+        bodies = [json.loads(r[5])["itemScores"] for r in part]
+        if any(len(b) != num for b in bodies):
+            raise AssertionError(f"{what}: an answer without {num} items")
+        got_s = np.array([[x["score"] for x in b] for b in bodies])
+        got_i = np.array([[int(x["item"][1:]) for x in b] for b in bodies])
+        err = max(err, check_topk(got_s, got_i, ref_s.cpu().numpy(),
+                                  ref_i.cpu().numpy(), num, what))
+    return err
+
+
+def bucket_le(bounds, counts, q: float):
+    """The upper bound of the histogram bucket that holds quantile ``q``
+    of ``counts`` (None when empty)."""
+    total, cum = sum(counts), 0
+    for i, c in enumerate(counts):
+        cum += c
+        if total and cum >= q * total:
+            return bounds[i] if i < len(bounds) else float("inf")
+    return None
+
+
+def thread_cpu() -> dict:
+    """CPU seconds of each live thread of this process by role: the
+    HTTP server's event loop (``loop``), the scheduler's dispatchers
+    (``dispatch``), the HTTP layer's executor (``executor``), the rest
+    (``other``); and the process's total (``process``)."""
+    import threading
+
+    out = {"loop": 0.0, "dispatch": 0.0, "executor": 0.0, "other": 0.0}
+    for t in threading.enumerate():
+        try:
+            cpu = time.clock_gettime(time.pthread_getcpuclockid(t.ident))
+        except (OSError, TypeError):
+            continue  # the thread ended meanwhile
+        role = ("dispatch" if t.name.startswith("pio-serve-sched")
+                else "executor" if t.name.startswith("asyncio_")
+                else "loop" if t.name.startswith("pio-http-")
+                else "other")
+        out[role] += cpu
+    out["process"] = time.process_time()
+    return out
+
+
+def _hist_delta(fam, before):
+    after = fam.snapshot()
+    return [a - b for a, b in zip(after[0], before[0])]
+
+
+SHED_REASONS = ("overload", "quota", "evicted", "shutdown")
+
+
+def load_leg(runtime, kernels, dev, server_mod, engine, params_mod, built,
+             clients: int, seconds: float, seed: int, work: str,
+             micro_batch=None, workers: int = 1, env=None, tenants=None,
+             probe=None) -> dict:
+    """One leg of :func:`serve_load_phase`: a server on the planted model
+    (``micro_batch`` None: the default ladder cap; 0: no scheduler;
+    ``workers`` dispatcher threads; ``env`` set around it), ``clients``
+    closed-loop clients for ``seconds`` (``tenants``: {access key:
+    (tenant, clients)} instead), then one more query after the load, and
+    ``probe(port)`` when given. Checks: every answer against the plain
+    top-k; every non-200 a 503 with ``Retry-After``, as many as
+    ``pio_serve_shed_total`` counted. Returns the leg's figures."""
+    from incubator_predictionio_tpu_torch.obs import metrics as obs_metrics
+    from incubator_predictionio_tpu_torch.servers.prediction_server import (
+        ServerConfig,
+    )
+
+    model, uf, _items, _seen = built
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    srv = None
+    reg = obs_metrics.REGISTRY
+    sizes = reg.get("pio_serve_batch_size").labels()
+    waits = reg.get("pio_serve_queue_wait_seconds").labels()
+    shed = reg.get("pio_serve_shed_total")
+    latency = reg.get("pio_query_latency_seconds")
+    names = ["default"] + [t for t, _n in (tenants or {}).values()]
+    try:
+        config = ServerConfig(ip="127.0.0.1", port=0, serve_workers=workers)
+        if micro_batch is not None:
+            config.micro_batch = micro_batch
+        srv = server_mod.PredictionServer(
+            engine.RecommendationEngine().apply(),
+            params_mod.EngineParams(algorithm_params_list=[
+                ("als", engine.ALSAlgorithmParams(rank=uf.shape[1]))]),
+            [model], device=dev, config=config)
+        port = srv.start_background()
+        size0, wait0 = sizes.snapshot(), waits.snapshot()
+        shed0 = {(t, r): shed.labels(tenant=t, reason=r).value
+                 for t in names for r in SHED_REASONS}
+        served0 = {t: latency.labels(tenant=t).snapshot()[2] for t in names}
+        srv.max_batch_served = 0
+        runtime.reset_launch_counts()
+        cpu0 = thread_cpu()
+        if tenants:
+            import concurrent.futures
+
+            with concurrent.futures.ThreadPoolExecutor(len(tenants)) as ex:
+                futs = {tenant: ex.submit(
+                    run_clients, port, uf.shape[0], n, seconds, seed + i,
+                    work, f"/queries.json?accessKey={key}", procs=2)
+                    for i, (key, (tenant, n)) in enumerate(tenants.items())}
+                by_tenant = {t: f.result() for t, f in futs.items()}
+            records = [r for recs in by_tenant.values() for r in recs]
+        else:
+            by_tenant = None
+            records = run_clients(port, uf.shape[0], clients, seconds, seed,
+                                  work)
+        launches = runtime.launch_counts()["score_topk"]
+        cpu = {k: v - cpu0[k] for k, v in thread_cpu().items()}
+        size_d, wait_d = _hist_delta(sizes, size0), _hist_delta(waits, wait0)
+        sheds = {f"{t}/{r}": shed.labels(tenant=t, reason=r).value - v
+                 for (t, r), v in shed0.items()}
+        served = {t: latency.labels(tenant=t).snapshot()[2] - n
+                  for t, n in served0.items()}
+        status = srv.status()
+        key = next(iter(tenants)) if tenants else None
+        after = http_json("POST", f"http://127.0.0.1:{port}/queries.json"
+                          + (f"?accessKey={key}" if key else ""),
+                          {"user": "u1", "num": 10})
+        probed = probe(port) if probe is not None else None
+    finally:
+        if srv is not None:
+            srv.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    what = (f"serve-load {clients} clients, micro_batch "
+            f"{micro_batch}, workers {workers}")
+    ok = [r for r in records if r[1] == 200]
+    statuses: dict = {}
+    for r in records:
+        statuses[str(r[1])] = statuses.get(str(r[1]), 0) + 1
+    bad = [r[:5] for r in records
+           if r[1] != 200 and (r[1] != 503 or not r[3] or int(r[3]) < 1
+                               or r[4] is None)]
+    if bad:
+        raise AssertionError(f"{what}: answers neither 200 nor a 503 with "
+                             f"Retry-After and X-PIO-Queue-Depth: {bad[:5]}")
+    n_shed = sum(v for v in sheds.values())
+    if statuses.get("503", 0) != n_shed:
+        raise AssertionError(f"{what}: {statuses.get('503', 0)} answers "
+                             f"were 503, pio_serve_shed_total counted "
+                             f"{sheds}")
+    if after[0] != 200 or len(after[1]["itemScores"]) != 10:
+        raise AssertionError(f"{what}: the query after the load got "
+                             f"{after}")
+    walls = sorted(r[2] for r in ok)
+    leg = {
+        "clients": clients, "micro_batch": status["scheduler"]["cap"]
+        if status["scheduler"] else 0, "workers": workers,
+        "seconds": seconds, "answered": len(ok), "statuses": statuses,
+        "qps": len(ok) / seconds,
+        "p50_ms": 1e3 * walls[len(walls) // 2] if walls else None,
+        "p99_ms": (1e3 * walls[min(len(walls) - 1, int(0.99 * len(walls)))]
+                   if walls else None),
+        # pow2 buckets: the median dispatch's width is at most this rung
+        "batch_p50_le": bucket_le(sizes._bounds, size_d, 0.5),
+        "batch_mean": (sum(served.values()) / sum(size_d)
+                       if sum(size_d) else None),
+        "batch_max": status["maxBatchServed"],
+        "dispatches": sum(size_d),
+        "queue_wait_p99_ms": (1e3 * hist_quantile(waits._bounds, wait_d,
+                                                  0.99)
+                              if sum(wait_d) else None),
+        "launches": launches,
+        "queries_per_launch": len(ok) / launches if launches else None,
+        # the server's CPU per answer (the clients are other processes)
+        "cpu_us_per_answer": {k: 1e6 * v / len(ok) if ok else None
+                              for k, v in cpu.items()},
+        "shed": {k: v for k, v in sheds.items() if v},
+        "dispatched": {t: n for t, n in served.items() if n},
+        "max_abs_err": check_load_answers(
+            kernels, dev, model.user_factors, model.item_factors, records,
+            10, what),
+    }
+    if by_tenant is not None:
+        leg["answered_by_tenant"] = {
+            t: sum(r[1] == 200 for r in recs) for t, recs in
+            by_tenant.items()}
+    if probed is not None:
+        leg["probe"] = probed
+    return leg
+
+
+#: the tenancy leg's registry: two tenants, weights 3 and 1
+LOAD_TENANTS = "heavy:heavy-key:weight=3;light:light-key:weight=1"
+
+
+def serve_load_phase(dev, runtime, kernels, server_mod, engine, params_mod,
+                     built, small: bool = False) -> tuple:
+    """Concurrent ``/queries.json`` on the path phase's planted model
+    (``built``), through the port's HTTP server in this process, from
+    closed-loop keep-alive clients in child processes
+    (:func:`run_clients`). (1) 1, 16, 64 and 256 clients for 4 s each,
+    with the scheduler (ladder cap 512) and again with ``micro_batch=0``;
+    64 clients with two dispatcher threads: queries/s, p50 / p99 on the
+    client's clock, the fused width's p50 (``pio_serve_batch_size``) and
+    max, queue-wait p99, score+top-k launches against answers; at 64
+    clients the scheduler launches fewer times than it answers. (2) The
+    shed: ``PIO_SLO_SERVE_P99_S`` 2 ms at 256 clients; some queries
+    shed. (3) Tenancy: two tenants, weights 3 and 1, 32 clients each; a
+    wrong and a missing key get 401; the dispatched shares; the weight-1
+    tenant at least 10% of them. Every leg: every answer against the
+    plain top-k, every non-200 a 503 with ``Retry-After`` counted by
+    ``pio_serve_shed_total``, a query after the load answered.
+    Returns (score+top-k launches, max score error, stats)."""
+    seconds = 1.0 if small else LOAD_SECONDS
+    counts = (1, 4) if small else LOAD_CLIENTS
+    mid = 4 if small else 64
+    work = tempfile.mkdtemp(prefix="pio-load-")
+    t_phase = time.perf_counter()
+    legs, seed = [], 100
+    args = (runtime, kernels, dev, server_mod, engine, params_mod, built)
+    try:
+        for mb in (None, 0):
+            for n in counts:
+                seed += 1
+                legs.append(load_leg(*args, clients=n, seconds=seconds,
+                                     seed=seed, work=work, micro_batch=mb))
+        legs.append(load_leg(*args, clients=mid, seconds=seconds,
+                             seed=seed + 1, work=work, workers=2))
+        sched = next(g for g in legs if g["clients"] == mid
+                     and g["micro_batch"] and g["workers"] == 1)
+        if dev.type == "cuda" and not sched["launches"] < sched["answered"]:
+            raise AssertionError(
+                f"serve-load: at {mid} clients the scheduler launched "
+                f"score_topk {sched['launches']} times for "
+                f"{sched['answered']} answers")
+        shed = load_leg(*args, clients=counts[-1], seconds=seconds,
+                        seed=seed + 2, work=work,
+                        env={"PIO_SLO_SERVE_P99_S": "0.002"})
+        if not shed["shed"].get("default/overload"):
+            raise AssertionError(f"serve-load: the shed leg shed nothing: "
+                                 f"{shed['statuses']}")
+
+        def probe(port):
+            url = f"http://127.0.0.1:{port}/queries.json"
+            return {"missing": http_json("POST", url, {"user": "u1",
+                                                        "num": 3})[0],
+                    "wrong": http_json("POST", url + "?accessKey=nope",
+                                       {"user": "u1", "num": 3})[0]}
+
+        half = 2 if small else 32
+        ten = load_leg(*args, clients=2 * half, seconds=seconds,
+                       seed=seed + 3, work=work,
+                       env={"PIO_TENANTS": LOAD_TENANTS},
+                       tenants={"heavy-key": ("heavy", half),
+                                "light-key": ("light", half)},
+                       probe=probe)
+        if ten["probe"] != {"missing": 401, "wrong": 401}:
+            raise AssertionError(f"serve-load: tenancy keys {ten['probe']}")
+        total = sum(ten["dispatched"].get(t, 0) for t in ("heavy", "light"))
+        ten["dispatched_share"] = {
+            t: ten["dispatched"].get(t, 0) / total for t in ("heavy",
+                                                             "light")}
+        if ten["dispatched_share"]["light"] < 0.10:
+            raise AssertionError(f"serve-load: the weight-1 tenant got "
+                                 f"{ten['dispatched_share']}")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    launches = sum(g["launches"] for g in legs + [shed, ten])
+    err = max(g["max_abs_err"] for g in legs + [shed, ten])
+    stats = {"legs": legs, "shed": shed, "tenants": ten,
+             "wall_s": time.perf_counter() - t_phase}
+    return launches, err, stats
 
 
 # -- timing --------------------------------------------------------------------
@@ -672,7 +1064,8 @@ def time_shape(kernels, planted, dev, b, n_items, rank, k) -> dict:
 
 
 #: the timed score+top-k shapes (B, I, K, k): the 64-body batch, one query
-#: at k 10 and 128, B 64 at k 128 (ML-20M width), then 1,048,576 items
+#: at k 10 and 128, B 64 at k 128 (ML-20M width), then 1,048,576 items,
+#: ranks above 256, and B 128 / 256 / 512 (the scheduler's upper rungs)
 TOPK_SHAPES = (
     (64, ML20M["items"], ML20M["rank"], 16),
     (1, ML20M["items"], ML20M["rank"], 10),
@@ -683,6 +1076,13 @@ TOPK_SHAPES = (
     # above rank 256 (the query rows streamed by chunk)
     (1, ML20M["items"], 300, 10),
     (64, ML20M["items"], 512, 128),
+    # the serving scheduler's upper rungs
+    (128, ML20M["items"], ML20M["rank"], 10),
+    (256, ML20M["items"], ML20M["rank"], 10),
+    (512, ML20M["items"], ML20M["rank"], 10),
+    (128, ML20M["items"], ML20M["rank"], 128),
+    (256, ML20M["items"], ML20M["rank"], 128),
+    (512, ML20M["items"], ML20M["rank"], 128),
 )
 
 
@@ -1896,9 +2296,11 @@ def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
                            model.item_bimap, "store-seq query")
     steps = -(-n_sessions // batch)
     n_layers = SEQ["n_layers"]
+    # each server start runs one warm-up query before it binds
     if dev.type == "cuda" and (train_launches != n_layers * steps
-                               or launches != train_launches + 3 * n_layers
-                               or log_launches != 2 * n_layers):
+                               or launches != train_launches
+                               + (1 + 3) * n_layers
+                               or log_launches != (1 + 2) * n_layers):
         raise AssertionError(f"store-seq: flash_attention launched "
                              f"{train_launches} times in training, "
                              f"{launches - train_launches} in 3 queries "
@@ -3607,9 +4009,11 @@ def speed_phase(dev, runtime, kernels, als, ak, planted, log: dict,
     (the fast path); (d) a user with no events gets no items; (e) a new
     event makes a folded user miss after ``poll(max_keys=0)`` and the
     next poll folds it again; (g) ``GET /``'s ``speedOverlay`` is the
-    overlay's ``stats()`` and ``modelStalenessSec`` ≥ 0; (f) a second
-    ``load_models()`` empties and stops the old overlay, the new one
-    covers no one until it polls, then re-solves the adopted new users;
+    overlay's ``stats()`` and ``modelStalenessSec`` ≥ 0; (f) ``POST
+    /reload`` (``load_models()`` again, the new models warmed first) while
+    16 clients query base users, every answer a 200, some during the
+    reload; it empties and stops the old overlay, the new one covers no
+    one until it polls, then re-solves the adopted new users;
     its overlay then behind the server's own poller (``PIO_SPEED_POLL_S``
     1): the adopted users re-folded first, then 4 s of the same writer,
     each folded user queried once (``pio_freshness_seconds`` p95 of that
@@ -3834,7 +4238,8 @@ def speed_phase(dev, runtime, kernels, als, ak, planted, log: dict,
             mixed = [u for pair in zip(cold[:32], base_users[:32])
                      for u in pair]
             results = server._handle_batch([json.dumps(
-                {"user": u, "num": 5}).encode() for u in mixed])
+                {"user": u, "num": 5}).encode() for u in mixed],
+                "default", "default")
             for u, res in zip(mixed, results):
                 doc = {"user": u, "num": 5}
                 if u in split.vectors:
@@ -3885,13 +4290,48 @@ def speed_phase(dev, runtime, kernels, als, ak, planted, log: dict,
         stats["http_overlay_p50_ms"] = 1e3 * statistics.median(ov_walls)
         stats["http_base_p50_ms"] = 1e3 * statistics.median(base_walls)
 
-        # (f) the hot swap, a second load_models(), its overlay behind the
-        # server's own poller (PIO_SPEED_POLL_S 1)
+        # (f) the hot swap, POST /reload (load_models() again, the new
+        # models warmed before the swap) while 16 clients query base
+        # users; its overlay behind the server's own poller
+        # (PIO_SPEED_POLL_S 1)
         os.environ["PIO_SPEED_POLL_S"] = "1"
         old = ov
+        swap_stop, swap_answers = threading.Event(), []
+
+        def swap_client(user):
+            while not swap_stop.is_set():
+                status, body = http_json("POST", f"{base}/queries.json",
+                                         {"user": user, "num": 10})
+                swap_answers.append(
+                    (status, len(body["itemScores"]) if status == 200
+                     else body))
+
+        swap_clients = [threading.Thread(target=swap_client, args=(u,),
+                                         daemon=True)
+                        for u in base_users[:16]]
+        threads += swap_clients
+        for t in swap_clients:
+            t.start()
+        while len(swap_answers) < 16:
+            time.sleep(0.01)
+        before_swap = len(swap_answers)
         t0 = time.perf_counter()
-        server.load_models()
+        status, body = http_json("POST", f"{base}/reload", b"")
         stats["hot_swap_s"] = time.perf_counter() - t0
+        during_swap = len(swap_answers) - before_swap
+        swap_stop.set()
+        for t in swap_clients:
+            t.join(60)
+        failed = [a for a in swap_answers if a != (200, 10)]
+        stats["reload_under_load"] = {
+            "clients": len(swap_clients), "answers": len(swap_answers),
+            "answered_during_reload": during_swap,
+            "reload_status": status, "failed": len(failed)}
+        if status != 200 or failed or not during_swap:
+            raise AssertionError(f"speed: POST /reload under load: "
+                                 f"{status} {body}, {len(failed)} failed "
+                                 f"answers {failed[:3]}, {during_swap} "
+                                 "answered during the reload")
         [ov] = server._speed_overlays
         adopted = list(posted)
         # the poller's first poll comes a second after the swap
@@ -5672,10 +6112,23 @@ def main() -> int:
           f"{json.dumps(flash_rel)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
+    built = build_model(planted, convert, dev, ML20M["users"],
+                        ML20M["items"], ML20M["rank"])
     launches, err_p, stats = path_phase(
         dev, runtime, kernels, planted, convert, engine, params_mod,
-        server_mod, ML20M["users"], ML20M["items"], ML20M["rank"])
+        server_mod, ML20M["users"], ML20M["items"], ML20M["rank"], built)
     print(f"path: {json.dumps(stats)}", flush=True)
+
+    load_launches, err_load, load_stats = serve_load_phase(
+        dev, runtime, kernels, server_mod, engine, params_mod, built)
+    for leg in load_stats["legs"]:
+        print(f"serve-load: {json.dumps(leg)}", flush=True)
+    print(f"serve-load-shed: {json.dumps(load_stats['shed'])}", flush=True)
+    print(f"serve-load-tenants: {json.dumps(load_stats['tenants'])}",
+          flush=True)
+    print(f"serve-load-card: {card_line()} "
+          f"({load_stats['wall_s']:.1f} s)", flush=True)
+    del built
 
     model, pd, eng, ep, train_stats, (u_tree, i_tree, plain) = train_phase(
         dev, runtime, als, engine, base, params_mod, context,
@@ -5789,12 +6242,12 @@ def main() -> int:
         "route": "cuda",
         "source": "incubator_predictionio_tpu_torch/csrc/score_topk.cu",
         "replaces": kernels.REPLACES,
-        "launches": launches + trained_launches
+        "launches": launches + load_launches + trained_launches
         + store_launches["score_topk"] + qs_launches["score_topk"]
         + rt_cli_launches["score_topk"] + log_launches["score_topk"]
         + speed_launches["score_topk"],
-        "max_abs_err": max(err_k, err_p, err_t, err_sa, err_qs, err_rt,
-                           err_log, err_speed),
+        "max_abs_err": max(err_k, err_p, err_load, err_t, err_sa, err_qs,
+                           err_rt, err_log, err_speed),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],

@@ -10,7 +10,13 @@ CUDA device; ``PIO_DEVICE=cpu`` is the one switch that runs them on the
 CPU (the JAX package's ``JAX_PLATFORMS=cpu``). Nothing picks the CPU
 because no card was found: without the switch, a process with no CUDA
 device refuses them (:func:`_ensure_accelerator`). The other verbs never
-touch the device.
+touch the device. ``deploy`` serves ``/queries.json`` through the
+continuous-batching scheduler (``serving/scheduler.py``), set by the same
+environment as the JAX package's: ``PIO_SERVE_MAX_BATCH`` (the ladder cap,
+512; 0 serves one query a call), ``PIO_SERVE_WORKERS``,
+``PIO_SERVE_MAX_WAIT_MS``, ``PIO_SERVE_SHED`` and ``PIO_SLO_SERVE_P99_S``;
+``PIO_TENANTS`` names the tenants whose access keys it takes; ``POST
+/reload`` swaps in the latest trained instance while it serves.
 
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
 item: ``eval`` (Queue 1 item 6), ``adminserver`` and ``dashboard`` (item

@@ -1,14 +1,16 @@
 """The shared ``GET /metrics`` route (the port's copy of
 :func:`add_metrics_route` from incubator_predictionio_tpu/obs/http.py).
 
-Every server's router calls :func:`add_metrics_route`, so ``GET /metrics``
-answers Prometheus text exposition from the process-wide registry. The
-route is unauthenticated by design, like the reference's status pages: it
-exposes operational counters, never event data. The request-level
-instrumentation itself (per-route counters, latency histogram, trace ids)
-lives in ``utils/http.py``. The JAX package's ``/slo``, ``/profile``,
-``/recorder`` and ``/federate`` routes are not ported yet (ROADMAP.md
-Queue 1 item 8).
+The event server's and the prediction server's routers call
+:func:`add_metrics_route`, so ``GET /metrics`` answers Prometheus text
+exposition from the process-wide registry: on the prediction server that
+includes the scheduler's ``pio_serve_*`` families and the tenant-labeled
+``pio_query_latency_seconds``. The route is unauthenticated by design,
+like the reference's status pages: it exposes operational counters, never
+event data. The request-level instrumentation itself (per-route counters,
+latency histogram, trace ids) lives in ``utils/http.py``. The JAX
+package's ``/slo``, ``/profile``, ``/recorder`` and ``/federate`` routes
+are not ported yet (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations

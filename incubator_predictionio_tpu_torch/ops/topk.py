@@ -15,6 +15,7 @@ counted apart. Sharded top-k and the two-stage MIPS route are not ported.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +27,23 @@ from incubator_predictionio_tpu_torch.ops.kernels import NEG_INF
 
 #: calls that took the matmul + sort route (k > 128)
 WIDE_TOPK_CALLS = runtime.LaunchCounter("score_topk_wide")
+
+#: distinct (B, k, items, rank) shapes dispatched by :func:`_score_top_k`
+#: (``score_and_top_k``'s single rows and ``batch_score_top_k``'s padded
+#: batches): the counterpart of the reference's jit cache size
+_SHAPES: set = set()
+_SHAPES_LOCK = threading.Lock()
+
+
+def serve_compile_cache_size() -> int:
+    """Distinct serving-dispatch shapes this process has run — the
+    scheduler's ``pio_serve_compile_cache_size`` (the counterpart of the
+    reference's count of compiled serving variants, and the serving twin
+    of ``speed.foldin.foldin_compile_cache_size``). Bounded by the pow2
+    ladder × the distinct (k, catalogue) shapes served; a warm ladder
+    stops growing it."""
+    with _SHAPES_LOCK:
+        return len(_SHAPES)
 
 
 def top_k_with_exclusions(
@@ -84,6 +102,9 @@ def _score_top_k(queries: torch.Tensor, items: torch.Tensor, k: int,
                  allowed: Optional[torch.Tensor]) -> torch.Tensor:
     """Packed [2, B, k] for a batch of query rows: the kernel for
     ``k <= 128``, else one matmul and a stable sort."""
+    with _SHAPES_LOCK:
+        _SHAPES.add((queries.shape[0], int(k), items.shape[0],
+                     items.shape[1]))
     if k <= kernels.MAX_K:
         top_s, top_i = kernels.score_topk(queries, items, allowed, k)
     else:

@@ -120,12 +120,12 @@ def profile_path(dev) -> list:
         out.append(_window("http", len(docs), wall, prof))
         bodies = [[json.dumps({"user": f"u{u}", "num": 10}).encode()
                    for u in rng.choice(USERS, 64)] for _ in range(10)]
-        srv._handle_batch(bodies[0])
+        srv._handle_batch(bodies[0], "default", "default")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for bb in bodies:
-                srv._handle_batch(bb)
+                srv._handle_batch(bb, "default", "default")
             wall = time.perf_counter() - t0
         out.append(_window("batch", 64 * len(bodies), wall, prof))
     finally:

@@ -647,7 +647,8 @@ class HttpServer:
                 self._start_error = e
                 self._started.set()  # unblock the waiter; error checked there
 
-        self._thread = threading.Thread(target=_run, daemon=True)
+        self._thread = threading.Thread(target=_run, daemon=True,
+                                        name=f"pio-http-{self.name}")
         self._thread.start()
         timeout = 10 + self.bind_retries * self.bind_retry_delay
         if not self._started.wait(timeout):

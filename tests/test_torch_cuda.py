@@ -1114,3 +1114,142 @@ def test_foldin_overlay_polls_on_a_thread_while_queries_score(dev,
                 1e-3 * np.max(np.abs(ref))
     finally:
         Storage.reset()
+
+
+# -- the serving scheduler: two dispatchers beside a fold-in poller ----------
+
+def test_scheduler_dispatchers_at_every_rung_beside_a_foldin_poller(dev):
+    """The prediction server's scheduler with two dispatcher threads
+    drains 2,048 queued queries up the pow2 ladder to B 512 (each batch
+    one score+top-k launch) while a speed overlay's poller folds new users
+    in on the same item table from a thread of its own; every answer holds
+    against the plain top-k on its row, every folded vector against the
+    plain fold-in (``chip_smoke.hold_foldin``)."""
+    import json
+    import threading
+    import time
+
+    from incubator_predictionio_tpu_torch.core.params import EngineParams
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.storage import App, Storage
+    from incubator_predictionio_tpu_torch.data.store import EventStore
+    from incubator_predictionio_tpu_torch.models.recommendation import (
+        convert,
+        engine,
+    )
+    from incubator_predictionio_tpu_torch.servers.prediction_server import (
+        PredictionServer,
+        ServerConfig,
+    )
+    from incubator_predictionio_tpu_torch.speed.foldin import FoldInSolver
+    from incubator_predictionio_tpu_torch.speed.overlay import (
+        SpeedOverlay,
+        SpeedOverlayConfig,
+    )
+
+    rng = np.random.default_rng(3)
+    n_users, n_items, rank = 4096, 26_744, 128
+    uf = rng.normal(0, 0.3, (n_users, rank)).astype(np.float32)
+    itf = rng.normal(0, 0.3, (n_items, rank)).astype(np.float32)
+    model = convert.als_model_from_numpy(
+        uf, itf, [f"u{i}" for i in range(n_users)],
+        [f"i{i}" for i in range(n_items)], device=dev)
+    Storage.configure({
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "m",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "e",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "d",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM"})
+    srv = ov = None
+    first_in, gate = threading.Event(), threading.Event()
+    try:
+        Storage.get_meta_data_apps().insert(App(0, "sched"))
+        srv = PredictionServer(
+            engine.RecommendationEngine().apply(),
+            EngineParams(algorithm_params_list=[
+                ("als", engine.ALSAlgorithmParams(rank=rank))]),
+            [model], device=dev,
+            config=ServerConfig(ip="127.0.0.1", port=0, micro_batch=512,
+                                serve_workers=2))
+        srv.start_background()
+        items_t = srv.models[0].item_factors
+        widths = []
+        handle = srv._handle_batch
+
+        def gated(bodies, engine_id, tenant):
+            first_in.set()
+            gate.wait(60)
+            widths.append(len(bodies))
+            return handle(bodies, engine_id, tenant)
+
+        srv._batcher._handle_batch = gated
+        ov = SpeedOverlay(SpeedOverlayConfig(
+            app_name="sched", value_prop="rating", l2=0.05), items_t,
+            {f"i{k}": k for k in range(n_items)})
+        ov.start(interval_s=0.01)
+        hist = {}
+
+        def writer():
+            wrng = np.random.default_rng(4)
+            for u in range(40):
+                its = wrng.choice(n_items, 6, replace=False)
+                hist[f"new{u}"] = its
+                EventStore.write([Event(
+                    event="rate", entity_type="user", entity_id=f"new{u}",
+                    target_entity_type="item", target_entity_id=f"i{i}",
+                    properties=DataMap({"rating": 4.0})) for i in its],
+                    "sched")
+                time.sleep(0.02)
+
+        w = threading.Thread(target=writer, daemon=True)
+        runtime.reset_launch_counts()
+        w.start()
+        users = rng.integers(0, n_users, 2048)
+        futs = [srv._batcher.submit(json.dumps(
+            {"user": f"u{users[0]}", "num": 10}).encode())]
+        assert first_in.wait(60)
+        futs += [srv._batcher.submit(json.dumps(
+            {"user": f"u{u}", "num": 10}).encode()) for u in users[1:]]
+        gate.set()
+        answers = [f.result(120) for f in futs]
+        launches = runtime.launch_counts()["score_topk"]
+        w.join(60)
+        # a user's events may reach two polls, so wait until every user is
+        # covered and none is dirty
+        deadline = time.monotonic() + 30
+        while (ov.stats()["dirty"] or not all(ov.covers(u) for u in hist)) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        ov.stop()
+        assert ov.stats()["foldins"] >= 40
+        # six observations at rank 128: held by chip_smoke's fold-in rule
+        # (als_tolerance, then the f64 3x rule for rows with D < K)
+        import chip_smoke
+
+        rows = [(its.astype(np.int32), np.full(6, 4.0, np.float32))
+                for its in hist.values()]
+        chip_smoke.hold_foldin(
+            als_kernels, als, items_t, rows,
+            np.stack([ov.lookup(u) for u in hist]),
+            FoldInSolver(items_t.cpu(), l2=0.05).solve(rows), 0.05, False,
+            1.0, "fold-ins beside the dispatchers", trained=False)
+    finally:
+        gate.set()
+        if ov is not None:
+            ov.stop()
+        if srv is not None:
+            srv.stop()
+        Storage.reset()
+    assert max(widths) == 512 and sum(widths) == 2048
+    assert launches == len(widths)
+    uf_t = torch.from_numpy(uf).to(dev)
+    ref_s, ref_i = kernels.score_topk_plain(
+        uf_t[torch.from_numpy(users).to(dev)], items_t, None, 11)
+    ref_s, ref_i = ref_s.cpu().numpy(), ref_i.cpu().numpy()
+    got = [json.loads(a)["itemScores"] for a in answers]
+    got_s = np.array([[x["score"] for x in g] for g in got], np.float32)
+    got_i = np.array([[int(x["item"][1:]) for x in g] for g in got])
+    _near_tie_equal(got_s, got_i, ref_s, ref_i)

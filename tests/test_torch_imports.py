@@ -414,7 +414,8 @@ _SPEED_ISOLATED = textwrap.dedent('''
             target_entity_type="item", target_entity_id="i3")], "shop")
         out["solved"] = srv._speed_overlays[0].poll()["solved"]
         out["items"] = len(srv._handle_batch(
-            [b'{"user": "walkin", "num": 2}'])[0]["itemScores"])
+            [b'{"user": "walkin", "num": 2}'], "default",
+            "default")[0]["itemScores"])
         srv.stop()
         Storage.reset()
     out["leaked"] = sorted(
@@ -445,3 +446,98 @@ def test_speed_layer_and_ecommerce_import_nothing_of_jax(module):
     assert out["leaked"] == []
     if module.endswith("ecommerce"):
         assert (out["solved"], out["items"]) == (1, 2)
+
+
+_SERVING_ISOLATED = textwrap.dedent('''
+    import importlib, importlib.abc, json, sys
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if (name == "incubator_predictionio_tpu"
+                    or name.startswith("incubator_predictionio_tpu.")):
+                raise ImportError("the port imported " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    importlib.import_module(sys.argv[1])
+    out = {}
+    if sys.argv[1].endswith("prediction_server"):
+        # tenants, the scheduler, the SLO engine and the state seam
+        # together: a deploy with PIO_TENANTS serves through the
+        # scheduler, refuses a wrong key, and reloads
+        import os, threading, urllib.error, urllib.request
+        import numpy as np
+        os.environ["PIO_TENANTS"] = "acme:acme-key"
+        os.environ["PIO_SERVE_SHED"] = "0"  # a loaded host sheds nothing
+        from incubator_predictionio_tpu_torch.core.params import EngineParams
+        from incubator_predictionio_tpu_torch.models.recommendation import (
+            convert, engine)
+        from incubator_predictionio_tpu_torch.obs import recorder, slo
+        from incubator_predictionio_tpu_torch.servers.prediction_server import (
+            PredictionServer)
+        rng = np.random.default_rng(0)
+        model = convert.als_model_from_numpy(
+            rng.standard_normal((5, 4)), rng.standard_normal((9, 4)),
+            [f"u{i}" for i in range(5)], [f"i{i}" for i in range(9)],
+            device="cpu")
+        srv = PredictionServer(engine.RecommendationEngine().apply(),
+                               EngineParams(), [model], device="cpu")
+        port = srv.start_background()
+        codes = []
+
+        def post(key):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/queries.json?accessKey={key}",
+                data=b'{"user": "u2", "num": 3}', method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=30) as resp:
+                    codes.append((resp.status,
+                                  len(json.loads(resp.read())["itemScores"])))
+            except urllib.error.HTTPError as e:
+                codes.append((e.code, 0))
+
+        threads = [threading.Thread(target=post, args=(k,))
+                   for k in ["acme-key"] * 6 + ["wrong"]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+        out["codes"] = sorted(codes)
+        out["state"] = sorted(recorder.collect_state())
+        out["specs"] = [s.name for s in slo.default_specs()][-1]
+        srv.stop()
+    out["leaked"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None and (
+            m in ("jax", "jaxlib") or m == "incubator_predictionio_tpu"
+            or m.startswith("incubator_predictionio_tpu.")))
+    print(json.dumps(out))
+''')
+
+
+@pytest.mark.parametrize("module", [
+    "incubator_predictionio_tpu_torch.serving",
+    "incubator_predictionio_tpu_torch.serving.scheduler",
+    "incubator_predictionio_tpu_torch.serving.tenancy",
+    "incubator_predictionio_tpu_torch.obs.slo",
+    "incubator_predictionio_tpu_torch.obs.recorder",
+    "incubator_predictionio_tpu_torch.servers.prediction_server",
+])
+def test_serving_scheduler_modules_import_nothing_of_jax(module):
+    """Each module of the serving scheduler's slice imports with JAX and
+    the JAX package blocked; the prediction server, given ``PIO_TENANTS``,
+    answers concurrent queries through the scheduler, refuses a wrong key
+    with 401 and publishes the scheduler's state."""
+    proc = subprocess.run([sys.executable, "-c", _SERVING_ISOLATED,
+                           module],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    if module.endswith("prediction_server"):
+        assert out["codes"] == [[200, 3]] * 6 + [[401, 0]]
+        assert out["state"] == ["scheduler"]
+        assert out["specs"] == "serve_p99@acme"

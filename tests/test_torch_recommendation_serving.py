@@ -8,9 +8,20 @@ JAX ``ALSModel`` through ``ALSAlgorithm.prepare_model``, the port's through
 port's ``PredictionServer``. Items agree exactly (planted Gaussian factors
 have no near-ties); scores to rtol 1e-5 / atol 1e-6, since the two sides
 sum the rank in different orders.
+
+Concurrent POSTs go through the server's scheduler
+(``serving/scheduler.py``). Their fusing is made deterministic without
+wall-clock timing: the first dispatch waits on an event until the other
+queries have queued, then the batches walk up the pow2 ladder. Each
+client gets its own answer, the JAX package's for its query; a malformed
+body in a fused batch gets a 400 alone; a shed is a 503 with
+``Retry-After`` and ``X-PIO-Queue-Depth``; ``micro_batch=0`` serves one
+query a call; ``GET /metrics`` exposes the serving families.
 """
 
 import json
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -35,6 +46,7 @@ from incubator_predictionio_tpu_torch.ops import kernels
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
 from incubator_predictionio_tpu_torch.servers.prediction_server import (
     PredictionServer,
+    ServerConfig,
 )
 from incubator_predictionio_tpu_torch.utils import json_codec as tcodec
 from incubator_predictionio_tpu_torch.utils.planted import (
@@ -216,7 +228,7 @@ def test_handle_batch_mixes_fast_and_object_paths(pair, server):
     docs = list(QUERIES.values())
     runtime.reset_launch_counts()
     out = srv._handle_batch([json.dumps(d).encode() for d in docs]
-                            + [b"[broken"])
+                            + [b"[broken"], "default", "default")
     assert isinstance(out[-1], ValueError)
     ref = dict(jalgo.batch_predict(
         jmodel, [(i, _jq(d)) for i, d in enumerate(docs)]))
@@ -270,3 +282,214 @@ def test_template_data_source_waits_for_storage(tmp_path, monkeypatch):
                 algorithm_params_list=[algo]))
     finally:
         Storage.reset()
+
+
+# -- the scheduler in front of _handle_batch --------------------------------
+
+def _post_full(port, body: bytes, timeout=60):
+    """(status, headers, json body) of one POST /queries.json."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/queries.json", data=body, method="POST",
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+class _Gate:
+    """Stands in for the scheduler's handler: the first dispatch waits on
+    an event while the script queues the rest, then every dispatch goes
+    to the server's own ``_handle_batch``; each batch's width is kept."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.first_in = threading.Event()
+        self.open = threading.Event()
+        self.widths = []
+
+    def __call__(self, bodies, engine, tenant):
+        self.first_in.set()
+        self.open.wait(30)
+        self.widths.append(len(bodies))
+        return self.srv._handle_batch(bodies, engine, tenant)
+
+
+def _gated_server(pair, **config):
+    *_, raw = pair
+    srv = PredictionServer(
+        teng.RecommendationEngine().apply(),
+        EngineParams(algorithm_params_list=[
+            ("als", teng.ALSAlgorithmParams(rank=RANK))]),
+        [raw], device="cpu",
+        config=ServerConfig(ip="127.0.0.1", port=0, **config))
+    port = srv.start_background()
+    gate = _Gate(srv)
+    if srv._batcher is not None:
+        srv._batcher._handle_batch = gate
+    return srv, port, gate
+
+
+def _wait_depth(srv, n):
+    deadline = time.monotonic() + 30
+    while srv._batcher.depth() < n:
+        assert time.monotonic() < deadline, "queries did not queue"
+        time.sleep(0.005)
+
+
+def _fire(port, bodies):
+    """POST every body on a thread of its own; returns (threads, out)."""
+    out = [None] * len(bodies)
+
+    def one(i):
+        out[i] = _post_full(port, bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+@pytest.fixture
+def quiet_shed(monkeypatch):
+    """The shed off: a gated dispatch is slow by construction."""
+    monkeypatch.setenv("PIO_SERVE_SHED", "0")
+
+
+def test_concurrent_queries_fuse_and_match_jax(pair, quiet_shed):
+    """One query holds the dispatcher while fifteen more queue; once the
+    gate opens they drain up the pow2 ladder (1, 1, 2, 4, 8), and every
+    client gets its own answer, the JAX package's for its query."""
+    jalgo, jmodel, *_ = pair
+    srv, port, gate = _gated_server(pair)
+    try:
+        docs = [{"user": f"u{i}", "num": 3 + i % 5} for i in range(40, 56)]
+        docs[5] = QUERIES["blacklist"]      # an object-path query
+        first, out0 = _fire(port, [json.dumps(docs[0]).encode()])
+        assert gate.first_in.wait(30)
+        rest, out = _fire(port, [json.dumps(d).encode() for d in docs[1:]])
+        _wait_depth(srv, len(docs) - 1)
+        gate.open.set()
+        for t in first + rest:
+            t.join(60)
+        assert gate.widths == [1, 1, 2, 4, 8]
+        for doc, (status, headers, body) in zip(docs, out0 + out):
+            assert status == 200 and "X-PIO-Queue-Depth" in headers
+            _assert_result(body, jcodec.to_jsonable(
+                jalgo.predict(jmodel, _jq(doc))))
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                    timeout=30) as resp:
+            info = json.loads(resp.read())
+        assert info["maxBatchServed"] == 8
+        assert info["scheduler"]["cap"] == 512
+        assert info["scheduler"]["engines"]["default"]["depth"] == 0
+        assert info["tenants"] is None
+    finally:
+        gate.open.set()
+        srv.stop()
+
+
+def test_malformed_body_in_a_fused_batch_fails_alone(pair, quiet_shed):
+    jalgo, jmodel, *_ = pair
+    srv, port, gate = _gated_server(pair)
+    try:
+        bodies = [json.dumps({"user": f"u{i}", "num": 4}).encode()
+                  for i in range(60, 67)]
+        bodies[3] = b"{not json"
+        bodies[5] = b'{"user": "u1", "num": "x"}'
+        first, out0 = _fire(port, [bodies[0]])
+        assert gate.first_in.wait(30)
+        rest, out = _fire(port, bodies[1:])
+        _wait_depth(srv, len(bodies) - 1)
+        gate.open.set()
+        for t in first + rest:
+            t.join(60)
+        assert max(gate.widths) > 1
+        for i, (status, _h, body) in enumerate(out0 + out):
+            if i in (3, 5):
+                assert status == 400 and "message" in body
+            else:
+                assert status == 200
+                _assert_result(body, jcodec.to_jsonable(jalgo.predict(
+                    jmodel, _jq(json.loads(bodies[i])))))
+    finally:
+        gate.open.set()
+        srv.stop()
+
+
+def test_shed_is_503_with_retry_after_and_queue_depth(pair, monkeypatch):
+    """With the serve_p99 objective below any wall, an arrival that finds
+    a query queued behind an in-flight dispatch is shed: 503, Retry-After
+    and the queue's depth; the queued ones are answered, and a query
+    after the load is admitted."""
+    from incubator_predictionio_tpu_torch.obs import metrics as obs_metrics
+
+    monkeypatch.setenv("PIO_SLO_SERVE_P99_S", "0.000001")
+    monkeypatch.setenv("PIO_SERVE_SHED", "1")
+    srv, port, gate = _gated_server(pair)
+    shed = obs_metrics.REGISTRY.get("pio_serve_shed_total")
+    try:
+        gate.open.set()
+        assert _post_full(port, b'{"user": "u1", "num": 2}')[0] == 200
+        gate.open.clear()
+        gate.first_in.clear()
+        first, out0 = _fire(port, [b'{"user": "u2", "num": 2}'])
+        assert gate.first_in.wait(30)
+        second, out1 = _fire(port, [b'{"user": "u3", "num": 2}'])
+        _wait_depth(srv, 1)
+        before = shed.labels(tenant="default", reason="overload").value
+        status, headers, body = _post_full(port, b'{"user": "u4", "num": 2}')
+        assert status == 503 and int(headers["Retry-After"]) >= 1
+        assert headers["X-PIO-Queue-Depth"] == "1"
+        assert "overloaded" in body["message"]
+        assert shed.labels(tenant="default",
+                           reason="overload").value == before + 1
+        gate.open.set()
+        for t in first + second:
+            t.join(60)
+        assert [o[0] for o in out0 + out1] == [200, 200]
+        assert _post_full(port, b'{"user": "u5", "num": 2}')[0] == 200
+    finally:
+        gate.open.set()
+        srv.stop()
+
+
+def test_micro_batch_zero_serves_one_query_a_call(pair):
+    jalgo, jmodel, *_ = pair
+    srv, port, _gate = _gated_server(pair, micro_batch=0)
+    try:
+        assert srv._batcher is None
+        threads, out = _fire(port, [json.dumps(QUERIES[k]).encode()
+                                    for k in sorted(QUERIES)])
+        for t in threads:
+            t.join(60)
+        for k, (status, headers, body) in zip(sorted(QUERIES), out):
+            assert status == 200 and "X-PIO-Queue-Depth" not in headers
+            _assert_result(body, jcodec.to_jsonable(
+                jalgo.predict(jmodel, _jq(QUERIES[k]))))
+        assert _post_full(port, b"[broken")[0] == 400
+        info = srv.status()
+        assert info["maxBatchServed"] == 1 and info["scheduler"] is None
+    finally:
+        srv.stop()
+
+
+def test_metrics_route_exposes_the_serving_families(server):
+    srv, port = server
+    assert _post(port, b'{"user": "u8", "num": 3}')[0] == 200
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as resp:
+        text = resp.read().decode()
+        ctype = resp.headers["Content-Type"]
+    assert ctype.startswith("text/plain")
+    for family in ('pio_query_latency_seconds_bucket{tenant="default"',
+                   "pio_serve_batch_size_bucket",
+                   "pio_serve_queue_wait_seconds_bucket",
+                   'pio_serve_queue_depth{tenant="default"} 0',
+                   "pio_serve_compile_cache_size",
+                   'pio_http_requests_total{server="prediction"'):
+        assert family in text, family
+    info = srv.status()
+    assert info["servingSecP99"] > 0 and info["scheduler"]["cap"] == 512

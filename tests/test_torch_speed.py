@@ -789,7 +789,7 @@ def test_prediction_server_speed_layer_e2e(mem_store, monkeypatch):
         # a batch: overlay users on the object path, base users fast
         bodies = [json.dumps({"user": u, "num": 2}).encode()
                   for u in ("newbie", "u1", "u0", "u2")]
-        out = server._handle_batch(bodies)
+        out = server._handle_batch(bodies, "default", "default")
         assert isinstance(out[1], bytes) and isinstance(out[3], bytes)
         assert isinstance(out[0], dict) and isinstance(out[2], dict)
         assert [x["item"] for x in out[0]["itemScores"]] == [
