@@ -6,9 +6,20 @@ the flash-attention kernel), both through the event store: events in
 SQLite or the native log (cpplog) → ``CoreWorkflow.run_train`` → the
 checkpoint → ``load_models`` → /queries.json, and the speed layer behind
 /queries.json (new events folded in on the fused ALS kernel), with the
-ecommerce template's implicit fold-in.
+ecommerce template's implicit fold-in, and two-stage MIPS serving at
+1,048,576 items.
 
     python3 chip_smoke.py
+
+Every phase prints its wall as it ends (flushed, so a cut run still shows
+how far it got), and the line before the report's JSON is ``walls:``, each
+phase's seconds and the total. Depth cuts for the run's time limit, each
+at full width and with its checks kept: store-als imports 250,000 planted
+ratings (from 1,000,000; still every ML-20M user and item, and the same
+ratings feed cpplog's ``pio import``, the speed phase's log and the
+ecommerce template's views); store-seq takes 16 of seq-train's sessions
+(131,088 views, from 524,352); retrain leg (b)'s in-process
+``als_retrain`` runs 2 sweeps (from 4).
 
 Phases, each of which fails the run on any error or mismatch:
 
@@ -79,6 +90,30 @@ Phases, each of which fails the run on any error or mismatch:
              missing key, the dispatched shares, the weight-1 tenant at
              least 10%). Every answer of every leg against the plain
              top-k; a query after each leg's load answered.
+    mips   — two-stage MIPS serving (:func:`mips_phase`) on 1,048,576
+             planted items × rank 64 (seed 11) with 32 planted queries
+             (seed 5), k 20, the exhaustive score+top-k kernel the oracle:
+             an int8, a bf16 and a PQ index built on the card, each with
+             its build wall, recall@20 ≥ 0.95, every score the exact f32
+             dot product (rtol 1e-5), the answers at B 1 and 64 those of the
+             same index on the CPU except near-ties, the scanned fraction;
+             a planted model of 138,493 users over the catalogue behind
+             ``PredictionServer`` (scheduler on): 32 queries and 2 s of 16
+             closed-loop clients, every answer held so, one filtered query
+             on the exhaustive kernel (its launch read), ``GET /``'s
+             ``mips`` block and ``/metrics``' scan counters; 256 published
+             solves of existing items (the JAX bench's churn, scaled to
+             dominate) each found first the moment it publishes;
+             ``rebuild_index`` in a thread while one client queries (p50 /
+             p99 before and during, every answer a 200, every key kept);
+             the server stopped, the daemon released; the daemon's churn
+             trigger through ``sweep_now``; the cold tier demoted, served
+             from the host and promoted (``PIO_MIPS_TIER=on``); the route
+             against the kernel at 65,536, 262,144 and 1,048,576 items, B 1
+             and 64 (host ms, device ms; ``time:`` rows named
+             ``mips_two_stage``), and the smallest size at which it wins at
+             B 1 beside ``PIO_SERVE_MIPS_MIN_ITEMS``' default. Every wait has
+             a deadline. Prints ``mips-card: <card line> (<wall> s)``.
 7. train   — 20,000,000 planted ratings at ML-20M width trained through
              ``Engine.train`` (rank 128, 4 sweeps, 2 in bf16; the buckets
              from the native builder, the latest-wins dedup on the card),
@@ -114,7 +149,7 @@ Phases, each of which fails the run on any error or mismatch:
              seq-path.
 11. store-als — ALS through the event store at ML-20M width
              (:func:`store_als_phase`): an app as ``pio app new`` makes it,
-             1,000,000 planted ratings over every one of the 138,493 users
+             250,000 planted ratings over every one of the 138,493 users
              and 26,744 items through ``import_interactions`` plus the
              items' ``$set`` categories, ``CoreWorkflow.run_train`` (rank
              128, 4 sweeps, 2 bf16), the checkpoint, ``load_models``,
@@ -126,7 +161,7 @@ Phases, each of which fails the run on any error or mismatch:
              launched (the fused entry, and R = 8 at the narrow buckets);
              the four sweeps again, warm, as routed and with the buckets
              narrower than 64 on the plain route, in turns.
-12. store-seq — the seq-train sessions as 524,352 ``view`` events
+12. store-seq — 16 of the seq-train sessions as 131,088 ``view`` events
              through ``run_train`` → checkpoint → ``load_models`` → HTTP
              (:func:`store_seq_phase`): one query with ``recentItems``, the
              same user without them twice (the history from the store,
@@ -176,11 +211,11 @@ Phases, each of which fails the run on any error or mismatch:
              loss within 1e-6 relative, the fused entry launched and no
              two-stage form; the fused entry against its plain version on
              the heaviest chunk of every bucket width of both sides. The
-             same again on store-als's 1M ratings, whose buckets start at
+             same again on store-als's 250,000 ratings, whose buckets start at
              d 8: no R-row launch there either.
 15. cpplog — the quickstart's verbs with the events on the native log
              (:func:`cpplog_phase`; metadata on SQLite, models on localfs):
-             ``pio import`` of store-als's 1,000,000 ratings on the native
+             ``pio import`` of store-als's 250,000 ratings on the native
              columnar path (which writes the training projection); ``pio
              train`` (store-als's params), its read the sharded scan, held
              to store-als's SQLite read as triples and its fit within 1e-3
@@ -213,7 +248,7 @@ Phases, each of which fails the run on any error or mismatch:
              answer across it a 200: the adopted users re-solved), 4 s
              behind the server's own 1 s poller
              (``pio_freshness_seconds``), the launch counts; then the
-             ecommerce template (:func:`ecommerce_leg`): 1,000,000 planted
+             ecommerce template (:func:`ecommerce_leg`): 250,000 planted
              views (every 8th also a buy) trained by the example's
              engine.json (implicit, rank 10, 20 iterations) and held to the
              plain route's implicit loss, its narrow buckets to the f64
@@ -235,6 +270,7 @@ Phases, each of which fails the run on any error or mismatch:
 
 ``python3 chip_smoke.py --flash`` runs only the build, the flash-kernel
 phase and the flash timings; ``--topk`` the score+top-k cases and timings;
+``--mips`` the mips phase;
 ``--als`` the ALS cases, every ALS entry timed at the ML-20M bucket
 shapes D 8 to 32,768, f32 and bf16, and the narrow-bucket cell behind
 ``ops/als.py``'s routing constants (:func:`narrow_timings`). Run one from the root and from a
@@ -272,6 +308,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -281,6 +318,16 @@ import torch
 
 ML20M = dict(users=138_493, items=26_744, rank=128)
 MIPS_CATALOGUE = dict(items=1_048_576, rank=64)
+
+
+#: each phase's wall in seconds, as the ``walls:`` line prints them
+WALLS: dict = {}
+
+
+def note_wall(name: str, t0: float) -> float:
+    """Record the wall of phase ``name`` (seconds since ``t0``)."""
+    WALLS[name] = time.perf_counter() - t0
+    return WALLS[name]
 
 
 def card_line() -> str:
@@ -1964,14 +2011,23 @@ def insert_events(events, app_id: int, chunk: int = 20_000) -> float:
     return time.perf_counter() - t0
 
 
+#: store-als's planted ratings: cut from 1,000,000 for the run's time
+#: limit; still enough to rate every ML-20M user and item
+STORE_ALS_NNZ = 250_000
+#: store-seq's planted sessions of 8,193 items (cut from seq-train's 64)
+STORE_SEQ_SESSIONS = 16
+#: sweeps of retrain leg (b)'s in-process ``als_retrain`` (cut from 4)
+RT_LOOP_SWEEPS = 2
+
+
 def store_als_ratings(planted, small: bool = False):
-    """(users, items, ratings, n_users, n_items) of store-als: 1,000,000
-    planted ratings over every ML-20M user and item (400 × 300 × 20,000
-    when ``small``)."""
+    """(users, items, ratings, n_users, n_items) of store-als:
+    ``STORE_ALS_NNZ`` planted ratings over every ML-20M user and item (400
+    × 300 × 20,000 when ``small``)."""
     if small:
         n_users, n_items, nnz = 400, 300, 20_000
     else:
-        n_users, n_items, nnz = ML20M["users"], ML20M["items"], 1_000_000
+        n_users, n_items, nnz = ML20M["users"], ML20M["items"], STORE_ALS_NNZ
     users, items, ratings, _ = planted.planted_ratings(
         n_users=n_users, n_items=n_items, nnz=nnz, n_holdout=1000,
         cover=True)
@@ -1981,7 +2037,7 @@ def store_als_ratings(planted, small: bool = False):
 def store_als_phase(dev, runtime, kernels, als, engine, planted, params_mod,
                     context, server_mod, small: bool = False, seed: int = 3):
     """ALS through the event store at ML-20M width: an app made as ``pio
-    app new`` makes it; 1,000,000 planted ratings (seed 7) over all
+    app new`` makes it; 250,000 planted ratings (seed 7) over all
     138,493 users and 26,744 items, every one rated, imported through
     ``import_interactions``, and each item's ``$set`` categories; then
     ``CoreWorkflow.run_train`` with the quickstart's params (``appName``;
@@ -2171,8 +2227,8 @@ def store_als_phase(dev, runtime, kernels, als, engine, planted, params_mod,
 
 def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
                     context, server_mod, small: bool = False, seed: int = 3):
-    """The sequence engine through the event store: the train phase's 64
-    planted sessions of 8,193 items as ``view`` events (524,352) →
+    """The sequence engine through the event store: 16 of the train
+    phase's planted sessions of 8,193 items as ``view`` events (131,088) →
     ``CoreWorkflow.run_train`` (``SequenceDataSource.read_training``;
     window 8,192, 26,744 items, batch 8, 1 epoch) → ``load_models`` →
     ``PredictionServer``: one query with ``recentItems``, then the same
@@ -2196,7 +2252,7 @@ def store_seq_phase(dev, runtime, tr, fa, seq_engine, planted, params_mod,
 
     n_items = 500 if small else SEQ["n_items"]
     max_len = 701 if small else SEQ["max_len"]
-    n_sessions, batch = 64, 8
+    n_sessions, batch = STORE_SEQ_SESSIONS, 8
     name = "store-seq"
     rows = planted.planted_sessions(n_items, n_sessions, max_len, seed=17)
     base = parse_iso8601(STORE_T0)
@@ -3181,7 +3237,7 @@ def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
     """The quickstart's verbs through the port's CLI with the events on
     the native log (``cpplog``; metadata on SQLite, models on localfs)
     under a fresh ``PIO_HOME``: ``pio app new``; ``pio import`` of
-    store-als's 1,000,000 planted ratings (one ``eventTime`` each, 1 ms
+    store-als's 250,000 planted ratings (one ``eventTime`` each, 1 ms
     apart, the order store-als's SQLite import gives them), which must take
     the native columnar path and write the training projection; ``pio
     build`` and ``pio train`` (rank 128, 4 sweeps, 2 bf16, λ 0.03, seed 3:
@@ -3239,8 +3295,8 @@ def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
     name, legs_name = "LogApp", "LogLegs"
     base_t = parse_iso8601(STORE_T0)
     min_nnz = traincache.MIN_NNZ
-    if small:  # the projection at the rehearsal's size too
-        traincache.MIN_NNZ = min(min_nnz, nnz)
+    # the projection at store-als's cut size and the rehearsal's too
+    traincache.MIN_NNZ = min(min_nnz, nnz)
     env_saved = os.environ.get("PIO_DEVICE")
     if dev.type == "cpu":
         os.environ["PIO_DEVICE"] = "cpu"
@@ -3387,7 +3443,7 @@ def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
                                "events_per_s": n_single / wall}
             tu, ti, tr = cli_tail(np.random.default_rng(21), users, items,
                                   n_users, n_items)
-            # the child's first touch of the 1M-record log opens it (the
+            # the child's first touch of the store-als-sized log opens it (the
             # native index is rebuilt from the record headers)
             t0 = time.perf_counter()
             status, got = http_json(
@@ -4455,7 +4511,7 @@ def speed_phase(dev, runtime, kernels, als, ak, planted, log: dict,
 def ecommerce_leg(dev, runtime, als, ak, planted, es_url: str, post,
                   small: bool = False) -> tuple:
     """The ecommerce template on the same store: a new app (``pio app
-    new``) holding store-als's 1,000,000 planted (user, item) pairs as
+    new``) holding store-als's 250,000 planted (user, item) pairs as
     ``view`` events, every 8th also a ``buy``, and the items' ``$set``
     categories; ``CoreWorkflow.run_train`` with
     ``examples/ecommerce-quickstart/engine.json``'s algorithm (rank 10,
@@ -4711,8 +4767,9 @@ def ecommerce_leg(dev, runtime, als, ak, planted, es_url: str, post,
 def retrain_loop_leg(dev, runtime, als, planted, pd, trained, small=False,
                      rank: int = ML20M["rank"], seed: int = 3):
     """Retrain leg (b), in process at ML-20M width on the train phase's
-    planted ratings (``pd``, the trained state ``trained``; rank 128, 4
-    sweeps, 2 bf16, λ 0.03, buckets up to ``RT_MAX_WIDTH``): ``als_retrain``
+    planted ratings (``pd``, the trained state ``trained``; rank 128,
+    ``RT_LOOP_SWEEPS`` sweeps, the first bf16, λ 0.03, buckets up to
+    ``RT_MAX_WIDTH``): ``als_retrain``
     from the trained state (prep ``"miss"``), then again after a 1% tail
     of new pairs (prep ``"reused"``, ``prep_delta_rows`` 200,000). Then,
     outside the counted run: the reused trees against a fresh build of the
@@ -4740,8 +4797,9 @@ def retrain_loop_leg(dev, runtime, als, planted, pd, trained, small=False,
     i2 = np.concatenate([pd.items, ti.astype(pd.items.dtype)])
     r2 = np.concatenate([pd.ratings, tr])
     tail_gen_s = time.perf_counter() - t0
-    kw = dict(rank=rank, iterations=4, l2=0.03, seed=seed, bf16_sweeps=2,
-              max_width=RT_MAX_WIDTH, plan_key="ml20m", device=dev)
+    kw = dict(rank=rank, iterations=RT_LOOP_SWEEPS, l2=0.03, seed=seed,
+              bf16_sweeps=1, max_width=RT_MAX_WIDTH, plan_key="ml20m",
+              device=dev)
     retrain.drop_plans()
     runtime.reset_launch_counts()
     first, second = {}, {}
@@ -4780,8 +4838,9 @@ def retrain_loop_leg(dev, runtime, als, planted, pd, trained, small=False,
     n_rows = sum(same_rows(x, y, f"reused against fresh {side} trees")
                  for x, y, side in ((reused[0], fresh[0], "user"),
                                     (reused[1], fresh[1], "item")))
-    outs = [als._mixed_run(st1, t[0], t[1], 0.03, 4, 2, True, torch.float32,
-                           t[2], t[3]) for t in (reused, fresh)]
+    outs = [als._mixed_run(st1, t[0], t[1], 0.03, RT_LOOP_SWEEPS, 1, True,
+                           torch.float32, t[2], t[3])
+            for t in (reused, fresh)]
     factor_rel = {}
     for f in ("user_factors", "item_factors"):
         rel = _rel_err(getattr(outs[0], f), getattr(outs[1], f))[1]
@@ -4875,7 +4934,7 @@ def implicit_leg(dev, runtime, ak, als, pd, small: bool = False,
     """Retrain leg (c): :func:`implicit_routes` on the train phase's COO
     (weights |r|, α 1.0, rank 128, 2 sweeps). The ML-20M ratings have no
     bucket narrower than 128, so the same runs again on ``narrow_coo``
-    ((users, items, ratings, n_users, n_items): store-als's 1M ratings,
+    ((users, items, ratings, n_users, n_items): store-als's ratings,
     every width from 8, those of 8–32 the explicit path's R-row form),
     where no R-row launch shows that ``_route(implicit=True)`` keeps the
     narrow buckets on the fused entry. Then, on the card, the fused entry
@@ -5945,6 +6004,615 @@ def kernel_resources(runtime, stem: str) -> list:
     return runtime.kernel_resources(stem)
 
 
+# -- two-stage MIPS serving ----------------------------------------------------
+
+#: the mips phase's shape: MIPS_CATALOGUE's planted items (seed 11, the JAX
+#: bench's, bench.py:1198-1243), 32 planted queries (seed 5), k 20, and the
+#: recall gate of tests/test_mips.py:67
+MIPS_K = 20
+MIPS_QUERIES = 32
+MIPS_RECALL_GATE = 0.95
+#: the served model's users (ML-20M's), closed-loop clients and seconds
+MIPS_USERS = ML20M["users"]
+MIPS_CLIENTS = 16
+MIPS_LEG_S = 2.0
+#: the exact tail: the JAX bench's churn (bench.py:1393), published as new
+#: solves of existing items, each scaled to twice the catalogue's largest
+#: row norm, so that each is its own query's best match
+MIPS_CHURN = 256
+
+
+def dominating(vecs: np.ndarray, vf: np.ndarray) -> np.ndarray:
+    """``vecs`` along their own directions at twice ``vf``'s largest row
+    norm: a published row then outscores every catalogue row for a query
+    along it (the construction of tests/test_mips_lifecycle.py)."""
+    top = float(np.linalg.norm(vf, axis=1).max())
+    return (vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
+            * 2.0 * top).astype(np.float32)
+#: the floor's catalogue sizes (the JAX bench's) and batch widths
+MIPS_FLOOR_SIZES = (65_536, 262_144, MIPS_CATALOGUE["items"])
+MIPS_FLOOR_BATCHES = (1, 64)
+#: every wait of the phase ends by this deadline or fails it
+MIPS_DEADLINE_S = 120.0
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set (None: unset) around a block, put back as
+    they were afterwards."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def exact_dots(queries: np.ndarray, rows: np.ndarray, ids) -> np.ndarray:
+    """[B, k] f64 dot products of each query with the rows of ``ids``."""
+    ids = np.asarray(ids, np.int64)
+    return np.einsum("bk,bnk->bn", queries.astype(np.float64),
+                     rows[ids].astype(np.float64))
+
+
+def check_exact(got_s, got_i, queries, rows, what: str) -> float:
+    """Every (id, score) returned is the exact f32 dot product (rtol 1e-5,
+    atol 1e-5·max|score|); returns the largest error."""
+    ref = exact_dots(queries, rows, got_i)
+    got_s = np.asarray(got_s, np.float64)
+    err = float(np.abs(got_s - ref).max())
+    if not np.allclose(got_s, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max()):
+        raise AssertionError(f"{what}: a returned score is not its exact dot "
+                             f"product (max error {err:.3e})")
+    return err
+
+
+def same_but_near_ties(a_i, b_i, queries, rows, what: str) -> int:
+    """Two [B, k] id answers equal except among near-ties: their exact
+    scores, position by position, within 1e-5 relative. Returns the
+    positions whose ids differ."""
+    sa = exact_dots(queries, rows, a_i)
+    sb = exact_dots(queries, rows, b_i)
+    if not np.allclose(sa, sb, rtol=1e-5, atol=1e-5 * np.abs(sb).max()):
+        raise AssertionError(f"{what}: ids differ beyond near-ties")
+    return int((np.asarray(a_i) != np.asarray(b_i)).sum())
+
+
+def cpu_twin(index):
+    """The same index with its tensors on the CPU (host mirrors shared)."""
+    return dataclasses.replace(index, **{
+        f.name: getattr(index, f.name).cpu()
+        for f in dataclasses.fields(index)
+        if isinstance(getattr(index, f.name), torch.Tensor)})
+
+
+def scanned(mips) -> dict:
+    """``pio_serve_candidates_scanned_total`` by stage."""
+    fam = mips._CAND_SCANNED
+    return {s: fam.labels(stage=s).value
+            for s in ("centroid", "coarse", "rerank", "exhaustive")}
+
+
+def quantile_ms(walls, q: float):
+    if not walls:
+        return None
+    walls = sorted(walls)
+    return 1e3 * walls[min(len(walls) - 1, int(q * len(walls)))]
+
+
+def oracle_ids(kernels, dev, queries: np.ndarray, table, k: int = MIPS_K,
+               step: int = 512) -> np.ndarray:
+    """[B, k] exhaustive top-k ids through the score+top-k kernel."""
+    out = []
+    for s in range(0, len(queries), step):
+        q = torch.from_numpy(np.ascontiguousarray(queries[s:s + step])).to(
+            dev)
+        out.append(kernels.score_topk(q, table, None, k)[1].cpu().numpy())
+    return np.concatenate(out).astype(np.int64)
+
+
+def host_wall_ms(fn, reps: int = 40, warm: int = 5) -> float:
+    """Median host ms of ``fn`` (which fetches its answer)."""
+    for _ in range(warm):
+        fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(walls)
+
+
+def mips_builds(dev, kernels, mips, topk, planted, table, vf, queries,
+                oracle) -> tuple:
+    """Step 1: an int8, a bf16 and a PQ index built on the table's device,
+    each registered in turn: recall@20 of ``topk.score_and_top_k`` (which
+    must route every query two-stage, by the scan counters) against the
+    exhaustive kernel, every score exact, and the answers at B 1 and B 64
+    those of the same index computed on the CPU except near-ties. Returns
+    (the rows, the int8 index, the largest score error)."""
+    n = len(vf)
+    q_t = torch.from_numpy(queries).to(dev)
+    rows64 = np.arange(64) % len(queries)
+    cpu_table = torch.from_numpy(vf)
+    out, keep, err = [], None, 0.0
+    for quant in ("int8", "bf16", "pq"):
+        what = f"mips {quant}"
+        with env_set(PIO_SERVE_MIPS="on", PIO_SERVE_MIPS_QUANT=quant):
+            sync(dev)
+            t0 = time.perf_counter()
+            index = mips.build_index(table, n, seed=11)
+            sync(dev)
+            build_s = time.perf_counter() - t0
+            nprobe, n_cand, slots, rerank = mips._quotas(index, MIPS_K)
+            before = scanned(mips)
+            got = np.stack([topk.score_and_top_k(q_t[j], table, k=MIPS_K)
+                            .cpu().numpy() for j in range(len(queries))],
+                           axis=1)
+            moved = {s: v - before[s] for s, v in scanned(mips).items()}
+            got64 = mips.mips_batch_score_top_k(q_t, table, index, rows64,
+                                                MIPS_K).cpu().numpy()
+        if (moved["coarse"] != len(queries) * slots
+                or moved["rerank"] != len(queries) * rerank
+                or moved["exhaustive"] != 0):
+            raise AssertionError(f"{what}: not every query took the "
+                                 f"two-stage route: {moved}")
+        got_i = got[1].astype(np.int64)
+        err = max(err, check_exact(got[0], got_i, queries, vf, what),
+                  check_exact(got64[0], got64[1].astype(np.int64),
+                              queries[rows64], vf, f"{what} B 64"))
+        recall, worst = planted.recall_against_oracle(got_i, oracle, MIPS_K)
+        if not recall >= MIPS_RECALL_GATE:
+            raise AssertionError(f"{what}: recall@{MIPS_K} {recall:.4f} < "
+                                 f"{MIPS_RECALL_GATE}")
+        twin = cpu_twin(index)
+        cpu1 = np.stack([mips.mips_score_and_top_k(
+            queries[j], cpu_table, twin, MIPS_K).numpy()
+            for j in range(len(queries))], axis=1)
+        cpu64 = mips.mips_batch_score_top_k(
+            torch.from_numpy(queries), cpu_table, twin, rows64,
+            MIPS_K).numpy()
+        diff1 = same_but_near_ties(got_i, cpu1[1].astype(np.int64), queries,
+                                   vf, f"{what} B 1 card against the CPU")
+        diff64 = same_but_near_ties(
+            got64[1].astype(np.int64), cpu64[1].astype(np.int64),
+            queries[rows64], vf, f"{what} B 64 card against the CPU")
+        row = {"quant": quant, "items": n, "rank": index.rank,
+               "build_s": build_s, "recall": recall, "worst_recall": worst,
+               "centroids": index.c_total, "cap": index.cap,
+               "nprobe": nprobe, "candidates": n_cand,
+               "scanned_fraction": (slots + rerank) / n,
+               "device_bytes_per_item": index.device_bytes() / n,
+               "cpu_near_tie_ids": [diff1, diff64]}
+        print(f"mips-build: {json.dumps(row)}", flush=True)
+        out.append(row)
+        if quant == "int8":
+            keep = index
+    mips.register_index(table, keep)
+    return out, keep, err
+
+
+def http_leg_check(planted, records, uf, rows_eff, oracle, what: str):
+    """Every answer a 200 with ``MIPS_K`` items, every (id, score) the exact
+    dot product with ``rows_eff``, recall@20 against ``oracle`` (ids by
+    user row) at the gate. Returns (largest score error, recall)."""
+    bad = [r[:3] for r in records if r[1] != 200]
+    if bad or not records:
+        raise AssertionError(f"{what}: {len(bad)} answers not 200 of "
+                             f"{len(records)}: {bad[:3]}")
+    users = np.array([r[0] for r in records])
+    bodies = [json.loads(r[5])["itemScores"] for r in records]
+    if any(len(b) != MIPS_K for b in bodies):
+        raise AssertionError(f"{what}: an answer without {MIPS_K} items")
+    got_s = np.array([[x["score"] for x in b] for b in bodies])
+    got_i = np.array([[int(x["item"][1:]) for x in b] for b in bodies])
+    err = check_exact(got_s, got_i, uf[users], rows_eff, what)
+    recall, _ = planted.recall_against_oracle(got_i, oracle[users], MIPS_K)
+    if not recall >= MIPS_RECALL_GATE:
+        raise AssertionError(f"{what}: recall@{MIPS_K} {recall:.4f}")
+    return err, recall
+
+
+def one_client(port: int, users: int, until, seed: int) -> list:
+    """One closed-loop client on this thread until ``until(records)`` is
+    true (or the phase's deadline passes, which fails it): records as
+    :func:`run_clients` gives them."""
+    rng = np.random.default_rng(seed)
+    deadline = time.monotonic() + MIPS_DEADLINE_S
+    records: list = []
+    while not until(records):
+        if time.monotonic() > deadline:
+            raise AssertionError("mips: a client outlived the deadline")
+        u = int(rng.integers(users))
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/queries.json",
+            data=json.dumps({"user": f"u{u}", "num": MIPS_K}).encode(),
+            method="POST", headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                records.append([u, resp.status, time.perf_counter() - t0,
+                                None, None, resp.read().decode()])
+        except urllib.error.HTTPError as e:
+            records.append([u, e.code, time.perf_counter() - t0, None, None,
+                            None])
+    return records
+
+
+def published_found(mips, topk, dev, table, vecs, rows, rows_eff,
+                    kernels, what: str) -> dict:
+    """Each published row queried by its own vector: every published row
+    the exhaustive kernel puts in the top-20 over the published catalogue
+    (``rows_eff``) is in the two-stage answer (recall 1.0 on the published
+    keys), at its exact score, and each query's own row first."""
+    eff_t = torch.from_numpy(rows_eff).to(dev)
+    oracle = oracle_ids(kernels, dev, vecs, eff_t)
+    del eff_t
+    q_t = torch.from_numpy(vecs).to(dev)
+    got = np.stack([topk.score_and_top_k(q_t[j], table, k=MIPS_K)
+                    .cpu().numpy() for j in range(len(vecs))], axis=1)
+    got_i = got[1].astype(np.int64)
+    check_exact(got[0], got_i, vecs, rows_eff, what)
+    pub = set(int(r) for r in rows)
+    want = found = 0
+    for j in range(len(vecs)):
+        keys = pub.intersection(oracle[j].tolist())
+        want += len(keys)
+        found += len(keys.intersection(got_i[j].tolist()))
+    own = sum(int(got_i[j][0]) == int(rows[j]) for j in range(len(vecs)))
+    if found != want or own != len(vecs):
+        raise AssertionError(f"{what}: {found} of {want} published keys "
+                             f"found, {own} of {len(vecs)} first")
+    return {"published_in_oracle": want, "found": found,
+            "own_key_in_answer": own}
+
+
+def mips_served(dev, runtime, kernels, mips, mips_daemon, topk, planted,
+                server_mod, engine, params_mod, convert, table, vf, index,
+                small: bool) -> tuple:
+    """Steps 2-4: a planted ALSModel of ``MIPS_USERS`` users over the
+    catalogue (its table the one ``index`` serves) behind
+    ``PredictionServer`` with the scheduler; 32 queries then
+    ``MIPS_LEG_S`` s of ``MIPS_CLIENTS`` closed-loop clients, every answer
+    exact and at the recall gate; one filtered query on the exhaustive
+    kernel; ``GET /``'s ``mips`` block and ``/metrics``' scan counters; the
+    exact tail (``MIPS_CHURN`` new solves of existing items); a rebuild in
+    a thread while one client queries; the server stopped, the daemon
+    released; then the daemon's churn trigger through ``sweep_now``.
+    Returns (stats, score+top-k launches of the filtered query, largest
+    score error)."""
+    n, rank = vf.shape
+    users = 2000 if small else MIPS_USERS
+    uf = planted.planted_queries(vf, users, seed=6)
+    model = convert.als_model_from_numpy(
+        uf, vf, [f"u{i}" for i in range(users)],
+        [f"i{i}" for i in range(n)], device=dev)
+    # the model serves the phase's table, and its index: the deploy's
+    # prepare_model adopts it
+    model = dataclasses.replace(model, item_factors=table)
+    srv = server_mod.PredictionServer(
+        engine.RecommendationEngine().apply(),
+        params_mod.EngineParams(algorithm_params_list=[
+            ("als", engine.ALSAlgorithmParams(rank=rank, seed=11))]),
+        [model], device=dev)
+    if mips.index_for(srv.models[0].item_factors) is not index:
+        raise AssertionError("mips: the deploy did not adopt the index")
+    uf_t = torch.from_numpy(uf).to(dev)
+    t0 = time.perf_counter()
+    oracle = oracle_ids(kernels, dev, uf, table)
+    stats = {"users": users, "oracle_s": time.perf_counter() - t0}
+    work = tempfile.mkdtemp(prefix="mips_load_")
+    rng = np.random.default_rng(12)
+    err = 0.0
+    t0 = time.perf_counter()
+    port = srv.start_background()
+    stats["start_s"] = time.perf_counter() - t0
+    try:
+        # 32 queries, then the closed-loop clients
+        picks = rng.choice(users, MIPS_QUERIES, replace=False)
+        before = scanned(mips)
+        runtime.reset_launch_counts()
+        records = []
+        for u in picks:
+            t0 = time.perf_counter()
+            body = post(port, {"user": f"u{u}", "num": MIPS_K})
+            records.append([int(u), 200, time.perf_counter() - t0, None,
+                            None, json.dumps(body)])
+        e, recall = http_leg_check(planted, records, uf, vf, oracle,
+                                   "mips http queries")
+        err = max(err, e)
+        stats["queries"] = {"n": len(records), "recall": recall,
+                            "p50_ms": quantile_ms([r[2] for r in records],
+                                                  0.5)}
+        records = run_clients(port, users, 4 if small else MIPS_CLIENTS,
+                              1.0 if small else MIPS_LEG_S, seed=970,
+                              work=work, num=MIPS_K)
+        moved = {s: v - before[s] for s, v in scanned(mips).items()}
+        launches = runtime.launch_counts()["score_topk"]
+        e, recall = http_leg_check(planted, records, uf, vf, oracle,
+                                   "mips http clients")
+        err = max(err, e)
+        walls = [r[2] for r in records]
+        nprobe, n_cand, slots, rerank = mips._quotas(index, MIPS_K)
+        answered = MIPS_QUERIES + len(records)
+        if (moved["exhaustive"] != 0 or moved["coarse"] < answered * slots
+                or launches != 0):
+            raise AssertionError(f"mips http: not every answer took the "
+                                 f"two-stage route: {moved}, score+top-k "
+                                 f"launched {launches} times")
+        stats["clients"] = {"clients": 4 if small else MIPS_CLIENTS,
+                            "answers": len(records),
+                            "qps": len(records) / (1.0 if small
+                                                   else MIPS_LEG_S),
+                            "p50_ms": quantile_ms(walls, 0.5),
+                            "p99_ms": quantile_ms(walls, 0.99),
+                            "recall": recall, "scanned": moved}
+        # a filtered query takes the exhaustive kernel
+        u = int(picks[0])
+        runtime.reset_launch_counts()
+        body = post(port, {"user": f"u{u}", "num": MIPS_K,
+                           "blacklist": ["i0", "i1"]})
+        filt_launches = runtime.launch_counts()["score_topk"]
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        mask[:2] = False
+        ref_s, ref_i = kernels.score_topk(uf_t[u:u + 1], table, mask, MIPS_K)
+        got_i = np.array([[int(x["item"][1:]) for x in body["itemScores"]]])
+        err = max(err, check_exact(
+            np.array([[x["score"] for x in body["itemScores"]]]), got_i,
+            uf[u:u + 1], vf, "mips filtered query"))
+        same_but_near_ties(got_i, ref_i.cpu().numpy(), uf[u:u + 1], vf,
+                           "mips filtered query")
+        if dev.type == "cuda" and filt_launches < 1:
+            raise AssertionError("mips: the filtered query did not launch "
+                                 "the score+top-k kernel")
+        code, status = http_json("GET", f"http://127.0.0.1:{port}/")
+        block = status.get("mips") if code == 200 else None
+        if (not block or block["indexes"][0]["items"] != n
+                or not block["daemon"]["running"]):
+            raise AssertionError(f"mips: GET / mips block {block}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=60) as resp:
+            metrics = resp.read().decode()
+        if 'pio_serve_candidates_scanned_total{stage="coarse"}' not in \
+                metrics:
+            raise AssertionError("mips: /metrics has no scan counters")
+        stats["filtered"] = {"launches": filt_launches}
+        stats["status_mips"] = block["indexes"][0]
+
+        # step 3: the exact tail
+        churn = dominating(planted.planted_queries(vf, MIPS_CHURN, seed=9),
+                           vf)
+        churn_rows = rng.choice(n, MIPS_CHURN, replace=False)
+        ids = mips.publish_rows(table, churn, rows=churn_rows)
+        if ids is None or not np.array_equal(ids, churn_rows):
+            raise AssertionError(f"mips: publish gave {ids}")
+        rows_eff = vf.copy()
+        rows_eff[churn_rows] = churn
+        stats["tail"] = published_found(mips, topk, dev, table, churn,
+                                        churn_rows, rows_eff, kernels,
+                                        "mips tail")
+        eff_oracle = oracle_ids(kernels, dev, uf,
+                                torch.from_numpy(rows_eff).to(dev))
+
+        # step 4: a rebuild in a thread while one client queries
+        quiet = one_client(port, users, lambda r: len(r) >= 40, seed=971)
+        errors = []
+
+        def rebuild():
+            try:
+                mips.rebuild_index(table, trigger="tail")
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        old = mips.index_for(table)
+        thread = threading.Thread(target=rebuild, daemon=True)
+        t0 = time.perf_counter()
+        thread.start()
+        during = one_client(port, users, lambda _r: not thread.is_alive(),
+                            seed=972)
+        thread.join(MIPS_DEADLINE_S)
+        swap_s = time.perf_counter() - t0
+        if errors or thread.is_alive():
+            raise AssertionError(f"mips rebuild: {errors or 'no end'}")
+        new = mips.index_for(table)
+        if new is old or new.tail_size() != MIPS_CHURN:
+            raise AssertionError(f"mips rebuild: {new.stats()}")
+        after = one_client(port, users, lambda r: len(r) >= 40, seed=973)
+        for what, recs in (("quiet", quiet), ("during", during),
+                           ("after", after)):
+            e, _r = http_leg_check(planted, recs, uf, rows_eff, eff_oracle,
+                                   f"mips rebuild {what}")
+            err = max(err, e)
+        stats["rebuild"] = {
+            "swap_s": swap_s, "answers_during": len(during),
+            "p50_ms_before": quantile_ms([r[2] for r in quiet], 0.5),
+            "p99_ms_before": quantile_ms([r[2] for r in quiet], 0.99),
+            "p50_ms_during": quantile_ms([r[2] for r in during], 0.5),
+            "p99_ms_during": quantile_ms([r[2] for r in during], 0.99),
+            "found_after": published_found(mips, topk, dev, table, churn,
+                                           churn_rows, rows_eff, kernels,
+                                           "mips after the rebuild")}
+    finally:
+        srv.stop()
+    daemon = mips_daemon.stats()
+    if daemon["running"] or mips_daemon._DAEMON._refs:
+        raise AssertionError(f"mips: the daemon outlived the server: "
+                             f"{daemon}")
+    # the daemon's trigger, swept on this thread
+    with env_set(PIO_MIPS_REBUILD_CHURN=MIPS_CHURN):
+        more = dominating(planted.planted_queries(vf, MIPS_CHURN, seed=10),
+                          vf)
+        more_rows = rng.choice(np.setdiff1d(np.arange(n), churn_rows),
+                               MIPS_CHURN, replace=False)
+        mips.publish_rows(table, more, rows=more_rows)
+        old = mips.index_for(table)
+        trigger = mips_daemon.check_trigger(old)
+        swept = mips_daemon.sweep_now()
+        new = mips.index_for(table)
+    if trigger != "churn" or swept < 1 or new is old:
+        raise AssertionError(f"mips daemon: trigger {trigger}, {swept} "
+                             "rebuilds")
+    rows_eff[more_rows] = more
+    stats["daemon"] = {"trigger": trigger, "rebuilds": swept,
+                       "last": mips_daemon.stats()["last"][-1],
+                       "found": published_found(
+                           mips, topk, dev, table, more, more_rows,
+                           rows_eff, kernels, "mips daemon swap")}
+    return stats, filt_launches, err, rows_eff
+
+
+def mips_cold(dev, kernels, mips, mips_daemon, topk, table, vf,
+              published) -> dict:
+    """Step 5: the published rows first republished at their catalogue
+    values (the dominating solves would take every query's top-20), then
+    with ``PIO_MIPS_TIER=on`` a rebuild demotes the buckets a planted
+    probe-hit profile says were never probed; a cold row in its own
+    query's exact top-20 is found through the host scan, the answer the
+    exhaustive kernel's except near-ties, its bucket's hits booked;
+    pressure past the promote trigger sends it back to the device, where it
+    is found again."""
+    mips.publish_rows(table, vf[published], rows=published)
+    rows_eff, skip = vf, set(int(r) for r in published)
+    with env_set(PIO_MIPS_TIER="on"):
+        index = mips.index_for(table)
+        index.probe_hits[:] = 1
+        index.probe_hits[: index.c_total // 4] = 0
+        index._probe_samples = 10_000
+        t0 = time.perf_counter()
+        new = mips.rebuild_index(table, trigger="manual")
+        demote_s = time.perf_counter() - t0
+        if new is None or new.cold is None or not new.cold.rows:
+            raise AssertionError("mips cold: no bucket was demoted")
+        dev_rows, host_rows = new.tier_rows()
+        eff_t = torch.from_numpy(rows_eff).to(dev)
+        cold_ids = np.concatenate([ids for ids in new.cold.member_ids
+                                   if len(ids)])
+        cands = [int(c) for c in cold_ids[:512] if int(c) not in skip]
+        orc = oracle_ids(kernels, dev, rows_eff[cands], eff_t)
+        cold_id = next((c for c, o in zip(cands, orc) if c in o), None)
+        if cold_id is None:
+            raise AssertionError("mips cold: no cold row in its own top-20")
+        q = rows_eff[cold_id:cold_id + 1]
+        want = orc[cands.index(cold_id)][None]
+        got = topk.score_and_top_k(eff_t[cold_id], table, k=MIPS_K).cpu()
+        got_i = got[1].numpy().astype(np.int64)[None]
+        if cold_id not in got_i[0] or int(new.cold.hits.sum()) <= 0:
+            raise AssertionError(f"mips cold: row {cold_id} not served from "
+                                 "the cold tier")
+        same_but_near_ties(got_i, want, q, rows_eff, "mips cold query")
+        new.cold.hits[:] = 100
+        trigger = mips_daemon.check_trigger(new)
+        t0 = time.perf_counter()
+        promoted = mips.rebuild_index(table, trigger="promote")
+        promote_s = time.perf_counter() - t0
+        still = (np.concatenate([ids for ids in promoted.cold.member_ids
+                                 if len(ids)])
+                 if promoted.cold is not None else np.empty(0, np.int64))
+        got2 = topk.score_and_top_k(eff_t[cold_id], table, k=MIPS_K).cpu()
+    if trigger != "promote" or cold_id in still.tolist() \
+            or cold_id not in got2[1].numpy().astype(np.int64):
+        raise AssertionError(f"mips cold: promotion ({trigger}) did not "
+                             f"bring row {cold_id} back")
+    return {"cold_rows": host_rows, "device_rows": dev_rows,
+            "demote_s": demote_s, "promote_s": promote_s,
+            "cold_after_promote": int(len(still)), "cold_id": cold_id}
+
+
+def mips_floor(dev, kernels, mips, planted, vf_big, small: bool) -> tuple:
+    """Step 6: the two-stage route (int8, k 20; a fresh build) against the
+    score+top-k kernel at the JAX bench's sizes, B 1 and 64: host ms of a
+    call and its fetch, and device ms (CUDA events; ``graph_ms`` a CUDA
+    graph replay of the route's device stages). Returns (rows, the
+    smallest size at which two-stage wins at B 1, or None)."""
+    sizes = (8_192, 16_384, len(vf_big)) if small else MIPS_FLOOR_SIZES
+    rows, wins = [], []
+    for n in sizes:
+        vf = vf_big if n == len(vf_big) else planted.planted_item_factors(
+            n, vf_big.shape[1], seed=11)
+        table = torch.from_numpy(vf).to(dev)
+        qs = planted.planted_queries(vf, 64, seed=5)
+        with env_set(PIO_SERVE_MIPS="on", PIO_SERVE_MIPS_QUANT="int8"):
+            index = mips.build_index(table, n, seed=11, register=False)
+        nprobe, n_cand, _slots, _rr = mips._quotas(index, MIPS_K)
+        for b in MIPS_FLOOR_BATCHES:
+            q_t = torch.from_numpy(qs[:b]).to(dev)
+            brows = np.arange(b)
+
+            def two():
+                return mips._two_stage(q_t, table, index, MIPS_K, None,
+                                       nprobe, n_cand)
+
+            def ex():
+                return kernels.score_topk(q_t, table, None, MIPS_K)
+
+            if b == 1:
+                two_host = host_wall_ms(lambda: mips.mips_score_and_top_k(
+                    q_t[0], table, index, MIPS_K).cpu())
+            else:
+                two_host = host_wall_ms(lambda: mips.mips_batch_score_top_k(
+                    q_t, table, index, brows, MIPS_K).cpu())
+            ex_host = host_wall_ms(lambda: torch.stack(
+                [t.to(torch.float32) for t in ex()]).cpu())
+            row = {"name": "mips_two_stage", "quant": "int8", "items": n,
+                   "B": b, "k": MIPS_K, "host_ms": two_host,
+                   "exhaustive_host_ms": ex_host}
+            if dev.type == "cuda":
+                row.update(ms=median_ms(two), graph_ms=graph_ms(two),
+                           exhaustive_ms=median_ms(ex),
+                           exhaustive_graph_ms=graph_ms(ex))
+            rows.append(row)
+            print(f"time: {json.dumps(row)}", flush=True)
+            if b == 1 and two_host < ex_host:
+                wins.append(n)
+        del index, table
+    return rows, (min(wins) if wins else None)
+
+
+def mips_phase(dev, runtime, kernels, planted, convert, engine, params_mod,
+               server_mod, small: bool = False):
+    """The two-stage MIPS phase (steps 1-7 of :func:`mips_builds`,
+    :func:`mips_served`, :func:`mips_cold`, :func:`mips_floor`) on
+    ``MIPS_CATALOGUE``'s planted catalogue (65,536 × 64 when ``small``).
+    Returns (score+top-k launches, largest score error, stats)."""
+    from incubator_predictionio_tpu_torch.ops import mips, mips_daemon, topk
+
+    t_phase = time.perf_counter()
+    n = 65_536 if small else MIPS_CATALOGUE["items"]
+    vf = planted.planted_item_factors(n, MIPS_CATALOGUE["rank"], seed=11)
+    queries = planted.planted_queries(vf, MIPS_QUERIES, seed=5)
+    table = torch.from_numpy(vf).to(dev)
+    oracle = oracle_ids(kernels, dev, queries, table)
+    # the kernel's oracle is the host's except among near-ties
+    same_but_near_ties(oracle, planted.exhaustive_top_k(vf, queries, MIPS_K),
+                       queries, vf, "mips oracle")
+    builds, index, err = mips_builds(dev, kernels, mips, topk, planted,
+                                     table, vf, queries, oracle)
+    with env_set(PIO_SERVE_MIPS="on", PIO_SERVE_MIPS_QUANT="int8"):
+        served, launches, e, rows_eff = mips_served(
+            dev, runtime, kernels, mips, mips_daemon, topk, planted,
+            server_mod, engine, params_mod, convert, table, vf, index,
+            small)
+        err = max(err, e)
+        cold = mips_cold(dev, kernels, mips, mips_daemon, topk, table, vf,
+                         np.flatnonzero((rows_eff != vf).any(1)))
+    mips.unregister_index(table)
+    del table
+    floor_rows, smallest = mips_floor(dev, kernels, mips, planted, vf, small)
+    floor = {"smallest_winning_size_b1": smallest,
+             "default_min_items": mips.MIN_ITEMS_DEFAULT}
+    return launches, err, {"builds": builds, "served": served, "cold": cold,
+                           "floor": floor, "floor_rows": floor_rows,
+                           "wall_s": time.perf_counter() - t_phase}
+
+
 def topk_only(dev, kernels, planted) -> int:
     """``--topk``: the score+top-k kernel alone (its cases, the edge cases,
     then its timings), for an A/B of two copies of the package."""
@@ -6061,14 +6729,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     runtime.build_kernels()
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {note_wall('build', t0):.1f} s", flush=True)
     from incubator_predictionio_tpu_torch import native
 
     t0 = time.perf_counter()
     native.load()
-    print(f"build-native: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build-native: {note_wall('build-native', t0):.1f} s", flush=True)
     mode = sys.argv[1:]
-    if mode not in ([], ["--flash"], ["--topk"], ["--als"]):
+    if mode not in ([], ["--flash"], ["--topk"], ["--als"], ["--mips"]):
         print(f"chip_smoke: unknown arguments {mode}", file=sys.stderr)
         return 2
     if mode in ([], ["--flash"]):
@@ -6086,10 +6754,22 @@ def main() -> int:
         return topk_only(dev, kernels, planted)
     if mode == ["--als"]:
         return als_only(dev, ak, als)
+    if mode == ["--mips"]:
+        t0 = time.perf_counter()
+        _l, err, mips_stats = mips_phase(dev, runtime, kernels, planted,
+                                         convert, engine, params_mod,
+                                         server_mod)
+        print(f"mips: {json.dumps(mips_stats)}", flush=True)
+        print(f"mips-card: {card_line()} ({note_wall('mips', t0):.1f} s)",
+              flush=True)
+        print(json.dumps({"mips_ok": True, "max_score_err": err,
+                          "kind": torch.cuda.get_device_name(0)}))
+        return 0
 
+    t0 = time.perf_counter()
     err_k, n_cases = kernel_phase(dev, kernels, planted)
     print(f"kernel: {n_cases} cases agree with the plain version, max score "
-          f"error {err_k:.3e}", flush=True)
+          f"error {err_k:.3e} ({note_wall('kernel', t0):.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     als_errs, als_worst, als_checks = als_kernel_phase(dev, ak,
@@ -6098,27 +6778,30 @@ def main() -> int:
     print(f"als-kernel: {als_checks} + {edge_checks} checks agree with the "
           f"plain versions, max abs error {json.dumps(als_errs)}, max "
           f"relative error {json.dumps(als_worst)}, edges "
-          f"{json.dumps(edge_worst)} ({time.perf_counter() - t0:.1f} s)",
+          f"{json.dumps(edge_worst)} ({note_wall('als-kernel', t0):.1f} s)",
           flush=True)
     t0 = time.perf_counter()
     rank_stats = rank_train_phase(dev, runtime, als, planted)
     print(f"als-rank: {json.dumps(rank_stats)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({note_wall('als-rank', t0):.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     err_f, flash_rel = flash_phase(dev, fa)
     print(f"flash-kernel: {len(flash_rel)} cases agree with the plain "
           f"version, max abs error {err_f:.3e}, relative "
-          f"{json.dumps(flash_rel)} ({time.perf_counter() - t0:.1f} s)",
+          f"{json.dumps(flash_rel)} ({note_wall('flash-kernel', t0):.1f} s)",
           flush=True)
 
+    t0 = time.perf_counter()
     built = build_model(planted, convert, dev, ML20M["users"],
                         ML20M["items"], ML20M["rank"])
     launches, err_p, stats = path_phase(
         dev, runtime, kernels, planted, convert, engine, params_mod,
         server_mod, ML20M["users"], ML20M["items"], ML20M["rank"], built)
-    print(f"path: {json.dumps(stats)}", flush=True)
+    print(f"path: {json.dumps(stats)} ({note_wall('path', t0):.1f} s)",
+          flush=True)
 
+    t0 = time.perf_counter()
     load_launches, err_load, load_stats = serve_load_phase(
         dev, runtime, kernels, server_mod, engine, params_mod, built)
     for leg in load_stats["legs"]:
@@ -6126,59 +6809,73 @@ def main() -> int:
     print(f"serve-load-shed: {json.dumps(load_stats['shed'])}", flush=True)
     print(f"serve-load-tenants: {json.dumps(load_stats['tenants'])}",
           flush=True)
+    note_wall("serve-load", t0)
     print(f"serve-load-card: {card_line()} "
           f"({load_stats['wall_s']:.1f} s)", flush=True)
     del built
 
+    t0 = time.perf_counter()
+    mips_launches, err_mips, mips_stats = mips_phase(
+        dev, runtime, kernels, planted, convert, engine, params_mod,
+        server_mod)
+    print(f"mips: {json.dumps(mips_stats)}", flush=True)
+    print(f"mips-card: {card_line()} ({note_wall('mips', t0):.1f} s)",
+          flush=True)
+
+    t0 = time.perf_counter()
     model, pd, eng, ep, train_stats, (u_tree, i_tree, plain) = train_phase(
         dev, runtime, als, engine, base, params_mod, context,
         interactions_mod, planted)
-    print(f"train: {json.dumps(train_stats)}", flush=True)
+    print(f"train: {json.dumps(train_stats)} ({note_wall('train', t0):.1f} s)",
+          flush=True)
 
+    t0 = time.perf_counter()
     trained_launches, err_t, serve_stats = serve_trained_phase(
         dev, runtime, kernels, server_mod, model, pd, eng, ep)
-    print(f"serve-trained: {json.dumps(serve_stats)}", flush=True)
+    print(f"serve-trained: {json.dumps(serve_stats)} "
+          f"({note_wall('serve-trained', t0):.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     seq_launches, err_sp, seq_stats = seq_path_phase(
         dev, runtime, tr, fa, seq_engine, seq_convert, planted, params_mod,
         server_mod)
     print(f"seq-path: {json.dumps(seq_stats)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({note_wall('seq-path', t0):.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     wide_launches, err_sw, wide_stats = seq_wide_phase(
         dev, runtime, tr, fa, seq_engine, seq_convert, planted, params_mod,
         server_mod)
     print(f"seq-wide: {json.dumps(wide_stats)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({note_wall('seq-wide', t0):.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     seq_train_launches, err_st, seq_train_stats = seq_train_phase(
         dev, runtime, tr, fa, seq_engine, base, params_mod, context, planted,
         server_mod)
     print(f"seq-train: {json.dumps(seq_train_stats)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({note_wall('seq-train', t0):.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     store_launches, err_sa, store_stats, store_path, sqlite_ref = \
         store_als_phase(dev, runtime, kernels, als, engine, planted,
                         params_mod, context, server_mod)
     print(f"store-als: {json.dumps(store_stats)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({note_wall('store-als', t0):.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     store_seq_launches, err_ss, store_seq_stats = store_seq_phase(
         dev, runtime, tr, fa, seq_engine, planted, params_mod, context,
         server_mod)
     print(f"store-seq: {json.dumps(store_seq_stats)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({note_wall('store-seq', t0):.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     qs_launches, err_qs, qs_stats, (rt_cli_launches, err_rt, rt_cli) = \
         quickstart_phase(dev, runtime, kernels, als, planted,
                          then=lambda qs: retrain_cli_leg(
                              qs, dev, runtime, kernels, als))
+    note_wall("quickstart+retrain-cli", t0)
     print(f"quickstart: {json.dumps(qs_stats)} "
           f"({time.perf_counter() - t0 - rt_cli['wall_s']:.1f} s)",
           flush=True)
@@ -6191,10 +6888,12 @@ def main() -> int:
         quickstart_train_s=qs_stats["train_s"],
         retrain_read_s=rt_cli["phases_s"].get("phase.read_s"),
         retrain_train_s=rt_cli["train_s"])
+    t0 = time.perf_counter()
     log_launches, err_log, log_stats, speed_out = cpplog_phase(
         dev, runtime, kernels, als, planted, sqlite_ref,
         then=lambda log: speed_phase(dev, runtime, kernels, als, ak, planted,
                                      log))
+    note_wall("cpplog+speed", t0)
     print(f"cpplog: {json.dumps(log_stats)} ({log_stats['wall_s']:.1f} s)",
           flush=True)
     print(f"cpplog-card: {card_line()}", flush=True)
@@ -6215,10 +6914,12 @@ def main() -> int:
     imp_launches, imp_stats, imp_row = implicit_leg(
         dev, runtime, ak, als, pd, narrow_coo=store_als_ratings(planted))
     rt_stats = dict(cli=rt_cli, loop=rt_loop, implicit=imp_stats)
+    note_wall("retrain-loop+implicit", t0)
     print(f"retrain: {json.dumps(rt_stats)} "
           f"({rt_cli['wall_s'] + time.perf_counter() - t0:.1f} s)",
           flush=True)
 
+    t0 = time.perf_counter()
     shapes = topk_timings(kernels, planted, dev)
     for s in shapes:
         print(f"time: {json.dumps(s)}", flush=True)
@@ -6242,12 +6943,13 @@ def main() -> int:
         "route": "cuda",
         "source": "incubator_predictionio_tpu_torch/csrc/score_topk.cu",
         "replaces": kernels.REPLACES,
-        "launches": launches + load_launches + trained_launches
+        "launches": launches + load_launches + mips_launches
+        + trained_launches
         + store_launches["score_topk"] + qs_launches["score_topk"]
         + rt_cli_launches["score_topk"] + log_launches["score_topk"]
         + speed_launches["score_topk"],
-        "max_abs_err": max(err_k, err_p, err_load, err_t, err_sa, err_qs,
-                           err_rt, err_log, err_speed),
+        "max_abs_err": max(err_k, err_p, err_load, err_mips, err_t, err_sa,
+                           err_qs, err_rt, err_log, err_speed),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
@@ -6256,6 +6958,9 @@ def main() -> int:
         "bound_fma_ms": head["bound_fma_ms"],
         "library_ms": head["library_ms"],
         "shapes": shapes,
+        # the two-stage route beside the kernel (no Pallas kernel stands
+        # behind it, so no bound): the floor's rows of the mips phase
+        "mips_two_stage": mips_stats["floor_rows"],
     }]
     for entry, rows in als_times.items():
         first = rows[0]  # f32, the polish sweeps' dtype
@@ -6367,8 +7072,11 @@ def main() -> int:
         "max_score_err": max(err_sp, err_sw, err_st, err_ss),
         "shapes": flash_rows,
     })
-    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": entries}))
+    print(f"report: ({note_wall('report', t0):.1f} s)", flush=True)
+    total = time.perf_counter() - t_start
+    print(f"total: {total:.1f} s", flush=True)
+    print(f"walls: {json.dumps(dict(WALLS, total=total))}", flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -29,9 +29,17 @@ A deployed model serves with the speed layer's overlay
 log after training is folded in on the fused ALS kernel, and ``predict``
 scores the folded vector first, through the score+top-k kernel.
 
-Not ported yet: the sharded trainer, evaluation reads (``read_eval``),
-the host-mirror serving of small models and the MIPS index (and with it
-the index refresh after a retrain). The host mirror is left out on
+Past the two-stage floor (``ops/mips.build_enabled``) the item table
+carries a MIPS index (ops/mips.py; JAX :415, :456, :505-562): built after
+``train``, spliced O(delta) after a continuation retrain whose stats name
+the touched item rows (else rebuilt), adopted by ``prepare_model`` when
+the deployed table is the trained one's value-identical copy (else built
+from it). ``ops/topk`` then routes unfiltered queries through it. Unlike
+the JAX package, which logs a failed build and serves on exhaustively, a
+failed build raises here.
+
+Not ported yet: the sharded trainer, evaluation reads (``read_eval``) and
+the host-mirror serving of small models. The host mirror is left out on
 purpose: on the card it would hide the kernel for small models, and on
 the CPU the plain version already is the path.
 """
@@ -64,7 +72,7 @@ from incubator_predictionio_tpu_torch.core.self_cleaning import (
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.interactions import Interactions
 from incubator_predictionio_tpu_torch.data.store import EventStore
-from incubator_predictionio_tpu_torch.ops import als, retrain
+from incubator_predictionio_tpu_torch.ops import als, mips, retrain
 from incubator_predictionio_tpu_torch.ops.sparse import latest_wins
 from incubator_predictionio_tpu_torch.ops.topk import (
     batch_score_top_k,
@@ -310,7 +318,9 @@ class ALSAlgorithm(Algorithm):
             l2=self.params.lambda_, seed=seed,
             bf16_sweeps=self.params.bf16_sweeps, device=ctx.device,
             stats=ctx.timings)
-        return self._assemble_model(pd, state)
+        model = self._assemble_model(pd, state)
+        self._refresh_mips_index(model)
+        return model
 
     def train_with_previous(self, ctx: RuntimeContext, pd: PreparedData,
                             prev_model: Any) -> ALSModel:
@@ -321,7 +331,8 @@ class ALSAlgorithm(Algorithm):
         index space, another model class) trains fresh. No prep plan is
         kept: each ``pio train`` is a new process, so one would never be
         reused, and at a 1% tail of ML-20M a reuse loses to a fresh build
-        on the H100 (PERF.md §7)."""
+        on the H100 (PERF.md §7). Without it the stats name no touched
+        item rows, so a MIPS index after this retrain is a full build."""
         prev_state = self._continuation_seed(pd, prev_model)
         if prev_state is None:
             return self.train(ctx, pd)
@@ -344,7 +355,10 @@ class ALSAlgorithm(Algorithm):
             "%s sweeps (mode=%s, delta=%.3e)", n_users, n_items,
             self.params.rank, stats.get("sweeps_used"), stats.get("mode"),
             stats.get("final_delta", float("nan")))
-        return self._assemble_model(pd, state)
+        model = self._assemble_model(pd, state)
+        self._refresh_mips_index(model, prev_model=prev_model,
+                                 retrain_stats=stats)
+        return model
 
     def _continuation_seed(self, pd: PreparedData,
                            prev_model: Any) -> Optional[als.ALSState]:
@@ -382,14 +396,43 @@ class ALSAlgorithm(Algorithm):
             user_seen=user_seen)
 
     def prepare_model(self, ctx: RuntimeContext, model: ALSModel) -> ALSModel:
-        """Put the factors on ``ctx.device``, as contiguous f32."""
+        """Put the factors on ``ctx.device``, as contiguous f32. A model
+        trained in this process keeps its MIPS index (adopted onto the
+        put table, JAX :505-526); a restored one gets a new build."""
         def put(t):
             return torch.as_tensor(t).to(
                 device=ctx.device, dtype=torch.float32).contiguous()
 
-        return dataclasses.replace(
+        prev_table = model.item_factors
+        model = dataclasses.replace(
             model, user_factors=put(model.user_factors),
             item_factors=put(model.item_factors))
+        if mips.adopt_index(prev_table, model.item_factors) is None:
+            self._refresh_mips_index(model)
+        return model
+
+    def _refresh_mips_index(self, model: ALSModel, prev_model=None,
+                            retrain_stats=None) -> None:
+        """Keep the two-stage MIPS index (ops/mips.py) riding the model's
+        item table (JAX :528-562): an O(delta) splice after a continuation
+        retrain whose stats carry ``touched_item_rows`` (the in-process
+        plan reuse of ``ops/retrain.py``), a full build otherwise. Gated
+        by ``PIO_SERVE_MIPS`` and the auto floor. An error raises."""
+        n_items = len(model.item_bimap)
+        if not mips.build_enabled(n_items):
+            return
+        if prev_model is not None and retrain_stats is not None:
+            touched = retrain_stats.get("touched_item_rows")
+            if touched is not None and mips.update_index(
+                    prev_model.item_factors, model.item_factors,
+                    n_items, touched) is not None:
+                # the splice re-quantizes only the delta rows while a
+                # retrain nudges every row: re-probe the recall
+                mips.recall_probe(model.item_factors)
+                return
+        mips.build_index(model.item_factors, n_items,
+                         seed=self.params.seed or 0, probe_recall=True,
+                         engine="recommendation")
 
     # -- speed layer -------------------------------------------------------
     def make_speed_overlay(self, model: ALSModel, app_name, channel_name,

@@ -361,8 +361,9 @@ def prepare_with_reuse(users: np.ndarray, items: np.ndarray,
                 plan.digest = _coo_digest(users, items, vals, nnz)
                 stats["prep_plan"] = "reused"
                 stats["prep_delta_rows"] = int(len(tr))
-                # the item rows whose interactions the tail touched (the
-                # JAX package's seam for its MIPS index, not ported)
+                # the item rows whose interactions the tail touched: the
+                # MIPS index's O(delta) splice reads them (ops/mips.py
+                # update_index, through the engine's _refresh_mips_index)
                 stats["touched_item_rows"] = np.unique(
                     np.asarray(tc, np.int64))
                 u_tree, i_tree = plan.trees()

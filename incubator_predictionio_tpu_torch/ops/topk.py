@@ -7,10 +7,15 @@ are masked before ranking. Results keep the packed form of the reference:
 the item ids as floats (exact below 2**24 items), so a caller pays one
 device-to-host copy per query.
 
-Every query with ``k <= 128`` goes through the hand-written kernel
-(ops/kernels.py), whatever the catalogue size. ``k > 128`` is the
-counterpart of the reference's XLA path: one matmul and a stable sort,
-counted apart. Sharded top-k and the two-stage MIPS route are not ported.
+Each entry first asks ``ops/mips.route`` whether a two-stage MIPS index
+registered for the item table should serve the query (coarse bucket scan
++ exact rerank, ops/mips.py, as in the reference); it answers in the same
+packed form, on the table's device. Otherwise every query with ``k <= 128``
+goes through the hand-written kernel (ops/kernels.py), whatever the
+catalogue size, and rows the speed overlay published into an index's
+exact tail are merged into its answer. ``k > 128`` is the counterpart of
+the reference's XLA path: one matmul and a stable sort, counted apart.
+Sharded top-k is not ported (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from incubator_predictionio_tpu_torch import runtime
 from incubator_predictionio_tpu_torch.ops import kernels
+from incubator_predictionio_tpu_torch.ops import mips as _mips
 from incubator_predictionio_tpu_torch.ops.kernels import NEG_INF
 
 #: calls that took the matmul + sort route (k > 128)
@@ -41,9 +47,9 @@ def serve_compile_cache_size() -> int:
     reference's count of compiled serving variants, and the serving twin
     of ``speed.foldin.foldin_compile_cache_size``). Bounded by the pow2
     ladder × the distinct (k, catalogue) shapes served; a warm ladder
-    stops growing it."""
+    stops growing it. The two-stage route's shapes count too."""
     with _SHAPES_LOCK:
-        return len(_SHAPES)
+        return len(_SHAPES) + _mips.mips_compile_cache_size()
 
 
 def top_k_with_exclusions(
@@ -114,6 +120,27 @@ def _score_top_k(queries: torch.Tensor, items: torch.Tensor, k: int,
     return torch.stack([top_s, top_i.to(torch.float32)])
 
 
+def _exhaustive_top_k(user_vector: torch.Tensor, item_factors: torch.Tensor,
+                      k: int, exclude: Optional[torch.Tensor],
+                      allowed_mask: Optional[torch.Tensor],
+                      valid_items: Optional[int]) -> torch.Tensor:
+    """The exhaustive route of one query vector, packed [2, k], with the
+    published tail of a registered index merged in. A filtered query
+    skips the merge: a virtual id cannot honor an item mask."""
+    n_items = item_factors.shape[0]
+    _mips.book_exhaustive(n_items)
+    allowed = _allowed(n_items, item_factors.device, exclude, allowed_mask,
+                       valid_items)
+    q = user_vector.reshape(1, -1).to(item_factors.dtype).contiguous()
+    out = _score_top_k(q, item_factors, min(int(k), n_items), allowed)[:, 0]
+    if allowed_mask is not None:
+        return out
+    return _mips.merge_published_fallback(
+        item_factors, out,
+        lambda: user_vector.detach().to("cpu", torch.float32).numpy(),
+        out.shape[-1], exclude)
+
+
 def score_and_top_k(
     user_vector: torch.Tensor,               # [K]
     item_factors: torch.Tensor,              # [I, K]
@@ -123,12 +150,15 @@ def score_and_top_k(
     valid_items: Optional[int] = None,
 ) -> torch.Tensor:
     """Full-catalogue scoring and ranking of one query vector, packed
-    [2, k] f32. ``valid_items`` masks a padded table's tail."""
-    n_items = item_factors.shape[0]
-    allowed = _allowed(n_items, item_factors.device, exclude, allowed_mask,
-                       valid_items)
-    q = user_vector.reshape(1, -1).to(item_factors.dtype).contiguous()
-    return _score_top_k(q, item_factors, min(int(k), n_items), allowed)[:, 0]
+    [2, k] f32 (the two-stage route when an index serves the table).
+    ``valid_items`` masks a padded table's tail."""
+    index = _mips.route(item_factors, k=k, allowed_mask=allowed_mask,
+                        exclude=exclude)
+    if index is not None:
+        return _mips.mips_score_and_top_k(user_vector, item_factors, index,
+                                          k, exclude=exclude)
+    return _exhaustive_top_k(user_vector, item_factors, k, exclude,
+                             allowed_mask, valid_items)
 
 
 def score_user_and_top_k(
@@ -141,10 +171,15 @@ def score_user_and_top_k(
     valid_items: Optional[int] = None,
 ) -> torch.Tensor:
     """Serving path of one known user: the row gather, full-catalogue
-    scoring and top-k, packed [2, k] f32."""
-    return score_and_top_k(user_factors[int(user_idx)], item_factors, k,
-                           exclude=exclude, allowed_mask=allowed_mask,
-                           valid_items=valid_items)
+    scoring and top-k (or the two-stage route), packed [2, k] f32."""
+    index = _mips.route(item_factors, k=k, allowed_mask=allowed_mask,
+                        exclude=exclude)
+    if index is not None:
+        return _mips.mips_score_user_and_top_k(
+            user_factors, item_factors, index, int(user_idx), k,
+            exclude=exclude)
+    return _exhaustive_top_k(user_factors[int(user_idx)], item_factors, k,
+                             exclude, allowed_mask, valid_items)
 
 
 def next_pow2(n: int) -> int:
@@ -193,7 +228,18 @@ def batch_score_top_k(
     pad = next_pow2(b)
     if pad > b:
         rows_np = np.concatenate([rows_np, np.full(pad - b, rows_np[0])])
+    # the scheduler's fused dispatch rides the same two-stage route as
+    # the per-query entries
+    index = _mips.route(item_factors, k=k_pad)
+    if index is not None:
+        return _mips.mips_batch_score_top_k(user_factors, item_factors,
+                                            index, rows_np, k_pad)
+    _mips.book_exhaustive(pad * n_items)
     idx = torch.from_numpy(rows_np).to(user_factors.device)
     queries = user_factors.index_select(0, idx).to(item_factors.dtype)
     allowed = _fold_valid_mask(None, n_items, valid_items, dev)
-    return _score_top_k(queries.contiguous(), item_factors, k_pad, allowed)
+    out = _score_top_k(queries.contiguous(), item_factors, k_pad, allowed)
+    return _mips.merge_published_fallback(
+        item_factors, out,
+        lambda: queries.detach().to("cpu", torch.float32).numpy(), k_pad,
+        None)

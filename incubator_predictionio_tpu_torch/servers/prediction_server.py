@@ -12,8 +12,10 @@ asyncio, as the event server):
   counts summed (``speedOverlay``), the seconds since the served instance
   finished training (``modelStalenessSec``), the scheduler's state
   (``scheduler``: per-queue depth, rung and dispatch wall, sheds, the
-  tenants' weights and quotas) and the per-tenant block (``tenants``;
-  null without ``PIO_TENANTS``);
+  tenants' weights and quotas), the MIPS indexes and their rebuild
+  daemon (``mips``: ``ops/mips.status_snapshot``, ``ops/mips_daemon.stats``;
+  the daemon runs while the server serves) and the per-tenant block
+  (``tenants``; null without ``PIO_TENANTS``);
 - ``POST /queries.json`` → the tenant from the access key
   (``serving/tenancy.py``; 401 for an unknown or disabled key once
   ``PIO_TENANTS`` names tenants), then the continuous-batching scheduler
@@ -76,7 +78,9 @@ last two, :class:`PredictionServer` raises ``NotImplementedError``).
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
+import gc
 import json
 import logging
 import os
@@ -98,6 +102,7 @@ from incubator_predictionio_tpu_torch.data.storage import (
 )
 from incubator_predictionio_tpu_torch.obs import metrics as obs_metrics
 from incubator_predictionio_tpu_torch.obs.http import add_metrics_route
+from incubator_predictionio_tpu_torch.ops import mips, mips_daemon
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
 from incubator_predictionio_tpu_torch.serving import tenancy
 from incubator_predictionio_tpu_torch.serving.scheduler import (
@@ -120,6 +125,26 @@ from incubator_predictionio_tpu_torch.utils.times import (
 from incubator_predictionio_tpu_torch.workflow.workflow import CoreWorkflow
 
 logger = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """The cyclic garbage collector off while a model set loads, and what
+    the load made frozen out of its reach afterwards (``gc.freeze``). A
+    model's hundreds of thousands of small objects (seen lists, id maps)
+    would otherwise trigger full collections that hold the interpreter lock
+    for hundreds of milliseconds; on ``POST /reload`` that stalls the
+    dispatcher serving the old models, and the shed projection turns the
+    stall into 503s. Models hold no reference cycles, so reference counting
+    still frees one that is swapped out."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.freeze()
+        if enabled:
+            gc.enable()
 
 #: per-QUERY serving latency (every query in a fused batch took the
 #: batch wall — CreateServer.scala:611-618 per-query semantics, at one
@@ -209,6 +234,8 @@ class PredictionServer:
         #: algorithm-aligned speed overlays (None where an algorithm has
         #: none), built by :meth:`load_models`
         self._speed_overlays: List[Any] = []
+        #: whether this server holds a reference on the MIPS rebuild daemon
+        self._mips_daemon_held = False
         #: per-tenant deploys beyond the default one (tenant id →
         #: {engine_instance, engine_params, algorithms, serving, models});
         #: a registered tenant with no entry here shares the default
@@ -353,8 +380,9 @@ class PredictionServer:
             return
         instance = self._resolve_instance()
         engine_params = self.engine.engine_params_from_instance(instance)
-        models = CoreWorkflow.load_models(instance.id, self.engine,
-                                          engine_params, ctx=self.ctx)
+        with _collector_paused():
+            models = CoreWorkflow.load_models(instance.id, self.engine,
+                                              engine_params, ctx=self.ctx)
         algorithms, serving = self.engine.components(engine_params)
         if warm_before_swap:
             self._warm_models(algorithms, models)
@@ -397,8 +425,9 @@ class PredictionServer:
             engine_id=t.engine_id or self.config.engine_id,
             engine_variant=t.engine_variant or self.config.engine_variant)
         engine_params = self.engine.engine_params_from_instance(instance)
-        models = CoreWorkflow.load_models(instance.id, self.engine,
-                                          engine_params, ctx=self.ctx)
+        with _collector_paused():
+            models = CoreWorkflow.load_models(instance.id, self.engine,
+                                              engine_params, ctx=self.ctx)
         algorithms, serving = self.engine.components(engine_params)
         if warm_before_swap:
             self._warm_models(algorithms, models)
@@ -697,6 +726,10 @@ class PredictionServer:
                         .total_seconds(), 0.0)
                     if instance is not None else None),
                 "speedOverlay": self._speed_status_locked(),
+                # per-index MIPS state (tail, ext block, tiers, age) and
+                # the rebuild daemon's triggers and recent swaps
+                "mips": {"indexes": mips.status_snapshot(),
+                         "daemon": mips_daemon.stats()},
                 # per-queue depth, rung and dispatch wall, sheds, tenants
                 "scheduler": (self._batcher.stats()
                               if self._batcher is not None else None),
@@ -785,12 +818,20 @@ class PredictionServer:
 
     def _prepare(self) -> None:
         """Restore the instance's models when there are none yet, warm
-        them at every ladder rung (raising on a kernel's error), and stop
-        a server deployed at the same address."""
+        them at every ladder rung (raising on a kernel's error), stop a
+        server deployed at the same address, and take this server's
+        reference on the MIPS rebuild daemon (released by :meth:`stop`)."""
         if self.engine_params is None:
             self.load_models()
         self._warm_models(self.algorithms, self.models)
         self.undeploy_existing()
+        # host the MIPS rebuild daemon next to the overlay pollers while
+        # the server serves (JAX :487-501), one reference per server
+        with self._lock:
+            want_daemon = not self._mips_daemon_held
+            self._mips_daemon_held = True
+        if want_daemon:
+            mips_daemon.acquire()
 
     def start_background(self) -> int:
         """Warm, bind and serve on a daemon thread; returns the bound
@@ -816,6 +857,10 @@ class PredictionServer:
         overlays' pollers and the HTTP server."""
         if self._batcher is not None:
             self._batcher.stop()
+        with self._lock:
+            held, self._mips_daemon_held = self._mips_daemon_held, False
+        if held:
+            mips_daemon.release()
         for ov in self._speed_overlays:
             if ov is not None:
                 ov.stop()

@@ -23,10 +23,12 @@ The port's own copy of incubator_predictionio_tpu/speed/overlay.py, its
 imports pointed at this package. The solver is the port's
 :class:`~.foldin.FoldInSolver`, which keeps the frozen table on its
 device: the engines pass the deployed model's item table as the device
-tensor, with no host round trip. Left out: the rebuild-daemon nudge
-after an ``index_sink`` publish (``ops/mips_daemon``, ROADMAP.md Queue 1
-item 5) and a mesh-sharded frozen table (item 9;
-:meth:`SpeedOverlay.stats` has no ``shardedTable``).
+tensor, with no host round trip. After an ``index_sink`` publish the
+overlay nudges the MIPS rebuild daemon (``ops/mips_daemon``), as in the
+JAX package. The seam has no caller in the port yet: the one engine that
+passes a sink, similarproduct, comes with ROADMAP.md Queue 1 item 7. Left
+out: a mesh-sharded frozen table (item 9; :meth:`SpeedOverlay.stats` has
+no ``shardedTable``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import numpy as np
 
 from incubator_predictionio_tpu_torch.obs import metrics as obs_metrics
 from incubator_predictionio_tpu_torch.obs.freshness import FreshnessTracker
+from incubator_predictionio_tpu_torch.ops import mips_daemon
 from incubator_predictionio_tpu_torch.speed.foldin import FoldInSolver
 from incubator_predictionio_tpu_torch.utils import times
 
@@ -596,12 +599,16 @@ class SpeedOverlay:
         if self.index_sink is not None and published:
             # outside the lock: the sink re-quantizes serving-index
             # rows / extends the exact tail (ops/mips.publish_rows)
-            # (the JAX package then nudges its MIPS rebuild daemon,
-            # which is not ported: ROADMAP.md Queue 1 item 5)
             try:
                 self.index_sink(published, published_vecs)
             except Exception:
                 logger.exception("speed overlay: index sink failed")
+            else:
+                # fold-in → tail → daemon handoff: the publish may have
+                # pushed the virtual-id tail past its rebuild trigger;
+                # nudge the daemon instead of waiting out its poll tick
+                # (a no-op when no server hosts it)
+                mips_daemon.notify_publish()
         # freshness stage 2: published keys now await their first serve;
         # keys with nothing foldable stop being traced (no vector can
         # ever serve their events until the next retrain)

@@ -81,6 +81,20 @@ def exhaustive_top_k(
     return np.take_along_axis(part, order, axis=1)
 
 
+def recall_against_oracle(
+    approx_ids: np.ndarray,   # [Q, >=k] approximate ids (any order)
+    oracle_ids: np.ndarray,   # [Q, k] exact ids
+    k: int,
+) -> Tuple[float, float]:
+    """(mean recall@k, min per-query recall@k)."""
+    recalls = []
+    for row in range(oracle_ids.shape[0]):
+        got = set(int(i) for i in approx_ids[row] if i >= 0)
+        want = set(int(i) for i in oracle_ids[row][:k])
+        recalls.append(len(got & want) / max(len(want), 1))
+    return float(np.mean(recalls)), float(np.min(recalls))
+
+
 def _sample_pairs(rng, n: int, n_users: int, n_items: int):
     """Power-law marginals as in bench.py:217-228: items i^-0.55 (the top
     item gets ≈92k of 20M draws), users i^-0.3."""

@@ -183,6 +183,10 @@ def dumps(obj: Any) -> bytes:
     return _MAGIC_V2 + payload
 
 
+def _same(obj: Any) -> Any:
+    return obj
+
+
 def loads(data: bytes) -> Any:
     """Decode a version-2 checkpoint blob; anything else is refused."""
     import msgpack
@@ -191,8 +195,14 @@ def loads(data: bytes) -> Any:
         raise CheckpointError(
             "not a version-2 model blob (no PIOCKPT2 header); retrain to "
             "checkpoint in the safe format")
+    # every map and array passes through a Python hook (the identity), so
+    # the interpreter can hand its lock to other threads during the decode:
+    # without one, a model of ML-20M's users is a single C call holding it
+    # for most of a second, which stalls a prediction server's dispatcher
+    # through a POST /reload
     doc = msgpack.unpackb(
-        data[len(_MAGIC_V2):], raw=False, strict_map_key=False)
+        data[len(_MAGIC_V2):], raw=False, strict_map_key=False,
+        object_hook=_same, list_hook=_same)
     if doc.get("version") != _FORMAT_VERSION:
         raise CheckpointError(
             f"Unsupported model blob version {doc.get('version')}")

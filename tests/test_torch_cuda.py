@@ -1253,3 +1253,174 @@ def test_scheduler_dispatchers_at_every_rung_beside_a_foldin_poller(dev):
     got_s = np.array([[x["score"] for x in g] for g in got], np.float32)
     got_i = np.array([[int(x["item"][1:]) for x in g] for g in got])
     _near_tie_equal(got_s, got_i, ref_s, ref_i)
+
+
+@pytest.mark.parametrize("quant", ["int8", "bf16", "pq"])
+def test_mips_two_stage_on_the_card_matches_its_cpu_run(dev, monkeypatch,
+                                                        quant):
+    """One index built on the card (262,144 × 64, the JAX bench's middle
+    size) and the same index's tensors copied to the CPU: the two-stage
+    route's answers at B 1 and 64 agree as ids except near-ties and scores
+    to rtol 1e-5, every score is the exact f32 dot product, and recall@20
+    against the exhaustive kernel is at least 0.95."""
+    import dataclasses
+
+    from incubator_predictionio_tpu_torch.ops import mips
+    from incubator_predictionio_tpu_torch.utils.planted import (
+        planted_item_factors,
+        planted_queries,
+        recall_against_oracle,
+    )
+
+    monkeypatch.setenv("PIO_SERVE_MIPS", "on")
+    monkeypatch.setenv("PIO_SERVE_MIPS_QUANT", quant)
+    n_items, rank, k = 262_144, 64, 20
+    vf = planted_item_factors(n_items, rank, seed=11)
+    qs = planted_queries(vf, 64, seed=5)
+    table = torch.from_numpy(vf).to(dev)
+    index = mips.build_index(table, n_items, seed=11, register=False)
+    cpu_index = dataclasses.replace(index, **{
+        f.name: getattr(index, f.name).cpu()
+        for f in dataclasses.fields(index)
+        if isinstance(getattr(index, f.name), torch.Tensor)})
+    cpu_table = torch.from_numpy(vf)
+    uf, cpu_uf = torch.from_numpy(qs).to(dev), torch.from_numpy(qs)
+    def same(got, ref):
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref[0]).max())
+        for q, p in zip(*np.nonzero(got[1] != ref[1])):
+            assert any(abs(ref[0][q, p] - ref[0][q, r])
+                       <= 1e-5 * abs(ref[0][q, p])
+                       for r in (p - 1, p + 1) if 0 <= r < ref.shape[-1])
+
+    card = np.stack([mips.mips_score_user_and_top_k(uf, table, index, j, k)
+                     .cpu().numpy() for j in range(len(qs))], axis=1)
+    cpu = np.stack([mips.mips_score_user_and_top_k(cpu_uf, cpu_table,
+                                                   cpu_index, j, k).numpy()
+                    for j in range(len(qs))], axis=1)
+    same(card, cpu)
+    rows = np.arange(len(qs))
+    card_b = mips.mips_batch_score_top_k(uf, table, index, rows, k).cpu()
+    cpu_b = mips.mips_batch_score_top_k(cpu_uf, cpu_table, cpu_index, rows,
+                                        k)
+    same(card_b.numpy(), cpu_b.numpy())
+    ids = card[1].astype(np.int64)
+    dots = np.einsum("bk,bnk->bn", qs.astype(np.float64),
+                     vf[ids].astype(np.float64))
+    np.testing.assert_allclose(card[0], dots, rtol=1e-5,
+                               atol=1e-5 * np.abs(dots).max())
+    _s, oracle = kernels.score_topk(uf, table, None, k)
+    recall, _ = recall_against_oracle(ids, oracle.cpu().numpy(), k)
+    assert recall >= 0.95, recall
+
+
+def test_mips_rebuild_swap_on_the_daemon_while_dispatchers_serve(
+        dev, monkeypatch):
+    """Two dispatcher threads drain batches of 64 queries through the
+    two-stage route on one 262,144 × 64 catalogue while the rebuild daemon
+    folds a published tail and swaps the index: every returned (id, score)
+    is the exact f32 dot product (rtol 1e-5); recall@20 against the
+    exhaustive kernel (over the table, and the published rows once they
+    are in) stays ≥ 0.95 on the old index and on the new; the published
+    keys that are their own best match are found first from the tail,
+    then from the ext block."""
+    import threading
+    import time
+
+    from incubator_predictionio_tpu_torch.ops import mips, mips_daemon
+    from incubator_predictionio_tpu_torch.utils.planted import (
+        planted_item_factors,
+        planted_queries,
+        recall_against_oracle,
+    )
+
+    monkeypatch.setenv("PIO_SERVE_MIPS", "on")
+    monkeypatch.setenv("PIO_MIPS_REBUILD_TAIL", "16")
+    n_items, rank, k = 262_144, 64, 20
+    vf = planted_item_factors(n_items, rank, seed=11)
+    table = torch.from_numpy(vf).to(dev)
+    index = mips.build_index(table, n_items, seed=11)
+    qs = planted_queries(vf, 512, seed=5)
+    uf = torch.from_numpy(qs).to(dev)
+    # the published rows: 12 blended vectors (the JAX bench's churn) and
+    # 4 new keys that are their own best match (norm 8, above every row's:
+    # tests/test_mips_lifecycle.py's construction)
+    rng = np.random.default_rng(23)
+    keys = rng.normal(size=(4, rank)).astype(np.float32)
+    keys *= 8.0 / np.linalg.norm(keys, axis=1, keepdims=True)
+    fresh = np.concatenate([planted_queries(vf, 12, seed=9), keys])
+    # 0: nothing published; 1: publishing (answers not held to an
+    # oracle); 2: published, the oracle includes the fresh rows
+    phase = [0]
+    answers, errors = [], []
+    stop = threading.Event()
+
+    def dispatcher(seed):
+        drng = np.random.default_rng(seed)
+        try:
+            while not stop.is_set():
+                rows = drng.integers(0, len(qs), 64)
+                seen, served = phase[0], mips.index_for(table)
+                out = topk.batch_score_top_k(uf, table, rows, k=k)
+                answers.append((rows, seen, served, out.cpu().numpy()))
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    def wait_for(n):
+        deadline = time.monotonic() + 120
+        while len(answers) < n and not errors:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+
+    threads = [threading.Thread(target=dispatcher, args=(s,))
+               for s in (1, 2)]
+    mips_daemon.acquire()
+    try:
+        for t in threads:
+            t.start()
+        wait_for(8)
+        phase[0] = 1
+        vids = mips.publish_rows(table, fresh)
+        phase[0] = 2
+        tail_ids = [int(topk.score_and_top_k(torch.from_numpy(v).to(dev),
+                                             table, k=k)[1][0])
+                    for v in keys]
+        mips_daemon.notify_publish()
+        deadline = time.monotonic() + 300
+        while mips.index_for(table) is index:
+            assert time.monotonic() < deadline and not errors
+            time.sleep(0.02)
+        wait_for(len(answers) + 8)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+        mips_daemon.release()
+    assert not errors, errors
+    new = mips.index_for(table)
+    assert new.n_ext == 16 and new.tail_virtual_size() == 0
+    assert tail_ids == vids[12:].tolist()
+    ext_ids = [int(topk.score_and_top_k(torch.from_numpy(v).to(dev),
+                                        table, k=k)[1][0]) for v in keys]
+    assert ext_ids == vids[12:].tolist()
+    full = np.concatenate([vf, fresh])
+    full_t = torch.from_numpy(full).to(dev)
+    to_row = {int(v): n_items + i for i, v in enumerate(vids)}
+    to_vid = np.concatenate([np.arange(n_items), vids])
+    recalls = {True: [], False: []}
+    for rows, seen, served, out in answers:
+        ids = out[1].astype(np.int64)
+        flat = np.vectorize(lambda i: to_row.get(int(i), int(i)))(ids)
+        dots = np.einsum("bk,bnk->bn", qs[rows].astype(np.float64),
+                         full[flat].astype(np.float64))
+        np.testing.assert_allclose(out[0], dots, rtol=1e-5,
+                                   atol=1e-5 * np.abs(dots).max())
+        if seen == 1:
+            continue
+        _, top_i = kernels.score_topk(uf[rows], full_t if seen else table,
+                                      None, k)
+        oracle = to_vid[top_i.cpu().numpy()]
+        rec, _ = recall_against_oracle(ids, oracle, k)
+        recalls[served is index].append(rec)
+    assert recalls[True] and recalls[False]
+    assert min(np.mean(recalls[True]), np.mean(recalls[False])) >= 0.95

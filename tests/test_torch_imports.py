@@ -5,6 +5,7 @@ served and the stored paths run on the CPU, a second train continuing from
 the first, a train on the native event log, with both blocked), and its
 entry points refuse to pick the CPU on their own."""
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -541,3 +542,71 @@ def test_serving_scheduler_modules_import_nothing_of_jax(module):
         assert out["codes"] == [[200, 3]] * 6 + [[401, 0]]
         assert out["state"] == ["scheduler"]
         assert out["specs"] == "serve_p99@acme"
+
+
+_MIPS_ISOLATED = textwrap.dedent('''
+    import importlib, importlib.abc, json, sys
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+    sys.modules["ml_dtypes"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if (name == "incubator_predictionio_tpu"
+                    or name.startswith("incubator_predictionio_tpu.")):
+                raise ImportError("the port imported " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    importlib.import_module(sys.argv[1])
+    out = {}
+    if sys.argv[1].endswith("mips"):
+        # every quantized view builds, serves and rebuilds
+        import os
+        import torch
+        from incubator_predictionio_tpu_torch.ops import mips, mips_daemon
+        from incubator_predictionio_tpu_torch.utils import planted
+        os.environ["PIO_SERVE_MIPS"] = "on"
+        vf = planted.planted_item_factors(2048, 16, seed=1)
+        out["recall"] = []
+        for quant in ("int8", "bf16", "pq"):
+            os.environ["PIO_SERVE_MIPS_QUANT"] = quant
+            table = torch.from_numpy(vf.copy())
+            mips.build_index(table, 2048, seed=1)
+            mips.publish_rows(table, vf[:3] * 2.0)
+            mips.rebuild_index(table, trigger="manual")
+            out["recall"].append(mips.recall_probe(table, k=10))
+        mips_daemon.acquire()
+        out["daemon"] = mips_daemon.running()
+        mips_daemon.release()
+    out["leaked"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None and (
+            m in ("jax", "jaxlib", "ml_dtypes")
+            or m == "incubator_predictionio_tpu"
+            or m.startswith("incubator_predictionio_tpu.")))
+    print(json.dumps(out))
+''')
+
+
+@pytest.mark.parametrize("module", [
+    "incubator_predictionio_tpu_torch.ops.mips_daemon",
+    "incubator_predictionio_tpu_torch.ops.mips",
+])
+def test_mips_modules_import_nothing_of_jax(module):
+    """The two-stage MIPS modules import with JAX, ``ml_dtypes`` and the
+    JAX package blocked; an int8, a bf16 and a PQ index build, take a
+    publish, rebuild and hold the recall gate, and the daemon starts."""
+    # one intra-op thread: the tensors are small, and a parallel test run
+    # already has a process per core
+    proc = subprocess.run([sys.executable, "-c", _MIPS_ISOLATED, module],
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    if module.endswith("mips"):
+        assert len(out["recall"]) == 3
+        assert min(out["recall"]) >= 0.95, out["recall"]
+        assert out["daemon"] is True
