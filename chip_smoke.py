@@ -6,8 +6,10 @@ the flash-attention kernel), both through the event store: events in
 SQLite or the native log (cpplog) → ``CoreWorkflow.run_train`` → the
 checkpoint → ``load_models`` → /queries.json, and the speed layer behind
 /queries.json (new events folded in on the fused ALS kernel), with the
-ecommerce template's implicit fold-in, and two-stage MIPS serving at
-1,048,576 items.
+ecommerce template's implicit fold-in, two-stage MIPS serving at
+1,048,576 items, ``pio eval`` (evaluation and its metrics), and the
+similarproduct template (implicit ALS, its item-side overlay into the MIPS
+index, DIMSUM and the recommended-user engine).
 
     python3 chip_smoke.py
 
@@ -19,7 +21,13 @@ ratings (from 1,000,000; still every ML-20M user and item, and the same
 ratings feed cpplog's ``pio import``, the speed phase's log and the
 ecommerce template's views); store-seq takes 16 of seq-train's sessions
 (131,088 views, from 524,352); retrain leg (b)'s in-process
-``als_retrain`` runs 2 sweeps (from 4).
+``als_retrain`` runs 2 sweeps (from 4); eval plants 4,096 users (ML-20M
+has 138,493; the items and the rank stay); the similar phase trains 4
+sweeps (the example's engine.json says 20).
+
+Two more cuts for the same limit: the serve-load legs run 2 s (from 4),
+and the quickstart posts 500 single events (from 2,000; the rest go
+through ``pio import``).
 
 Phases, each of which fails the run on any error or mismatch:
 
@@ -76,7 +84,7 @@ Phases, each of which fails the run on any error or mismatch:
              version on the same factors, and the kernel's launch count read.
     serve-load — the same model under concurrent load
              (:func:`serve_load_phase`): closed-loop keep-alive clients
-             in child processes at 1, 16, 64 and 256 for 4 s each through
+             in child processes at 1, 16, 64 and 256 for 2 s each through
              the scheduler (ladder cap 512) and again with
              ``micro_batch=0``, 64 with two dispatcher threads: queries/s,
              p50 / p99 on the client's clock, the fused width
@@ -178,8 +186,8 @@ Phases, each of which fails the run on any error or mismatch:
              legs (200,000 in bodies of 500 on the native body parse; 20,000
              each in bodies of 50 with ``eventTime`` on the doc-level gate
              and, carrying ``tags`` too, the generic per-event path) and
-             2,000 single events, a 51-event body refused (400) at the
-             reference's cap of 50, the child stopped (exit 0); 8,000
+             500 single events, a 51-event body refused (400) at the
+             reference's cap of 50, the child stopped (exit 0); 9,500
              through ``pio import``; ``pio export`` reads every rating back
              once with its value; ``pio build`` and ``pio train`` (rank
              128, 4 sweeps, 2 bf16): the fused ALS and R-row kernels
@@ -258,7 +266,31 @@ Phases, each of which fails the run on any error or mismatch:
              Prints the poll wall by part, fold-ins, hit rate, cursor lag,
              freshness p95, HTTP p50 of overlay and base users, and the
              card's line again.
-16. report — kernel, plain-version and library times (CUDA events, median
+16. eval  — ``pio eval`` through the port's CLI in this process
+             (:func:`eval_phase`) on a fresh SQLite store: 4,096 users ×
+             26,744 items × 32 preference-biased planted ratings (seed 7,
+             131,072), the port's twin of the quickstart's
+             ``evaluation.py``: two folds, ``PrecisionAtK(k=5)``, an
+             untrained and a 4-sweep candidate at rank 128; the winner the
+             trained one, ``best.json`` its params, the instance
+             EVALCOMPLETED, the R-row, fused and score+top-k kernels
+             launched, 64 sampled answers of each fold against the plain
+             top-k of that fold's model. Prints the wall by read, train and
+             queries, and queries/s.
+17. similar — the similarproduct template (:func:`similar_phase`):
+             store-als's 250,000 pairs as views (every 16th a like)
+             through SQLite, ``run_train`` at rank 128 on the fused
+             implicit entry (its loss the plain route's within 1e-6), 64
+             HTTP answers (half filtered) against the plain top-k; the
+             instance deployed again on a memory store with
+             ``PIO_SERVE_MIPS=on``: a brand-new item's views folded in by
+             the overlay, published through ``index_sink`` under a
+             virtual id and served by its key; DIMSUM at 16,384 items
+             against ``scipy.sparse``'s exact cosine, the Gram's ms; the
+             recommended-user engine on 250,000 planted follows over the
+             138,493 users (a memory store), 32 HTTP answers against the
+             plain top-k.
+18. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
              line (flash: the engine's windows, also left-padded with 1 to
              4,096 live keys, and the bench's shapes; the repaired limits'
@@ -270,7 +302,7 @@ Phases, each of which fails the run on any error or mismatch:
 
 ``python3 chip_smoke.py --flash`` runs only the build, the flash-kernel
 phase and the flash timings; ``--topk`` the score+top-k cases and timings;
-``--mips`` the mips phase;
+``--mips`` the mips phase; ``--eval`` and ``--similar`` those phases;
 ``--als`` the ALS cases, every ALS entry timed at the ML-20M bucket
 shapes D 8 to 32,768, f32 and bf16, and the narrow-bucket cell behind
 ``ops/als.py``'s routing constants (:func:`narrow_timings`). Run one from the root and from a
@@ -714,9 +746,10 @@ with open(cfg["out"], "w") as f:
     json.dump(records, f)
 '''
 
-#: client counts of the serve-load legs, and the seconds each runs
+#: client counts of the serve-load legs, and the seconds each runs (cut
+#: from 4 for the script's time limit: a leg still answers thousands)
 LOAD_CLIENTS = (1, 16, 64, 256)
-LOAD_SECONDS = 4.0
+LOAD_SECONDS = 2.0
 #: client processes a leg's clients are spread over (the host's cores
 #: are shared with the server's process)
 LOAD_PROCS = 4
@@ -957,7 +990,7 @@ def serve_load_phase(dev, runtime, kernels, server_mod, engine, params_mod,
     """Concurrent ``/queries.json`` on the path phase's planted model
     (``built``), through the port's HTTP server in this process, from
     closed-loop keep-alive clients in child processes
-    (:func:`run_clients`). (1) 1, 16, 64 and 256 clients for 4 s each,
+    (:func:`run_clients`). (1) 1, 16, 64 and 256 clients for 2 s each,
     with the scheduler (ladder cap 512) and again with ``micro_batch=0``;
     64 clients with two dispatcher threads: queries/s, p50 / p99 on the
     client's clock, the fused width's p50 (``pio_serve_batch_size``) and
@@ -2388,7 +2421,7 @@ CLI = [sys.executable, "-m", "incubator_predictionio_tpu_torch.cli.main"]
 #: (bodies of 50 with ``eventTime``; the generic leg's also carry ``tags``),
 #: single POST /events.json, and the rest through ``pio import``
 QS_LEGS = (("native", 0.8), ("doc", 0.08), ("generic", 0.08),
-           ("single", 0.008))
+           ("single", 0.002))
 #: the three batch legs timed again at one body size each, into an app of
 #: their own: (events per leg and size, body sizes)
 QS_LEG_EVENTS, QS_LEG_SIZES = 10_000, (50, 500)
@@ -6613,6 +6646,797 @@ def mips_phase(dev, runtime, kernels, planted, convert, engine, params_mod,
                            "wall_s": time.perf_counter() - t_phase}
 
 
+# -- evaluation and the similarproduct template -----------------------------
+
+#: the eval phase's planted ratings: 4,096 users (a depth cut for the
+#: script's time limit, from 8,192, whose phase took 52.8 s; the catalogue
+#: and the rank stay at ML-20M width) × 32 ratings each, drawn with the
+#: preference bias of tests/test_quality_planted.py's fixture
+EVAL_USERS = 4_096
+EVAL_PER_USER = 32
+EVAL_APP = "eval-app"
+#: the trained candidate's Precision@5 over the untrained one's, at least:
+#: the first run of these ratings on an H100 80GB HBM3 (700.00 W) read
+#: 0.00708 against 0.00039 (chance, 16 held-out items among ~26,600, is
+#: 0.0006), so 0.004 keeps about 60% of that gap
+EVAL_MARGIN = 0.004
+#: eval queries held to the plain top-k, per fold of each candidate
+EVAL_CHECKED = 64
+#: the port's twin of examples/recommendation-quickstart/evaluation.py
+#: (the same objects, the port's imports): two candidates at the phase's
+#: rank, λ 0.05, seed 3, one untrained (0 sweeps) and one of 4 sweeps
+EVAL_MODULE = '''"""The quickstart's evaluation objects, importing the port.
+
+Run with:
+    pio eval evaluation:evaluation evaluation:engine_params_generator
+"""
+
+from incubator_predictionio_tpu_torch.core.evaluation import Evaluation
+from incubator_predictionio_tpu_torch.core.params import (
+    EngineParams,
+    EngineParamsGenerator,
+)
+from incubator_predictionio_tpu_torch.models.recommendation import (
+    ALSAlgorithmParams,
+    DataSourceParams,
+    PrecisionAtK,
+    RecommendationEngine,
+)
+
+evaluation = Evaluation()
+evaluation.engine_metric = (RecommendationEngine().apply(), PrecisionAtK(k=5))
+
+
+class _Generator(EngineParamsGenerator):
+    engine_params_list = [
+        EngineParams(
+            data_source_params=("", DataSourceParams(app_name={app!r},
+                                                     eval_k=2)),
+            algorithm_params_list=[
+                ("als", ALSAlgorithmParams(rank={rank}, num_iterations=iters,
+                                           lambda_=0.05, seed=3))
+            ],
+        )
+        for iters in (0, 4)
+    ]
+
+
+engine_params_generator = _Generator()
+'''
+
+
+def eval_ratings(n_users: int, n_items: int, per_user: int, dev,
+                 plant_rank: int = 16, sigma: float = 0.35, seed: int = 7):
+    """(users, items, ratings): ratings 3.5 + U·Vᵀ + N(0, σ) at plant
+    rank 16, each user's ``per_user`` distinct items drawn with
+    probability ∝ exp(2·(true score − max)), as tests/test_quality_
+    planted.py's fixture draws them: without replacement, here in bulk
+    on ``dev`` as the ``per_user`` smallest E_i / w_i over E_i ~ Exp(1)
+    (the exponential race, the same law as successive draws).
+    ``utils/planted.planted_ratings`` draws by popularity, where held-out
+    precision cannot tell a trained model from chance (the fixture's
+    docstring)."""
+    rng = np.random.default_rng(seed)
+    u_true = rng.normal(0, 1 / np.sqrt(plant_rank),
+                        (n_users, plant_rank)).astype(np.float32)
+    v_true = rng.normal(0, 1.0, (n_items, plant_rank)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v_dev = torch.from_numpy(v_true).to(dev)
+    picks = []
+    for lo in range(0, n_users, 2048):
+        u_dev = torch.from_numpy(u_true[lo:lo + 2048]).to(dev)
+        keys = 2.0 * (u_dev @ v_dev.T)
+        race = torch.empty_like(keys).exponential_(generator=gen)
+        picks.append(torch.topk(keys - torch.log(race), per_user,
+                                dim=1).indices.cpu())
+    users = np.repeat(np.arange(n_users), per_user)
+    items = torch.cat(picks).numpy().ravel()
+    ratings = (3.5 + np.einsum("nk,nk->n", u_true[users], v_true[items])
+               + rng.normal(0, sigma, len(users)))
+    return (users.astype(np.int32), items.astype(np.int32),
+            ratings.astype(np.float32))
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, wrap):
+    """``obj.name`` replaced by ``wrap(original)`` around a block."""
+    real = getattr(obj, name)
+    setattr(obj, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def hold_top(kernels, dev, qvec, table, mask, got, num: int, what: str,
+             positive: bool = False) -> float:
+    """One served answer (``got``: [(row, score)]) against the plain
+    version of the score+top-k kernel on the same query vector and table,
+    ``mask`` (numpy bool, or None) the items it may return: ids equal
+    except near-ties, scores rtol 1e-5 (:func:`check_topk`). With
+    ``positive`` the answer keeps only scores above 0, as the
+    recommended-user template does."""
+    allowed = None if mask is None else torch.from_numpy(mask).to(dev)
+    n_live = num if mask is None else min(num, int(mask.sum()))
+    ref_s, ref_i = kernels.score_topk_plain(
+        qvec.reshape(1, -1).to(table.dtype), table, allowed,
+        min(num + 1, table.shape[0]))
+    ref_s, ref_i = ref_s.cpu(), ref_i.cpu()
+    if positive:
+        n_live = int((ref_s[0, :n_live] > 0).sum())
+    if len(got) != n_live:
+        raise AssertionError(f"{what}: {len(got)} items, expected {n_live}")
+    got_s = np.array([[s for _r, s in got]], np.float64).reshape(1, -1)
+    got_i = np.array([[r for r, _s in got]], np.int64).reshape(1, -1)
+    return check_topk(got_s, got_i, ref_s[:, :n_live + 1],
+                      ref_i[:, :n_live + 1], n_live, what)
+
+
+def eval_phase(dev, runtime, kernels, small: bool = False) -> tuple:
+    """``pio eval`` through the port's CLI, in this process
+    (``cli.main.main``), on a fresh SQLite store at ML-20M width: an app,
+    ``EVAL_USERS`` × 26,744 items × ``EVAL_PER_USER`` planted ratings
+    (:func:`eval_ratings`, seed 7; 131,072 in all) through
+    ``import_interactions``, the port's twin of the quickstart's
+    ``evaluation.py`` (``EVAL_MODULE``) written into a work directory, and
+    ``pio eval evaluation:evaluation evaluation:engine_params_generator
+    --output-best``: two folds (``eval_k`` 2) per candidate, each trained
+    on the card (the R-row and fused ALS entries) and its ~4,096 queries
+    (``exclude_seen``, so one ``predict`` each, JAX engine.py:733)
+    answered by the score+top-k kernel, then ``PrecisionAtK(k=5)``.
+    Checks: exit 0; the one-liner and the instance id printed; the
+    EvaluationInstance EVALCOMPLETED; the winner the trained candidate,
+    its Precision@5 above the untrained one's by ``EVAL_MARGIN``;
+    ``best.json`` the winner's ``to_jsonable()``; the fused, R-row and
+    score+top-k kernels launched; ``EVAL_CHECKED`` sampled answers of
+    each fold of each candidate equal to the plain top-k of that fold's
+    model with the user's training items excluded. (300 users × 500
+    items × rank 16 when ``small``, the rehearsal on the CPU.) Returns
+    (launches by kernel, max score error, stats)."""
+    from incubator_predictionio_tpu_torch.cli import main as cli_main
+    from incubator_predictionio_tpu_torch.data.interactions import (
+        Interactions,
+    )
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+    from incubator_predictionio_tpu_torch.models.recommendation import (
+        engine as rec,
+    )
+    from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
+
+    n_users = 300 if small else EVAL_USERS
+    n_items = 500 if small else ML20M["items"]
+    rank = 16 if small else ML20M["rank"]
+    t_phase = time.perf_counter()
+    stats: dict = {"users": n_users, "items": n_items, "rank": rank}
+    with temp_store() as home:
+        app_id = new_app(EVAL_APP)
+        t0 = time.perf_counter()
+        users, items, ratings = eval_ratings(n_users, n_items,
+                                             EVAL_PER_USER, dev)
+        stats["ratings"] = int(len(ratings))
+        stats["gen_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Storage.get_events().import_interactions(
+            Interactions(user_idx=users, item_idx=items, values=ratings,
+                         user_ids=[f"u{k}" for k in range(n_users)],
+                         item_ids=[f"i{k}" for k in range(n_items)]),
+            app_id, base_time=parse_iso8601(STORE_T0))
+        stats["import_s"] = time.perf_counter() - t0
+        work = os.path.join(home, "eval-work")
+        os.makedirs(work)
+        with open(os.path.join(work, "evaluation.py"), "w") as f:
+            f.write(EVAL_MODULE.format(app=EVAL_APP, rank=rank))
+        best_path = os.path.join(work, "best.json")
+
+        walls = {"read": 0.0, "train": 0.0, "queries": 0.0}
+        n_queries = [0]
+        folds: dict = {}    # id(model) → [candidate, fold, model, answers]
+        trained = {0: 0, 1: 0}
+
+        def timed(part, fn):
+            def run(*a, **kw):
+                sync(dev)
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                sync(dev)
+                walls[part] += time.perf_counter() - t
+                return out
+            return run
+
+        def train_wrap(real):
+            def train(self, ctx, pd):
+                model = timed("train", real)(self, ctx, pd)
+                cand = 0 if self.params.num_iterations == 0 else 1
+                folds[id(model)] = [cand, trained[cand], model, []]
+                trained[cand] += 1
+                return model
+            return train
+
+        def predict_wrap(real):
+            def batch_predict(self, model, queries):
+                out = timed("queries", real)(self, model, queries)
+                n_queries[0] += len(queries)
+                by_qx = dict(queries)
+                folds[id(model)][3] += [(by_qx[qx], p) for qx, p in out]
+                return out
+            return batch_predict
+
+        captured = []
+        saved_term = signal.getsignal(signal.SIGTERM)
+        cwd = os.getcwd()
+        runtime.reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        try:
+            os.chdir(work)
+            with patched(rec.RecommendationDataSource, "read_eval",
+                         lambda real: timed("read", real)), \
+                    patched(rec.ALSAlgorithm, "train", train_wrap), \
+                    patched(rec.ALSAlgorithm, "batch_predict",
+                            predict_wrap), \
+                    contextlib.redirect_stdout(LineSink(captured)), \
+                    env_set(PIO_DEVICE="cpu" if dev.type == "cpu"
+                            else None):
+                rc = cli_main.main([
+                    "eval", "evaluation:evaluation",
+                    "evaluation:engine_params_generator",
+                    "--output-best", best_path])
+        finally:
+            os.chdir(cwd)
+            signal.signal(signal.SIGTERM, saved_term)
+        sync(dev)
+        stats["pio_eval_s"] = time.perf_counter() - t0
+        launches = runtime.launch_counts()
+        module = sys.modules.pop("evaluation", None)
+        lines = "".join(captured).strip().splitlines()
+        if rc != 0 or len(lines) < 2 or not lines[-2].startswith("[") \
+                or not lines[-1].startswith(
+                    "Evaluation completed. Instance ID: "):
+            raise AssertionError(f"eval: pio eval exited {rc}: {lines}")
+        iid = lines[-1].rsplit(" ", 1)[1]
+        inst = Storage.get_meta_data_evaluation_instances().get(iid)
+        if inst is None or inst.status != "EVALCOMPLETED":
+            raise AssertionError(f"eval: instance {iid} is "
+                                 f"{inst and inst.status}")
+        result = json.loads(inst.evaluator_results_json)
+        scores = [s["score"]["score"] for s in result["engineParamsScores"]]
+        stats.update(one_liner=lines[-2], best_idx=result["bestIdx"],
+                     precision_at_5=scores)
+        if result["bestIdx"] != 1 or not scores[1] > scores[0] + EVAL_MARGIN:
+            raise AssertionError(f"eval: winner {result['bestIdx']}, "
+                                 f"Precision@5 {scores}")
+        winner = module.engine_params_generator.engine_params_list[1]
+        with open(best_path) as f:
+            best = json.load(f)
+        if best != winner.to_jsonable() \
+                or result["bestEngineParams"] != best:
+            raise AssertionError(f"eval: best.json {best}")
+        on_path = {e: launches.get(e, 0) for e in
+                   ("score_topk", "als_solve_cg_rows8", "als_fused_solve_cg",
+                    "als_solve_cg")}
+        if dev.type == "cuda" and not (
+                on_path["score_topk"] >= n_queries[0]
+                and on_path["als_solve_cg_rows8"] > 0
+                and on_path["als_fused_solve_cg"] > 0):
+            raise AssertionError(f"eval: launches {on_path}")
+
+        # sampled answers of each fold against the plain top-k
+        t0 = time.perf_counter()
+        err, rng = 0.0, np.random.default_rng(17)
+        if sorted((c, f) for c, f, _m, _a in folds.values()) != \
+                [(0, 0), (0, 1), (1, 0), (1, 1)]:
+            raise AssertionError(f"eval: folds {list(folds.values())}")
+        for cand, fold, model, answers in folds.values():
+            for j in rng.choice(len(answers), min(EVAL_CHECKED,
+                                                  len(answers)),
+                                replace=False):
+                q, p = answers[j]
+                row = model.user_bimap[q.user]
+                mask = np.ones(len(model.item_bimap), bool)
+                mask[model.user_seen[row]] = False
+                got = [(model.item_bimap[s.item], s.score)
+                       for s in p.item_scores]
+                err = max(err, hold_top(
+                    kernels, dev, model.user_factors[row],
+                    model.item_factors, mask, got, q.num,
+                    f"eval candidate {cand} fold {fold} {q.user}"))
+        stats["checked"] = 4 * EVAL_CHECKED
+        stats["check_s"] = time.perf_counter() - t0
+    stats.update({f"{k}_s": v for k, v in walls.items()},
+                 queries=n_queries[0],
+                 queries_per_s=n_queries[0] / max(walls["queries"], 1e-9),
+                 launches=on_path, wall_s=time.perf_counter() - t_phase)
+    return on_path, err, stats
+
+
+class LineSink:
+    """A ``sys.stdout`` stand-in that keeps what is written (for the
+    CLI's output) and echoes it to the real stdout."""
+
+    def __init__(self, out: list):
+        self.out = out
+        self.real = sys.stdout
+
+    def write(self, s: str) -> int:
+        self.out.append(s)
+        return self.real.write(s)
+
+    def flush(self) -> None:
+        self.real.flush()
+
+
+@contextlib.contextmanager
+def memory_store():
+    """The port's Storage on the memory backend for a block (a store with
+    a tail read, and imports and reads far cheaper than SQLite's), put
+    back to the environment's configuration afterwards."""
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+
+    Storage.configure({
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+           for r in ("METADATA", "EVENTDATA", "MODELDATA")
+           for k, v in (("NAME", f"pio_{r.lower()}"), ("SOURCE", "MEM"))}})
+    try:
+        yield
+    finally:
+        Storage.reset()
+
+
+SIMILAR_APP = "similar-app"
+#: the similar phase's sweeps: the example's engine.json trains 20
+#: (examples/similarproduct-quickstart/engine.json); 4 is a depth cut
+SIMILAR_SWEEPS = 4
+#: queries of the similar phase's legs
+SIMILAR_QUERIES = 64
+FOLLOW_QUERIES = 32
+#: DIMSUM's item ceiling (ops/dimsum.MAX_ITEMS) and the tolerance of
+#: tests/test_other_templates.py::test_dimsum_matches_numpy_cosine
+DIMSUM_TOL = 2e-3
+DIMSUM_CHECKED = 64
+
+
+def similar_views(planted, small: bool = False):
+    """store-als's planted pairs (:func:`store_als_ratings`) as the
+    similarproduct template's events: every 16th a ``like``, the rest
+    ``view``s. Returns (users, items, is_like, n_users, n_items)."""
+    users, items, _r, n_users, n_items = store_als_ratings(planted, small)
+    is_like = np.arange(len(users)) % 16 == 0
+    return users, items, is_like, n_users, n_items
+
+
+def import_pairs(app_id: int, users, items, names, user_ids, item_ids,
+                 target: str = "item") -> float:
+    """(user, target) pairs into the store through ``import_interactions``,
+    one call per event name (``names``: a name per pair); the wall."""
+    from incubator_predictionio_tpu_torch.data.interactions import (
+        Interactions,
+    )
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+    from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
+
+    t0 = time.perf_counter()
+    for name in sorted(set(names.tolist())):
+        m = names == name
+        Storage.get_events().import_interactions(
+            Interactions(user_idx=users[m], item_idx=items[m],
+                         values=np.ones(int(m.sum()), np.float32),
+                         user_ids=user_ids, item_ids=item_ids),
+            app_id, target_entity_type=target, event_name=str(name),
+            value_prop="weight", base_time=parse_iso8601(STORE_T0))
+    return time.perf_counter() - t0
+
+
+def unit(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.clamp(torch.linalg.norm(v), min=1e-9)
+
+
+def similar_phase(dev, runtime, kernels, als, planted, params_mod, context,
+                  server_mod, small: bool = False) -> tuple:
+    """The similarproduct template (``models/similarproduct/``) at ML-20M
+    width, in this process. (a) On a fresh SQLite store: store-als's
+    250,000 planted pairs as ``view`` events, every 16th a ``like``
+    (:func:`similar_views`), the items' ``$set`` categories ``c<id mod
+    4>``; ``CoreWorkflow.run_train`` of ``SimilarProductEngine`` at rank
+    128, λ 0.01, α 1 (examples/similarproduct-quickstart/engine.json),
+    ``SIMILAR_SWEEPS`` sweeps; the fused implicit entry launched and no
+    two-stage form; the implicit loss within ``IMPLICIT_LOSS_TOL`` of the
+    plain route's from the same initial state; ``load_models``' tables the
+    trained ones bit for bit; ``PredictionServer`` with the model: 64
+    ``/queries.json`` answers of ``{"items": [...], "num": 10}``, half with
+    ``categories`` or ``blackList``, each the plain top-k of the
+    normalized mean of the query items' unit rows with the same mask. (b)
+    The instance copied to a memory store (SQLite has no tail read) and
+    deployed with ``PIO_SERVE_MIPS=on``: the server's overlay (item-side,
+    ``index_sink`` into the MIPS index built at deploy) polled by hand
+    after the views of a brand-new item, the viewers of the most-viewed
+    item X, arrive; the new item folded in (the fused entry), published
+    under a virtual id, named by a query that answers (its scores the
+    exact dots) and returned under its key by a query for X, at its exact
+    score; every answer a 200. (c) ``DIMSUMAlgorithm`` at its ceiling of
+    16,384 items on the views of items below 16,384: 64 sampled items'
+    top-100 against the exact cosine from ``scipy.sparse`` within
+    ``DIMSUM_TOL``; the Gram's ms on the card. (d) The recommended-user
+    engine on 250,000 planted ``follow`` pairs among the 138,493 users
+    (seed 13) through a memory store (SQLite's import and read of them
+    took 17.8 + 6.0 s), rank 128, 4 sweeps: 32 queries through
+    the server, each the plain top-k over the 138,493-row unit feature
+    table (positive scores only), some with ``whiteList`` /
+    ``blackList``. Returns (launches by kernel: the training and query
+    legs', and the fold-in's under "foldin", max score error, stats)."""
+    import scipy.sparse as sps
+
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.interactions import (
+        Interactions,
+    )
+    from incubator_predictionio_tpu_torch.data.storage import Model, Storage
+    from incubator_predictionio_tpu_torch.models.similarproduct import (
+        engine as sp,
+    )
+    from incubator_predictionio_tpu_torch.models.similarproduct import (
+        recommended_user as ru,
+    )
+    from incubator_predictionio_tpu_torch.ops import dimsum, mips
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    rank = 16 if small else ML20M["rank"]
+    t_phase = time.perf_counter()
+    stats: dict = {"rank": rank}
+    #: launches of the phase's legs: the score+top-k kernel's, the fused
+    #: entry's in implicit training ((a) and (d)) and in the fold-in ((b))
+    launches = {"score_topk": 0, "implicit": 0, "foldin": 0}
+    err = 0.0
+    users, items, is_like, n_users, n_items = similar_views(planted, small)
+    names = np.where(is_like, "like", "view")
+    user_ids = [f"u{k}" for k in range(n_users)]
+    item_ids = [f"i{k}" for k in range(n_items)]
+    eng = sp.SimilarProductEngine().apply()
+    ep = params_mod.EngineParams(
+        data_source_params=("", sp.DataSourceParams(app_name=SIMILAR_APP)),
+        algorithm_params_list=[("als", sp.ALSAlgorithmParams(
+            rank=rank, num_iterations=SIMILAR_SWEEPS, lambda_=0.01,
+            alpha=1.0, seed=3))])
+
+    def counts(*entries) -> dict:
+        got = runtime.launch_counts()
+        return {e: got.get(e, 0) for e in entries}
+
+    # -- (a) train, deploy, 64 answers on SQLite ----------------------------
+    with temp_store():
+        app_id = new_app(SIMILAR_APP)
+        stats["import_s"] = import_pairs(app_id, users, items, names,
+                                         user_ids, item_ids)
+        insert_events(
+            [Event(event="$set", entity_type="item", entity_id=item_ids[k],
+                   properties=DataMap({"categories": [f"c{k % 4}"]}))
+             for k in range(n_items)], app_id)
+        kept, states, pds = keep_trained(eng), [], []
+        ctx = context.RuntimeContext(device=dev)
+        runtime.reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        with patched(als, "als_train_implicit",
+                     lambda real: lambda *a, **kw: states.append(
+                         real(*a, **kw)) or states[-1]), \
+                patched(sp.SimilarProductPreparator, "prepare",
+                        lambda real: lambda self, c, td: pds.append(
+                            real(self, c, td)) or pds[-1]):
+            iid = CoreWorkflow.run_train(eng, ep, ctx=ctx)
+        sync(dev)
+        stats["train_s"] = time.perf_counter() - t0
+        stats["phases_s"] = dict(ctx.timings)
+        trained = counts("als_fused_solve_cg", "als_solve_cg_rows8",
+                         "als_solve_cg")
+        launches["implicit"] += trained["als_fused_solve_cg"]
+        stats["train_launches"] = trained
+        if dev.type == "cuda" and (trained["als_fused_solve_cg"] <= 0
+                                   or trained["als_solve_cg_rows8"]
+                                   or trained["als_solve_cg"]):
+            raise AssertionError(f"similar: training launches {trained}")
+        [state], [pd] = states, pds
+        t0 = time.perf_counter()
+        plain = als.als_train_implicit(
+            pd.users, pd.items, pd.weights, len(pd.user_bimap),
+            len(pd.item_bimap), rank=rank, iterations=SIMILAR_SWEEPS,
+            l2=0.01, alpha=1.0, seed=3, device=dev, use_kernel=False)
+        sync(dev)
+        stats["plain_train_s"] = time.perf_counter() - t0
+        loss = als.implicit_loss(state, pd.users, pd.items, pd.weights,
+                                 1.0, 0.01)
+        loss_plain = als.implicit_loss(plain, pd.users, pd.items,
+                                       pd.weights, 1.0, 0.01)
+        rel = abs(loss - loss_plain) / abs(loss_plain)
+        stats.update(loss=loss, loss_plain=loss_plain, loss_rel_err=rel)
+        if not (np.isfinite(loss) and rel <= IMPLICIT_LOSS_TOL):
+            raise AssertionError(f"similar: implicit loss {loss!r} against "
+                                 f"the plain route's {loss_plain!r}")
+        del plain
+        instance = Storage.get_meta_data_engine_instances().get(iid)
+        blob = Storage.get_model_data_models().get(iid).models
+        [model] = CoreWorkflow.load_models(iid, eng, ep, ctx=ctx)
+        table = model.item_factors_norm
+        if not (torch.equal(table, kept[0].item_factors_norm)
+                and torch.equal(table, sp._unit_rows(state.item_factors))
+                and torch.equal(model.user_factors, state.user_factors)):
+            raise AssertionError("similar: decoded tables differ from the "
+                                 "trained ones")
+        rng = np.random.default_rng(21)
+        docs = []
+        for j in range(SIMILAR_QUERIES):
+            q_items = rng.choice(n_items, 1 + j % 3, replace=False)
+            doc = {"items": [item_ids[i] for i in q_items], "num": 10}
+            if j % 4 == 1:
+                doc["categories"] = [f"c{j % 4}", f"c{(j + 1) % 4}"]
+            elif j % 4 == 3:
+                doc["blackList"] = [item_ids[i] for i in
+                                    rng.choice(n_items, 50, replace=False)]
+            docs.append(doc)
+        srv = server_mod.PredictionServer(eng, ep, [model], device=dev)
+        port = srv.start_background()
+        try:
+            runtime.reset_launch_counts()
+            walls, answers = [], []
+            for doc in docs:
+                t0 = time.perf_counter()
+                answers.append(post(port, doc))
+                walls.append(time.perf_counter() - t0)
+            served = counts("score_topk")["score_topk"]
+            launches["score_topk"] += served
+        finally:
+            srv.stop()
+        if dev.type == "cuda" and served < len(docs):
+            raise AssertionError(f"similar: score+top-k launched {served}")
+        row_cat = np.empty(n_items, np.int64)  # c<k mod 4> of item i<k>
+        for name, row in model.item_bimap.items():
+            row_cat[row] = int(name[1:]) % 4
+        for doc, body in zip(docs, answers):
+            rows = [model.item_bimap[i] for i in doc["items"]]
+            mask = np.ones(n_items, bool)
+            if "categories" in doc:
+                mask &= np.isin(row_cat,
+                                [int(c[1:]) for c in doc["categories"]])
+            for i in doc.get("blackList", ()):
+                mask[model.item_bimap[i]] = False
+            mask[rows] = False
+            qv = unit(table[torch.as_tensor(rows, device=table.device)]
+                      .sum(0) / len(rows))
+            got = [(model.item_bimap[x["item"]], x["score"])
+                   for x in body["itemScores"]]
+            err = max(err, hold_top(kernels, dev, qv, table, mask, got, 10,
+                                    f"similar {doc['items']}"))
+        stats["http_p50_ms"] = 1e3 * statistics.median(walls)
+        del srv, model, kept[:], state
+    stats["a_s"] = time.perf_counter() - t_phase
+    print(f"similar-a: {stats['a_s']:.1f} s", flush=True)
+
+    # -- (b) the item-side overlay and the MIPS index -----------------------
+    x_rank = np.bincount(items, minlength=n_items)
+    x = int(np.argmax(x_rank))
+    new_item = "brand-new-item"
+    t0 = time.perf_counter()
+    srv = table = None
+    with env_set(PIO_SERVE_MIPS="on", PIO_SPEED_POLL_S="3600"), \
+            memory_store():
+        try:
+            app_id = new_app(SIMILAR_APP)
+            Storage.get_meta_data_engine_instances().insert(instance)
+            Storage.get_model_data_models().insert(Model(iid, blob))
+            runtime.reset_launch_counts()
+            srv = server_mod.PredictionServer(
+                eng, device=dev, config=server_mod.ServerConfig(
+                    ip="127.0.0.1", port=0, engine_instance_id=iid))
+            port = srv.start_background()
+            [ov] = srv._speed_overlays
+            algo, model = srv.algorithms[0], srv.models[0]
+            table = model.item_factors_norm
+            index = mips.index_for(table)
+            if ov is None or not ov.enabled or index is None \
+                    or ov.index_sink is None:
+                raise AssertionError("similar: no overlay or MIPS index")
+            viewers = np.nonzero(items == x)[0]
+            Storage.get_events().insert_batch([
+                Event(event=str(names[k]), entity_type="user",
+                      entity_id=user_ids[users[k]],
+                      target_entity_type="item", target_entity_id=new_item)
+                for k in viewers], app_id)
+            polled = ov.poll()
+            vec = ov.lookup(new_item)
+            gid = getattr(algo, "_mips_virtual_by_key", {}).get(new_item)
+            if vec is None or gid is None or gid < len(model.item_bimap) \
+                    or index.tail_size() < 1:
+                raise AssertionError(f"similar: {new_item} not published "
+                                     f"({polled}, gid {gid})")
+            vec_t = torch.from_numpy(np.asarray(vec, np.float32)).to(dev)
+            x_row = table[model.item_bimap[item_ids[x]]]
+            by_x = post(port, {"items": [item_ids[x]], "num": 10})
+            by_new = post(port, {"items": [new_item], "num": 10})
+            named = {e["item"]: e["score"] for e in by_x["itemScores"]}
+            if new_item not in named or not by_new["itemScores"] \
+                    or new_item in {e["item"] for e in by_new["itemScores"]}:
+                raise AssertionError(f"similar: overlay answers {by_x} "
+                                     f"{by_new}")
+            for body, qv in ((by_x, x_row), (by_new, unit(vec_t))):
+                for e in body["itemScores"]:
+                    row = (vec_t if e["item"] == new_item
+                           else table[model.item_bimap[e["item"]]])
+                    exact = float(qv @ row)
+                    if abs(e["score"] - exact) > 1e-5 * max(abs(exact), 1):
+                        raise AssertionError(
+                            f"similar: {e} against the exact {exact}")
+            stats["overlay"] = {
+                "x": item_ids[x], "viewers": int(len(viewers)),
+                "poll": {k: polled[k] for k in ("solved", "tail_rows")
+                         if k in polled},
+                "virtual_id": int(gid), "tail": index.tail_size(),
+                "new_item_score": named[new_item],
+                "new_item_rank": list(named).index(new_item)}
+            got = counts("als_fused_solve_cg", "score_topk")
+            launches["foldin"] += got["als_fused_solve_cg"]
+            launches["score_topk"] += got["score_topk"]
+            if dev.type == "cuda" and got["als_fused_solve_cg"] <= 0:
+                raise AssertionError("similar: the fold-in launched nothing")
+        finally:
+            if srv is not None:
+                srv.stop()
+            if table is not None:
+                mips.unregister_index(table)
+    stats["overlay_s"] = time.perf_counter() - t0
+    print(f"similar-b: {stats['overlay_s']:.1f} s", flush=True)
+
+    # -- (c) DIMSUM at its ceiling ----------------------------------------
+    t0 = time.perf_counter()
+    n_dim = min(dimsum.MAX_ITEMS, n_items)
+    m = items < n_dim
+    weights = np.where(is_like, 3.0, 1.0).astype(np.float32)
+    pd_d = sp.SimilarProductPreparator().prepare(
+        context.RuntimeContext(device=dev), sp.TrainingData(
+            interactions=Interactions(
+                user_idx=users[m], item_idx=items[m], values=weights[m],
+                user_ids=user_ids, item_ids=item_ids[:n_dim])))
+    ctx = context.RuntimeContext(device=dev)
+    dim = sp.DIMSUMAlgorithm(sp.DIMSUMAlgorithmParams(threshold=0.1,
+                                                      top_n=100))
+    gram_ms = []
+
+    def timed_gram(real):
+        def run(*a, **kw):
+            sync(dev)
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            sync(dev)
+            gram_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+        return run
+
+    with patched(dimsum, "gram", timed_gram):
+        dmodel = dim.train(ctx, pd_d)
+    stats["dimsum_train_s"] = time.perf_counter() - t0
+    stats["dimsum_gram_ms"] = gram_ms[0]
+    x_sp = sps.csr_matrix((pd_d.weights.astype(np.float64),
+                           (pd_d.users, pd_d.items)),
+                          shape=(len(pd_d.user_bimap), n_dim))
+    gram = (x_sp.T @ x_sp).tocsr()
+    norms = np.sqrt(np.maximum(gram.diagonal(), 1e-12))
+    worst, rng = 0.0, np.random.default_rng(23)
+    rated = np.nonzero(np.diff(gram.indptr) > 1)[0]
+    for i in rng.choice(rated, min(DIMSUM_CHECKED, len(rated)),
+                        replace=False):
+        ref = gram.getrow(i).toarray().ravel() / (norms[i] * norms)
+        ref[i] = 0.0
+        ref[ref < 0.1] = 0.0
+        got = np.zeros(n_dim)
+        got[dmodel.sim_indices[i]] = dmodel.sim_scores[i]
+        top_ref = np.sort(ref)[::-1][:100]
+        worst = max(worst, float(np.abs(np.sort(dmodel.sim_scores[i])[::-1]
+                                        - top_ref).max()))
+        live = dmodel.sim_scores[i] > 0
+        worst = max(worst, float(np.abs(
+            dmodel.sim_scores[i][live]
+            - ref[dmodel.sim_indices[i][live]]).max(initial=0.0)))
+        if worst > DIMSUM_TOL:
+            raise AssertionError(f"dimsum: item {i} off the exact cosine by "
+                                 f"{worst}")
+    top = int(np.argmax(dmodel.sim_scores[:, 0]))
+    r = dim.predict(dmodel, sp.Query(items=(pd_d.item_bimap.inverse[top],),
+                                     num=10))
+    if not r.item_scores:
+        raise AssertionError(f"dimsum: item {top} has no neighbours served")
+    stats["dimsum"] = {"items": n_dim, "pairs": int(len(pd_d.users)),
+                       "max_err": worst, "answer": len(r.item_scores),
+                       "with_neighbours": int((dmodel.sim_scores[:, 0] > 0)
+                                              .sum()),
+                       "padded_rows": int((dmodel.sim_scores == 0)
+                                          .any(axis=1).sum())}
+    stats["dimsum_s"] = time.perf_counter() - t0
+    print(f"similar-c: {stats['dimsum_s']:.1f} s", flush=True)
+    del dmodel, gram, x_sp
+
+    # -- (d) recommended-user over the whole user table ---------------------
+    t0 = time.perf_counter()
+    fu, fv, _r, _h = planted.planted_ratings(
+        n_users=n_users, n_items=n_users, nnz=20_000 if small else 250_000,
+        seed=13, n_holdout=1, cover=True)
+    with memory_store():
+        app_id = new_app("follow-app")
+        stats["follow_import_s"] = import_pairs(
+            app_id, fu, fv, np.full(len(fu), "follow"), user_ids, user_ids,
+            target="user")
+        ru_eng = ru.RecommendedUserEngine().apply()
+        ru_ep = params_mod.EngineParams(
+            data_source_params=("", ru.DataSourceParams(app_name="follow-app")),
+            algorithm_params_list=[("als", ru.ALSAlgorithmParams(
+                rank=rank, num_iterations=4, lambda_=0.01, seed=3))])
+        kept = keep_trained(ru_eng)
+        ctx = context.RuntimeContext(device=dev)
+        runtime.reset_launch_counts()
+        ru_iid = CoreWorkflow.run_train(ru_eng, ru_ep, ctx=ctx)
+        sync(dev)
+        stats["follow_phases_s"] = dict(ctx.timings)
+        trained = counts("als_fused_solve_cg", "als_solve_cg_rows8",
+                         "als_solve_cg")
+        launches["implicit"] += trained["als_fused_solve_cg"]
+        if dev.type == "cuda" and (trained["als_fused_solve_cg"] <= 0
+                                   or trained["als_solve_cg_rows8"]
+                                   or trained["als_solve_cg"]):
+            raise AssertionError(f"recommended-user: launches {trained}")
+        [rmodel] = CoreWorkflow.load_models(ru_iid, ru_eng, ru_ep, ctx=ctx)
+        feats = rmodel.user_features
+        if not torch.equal(feats, kept[0].user_features):
+            raise AssertionError("recommended-user: decoded table differs")
+        rng = np.random.default_rng(29)
+        docs = []
+        inv = rmodel.user_bimap.inverse
+        for j in range(FOLLOW_QUERIES):
+            q_rows = rng.choice(len(rmodel.user_bimap), 1 + j % 2,
+                                replace=False)
+            doc = {"users": [inv[int(r)] for r in q_rows], "num": 10}
+            if j % 4 in (1, 3):
+                n_known = len(rmodel.user_bimap)
+                picked = [inv[int(r)] for r in rng.choice(
+                    n_known, min(500, n_known // 2) if j % 4 == 1 else 50,
+                    replace=False)]
+                doc["whiteList" if j % 4 == 1 else "blackList"] = picked
+            docs.append(doc)
+        srv = server_mod.PredictionServer(ru_eng, ru_ep, [rmodel], device=dev)
+        port = srv.start_background()
+        try:
+            runtime.reset_launch_counts()
+            answers = [post(port, doc) for doc in docs]
+            served = counts("score_topk")["score_topk"]
+            launches["score_topk"] += served
+        finally:
+            srv.stop()
+        if dev.type == "cuda" and served < len(docs):
+            raise AssertionError(f"recommended-user: score+top-k {served}")
+        for doc, body in zip(docs, answers):
+            rows = [rmodel.user_bimap[u] for u in doc["users"]]
+            mask = np.ones(len(rmodel.user_bimap), bool)
+            if "whiteList" in doc:
+                mask[:] = False
+                mask[[rmodel.user_bimap[u] for u in doc["whiteList"]]] = True
+            for u in doc.get("blackList", ()):
+                mask[rmodel.user_bimap[u]] = False
+            mask[rows] = False
+            qv = feats[torch.as_tensor(rows, device=feats.device)].sum(0)
+            got = [(rmodel.user_bimap[x["user"]], x["score"])
+                   for x in body["similarUserScores"]]
+            err = max(err, hold_top(kernels, dev, qv, feats, mask, got, 10,
+                                    f"recommended-user {doc['users']}",
+                                    positive=True))
+        stats["follow"] = {"users": len(rmodel.user_bimap),
+                           "pairs": int(len(fu)),
+                           "answers": sum(len(b["similarUserScores"])
+                                          for b in answers)}
+    stats["follow_s"] = time.perf_counter() - t0
+    stats["launches"] = dict(launches)
+    stats["wall_s"] = time.perf_counter() - t_phase
+    return launches, err, stats
+
+
 def topk_only(dev, kernels, planted) -> int:
     """``--topk``: the score+top-k kernel alone (its cases, the edge cases,
     then its timings), for an A/B of two copies of the package."""
@@ -6736,7 +7560,8 @@ def main() -> int:
     native.load()
     print(f"build-native: {note_wall('build-native', t0):.1f} s", flush=True)
     mode = sys.argv[1:]
-    if mode not in ([], ["--flash"], ["--topk"], ["--als"], ["--mips"]):
+    if mode not in ([], ["--flash"], ["--topk"], ["--als"], ["--mips"],
+                    ["--eval"], ["--similar"]):
         print(f"chip_smoke: unknown arguments {mode}", file=sys.stderr)
         return 2
     if mode in ([], ["--flash"]):
@@ -6763,6 +7588,21 @@ def main() -> int:
         print(f"mips-card: {card_line()} ({note_wall('mips', t0):.1f} s)",
               flush=True)
         print(json.dumps({"mips_ok": True, "max_score_err": err,
+                          "kind": torch.cuda.get_device_name(0)}))
+        return 0
+    if mode in (["--eval"], ["--similar"]):
+        t0 = time.perf_counter()
+        if mode == ["--eval"]:
+            _l, err, one_stats = eval_phase(dev, runtime, kernels)
+        else:
+            _l, err, one_stats = similar_phase(
+                dev, runtime, kernels, als, planted, params_mod, context,
+                server_mod)
+        name = mode[0][2:]
+        print(f"{name}: {json.dumps(one_stats)} "
+              f"({note_wall(name, t0):.1f} s)", flush=True)
+        print(f"{name}-card: {card_line()}", flush=True)
+        print(json.dumps({f"{name}_ok": True, "max_score_err": err,
                           "kind": torch.cuda.get_device_name(0)}))
         return 0
 
@@ -6920,6 +7760,17 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
+    eval_launches, err_eval, eval_stats = eval_phase(dev, runtime, kernels)
+    print(f"eval: {json.dumps(eval_stats)} ({note_wall('eval', t0):.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    sim_launches, err_sim, sim_stats = similar_phase(
+        dev, runtime, kernels, als, planted, params_mod, context, server_mod)
+    print(f"similar: {json.dumps(sim_stats)} "
+          f"({note_wall('similar', t0):.1f} s)", flush=True)
+    print(f"similar-card: {card_line()}", flush=True)
+
+    t0 = time.perf_counter()
     shapes = topk_timings(kernels, planted, dev)
     for s in shapes:
         print(f"time: {json.dumps(s)}", flush=True)
@@ -6947,9 +7798,11 @@ def main() -> int:
         + trained_launches
         + store_launches["score_topk"] + qs_launches["score_topk"]
         + rt_cli_launches["score_topk"] + log_launches["score_topk"]
-        + speed_launches["score_topk"],
+        + speed_launches["score_topk"] + eval_launches["score_topk"]
+        + sim_launches["score_topk"],
         "max_abs_err": max(err_k, err_p, err_load, err_mips, err_t, err_sa,
-                           err_qs, err_rt, err_log, err_speed),
+                           err_qs, err_rt, err_log, err_speed, err_eval,
+                           err_sim),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
@@ -6972,7 +7825,7 @@ def main() -> int:
             "launches": train_stats["launches"][entry]
             + store_launches.get(entry, 0) + qs_launches.get(entry, 0)
             + rt_cli_launches.get(entry, 0) + rt_loop_launches.get(entry, 0)
-            + log_launches.get(entry, 0),
+            + log_launches.get(entry, 0) + eval_launches.get(entry, 0),
             "max_abs_err": max([als_errs[entry]]
                                + [r["max_abs_err"] for r in rows]),
             "ms": first["ms"],
@@ -7002,7 +7855,8 @@ def main() -> int:
         "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
         "replaces": ak.REPLACES["als_fused_solve_cg"],
         "launches": imp_launches
-        + ecom_launches["train"]["als_fused_solve_cg"],
+        + ecom_launches["train"]["als_fused_solve_cg"]
+        + sim_launches["implicit"],
         "max_abs_err": imp_row["max_abs_err"],
         "ms": imp_row["ms"],
         "graph_ms": imp_row["graph_ms"],
@@ -7016,9 +7870,10 @@ def main() -> int:
                         "gathered block, TF32 off",
         "path_note": "the fused entry's implicit variant (YtY in the "
                      "matvec), launched by als_train_implicit in the "
-                     "retrain phase and by the ecommerce template's "
-                     "training in the speed phase; timed on its heaviest "
-                     "user chunk",
+                     "retrain phase, by the ecommerce template's "
+                     "training in the speed phase and by the "
+                     "similarproduct and recommended-user trainings in "
+                     "the similar phase; timed on its heaviest user chunk",
         "shapes": [imp_row],
     })
     fold_head = next(r for r in foldin_rows
@@ -7030,7 +7885,7 @@ def main() -> int:
         "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
         "replaces": ak.REPLACES["als_fused_solve_cg"],
         "launches": speed_launches["als_fused_solve_cg"]
-        + ecom_launches["als_fused_solve_cg"],
+        + ecom_launches["als_fused_solve_cg"] + sim_launches["foldin"],
         "max_abs_err": max(r["max_abs_err"] for r in foldin_rows),
         "ms": fold_head["ms"],
         "graph_ms": fold_head["graph_ms"],
@@ -7046,7 +7901,8 @@ def main() -> int:
                      "(speed/foldin.py: ladder widths 8-512, pow2 batches "
                      "up to 64, cold CG), launched by the overlays' polls "
                      "in the speed phase (recommendation explicit, "
-                     "ecommerce implicit)",
+                     "ecommerce implicit) and in the similar phase "
+                     "(similarproduct's item side, implicit)",
         "shapes": foldin_rows,
     })
     flash_rows = flash_timings(fa, dev)

@@ -260,6 +260,29 @@ def resolve_engine_factory(factory_path: str) -> Any:
     return factory() if isinstance(factory, type) else factory
 
 
+_JAX_PACKAGE = "incubator_predictionio_tpu"
+
+
+def resolve_port_object(path: str) -> Any:
+    """:func:`resolve_engine_factory` for the objects ``pio eval`` names
+    (an Evaluation, an EngineParamsGenerator): refused when resolving
+    them loaded the JAX package, or when one of their classes comes from
+    it. Such a module (``examples/recommendation-quickstart/
+    evaluation.py`` is one) builds the JAX package's engine and metric,
+    which would train and serve there; its twin imports this package's."""
+    loaded_before = _JAX_PACKAGE in sys.modules
+    obj = resolve_engine_factory(path)
+    from_jax = any(c.__module__.split(".")[0] == _JAX_PACKAGE
+                   for c in type(obj).__mro__)
+    if from_jax or (not loaded_before and _JAX_PACKAGE in sys.modules):
+        raise CommandError(
+            f"{path!r} loads the JAX package ({_JAX_PACKAGE}); an "
+            "evaluation run by this CLI must import "
+            f"{_JAX_PACKAGE}_torch instead (the README's port section "
+            "shows the quickstart's evaluation.py so)")
+    return obj
+
+
 def engine_identity(engine_dir: str, engine_factory: str) -> str:
     """Engine identity = (engine directory, factory), like the reference's
     manifest id (commands/Engine.scala:123-156 derives it from the engine

@@ -4,8 +4,8 @@ cli.main <verb>``.
 The port's counterpart of incubator_predictionio_tpu/cli/main.py (Console.
 scala:153-600): version / status / app {new,list,show,delete,data-delete,
 channel-new,channel-delete} / accesskey {new,list,delete} / build /
-unregister / train / deploy / undeploy / eventserver / export / import /
-upgrade. ``train`` and ``deploy`` run in process on the
+unregister / train / eval / deploy / undeploy / eventserver / export /
+import / upgrade. ``train``, ``eval`` and ``deploy`` run in process on the
 CUDA device; ``PIO_DEVICE=cpu`` is the one switch that runs them on the
 CPU (the JAX package's ``JAX_PLATFORMS=cpu``). Nothing picks the CPU
 because no card was found: without the switch, a process with no CUDA
@@ -18,16 +18,23 @@ environment as the JAX package's: ``PIO_SERVE_MAX_BATCH`` (the ladder cap,
 ``PIO_TENANTS`` names the tenants whose access keys it takes; ``POST
 /reload`` swaps in the latest trained instance while it serves.
 
+``eval <module:Evaluation> [<module:EngineParamsGenerator>]`` (JAX
+main.py:456-491) resolves both objects as ``train`` resolves a factory
+(a JAX module name maps to the port's), runs
+``CoreWorkflow.run_evaluation`` and writes the winner's params to
+``--output-best``; a module that loads the JAX package is refused, since
+its objects would run there and not here (the port's twin of
+``examples/recommendation-quickstart/evaluation.py`` is in the README).
+
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
-item: ``eval`` (Queue 1 item 6), ``adminserver`` and ``dashboard`` (item
-8), ``storageserver`` (item 1.6b), ``train``/``deploy --hosts`` (the pod
-launch) and ``train --model-parallelism`` above 1 (item 9), and ``deploy
---feedback`` / ``--log-url`` (item 8, raised by the prediction server;
-the options that only those use, ``--event-server-ip``,
-``--event-server-port``, ``--accesskey`` and ``--log-prefix``, come with
-them and are not accepted yet). ``pio train`` trains from scratch where the JAX
-package continues from the last COMPLETED instance (continuation is item
-5). The JAX package's storage-verb platform pin, its private-API backend
+item: ``adminserver`` and ``dashboard`` (item 8), ``storageserver`` (item
+1.6b), ``train``/``eval``/``deploy --hosts`` (the pod launch) and ``train
+--model-parallelism`` above 1 (item 9), and ``deploy --feedback`` /
+``--log-url`` (item 8, raised by the prediction server; the options that
+only those use, ``--event-server-ip``, ``--event-server-port``,
+``--accesskey`` and ``--log-prefix``, come with them and are not accepted
+yet). ``pio train`` continues from the last COMPLETED instance, as the JAX
+package's does (``ops/retrain.py``). The JAX package's storage-verb platform pin, its private-API backend
 probe and its persistent compile cache have no counterpart: nothing here
 initialises CUDA unless a verb needs it, and the kernels' build cache is
 ``runtime.build_kernels()``'s ``_build/``.
@@ -135,12 +142,16 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("unregister",
                    help="unregister the engine in the current directory")
 
-    p = sub.add_parser("eval", help="run evaluation (not ported yet)")
-    p.add_argument("evaluation_class")
-    p.add_argument("engine_params_generator_class", nargs="?")
+    p = sub.add_parser("eval", help="run evaluation / hyperparameter tuning")
+    p.add_argument("evaluation_class",
+                   help="module:attr of the Evaluation object")
+    p.add_argument("engine_params_generator_class", nargs="?",
+                   help="module:attr of the EngineParamsGenerator")
     p.add_argument("--batch", default="")
     p.add_argument("--output-best", default="best.json")
-    p.add_argument("--hosts", default="")
+    p.add_argument("--hosts", default="",
+                   help="comma-separated pod hosts (not ported yet: "
+                        "ROADMAP.md Queue 1 item 9)")
 
     p = sub.add_parser("undeploy", help="stop a deployed engine server")
     p.add_argument("--ip", default="127.0.0.1")
@@ -201,7 +212,6 @@ def _confirm(prompt: str, force: bool) -> bool:
 #: verbs of the JAX package that the port has not ported, with the ROADMAP
 #: item that ports each
 _NOT_PORTED = {
-    "eval": "evaluation, ROADMAP.md Queue 1 item 6",
     "adminserver": "the admin server, ROADMAP.md Queue 1 item 8",
     "dashboard": "the dashboard, ROADMAP.md Queue 1 item 8",
     "storageserver": "the remote storage backends, ROADMAP.md Queue 1 "
@@ -279,7 +289,7 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
     if cmd in _NOT_PORTED:
         raise NotImplementedError(
             f"pio {cmd} is not ported yet: {_NOT_PORTED[cmd]}")
-    if cmd in ("train", "deploy") and args.hosts:
+    if cmd in ("train", "eval", "deploy") and args.hosts:
         raise NotImplementedError(
             f"pio {cmd} --hosts (the pod launch) is not ported yet: "
             "ROADMAP.md Queue 1 item 9")
@@ -287,7 +297,7 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
         raise NotImplementedError(
             "pio train --model-parallelism above 1 (a model split over "
             "devices) is not ported yet: ROADMAP.md Queue 1 item 9")
-    if cmd in ("status", "train", "deploy") \
+    if cmd in ("status", "train", "eval", "deploy") \
             and runtime.requested_device() != "cpu":
         _ensure_accelerator(_accel_timeout_s())
     if cmd in ("deploy", "eventserver"):
@@ -393,6 +403,39 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
             device=runtime.requested_device(),
         )
         print(f"Training completed. Engine instance ID: {instance_id}")
+        return 0
+
+    if cmd == "eval":
+        from incubator_predictionio_tpu_torch.core.params import (
+            WorkflowParams,
+        )
+        from incubator_predictionio_tpu_torch.workflow.workflow import (
+            CoreWorkflow,
+        )
+
+        evaluation = commands.resolve_port_object(args.evaluation_class)
+        if args.engine_params_generator_class:
+            params_list = commands.resolve_port_object(
+                args.engine_params_generator_class).engine_params_list
+        else:
+            params_list = getattr(evaluation, "engine_params_list", None)
+            if not params_list:
+                raise CommandError(
+                    "Provide an EngineParamsGenerator class or set "
+                    "engine_params_list on the Evaluation.")
+        evaluator = evaluation.evaluator
+        if args.output_best and hasattr(evaluator, "output_path"):
+            evaluator.output_path = args.output_best
+        instance_id, result = CoreWorkflow.run_evaluation(
+            evaluation, params_list,
+            evaluation_class=args.evaluation_class,
+            engine_params_generator_class=(
+                args.engine_params_generator_class or ""),
+            params=WorkflowParams(batch=args.batch),
+            device=runtime.requested_device(),
+        )
+        print(result.to_one_liner())
+        print(f"Evaluation completed. Instance ID: {instance_id}")
         return 0
 
     if cmd == "deploy":

@@ -1,7 +1,9 @@
 """The DASE contracts: ``Params``, ``DataSource``, ``Preparator``,
 ``Algorithm`` and ``Serving`` (port of incubator_predictionio_tpu/core/
 base.py; reference core/Base{DataSource,Preparator,Algorithm,Serving}.scala
-and the controller bases). Evaluators come with evaluation.
+and the controller bases), and the ``Evaluator`` contract that
+``core/evaluation.py``'s ``MetricEvaluator`` implements
+(core/BaseEvaluator.scala).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ A = TypeVar("A")    # actual result
 Q = TypeVar("Q")    # query
 P = TypeVar("P")    # predicted result
 M = TypeVar("M")    # model
+R = TypeVar("R")    # evaluator result
 
 
 class Params:
@@ -231,3 +234,19 @@ class FirstServing(Serving[Q, P]):
 
     def serve(self, query: Q, predictions: Sequence[P]) -> P:
         return predictions[0]
+
+
+class Evaluator(_Component, Generic[EI, Q, P, A, R]):
+    """Scores evaluation output (core/BaseEvaluator.scala:52): every
+    candidate's ``[(eval_info, [(query, prediction, actual)])]``."""
+
+    def evaluate(
+        self,
+        ctx: RuntimeContext,
+        evaluation: Any,
+        engine_eval_data_set: Sequence[
+            Tuple[Any, Sequence[Tuple[EI, Sequence[Tuple[Q, P, A]]]]]
+        ],
+        params: Any,
+    ) -> R:
+        raise NotImplementedError

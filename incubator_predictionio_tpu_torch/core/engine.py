@@ -3,8 +3,10 @@ incubator_predictionio_tpu/core/engine.py; reference
 controller/Engine.scala:83-712). The Engine holds class maps for the data
 source, preparator, algorithm and serving slots and instantiates components
 through :func:`doer`. ``train`` is read → sanity → prepare → sanity →
-per-algorithm train → sanity; ``components`` gives the server its
-algorithms and serving component; ``prepare_deploy`` turns checkpointed
+per-algorithm train → sanity; ``eval`` trains on each fold of the data
+source's ``read_eval`` and serves its queries (``batch_eval`` over a list
+of candidates, what ``pio eval`` scores); ``components`` gives the server
+its algorithms and serving component; ``prepare_deploy`` turns checkpointed
 models into servable ones (Engine.scala:199-269);
 ``jvalue_to_engine_params`` reads an ``engine.json`` variant and
 ``engine_params_from_instance`` a stored engine instance into typed
@@ -17,7 +19,7 @@ import contextlib
 import json
 import logging
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from incubator_predictionio_tpu_torch.core.base import (
     Algorithm,
@@ -99,6 +101,15 @@ class Engine:
             _select(self.serving_class_map, serv_name, "serving"), serv_params)
         return self._algorithms(engine_params), serving
 
+    def _data_components(self, engine_params: EngineParams
+                         ) -> Tuple[DataSource, Preparator]:
+        ds_name, ds_params = engine_params.data_source_params
+        prep_name, prep_params = engine_params.preparator_params
+        return (doer(_select(self.data_source_class_map, ds_name,
+                             "dataSource"), ds_params),
+                doer(_select(self.preparator_class_map, prep_name,
+                             "preparator"), prep_params))
+
     def train(self, ctx: RuntimeContext, engine_params: EngineParams,
               params: Optional[WorkflowParams] = None,
               prev_models: Optional[List[Any]] = None) -> List[Any]:
@@ -110,14 +121,7 @@ class Engine:
         ``Algorithm.train_with_previous``, the continuation retrain."""
         params = params or WorkflowParams()
         ctx.timings.clear()
-        ds_name, ds_params = engine_params.data_source_params
-        prep_name, prep_params = engine_params.preparator_params
-        data_source: DataSource = doer(
-            _select(self.data_source_class_map, ds_name, "dataSource"),
-            ds_params)
-        preparator: Preparator = doer(
-            _select(self.preparator_class_map, prep_name, "preparator"),
-            prep_params)
+        data_source, preparator = self._data_components(engine_params)
         algorithms = self._algorithms(engine_params)
         logger.info("Engine.train: ds=%s prep=%s algos=%s",
                     type(data_source).__name__, type(preparator).__name__,
@@ -146,6 +150,48 @@ class Engine:
         for model in models:
             _sanity(model, params.skip_sanity_check)
         return models
+
+    # -- evaluation (Engine.scala:730-820; JAX engine.py:171-220) ----------
+    def eval(self, ctx: RuntimeContext, engine_params: EngineParams,
+             params: Optional[WorkflowParams] = None
+             ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """``[(eval_info, [(query, served prediction, actual)])]``, one
+        entry a fold of ``read_eval``: each fold's training set is
+        prepared and trained on, its supplemented queries go through
+        every algorithm's ``batch_predict``, the predictions are joined
+        back by query index in algorithm order, and ``serve`` sees the
+        original query (Engine.scala:805-808)."""
+        data_source, preparator = self._data_components(engine_params)
+        algo_list, serving = self.components(engine_params)
+        out: List[Tuple[Any, List[Tuple[Any, Any, Any]]]] = []
+        for td, eval_info, qa_pairs in data_source.read_eval(ctx):
+            pd = preparator.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for algo in algo_list]
+            qa_indexed = list(enumerate(qa_pairs))
+            supplemented = [(qx, serving.supplement(q))
+                            for qx, (q, _a) in qa_indexed]
+            by_qx: Dict[int, List[Any]] = {qx: [] for qx, _ in supplemented}
+            for algo, model in zip(algo_list, models):
+                for qx, p in algo.batch_predict(model, supplemented):
+                    by_qx[qx].append(p)
+            qpa: List[Tuple[Any, Any, Any]] = []
+            for qx, (q, a) in qa_indexed:
+                if len(by_qx[qx]) != len(algo_list):
+                    raise RuntimeError(
+                        "Must have one prediction per algorithm")
+                qpa.append((q, serving.serve(q, by_qx[qx]), a))
+            out.append((eval_info, qpa))
+        return out
+
+    def batch_eval(self, ctx: RuntimeContext,
+                   engine_params_list: Sequence[EngineParams],
+                   params: Optional[WorkflowParams] = None
+                   ) -> List[Tuple[EngineParams,
+                                   List[Tuple[Any, List[Tuple[Any, Any,
+                                                              Any]]]]]]:
+        """BaseEngine.batchEval:82 — :meth:`eval` of every candidate."""
+        return [(ep, self.eval(ctx, ep, params))
+                for ep in engine_params_list]
 
     # -- deploy-time model restoration (Engine.scala:199-269) --------------
     def prepare_deploy(self, ctx: RuntimeContext, engine_params: EngineParams,

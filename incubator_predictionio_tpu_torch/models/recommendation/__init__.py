@@ -7,8 +7,11 @@ from incubator_predictionio_tpu_torch.models.recommendation.engine import (
     ALSAlgorithm,
     ALSAlgorithmParams,
     ALSModel,
+    ActualResult,
     DataSourceParams,
+    EvalInfo,
     ItemScore,
+    PrecisionAtK,
     PredictedResult,
     Query,
     Rating,
@@ -20,8 +23,9 @@ from incubator_predictionio_tpu_torch.models.recommendation.engine import (
 )
 
 __all__ = [
-    "ALSAlgorithm", "ALSAlgorithmParams", "ALSModel", "DataSourceParams",
-    "ItemScore", "PredictedResult", "Query", "Rating",
+    "ALSAlgorithm", "ALSAlgorithmParams", "ALSModel", "ActualResult",
+    "DataSourceParams", "EvalInfo", "ItemScore", "PrecisionAtK",
+    "PredictedResult", "Query", "Rating",
     "RecommendationDataSource", "RecommendationEngine",
     "RecommendationPreparator", "RecommendationServing", "TrainingData",
 ]

@@ -38,8 +38,14 @@ from it). ``ops/topk`` then routes unfiltered queries through it. Unlike
 the JAX package, which logs a failed build and serves on exhaustively, a
 failed build raises here.
 
-Not ported yet: the sharded trainer, evaluation reads (``read_eval``) and
-the host-mirror serving of small models. The host mirror is left out on
+``pio eval`` reads k folds (``read_eval``, JAX :195-236, with ``eval_k``
+above 0): each fold's queries ask the top ``eval_queries_num`` of each
+user with a held-out rating, ``exclude_seen`` on, so they take ``predict``
+one by one (JAX :733), each a score+top-k launch with the user's training
+items excluded; ``PrecisionAtK`` scores them against the held-out items.
+
+Not ported yet: the sharded trainer and the host-mirror serving of small
+models. The host mirror is left out on
 purpose: on the card it would hide the kernel for small models, and on
 the CPU the plain version already is the path.
 """
@@ -65,6 +71,7 @@ from incubator_predictionio_tpu_torch.core.base import (
     Serving,
 )
 from incubator_predictionio_tpu_torch.core.engine import Engine, EngineFactory
+from incubator_predictionio_tpu_torch.core.metrics import OptionAverageMetric
 from incubator_predictionio_tpu_torch.core.self_cleaning import (
     EventWindow,
     SelfCleaningDataSource,
@@ -136,7 +143,7 @@ class DataSourceParams(Params):
     app_name: str
     channel_name: Optional[str] = None
     buy_rating: float = 4.0  # implicit weight of a "buy" event
-    eval_k: int = 0          # >0 asks for k-fold read_eval (not ported)
+    eval_k: int = 0          # >0 enables k-fold read_eval
     eval_queries_num: int = 10
     event_window: Optional[str] = None  # SelfCleaningDataSource duration
 
@@ -212,6 +219,50 @@ class RecommendationDataSource(DataSource, SelfCleaningDataSource):
         years, cats = self._read_item_meta()
         return TrainingData(interactions=self._read_interactions(),
                             item_years=years, item_categories=cats)
+
+    def read_eval(self, ctx: RuntimeContext):
+        """k folds of the columnar read (e2 CrossValidation; JAX :195-236):
+        triple n is held out of fold ``n % k``. A fold's queries ask the
+        top ``eval_queries_num`` of each user with held-out triples, in
+        user-id order, ``exclude_seen`` on; the actual is the sorted set
+        of that user's held-out items."""
+        k = self.params.eval_k
+        if k <= 0:
+            return []
+        td = self.read_training(ctx)
+        inter = td.interactions
+        nnz = len(inter)
+        out = []
+        for fold in range(k):
+            mask = (np.arange(nnz) % k) != fold
+            train_inter = Interactions(
+                user_idx=inter.user_idx[mask], item_idx=inter.item_idx[mask],
+                values=inter.values[mask], user_ids=inter.user_ids,
+                item_ids=inter.item_ids)
+            by_user: Dict[str, set] = {}
+            for u, i in zip(inter.user_idx[~mask].tolist(),
+                            inter.item_idx[~mask].tolist()):
+                by_user.setdefault(inter.user_ids[u], set()).add(
+                    inter.item_ids[i])
+            qa = [(Query(user=user, num=self.params.eval_queries_num,
+                         exclude_seen=True),
+                   ActualResult(items=tuple(sorted(items))))
+                  for user, items in sorted(by_user.items())]
+            out.append((TrainingData(interactions=train_inter,
+                                     item_years=td.item_years,
+                                     item_categories=td.item_categories),
+                        EvalInfo(fold=fold), qa))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalInfo:
+    fold: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ActualResult:
+    items: Tuple[str, ...]
 
 
 # ---------------------------------------------------------------------------
@@ -660,7 +711,7 @@ class ALSAlgorithm(Algorithm):
 
 
 # ---------------------------------------------------------------------------
-# Serving + factory
+# Serving + metrics + factory
 # ---------------------------------------------------------------------------
 
 class RecommendationServing(Serving):
@@ -670,6 +721,27 @@ class RecommendationServing(Serving):
 
     def serve(self, query: Query, predictions: Sequence[PredictedResult]) -> PredictedResult:
         return predictions[0]
+
+
+class PrecisionAtK(OptionAverageMetric):
+    """Precision@K against held-out items (JAX :889-907): hits among the
+    first ``k`` served items over ``k`` (returning fewer than ``k`` items
+    does not raise the score); a query with no held-out items scores
+    None and is left out of the mean."""
+
+    def __init__(self, k: int = 10):
+        super().__init__()
+        self.k = k
+
+    def header(self) -> str:
+        return f"Precision@{self.k}"
+
+    def calculate_qpa(self, q: Query, p: PredictedResult, a: ActualResult):
+        if not a.items:
+            return None
+        actual = set(a.items)
+        hits = sum(1 for s in p.item_scores[: self.k] if s.item in actual)
+        return hits / self.k
 
 
 class RecommendationEngine(EngineFactory):

@@ -1,6 +1,7 @@
 """Session-based sequence recommendation (next-item transformer)."""
 
 from incubator_predictionio_tpu_torch.models.sequence.engine import (
+    HitAtK,
     PredictedResult,
     Query,
     SeqRecAlgorithm,
@@ -11,6 +12,7 @@ from incubator_predictionio_tpu_torch.models.sequence.engine import (
 )
 
 __all__ = [
+    "HitAtK",
     "PredictedResult",
     "Query",
     "SeqRecAlgorithm",

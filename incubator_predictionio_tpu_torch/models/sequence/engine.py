@@ -11,9 +11,13 @@ app invalidates. The model is ``ops/transformer.py``; a scoring window of
 8,192 or more runs its attention through the flash kernel
 (``ops/attention_kernels.py``).
 
-Not ported yet, each raising where it is reached:
-- ``seq_parallel`` ring / ulysses: the multi-device slice;
-- the ``HitAtK`` metric: the evaluation slice.
+``HitAtK`` scores next-item hits for evaluation. The JAX package's
+defines only ``calculate_one``, so its ``AverageMetric.calculate`` raises;
+here ``calculate_qpa`` is the same function, so the metric also scores a
+whole evaluation output.
+
+Not ported yet, raising where it is reached: ``seq_parallel`` ring /
+ulysses (the multi-device slice).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from incubator_predictionio_tpu_torch.core.base import (
     SanityCheck,
 )
 from incubator_predictionio_tpu_torch.core.engine import Engine, EngineFactory
+from incubator_predictionio_tpu_torch.core.metrics import AverageMetric
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.store import EventStore
 from incubator_predictionio_tpu_torch.ops.transformer import (
@@ -313,6 +318,20 @@ class SeqRecAlgorithm(Algorithm):
                 continue
             out.append(ItemScore(item=inv[i - 1], score=float(s)))
         return PredictedResult(item_scores=tuple(out))
+
+
+class HitAtK(AverageMetric):
+    """Next-item hit rate over held-out (query, actual) pairs (JAX
+    :349-356): 1 when the actual item (a string, or an object with
+    ``item``) is among the served items, else 0."""
+
+    def calculate_one(self, query: Query, predicted: PredictedResult,
+                      actual: Any) -> float:
+        wanted = actual if isinstance(actual, str) else actual.item
+        return 1.0 if any(s.item == wanted for s in predicted.item_scores) \
+            else 0.0
+
+    calculate_qpa = calculate_one
 
 
 class SequenceEngine(EngineFactory):

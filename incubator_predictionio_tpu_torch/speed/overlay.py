@@ -25,9 +25,9 @@ imports pointed at this package. The solver is the port's
 device: the engines pass the deployed model's item table as the device
 tensor, with no host round trip. After an ``index_sink`` publish the
 overlay nudges the MIPS rebuild daemon (``ops/mips_daemon``), as in the
-JAX package. The seam has no caller in the port yet: the one engine that
-passes a sink, similarproduct, comes with ROADMAP.md Queue 1 item 7. Left
-out: a mesh-sharded frozen table (item 9; :meth:`SpeedOverlay.stats` has
+JAX package. The similarproduct engine passes the sink
+(``models/similarproduct/engine.py``: its item-side fold-ins publish into
+its MIPS index). Left out: a mesh-sharded frozen table (item 9; :meth:`SpeedOverlay.stats` has
 no ``shardedTable``).
 """
 

@@ -15,16 +15,22 @@ run's phase walls (``ctx.timings``, ``continue_seed`` among them) in its
 ``load_models``: the instance's blob → models → ``Engine.prepare_deploy``
 on the context's device.
 
-Not ported: the multi-host pod branch (ROADMAP Queue 1, multi-device) and
-``run_evaluation`` (Queue 1, evaluation).
+``run_evaluation`` (JAX :323-441, EvaluationWorkflow.scala:30-43): register
+an EVALUATING EvaluationInstance → ``engine.batch_eval`` → the evaluator →
+store its one-liner, HTML and JSON → EVALCOMPLETED (EVALABORTED on any
+error; a FakeWorkflow result, ``no_save``, stores no results).
+
+Not ported: the multi-host pod branch of ``run_train`` and
+``run_evaluation`` (ROADMAP Queue 1 item 9; the CLI refuses ``--hosts``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import time
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence, Tuple
 
 from incubator_predictionio_tpu_torch.core.engine import Engine
 from incubator_predictionio_tpu_torch.core.params import (
@@ -33,6 +39,7 @@ from incubator_predictionio_tpu_torch.core.params import (
 )
 from incubator_predictionio_tpu_torch.data.storage import (
     EngineInstance,
+    EvaluationInstance,
     Model,
     Storage,
 )
@@ -102,6 +109,9 @@ class CoreWorkflow:
     TRAIN_STATUS_TRAINING = "TRAINING"
     TRAIN_STATUS_COMPLETED = "COMPLETED"
     TRAIN_STATUS_ABORTED = "ABORTED"
+    EVAL_STATUS_EVALUATING = "EVALUATING"
+    EVAL_STATUS_COMPLETED = "EVALCOMPLETED"
+    EVAL_STATUS_ABORTED = "EVALABORTED"
 
     @staticmethod
     def run_train(
@@ -219,3 +229,60 @@ class CoreWorkflow:
             models = engine.prepare_deploy(ctx, engine_params, instance_id,
                                            models, params)
         return models
+
+    @staticmethod
+    def run_evaluation(
+        evaluation: Any,
+        engine_params_list: Sequence[EngineParams],
+        evaluation_class: str = "",
+        engine_params_generator_class: str = "",
+        params: Optional[WorkflowParams] = None,
+        ctx: Optional[RuntimeContext] = None,
+        env: Optional[dict] = None,
+        device=None,
+    ) -> Tuple[str, Any]:
+        """Evaluate every candidate on ``ctx`` (or a context on
+        ``device``, CUDA by default) → (evaluation instance id, the
+        evaluator's result)."""
+        params = params or WorkflowParams()
+        ctx = ctx or make_runtime_context(params, device)
+        instances = Storage.get_meta_data_evaluation_instances()
+        instance = EvaluationInstance(
+            id="",
+            status=CoreWorkflow.EVAL_STATUS_EVALUATING,
+            start_time=now_utc(),
+            end_time=now_utc(),
+            evaluation_class=evaluation_class,
+            engine_params_generator_class=engine_params_generator_class,
+            batch=params.batch,
+            env=dict(env or {}),
+            runtime_conf=dict(params.runtime_conf),
+        )
+        instance_id = instances.insert(instance)
+        instance = dataclasses.replace(instance, id=instance_id)
+        try:
+            eval_data = evaluation.engine.batch_eval(
+                ctx, engine_params_list, params)
+            result = evaluation.evaluator.evaluate(
+                ctx, evaluation, eval_data, params)
+            done = dataclasses.replace(
+                instance, status=CoreWorkflow.EVAL_STATUS_COMPLETED,
+                end_time=now_utc())
+            if not getattr(result, "no_save", False):
+                # a FakeWorkflow result is not persisted
+                # (CoreWorkflow.scala:138-142 noSave branch)
+                done = dataclasses.replace(
+                    done,
+                    evaluator_results=result.to_one_liner(),
+                    evaluator_results_html=result.to_html(),
+                    evaluator_results_json=json.dumps(result.to_jsonable()))
+                logger.info("Evaluation %s completed: %s", instance_id,
+                            result.to_one_liner())
+            instances.update(done)
+            return instance_id, result
+        except Exception:
+            logger.exception("Evaluation %s aborted", instance_id)
+            instances.update(dataclasses.replace(
+                instance, status=CoreWorkflow.EVAL_STATUS_ABORTED,
+                end_time=now_utc()))
+            raise

@@ -361,7 +361,7 @@ def test_undeploy_nothing_running(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["eval", "evaluation:evaluation"], "item 6"),
+    (["eval", "--hosts", "h1", "evaluation:evaluation"], "item 9"),
     (["adminserver"], "item 8"),
     (["dashboard"], "item 8"),
     (["storageserver"], "item 1.6"),

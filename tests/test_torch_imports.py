@@ -158,6 +158,32 @@ _ISOLATED = textwrap.dedent('''
             seq_stored_body = json.loads(resp.read())
     finally:
         srv.stop()
+    # evaluation: the stored ratings' two folds through run_evaluation;
+    # the similarproduct template on the stored views
+    from incubator_predictionio_tpu_torch.core.evaluation import Evaluation
+    evaluation = Evaluation()
+    evaluation.engine_metric = (eng, engine.PrecisionAtK(k=2))
+    eval_ep = EngineParams(
+        data_source_params=("", engine.DataSourceParams(app_name="app",
+                                                        eval_k=2)),
+        algorithm_params_list=ep.algorithm_params_list)
+    eval_iid, eval_result = CoreWorkflow.run_evaluation(
+        evaluation, [eval_ep], device="cpu")
+    eval_status = Storage.get_meta_data_evaluation_instances().get(
+        eval_iid).status
+    from incubator_predictionio_tpu_torch.models.similarproduct import (
+        engine as sp_engine)
+    sp_ep = EngineParams(
+        data_source_params=("", sp_engine.DataSourceParams(app_name="app")),
+        algorithm_params_list=[("als", sp_engine.ALSAlgorithmParams(
+            rank=2, num_iterations=2, seed=0))])
+    sp_eng = sp_engine.SimilarProductEngine().apply()
+    sp_iid = CoreWorkflow.run_train(sp_eng, sp_ep, device="cpu")
+    [sp_model] = CoreWorkflow.load_models(sp_iid, sp_eng, sp_ep,
+                                          device="cpu")
+    sp_items = len(sp_engine.SimilarProductAlgorithm(
+        sp_ep.algorithm_params_list[0][1]).predict(
+            sp_model, sp_engine.Query(items=("i1",), num=3)).item_scores)
     # the native event log (cpplog; metadata on SQLite, models on
     # localfs): a columnar import, a train, a tail, and the read its
     # training projection serves
@@ -209,6 +235,8 @@ _ISOLATED = textwrap.dedent('''
                       "seq_stored_items": len(
                           seq_stored_body["itemScores"]),
                       "continued": continued,
+                      "eval": [eval_status, eval_result.best_idx],
+                      "sp_items": sp_items,
                       "log": [log_type, log_stats["scan_source"],
                               log_stats["scan_tail_rows"], log_rows,
                               log_models],
@@ -229,6 +257,8 @@ def test_port_imports_and_serves_without_jax_or_the_jax_package():
     assert out["stored_items"] == 2
     assert out["seq_stored_items"] == 3
     assert out["continued"] >= 1
+    assert out["eval"] == ["EVALCOMPLETED", 0]
+    assert out["sp_items"] == 3
     assert out["log"] == ["incubator_predictionio_tpu_torch.data.storage."
                           "cpplog", "cache", 1, 41, 1]
     assert out["leaked"] == []
@@ -247,6 +277,15 @@ def test_default_device_refuses_cpu_fallback(monkeypatch):
         seqrec_model_from_numpy(fields, ["a", "b", "c"], 2, 4)
     with pytest.raises(RuntimeError):
         transformer_init(torch.Generator(), 3, 4, 8, 1)
+    from incubator_predictionio_tpu_torch.ops import dimsum
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dimsum.column_cosine_topk([0], [0], [1.0], n_items=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CoreWorkflow.run_evaluation(object(), [])
     assert runtime.default_device("cpu") == torch.device("cpu")
 
 

@@ -12,8 +12,8 @@ one index: the JAX package's, carried across with
 different orders, so answers agree as ids except among near-ties (scores
 within 1e-5 relative) and scores to rtol 1e-5. Inputs are made with numpy
 from seeds (8,192 items, rank 32, k 20, 24 queries, as tests/test_mips.py).
-The sharded cases wait for ROADMAP.md Queue 1 item 9, the similarproduct
-case for item 7.
+The sharded cases wait for ROADMAP.md Queue 1 item 9; the similarproduct
+case is in tests/test_torch_similarproduct.py.
 """
 
 import copy
