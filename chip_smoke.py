@@ -7,9 +7,10 @@ SQLite or the native log (cpplog) → ``CoreWorkflow.run_train`` → the
 checkpoint → ``load_models`` → /queries.json, and the speed layer behind
 /queries.json (new events folded in on the fused ALS kernel), with the
 ecommerce template's implicit fold-in, two-stage MIPS serving at
-1,048,576 items, ``pio eval`` (evaluation and its metrics), and the
+1,048,576 items, ``pio eval`` (evaluation and its metrics), the
 similarproduct template (implicit ALS, its item-side overlay into the MIPS
-index, DIMSUM and the recommended-user engine).
+index, DIMSUM and the recommended-user engine), and the classification,
+regression, friendrecommendation and stock templates.
 
     python3 chip_smoke.py
 
@@ -23,11 +24,15 @@ ecommerce template's views); store-seq takes 16 of seq-train's sessions
 (131,088 views, from 524,352); retrain leg (b)'s in-process
 ``als_retrain`` runs 2 sweeps (from 4); eval plants 4,096 users (ML-20M
 has 138,493; the items and the rank stay); the similar phase trains 4
-sweeps (the example's engine.json says 20).
+sweeps (the example's engine.json says 20) on the first 160,000 of
+store-als's pairs (from all 250,000; the first rate every user and item);
+the templates phase plants 20,000 classification users (from 50,000) and
+40,000 regression points (from 100,000), which every fold of their ``pio
+eval`` queries one by one.
 
-Two more cuts for the same limit: the serve-load legs run 2 s (from 4),
-and the quickstart posts 500 single events (from 2,000; the rest go
-through ``pio import``).
+More cuts for the same limit: the serve-load legs run 2 s (from 4), the
+quickstart posts 500 single events (from 2,000; the rest go through ``pio
+import``) and the cpplog phase 500 (from 1,000).
 
 Phases, each of which fails the run on any error or mismatch:
 
@@ -228,7 +233,7 @@ Phases, each of which fails the run on any error or mismatch:
              train`` (store-als's params), its read the sharded scan, held
              to store-als's SQLite read as triples and its fit within 1e-3
              of store-als's; ``pio eventserver`` as a child on the log: the
-             three batch legs at bodies of 50 and 500, 1,000 single events,
+             three batch legs at bodies of 50 and 500, 500 single events,
              ``GET /stats.json``'s group-commit counters, the retrain leg's
              2,500 ratings, which ``read_interactions_since`` returns
              exactly; the projection-served read (the projection plus a
@@ -278,7 +283,8 @@ Phases, each of which fails the run on any error or mismatch:
              top-k of that fold's model. Prints the wall by read, train and
              queries, and queries/s.
 17. similar — the similarproduct template (:func:`similar_phase`):
-             store-als's 250,000 pairs as views (every 16th a like)
+             the first 160,000 of store-als's pairs as views (every 16th a
+             like)
              through SQLite, ``run_train`` at rank 128 on the fused
              implicit entry (its loss the plain route's within 1e-6), 64
              HTTP answers (half filtered) against the plain top-k; the
@@ -290,7 +296,33 @@ Phases, each of which fails the run on any error or mismatch:
              recommended-user engine on 250,000 planted follows over the
              138,493 users (a memory store), 32 HTTP answers against the
              plain top-k.
-18. report — kernel, plain-version and library times (CUDA events, median
+18. templates — the four remaining templates (:func:`templates_phase`),
+             each leg through ``pio train`` in this process on a fresh
+             memory store and served by ``PredictionServer``: (a)
+             classification at the quickstart's width (3 attributes, 3
+             plans) on 20,000 planted users, naive Bayes served and held
+             to the f64 host argmax, logistic regression on the card held
+             to its CPU fit, ``pio eval`` of ``AccuracyMetric`` over two
+             naive Bayes candidates (:func:`classification_leg`); (b)
+             regression on 40,000 planted points read from an
+             lr_data.txt file, the linear weights held to
+             ``numpy.linalg.lstsq`` in f64, SGD to its CPU fit, the
+             ``AverageServing`` answers to the host mean, ``pio eval`` of
+             ``MeanSquareError`` (:func:`regression_leg`); (c)
+             friendrecommendation at SimRank's dense ceiling of 16,384
+             nodes (65,536 follow edges), the f32 matrix held to the same
+             iteration in f64 on the card, symmetric, its diagonal 1, the
+             served answers S[a, b], the keyword and random answers
+             recomputed on the host, the 1 GiB blob's bytes and
+             ``dumps`` / ``loads`` walls on the memory model store (above
+             SQLite's length limit) (:func:`friendrec_leg`); (d) stock at
+             S&P-500 width (500 tickers and SPY, 300 days), the regression
+             strategy's batched solve held to per-ticker f64 ridge solves,
+             32 served days to the host product, ``pio eval`` of
+             ``BacktestingEvaluator`` over days 270-298 (:func:`stock_leg`).
+             No hand-written kernel is on these paths: their launch counts
+             are read and printed, all 0.
+19. report — kernel, plain-version and library times (CUDA events, median
              after warm-up) beside the bound, as one ``{"kernels": [...]}``
              line (flash: the engine's windows, also left-padded with 1 to
              4,096 live keys, and the bench's shapes; the repaired limits'
@@ -302,7 +334,8 @@ Phases, each of which fails the run on any error or mismatch:
 
 ``python3 chip_smoke.py --flash`` runs only the build, the flash-kernel
 phase and the flash timings; ``--topk`` the score+top-k cases and timings;
-``--mips`` the mips phase; ``--eval`` and ``--similar`` those phases;
+``--mips`` the mips phase; ``--eval``, ``--similar`` and ``--templates``
+those phases;
 ``--als`` the ALS cases, every ALS entry timed at the ML-20M bucket
 shapes D 8 to 32,768, f32 and bf16, and the narrow-bucket cell behind
 ``ops/als.py``'s routing constants (:func:`narrow_timings`). Run one from the root and from a
@@ -3163,7 +3196,7 @@ def retrain_cli_leg(qs, dev, runtime, kernels, als, small: bool = False):
 # -- cpplog: the quickstart's verbs on the native event log ------------------
 
 #: single POST /events.json events the cpplog phase times
-LOG_SINGLE_EVENTS = 1_000
+LOG_SINGLE_EVENTS = 500
 
 
 @contextlib.contextmanager
@@ -4822,6 +4855,7 @@ def retrain_loop_leg(dev, runtime, als, planted, pd, trained, small=False,
     tu, ti = distinct_new_pairs(
         rng, pd.users, pd.items, n_users, n_items, n_tail,
         draw=lambda m: planted._sample_pairs(rng, m, n_users, n_items))
+    tail_pairs_s = time.perf_counter() - t0
     pred = (trained.user_factors[torch.from_numpy(tu).to(dev)]
             * trained.item_factors[torch.from_numpy(ti).to(dev)]).sum(-1)
     tr = (pred.cpu().numpy() + rng.normal(0, 0.35, len(tu))).astype(
@@ -4903,7 +4937,8 @@ def retrain_loop_leg(dev, runtime, als, planted, pd, trained, small=False,
         raise AssertionError(f"retrain loop: launches {launches}")
     return launches, {
         "ratings": len(pd.ratings), "tail": len(tr),
-        "tail_generate_s": tail_gen_s, "first": first, "second": second,
+        "tail_generate_s": tail_gen_s, "tail_pairs_s": tail_pairs_s,
+        "first": first, "second": second,
         "fresh_prep_s": fresh_prep_s, "same_rows": n_rows,
         "factor_rel_err": factor_rel, "rerate": int(len(pick)),
         "rerate_plan": third["prep_plan"], "launches": launches}
@@ -6987,6 +7022,10 @@ SIMILAR_APP = "similar-app"
 #: the similar phase's sweeps: the example's engine.json trains 20
 #: (examples/similarproduct-quickstart/engine.json); 4 is a depth cut
 SIMILAR_SWEEPS = 4
+#: the similar phase's views: the first of store-als's planted pairs, a
+#: depth cut from all 250,000 (its SQLite import took 24.6 s); the pairs
+#: are in draw order, whose first ~140,000 rate every user and item
+SIMILAR_VIEWS = 160_000
 #: queries of the similar phase's legs
 SIMILAR_QUERIES = 64
 FOLLOW_QUERIES = 32
@@ -6999,8 +7038,11 @@ DIMSUM_CHECKED = 64
 def similar_views(planted, small: bool = False):
     """store-als's planted pairs (:func:`store_als_ratings`) as the
     similarproduct template's events: every 16th a ``like``, the rest
-    ``view``s. Returns (users, items, is_like, n_users, n_items)."""
+    ``view``s; the first ``SIMILAR_VIEWS`` of them unless ``small``.
+    Returns (users, items, is_like, n_users, n_items)."""
     users, items, _r, n_users, n_items = store_als_ratings(planted, small)
+    if not small:
+        users, items = users[:SIMILAR_VIEWS], items[:SIMILAR_VIEWS]
     is_like = np.arange(len(users)) % 16 == 0
     return users, items, is_like, n_users, n_items
 
@@ -7034,8 +7076,9 @@ def unit(v: torch.Tensor) -> torch.Tensor:
 def similar_phase(dev, runtime, kernels, als, planted, params_mod, context,
                   server_mod, small: bool = False) -> tuple:
     """The similarproduct template (``models/similarproduct/``) at ML-20M
-    width, in this process. (a) On a fresh SQLite store: store-als's
-    250,000 planted pairs as ``view`` events, every 16th a ``like``
+    width, in this process. (a) On a fresh SQLite store: the first
+    ``SIMILAR_VIEWS`` (160,000) of store-als's planted pairs as ``view``
+    events, every 16th a ``like``
     (:func:`similar_views`), the items' ``$set`` categories ``c<id mod
     4>``; ``CoreWorkflow.run_train`` of ``SimilarProductEngine`` at rank
     128, λ 0.01, α 1 (examples/similarproduct-quickstart/engine.json),
@@ -7437,6 +7480,891 @@ def similar_phase(dev, runtime, kernels, als, planted, params_mod, context,
     return launches, err, stats
 
 
+# -- classification, regression, friendrecommendation, stock ---------------
+
+#: (a) the classification quickstart's users, drawn by its
+#: import_events.py's law (which plants 200): a depth cut from 50,000 for
+#: the run's time limit (T1: the phase took 58.4 s, of it 11.1 s the
+#: 100,000 one-by-one eval queries of 50,000 users)
+CLF_USERS = 20_000
+#: (b) the regression quickstart's points (import_points.py's law), written
+#: in the reference examples' lr_data.txt format: a depth cut from 100,000
+#: (T1: 17.4 s of eval, two predicts for each of 100,000 queries)
+REG_POINTS = 40_000
+#: (c) SimRank at its dense ceiling (ops/simrank.MAX_NODES): 8,192 users
+#: and 8,192 items, 65,536 follow edges, the quickstart's keyword maps on
+#: 2,048 users and 2,048 items
+FR_USERS = 8_192
+FR_EDGES = 65_536
+FR_KEYWORDED = 2_048
+#: (d) S&P-500 width: 500 tickers and SPY over 300 trading days, the
+#: backtest over days 270-298
+STOCK_TICKERS = 500
+STOCK_DAYS = 300
+STOCK_EVAL_FROM = 270
+STOCK_EVAL_DAYS = 29
+TEMPLATE_QUERIES = 64
+TEMPLATE_SIDE_QUERIES = 32
+#: the bounds the phase holds, each set after the first run of the phase
+#: (T1: 50,000 users and 100,000 points, the other legs as now) on an H100
+#: 80GB HBM3 at 700.00 W; what T1 measured is in each comment. The best
+#: accuracy above chance (1/3): T1 read 0.638 for both candidates
+CLF_ACCURACY_MARGIN = 0.2
+#: |w − w_cpu| of logistic regression (T1: 1.2e-6, max |w| 0.84)
+LOGREG_CARD_TOL = 1e-5
+#: |w − lstsq| of the linear fit (T1: 3.0e-7 on weights of magnitude 2)
+LINREG_LSTSQ_TOL = 1e-5
+#: |w − w_cpu| of SGD (T1: 0, the same f32 steps)
+SGD_CARD_TOL = 1e-6
+#: SimRank's f32 matrix against the f64 iteration, and S − Sᵀ (T1: 4.7e-8
+#: and 3.0e-8)
+SIMRANK_F64_TOL = 1e-6
+#: the stock weights against the f64 solves, over max |w| (T1: 1.5e-4;
+#: f32 normal equations of near-collinear shift returns)
+STOCK_F64_TOL = 2e-3
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+
+
+def quickstart_variant(name: str, datasource: dict, algorithms=None) -> dict:
+    """The ``engine.json`` of ``examples/<name>-quickstart``, its data
+    source's params updated by ``datasource`` and its algorithms replaced
+    by ``algorithms`` when given. Its ``engineFactory`` names the JAX
+    package's module, which the port's CLI maps to its own."""
+    with open(os.path.join(EXAMPLES, f"{name}-quickstart",
+                           "engine.json")) as f:
+        variant = json.load(f)
+    variant["datasource"]["params"].update(datasource)
+    if algorithms is not None:
+        variant["algorithms"] = algorithms
+    return variant
+
+
+def pio_in_process(work: str, dev, *argv) -> list:
+    """:func:`cli` run from ``work``, on the card unless ``dev`` is the
+    CPU; its standard output's lines."""
+    saved_term = signal.getsignal(signal.SIGTERM)
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        with env_set(PIO_DEVICE="cpu" if dev.type == "cpu" else None):
+            out = cli(*argv)
+    finally:
+        os.chdir(cwd)
+        signal.signal(signal.SIGTERM, saved_term)
+    return out.strip().splitlines()
+
+
+def pio_train(work: str, dev, variant: dict, stats: dict) -> str:
+    """``pio train`` of ``variant`` (written as ``work``/engine.json); the
+    instance id it prints. The instance's phase walls go into
+    ``stats["phases_s"]``."""
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+
+    with open(os.path.join(work, "engine.json"), "w") as f:
+        json.dump(variant, f)
+    lines = pio_in_process(work, dev, "train")
+    if not lines or not lines[-1].startswith(
+            "Training completed. Engine instance ID: "):
+        raise AssertionError(f"pio train: {lines}")
+    iid = lines[-1].rsplit(" ", 1)[1]
+    conf = Storage.get_meta_data_engine_instances().get(iid).runtime_conf
+    stats["phases_s"] = {k: float(v) for k, v in conf.items()
+                         if k.startswith("phase.")}
+    return iid
+
+
+def pio_eval(work: str, dev, name: str, source: str) -> tuple:
+    """``pio eval <name>:evaluation <name>:engine_params_generator`` with
+    ``source`` written as ``work``/<name>.py (a module importing the
+    port); checks that the instance is EVALCOMPLETED and stored the
+    one-liner the CLI printed. Returns (one-liner, the stored JSON
+    result)."""
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+
+    with open(os.path.join(work, f"{name}.py"), "w") as f:
+        f.write(source)
+    try:
+        lines = pio_in_process(work, dev, "eval", f"{name}:evaluation",
+                               f"{name}:engine_params_generator")
+    finally:
+        sys.modules.pop(name, None)
+    if len(lines) < 2 or not lines[-1].startswith(
+            "Evaluation completed. Instance ID: "):
+        raise AssertionError(f"pio eval {name}: {lines}")
+    inst = Storage.get_meta_data_evaluation_instances().get(
+        lines[-1].rsplit(" ", 1)[1])
+    if inst is None or inst.status != "EVALCOMPLETED" \
+            or inst.evaluator_results != lines[-2]:
+        raise AssertionError(f"pio eval {name}: instance "
+                             f"{inst and inst.status}, {lines[-2:]}")
+    return lines[-2], json.loads(inst.evaluator_results_json)
+
+
+def serve_docs(dev, server_mod, eng, ep, models, docs) -> tuple:
+    """``docs`` through ``/queries.json`` of an in-process
+    ``PredictionServer`` on ``models``: (answers, host ms of each)."""
+    srv = server_mod.PredictionServer(eng, ep, models, device=dev)
+    port = srv.start_background()
+    answers, walls = [], []
+    try:
+        for doc in docs:
+            t0 = time.perf_counter()
+            answers.append(post(port, doc))
+            walls.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        srv.stop()
+    return answers, walls
+
+
+def captured_calls(obj, name: str, calls: list):
+    """``patched`` so that each call of ``obj.name`` appends (args,
+    kwargs, result, host seconds) to ``calls``."""
+    def wrap(real):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            calls.append((a, kw, out, time.perf_counter() - t0))
+            return out
+        return run
+    return patched(obj, name, wrap)
+
+
+CLF_EVAL_MODULE = '''"""Classification evaluation objects, importing the port: the exact-label
+accuracy of naive Bayes at lambda 1.0 and 10.0 over three folds.
+
+Run with:
+    pio eval clf_evaluation:evaluation clf_evaluation:engine_params_generator
+"""
+
+from incubator_predictionio_tpu_torch.core.evaluation import Evaluation
+from incubator_predictionio_tpu_torch.core.params import (
+    EngineParams,
+    EngineParamsGenerator,
+)
+from incubator_predictionio_tpu_torch.models.classification import (
+    ClassificationEngine,
+    DataSourceParams,
+    NaiveBayesAlgorithmParams,
+)
+from incubator_predictionio_tpu_torch.models.classification.engine import (
+    AccuracyMetric,
+)
+
+evaluation = Evaluation()
+evaluation.engine_metric = (ClassificationEngine().apply(), AccuracyMetric())
+
+
+class _Generator(EngineParamsGenerator):
+    engine_params_list = [
+        EngineParams(
+            data_source_params=("", DataSourceParams(app_name={app!r},
+                                                     eval_k=3)),
+            algorithm_params_list=[
+                ("naive", NaiveBayesAlgorithmParams(lambda_=lam))],
+        )
+        for lam in (1.0, 10.0)
+    ]
+
+
+engine_params_generator = _Generator()
+'''
+
+
+def clf_users(n: int, seed: int = 3) -> tuple:
+    """(plan [n], attrs [n, 3]) by the law of examples/
+    classification-quickstart/import_events.py: plan uniform on {0, 1, 2},
+    attr0 = 10·plan + U{0..9}, attr1 = U{0..5} + plan, attr2 = U{0..3}
+    (numpy's generator in place of ``random``)."""
+    rng = np.random.default_rng(seed)
+    plan = rng.integers(0, 3, n)
+    attrs = np.stack([10 * plan + rng.integers(0, 10, n),
+                      rng.integers(0, 6, n) + plan,
+                      rng.integers(0, 4, n)], axis=1)
+    return plan, attrs
+
+
+def classification_leg(dev, server_mod, small: bool = False
+                       ) -> tuple:
+    """(a) The classification template at the quickstart's width (3
+    attributes, 3 plans): ``CLF_USERS`` users' ``$set`` events
+    (:func:`clf_users`, seed 3) on a fresh memory store; ``pio train`` of
+    the quickstart's engine.json (naive Bayes at λ 1.0; logistic
+    regression, 300 Adam steps at lr 0.1, l2 1e-4) on the card; 64
+    ``/queries.json`` answers of the deployed models (naive Bayes serves,
+    ``FirstServing``), each the argmax of the model's log-scores computed
+    in f64 on the host, except near-ties; the card's logistic-regression
+    weights against the port's fit on CPU tensors of the same prepared
+    data, within ``LOGREG_CARD_TOL``; ``pio eval`` of
+    ``AccuracyMetric`` over naive Bayes at λ 1.0 and 10.0 in three folds
+    (``CLF_EVAL_MODULE``), EVALCOMPLETED, the best accuracy above 1/3 by
+    ``CLF_ACCURACY_MARGIN``. Returns (max error, stats)."""
+    from incubator_predictionio_tpu_torch.cli import commands
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.models.classification import (
+        engine as clf,
+    )
+    from incubator_predictionio_tpu_torch.ops import logreg
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    n = 900 if small else CLF_USERS
+    app = "clf-app"
+    walls: dict = {}
+    stats: dict = {"users": n, "walls_s": walls}
+    with memory_store(), tempfile.TemporaryDirectory(
+            prefix="pio_clf_") as work:
+        t0 = time.perf_counter()
+        app_id = new_app(app)
+        plan, attrs = clf_users(n)
+        insert_events([
+            Event(event="$set", entity_type="user", entity_id=f"u{k}",
+                  properties=DataMap({"attr0": int(a[0]), "attr1": int(a[1]),
+                                      "attr2": int(a[2]), "plan": int(p)}))
+            for k, (p, a) in enumerate(zip(plan, attrs))], app_id)
+        walls["import"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        variant = quickstart_variant("classification", {"appName": app})
+        pds: list = []
+        with captured_calls(clf.ClassificationPreparator, "prepare", pds):
+            iid = pio_train(work, dev, variant, stats)
+        sync(dev)
+        walls["train"] = time.perf_counter() - t0
+        pd = pds[0][2]
+
+        t0 = time.perf_counter()
+        eng, ep = commands.engine_from_variant(variant)
+        models = CoreWorkflow.load_models(iid, eng, ep,
+                                          ctx=RuntimeContext(device=dev))
+        nbm, lrm = models
+        _p, q_attrs = clf_users(TEMPLATE_QUERIES, seed=4)
+        docs = [{"features": [float(v) for v in row]} for row in q_attrs]
+        answers, http_ms = serve_docs(dev, server_mod, eng, ep,
+                                      models, docs)
+        walls["serve"] = time.perf_counter() - t0
+        theta = nbm.nb.theta.double().cpu().numpy()
+        pi = nbm.nb.pi.double().cpu().numpy()
+        near_ties = 0
+        for doc, body in zip(docs, answers):
+            s = np.asarray(doc["features"]) @ theta.T + pi
+            top = np.argsort(-s, kind="stable")
+            if body["label"] != nbm.label_values[top[0]]:
+                if s[top[0]] - s[top[1]] > 1e-5 * abs(s[top[0]]):
+                    raise AssertionError(f"classification: {doc} answered "
+                                         f"{body}, host scores {s}")
+                near_ties += 1
+
+        t0 = time.perf_counter()
+        cpu = logreg.logreg_fit(
+            torch.from_numpy(pd.features), torch.from_numpy(pd.labels),
+            n_classes=len(pd.label_values), steps=300, learning_rate=0.1,
+            l2=1e-4)
+        err = max(float((lrm.lr.weights.cpu() - cpu.weights).abs().max()),
+                  float((lrm.lr.bias.cpu() - cpu.bias).abs().max()))
+        if not err <= LOGREG_CARD_TOL:
+            raise AssertionError(f"classification: logreg on {dev} off the "
+                                 f"CPU fit by {err}")
+        walls["check"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        _one_liner, result = pio_eval(work, dev, "clf_evaluation",
+                                      CLF_EVAL_MODULE.format(app=app))
+        walls["eval"] = time.perf_counter() - t0
+        scores = [s["score"]["score"] for s in result["engineParamsScores"]]
+        if not max(scores) > 1 / 3 + CLF_ACCURACY_MARGIN:
+            raise AssertionError(f"classification: accuracy {scores}")
+    stats.update(logreg_card_vs_cpu=err, near_ties=near_ties,
+                 accuracy=scores,
+                 logreg_max_abs_w=float(lrm.lr.weights.abs().max()),
+                 http_p50_ms=statistics.median(http_ms))
+    return err, stats
+
+
+REG_EVAL_MODULE = '''"""Regression evaluation objects, importing the port: the mean square
+error of the linear and SGD models under AverageServing over three folds of
+an lr_data.txt file.
+
+Run with:
+    pio eval reg_evaluation:evaluation reg_evaluation:engine_params_generator
+"""
+
+from incubator_predictionio_tpu_torch.core.evaluation import Evaluation
+from incubator_predictionio_tpu_torch.core.params import (
+    EngineParams,
+    EngineParamsGenerator,
+)
+from incubator_predictionio_tpu_torch.models.regression import (
+    DataSourceParams,
+    LinearAlgorithmParams,
+    MeanSquareError,
+    RegressionEngine,
+    SGDAlgorithmParams,
+)
+
+evaluation = Evaluation()
+evaluation.engine_metric = (RegressionEngine().apply(), MeanSquareError())
+
+
+class _Generator(EngineParamsGenerator):
+    engine_params_list = [
+        EngineParams(
+            data_source_params=("", DataSourceParams(filepath={path!r},
+                                                     eval_k=3)),
+            algorithm_params_list=[
+                ("linear", LinearAlgorithmParams(l2=0.0)),
+                ("sgd", SGDAlgorithmParams(num_iterations=200,
+                                           step_size=0.1))],
+        )
+    ]
+
+
+engine_params_generator = _Generator()
+'''
+
+
+def reg_points(n: int, seed: int = 5) -> tuple:
+    """(x [n, 3], y [n]) by the law of examples/regression-quickstart/
+    import_points.py: x ~ N(0, 1), y = x·(2, −1, 0.5) + 0.7 + N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 3))
+    y = x @ np.array([2.0, -1.0, 0.5]) + 0.7 + rng.normal(0, 0.1, n)
+    return x, y
+
+
+def regression_leg(dev, server_mod, small: bool = False) -> tuple:
+    """(b) The regression template at the quickstart's width (3 features):
+    ``REG_POINTS`` planted points (:func:`reg_points`, seed 5) written as
+    ``label f0 f1 f2`` rows (the reference examples' lr_data.txt) and read
+    through the data source's ``filepath``; ``pio train`` of the
+    quickstart's engine.json (``linear`` at l2 0, ``sgd`` at 200 steps of
+    0.1, under ``AverageServing``) on the card; the linear weights within
+    ``LINREG_LSTSQ_TOL`` of ``numpy.linalg.lstsq`` in f64 on the same
+    (f32) points; the SGD weights within ``SGD_CARD_TOL`` of the port's
+    fit on CPU tensors; 64 ``/queries.json`` answers, each the mean of the
+    two models' predictions computed in f64 on the host (rtol 1e-5);
+    ``pio eval`` of ``MeanSquareError`` over three folds
+    (``REG_EVAL_MODULE``), EVALCOMPLETED, the MSE within 10% of the noise's
+    variance 0.01. Returns (max error, stats)."""
+    from incubator_predictionio_tpu_torch.cli import commands
+    from incubator_predictionio_tpu_torch.models.regression import (
+        engine as reg,
+    )
+    from incubator_predictionio_tpu_torch.ops import linreg
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    n = 3_000 if small else REG_POINTS
+    walls: dict = {}
+    stats: dict = {"points": n, "walls_s": walls}
+    with memory_store(), tempfile.TemporaryDirectory(
+            prefix="pio_reg_") as work:
+        t0 = time.perf_counter()
+        x, y = reg_points(n)
+        path = os.path.join(work, "lr_data.txt")
+        np.savetxt(path, np.column_stack([y, x]), fmt="%.17g")
+        walls["import"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        variant = quickstart_variant("regression", {"filepath": path})
+        pds: list = []
+        with captured_calls(reg.RegressionPreparator, "prepare", pds):
+            iid = pio_train(work, dev, variant, stats)
+        sync(dev)
+        walls["train"] = time.perf_counter() - t0
+        pd = pds[0][2]
+
+        t0 = time.perf_counter()
+        eng, ep = commands.engine_from_variant(variant)
+        models = CoreWorkflow.load_models(iid, eng, ep,
+                                          ctx=RuntimeContext(device=dev))
+        w_lin, w_sgd = (m.weights.cpu().numpy().astype(np.float64)
+                        for m in models)
+        q, _ = reg_points(TEMPLATE_QUERIES, seed=6)
+        docs = [{"features": [float(v) for v in row]} for row in q]
+        answers, http_ms = serve_docs(dev, server_mod, eng, ep,
+                                      models, docs)
+        walls["serve"] = time.perf_counter() - t0
+        qa = np.column_stack([q.astype(np.float32).astype(np.float64),
+                              np.ones(len(q))])
+        want = (qa @ w_lin + qa @ w_sgd) / 2
+        got = np.asarray(answers, np.float64)
+        serve_err = float(np.abs(got - want).max())
+        if not np.allclose(got, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"regression: served {got} against {want}")
+
+        t0 = time.perf_counter()
+        xa = np.column_stack([pd.features.astype(np.float64),
+                              np.ones(len(pd.labels))])
+        ref = np.linalg.lstsq(xa, pd.labels.astype(np.float64),
+                              rcond=None)[0]
+        lin_err = float(np.abs(w_lin - ref).max())
+        cpu = linreg.linreg_fit_sgd(torch.from_numpy(pd.features),
+                                    torch.from_numpy(pd.labels), steps=200,
+                                    step_size=0.1).numpy()
+        sgd_err = float(np.abs(w_sgd - cpu).max())
+        if not (lin_err <= LINREG_LSTSQ_TOL and sgd_err <= SGD_CARD_TOL):
+            raise AssertionError(f"regression: linear {lin_err} off lstsq, "
+                                 f"sgd {sgd_err} off the CPU fit")
+        walls["check"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        _one_liner, result = pio_eval(work, dev, "reg_evaluation",
+                                      REG_EVAL_MODULE.format(path=path))
+        walls["eval"] = time.perf_counter() - t0
+        mse = result["engineParamsScores"][0]["score"]["score"]
+        if not abs(mse - 0.01) <= 0.1 * 0.01:
+            raise AssertionError(f"regression: MSE {mse}")
+    stats.update(linear_vs_lstsq=lin_err, sgd_card_vs_cpu=sgd_err,
+                 served_err=serve_err, weights=ref.tolist(), mse=mse,
+                 http_p50_ms=statistics.median(http_ms))
+    return max(lin_err, sgd_err, serve_err), stats
+
+
+def fr_graph(n_users: int, n_edges: int, seed: int = 11) -> tuple:
+    """(src user ids [E], dst node ids [E], dst is an item [E]): ``follow``
+    edges from users to users or items, over ``n_users`` users and as many
+    items. The first ``2 · n_users`` edges go to every node once, from every
+    user twice, so every node is an endpoint; the rest are uniform."""
+    rng = np.random.default_rng(seed)
+    n_nodes = 2 * n_users
+    dst = np.concatenate([rng.permutation(n_nodes),
+                          rng.integers(0, n_nodes, n_edges - n_nodes)])
+    src = np.concatenate([np.arange(n_nodes) % n_users,
+                          rng.integers(0, n_users, n_edges - n_nodes)])
+    return src, dst % n_users, dst >= n_users
+
+
+def fr_keywords(rng, n: int) -> list:
+    """``n`` keyword maps by examples/friendrecommendation-quickstart/
+    import_events.py's law: 6 of 40 keywords, each weighted by a uniform
+    draw rounded to 3 places."""
+    vocab = [f"kw{k}" for k in range(40)]
+    return [{vocab[k]: round(float(w), 3)
+             for k, w in zip(rng.choice(40, 6, replace=False),
+                             rng.random(6))}
+            for _ in range(n)]
+
+
+def friendrec_leg(dev, server_mod, small: bool = False) -> tuple:
+    """(c) The friend-recommendation template at SimRank's dense ceiling of
+    16,384 nodes: ``FR_EDGES`` planted ``follow`` edges (:func:`fr_graph`,
+    seed 11) among 8,192 users and 8,192 items, every node an endpoint,
+    and keyword ``$set``s (:func:`fr_keywords`) on 2,048 users and 2,048
+    items, on a fresh memory store; ``pio train`` of the quickstart's
+    engine.json with SimRank first (the template's defaults: decay 0.8,
+    7 iterations), then the keyword and random algorithms. The model's
+    matrix is 16,384² f32, 1 GiB: the blob is above SQLite's length limit
+    (``SQLITE_LIMIT_LENGTH``, read from the library and printed), so this
+    leg keeps models on the memory store, as the JAX package would have
+    to. Checks: the same iteration in f64 on the card from the same W
+    within ``SIMRANK_F64_TOL`` of the f32 matrix; the matrix symmetric to
+    the same bound and its diagonal exactly 1; the decoded matrix the
+    trained one bit for bit; 64 ``/queries.json`` answers (half naming a
+    user in the item slot, the template's fallback) each S[a, b]; the
+    keyword and random algorithms 32 answers each, equal to a plain host
+    recomputation. Prints the iteration's device ms, the blob's bytes and
+    the ``dumps`` / ``loads`` walls. Returns (max error, stats)."""
+    import sqlite3
+    import zlib
+
+    from incubator_predictionio_tpu_torch.cli import commands
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+    from incubator_predictionio_tpu_torch.models.friendrecommendation import (
+        engine as fr,
+    )
+    from incubator_predictionio_tpu_torch.ops import simrank as simrank_mod
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.workflow import checkpoint
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    n_users = 256 if small else FR_USERS
+    n_edges = 2_048 if small else FR_EDGES
+    n_kw = 64 if small else FR_KEYWORDED
+    walls: dict = {}
+    stats: dict = {"nodes": 2 * n_users, "edges": n_edges,
+                   "model_store": "memory", "walls_s": walls}
+    with memory_store(), tempfile.TemporaryDirectory(
+            prefix="pio_fr_") as work:
+        t0 = time.perf_counter()
+        app_id = new_app("fr-app")
+        src, dst, to_item = fr_graph(n_users, n_edges)
+        rng = np.random.default_rng(12)
+        kw_users, kw_items = fr_keywords(rng, n_kw), fr_keywords(rng, n_kw)
+        events = [Event(event="follow", entity_type="user",
+                        entity_id=f"u{s}",
+                        target_entity_type="item" if it else "user",
+                        target_entity_id=f"i{d}" if it else f"u{d}")
+                  for s, d, it in zip(src, dst, to_item)]
+        events += [Event(event="$set", entity_type=etype,
+                         entity_id=f"{etype[0]}{k}",
+                         properties=DataMap({"keywords": kw}))
+                   for etype, maps in (("user", kw_users),
+                                       ("item", kw_items))
+                   for k, kw in enumerate(maps)]
+        insert_events(events, app_id)
+        del events
+        walls["import"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        variant = quickstart_variant("friendrecommendation",
+                                     {"appName": "fr-app"}, [
+            {"name": "simrank", "params": {}},
+            {"name": "keyword", "params": {}},
+            {"name": "random", "params": {}}])
+        graphs, iterations, dumps, loads = [], [], [], []
+
+        def device_timed(real):
+            def run(w_norm, decay, iters):
+                if w_norm.is_cuda:
+                    start, end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2))
+                    start.record()
+                    s = real(w_norm, decay, iters)
+                    end.record()
+                    end.synchronize()
+                    iterations.append(start.elapsed_time(end))
+                else:
+                    t = time.perf_counter()
+                    s = real(w_norm, decay, iters)
+                    iterations.append(1e3 * (time.perf_counter() - t))
+                return s
+            return run
+
+        with captured_calls(fr, "simrank", graphs), \
+                captured_calls(checkpoint, "dumps", dumps), \
+                patched(simrank_mod, "simrank_iterate", device_timed):
+            iid = pio_train(work, dev, variant, stats)
+        walls["train"] = time.perf_counter() - t0
+        blob_bytes = len(Storage.get_model_data_models().get(iid).models)
+
+        t0 = time.perf_counter()
+        eng, ep = commands.engine_from_variant(variant)
+        with captured_calls(checkpoint, "loads", loads):
+            models = CoreWorkflow.load_models(iid, eng, ep,
+                                              ctx=RuntimeContext(device=dev))
+        walls["load"] = time.perf_counter() - t0
+        sm, km, rm = models
+        trained = graphs[0][2]
+        if not np.array_equal(sm.similarities, trained):
+            raise AssertionError("friendrec: the decoded matrix differs")
+
+        t0 = time.perf_counter()
+        (g_src, g_dst, n_nodes), g_kw = graphs[0][0], graphs[0][1]
+        w64 = simrank_mod.normalized_adjacency(g_src, g_dst, n_nodes, dev,
+                                               dtype=torch.float64)
+        s64 = simrank_mod.simrank_iterate(w64, g_kw["decay"],
+                                          g_kw["iterations"])
+        del w64
+        s32 = torch.from_numpy(sm.similarities).to(dev)
+        f64_err = float((s32.double() - s64).abs().max())
+        del s64
+        asym = float((s32 - s32.T).abs().max())
+        diag_ok = bool((torch.diagonal(s32) == 1).all())
+        nonzero = float((s32 != 0).double().mean())
+        del s32
+        if not (f64_err <= SIMRANK_F64_TOL and asym <= SIMRANK_F64_TOL
+                and diag_ok):
+            raise AssertionError(f"friendrec: f64 {f64_err}, asymmetry "
+                                 f"{asym}, diagonal ones {diag_ok}")
+        walls["check"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(14)
+        docs = []
+        for j in range(TEMPLATE_QUERIES):
+            a, b = rng.integers(0, n_users, 2)
+            docs.append({"user": f"u{a}",
+                         "item": f"i{b}" if j % 2 else f"u{b}"})
+        answers, http_ms = serve_docs(dev, server_mod, eng, ep,
+                                      models, docs)
+        walls["serve"] = time.perf_counter() - t0
+        for doc, body in zip(docs, answers):
+            a = sm.node_index[f"user:{doc['user']}"]
+            b = sm.node_index.get(f"item:{doc['item']}",
+                                  sm.node_index.get(f"user:{doc['item']}"))
+            want = float(sm.similarities[a, b])
+            if body != {"confidence": want,
+                        "acceptance": want >= sm.threshold}:
+                raise AssertionError(f"friendrec: {doc} answered {body}, "
+                                     f"S[a, b] {want}")
+
+        (_sim, keyword, random_algo), _serving = eng.components(ep)
+        kw_of = {("user", f"u{k}"): kw for k, kw in enumerate(kw_users)}
+        kw_of.update({("item", f"i{k}"): kw for k, kw in enumerate(kw_items)})
+        kw_err = 0.0
+        for j in range(TEMPLATE_SIDE_QUERIES):
+            # half the pairs both keyworded, the rest one side or neither
+            u = rng.integers(0, n_kw if j % 4 else n_users)
+            i = rng.integers(0, n_kw if j % 4 != 3 else n_users)
+            query = fr.Query(user=f"u{u}", item=f"i{i}")
+            pu = kw_of.get(("user", query.user), {})
+            pi = kw_of.get(("item", query.item), {})
+            want = sum(w * pi.get(t, 0.0) for t, w in pu.items())
+            got = keyword.predict(km, query)
+            kw_err = max(kw_err, abs(got.confidence - want))
+            if kw_err > 1e-12 or got.acceptance != (
+                    got.confidence * km.sim_weight >= km.sim_threshold):
+                raise AssertionError(f"friendrec keyword: {query} {got}, "
+                                     f"host {want}")
+            key = f"{rm.seed}\x00{query.user}\x00{query.item}".encode()
+            want_r = float(np.random.default_rng(zlib.crc32(key)).random())
+            got_r = random_algo.predict(rm, query)
+            if got_r.confidence != want_r \
+                    or got_r.acceptance != (want_r >= rm.threshold):
+                raise AssertionError(f"friendrec random: {query} {got_r}, "
+                                     f"host {want_r}")
+    stats.update(
+        simrank_device_ms=iterations[0], f64_err=f64_err, asymmetry=asym,
+        nonzero_share=nonzero, blob_bytes=blob_bytes,
+        sqlite_limit_length=sqlite3.connect(":memory:").getlimit(
+            sqlite3.SQLITE_LIMIT_LENGTH),
+        dumps_s=dumps[0][3], loads_s=loads[0][3],
+        train_wall_s=graphs[0][3], keyword_err=kw_err,
+        http_p50_ms=statistics.median(http_ms))
+    if stats["blob_bytes"] <= stats["sqlite_limit_length"] and not small:
+        raise AssertionError(f"friendrec: a {blob_bytes}-byte blob fits "
+                             "SQLite's limit; the leg's premise is wrong")
+    return max(f64_err, asym, kw_err), stats
+
+
+STOCK_EVAL_MODULE = '''"""Stock evaluation objects, importing the port: the momentum and
+regression strategies backtested over days {lo} to {hi}.
+
+Run with:
+    pio eval stock_evaluation:evaluation stock_evaluation:engine_params_generator
+"""
+
+from incubator_predictionio_tpu_torch.core.evaluation import Evaluation
+from incubator_predictionio_tpu_torch.core.params import (
+    EngineParams,
+    EngineParamsGenerator,
+)
+from incubator_predictionio_tpu_torch.models.stock import (
+    BacktestingEvaluator,
+    BacktestingParams,
+    DataSourceParams,
+    MomentumStrategyParams,
+    RegressionStrategyParams,
+    StockEngine,
+)
+
+evaluation = Evaluation()
+evaluation.engine_evaluator = (
+    StockEngine().apply(),
+    BacktestingEvaluator(BacktestingParams(
+        enter_threshold=0.001, exit_threshold=-0.001, max_positions=10)))
+
+
+class _Generator(EngineParamsGenerator):
+    engine_params_list = [
+        EngineParams(
+            data_source_params=("", DataSourceParams(
+                app_name={app!r}, eval_from_idx={lo}, eval_days={days})),
+            algorithm_params_list=[algo],
+        )
+        for algo in (("momentum", MomentumStrategyParams(window=5)),
+                     ("regression", RegressionStrategyParams()))
+    ]
+
+
+engine_params_generator = _Generator()
+'''
+
+
+def stock_panel(n_tickers: int, n_days: int, seed: int = 13) -> tuple:
+    """(tickers, prices [days, tickers + 1], first listed day [tickers +
+    1]): each ticker compounds a drift of U(−1%, 1%) a day with noise of
+    U(0.2%, 2%) (tests/test_stock_template.py's fixture plants ±1% and
+    0.2%), SPY last with 0.05% noise; every 50th ticker lists mid-panel,
+    on a day of 50-199 (test_gappy_ticker_is_masked_not_poisoned lists one
+    on day 50)."""
+    rng = np.random.default_rng(seed)
+    drift = rng.uniform(-0.01, 0.01, n_tickers)
+    noise = rng.uniform(0.002, 0.02, n_tickers)
+    steps = 1 + drift + noise * rng.standard_normal((n_days, n_tickers))
+    spy = 1 + 0.0005 * rng.standard_normal((n_days, 1))
+    prices = 100.0 * np.cumprod(np.concatenate([steps, spy], axis=1), axis=0)
+    listed = np.zeros(n_tickers + 1, np.int64)
+    listed[:n_tickers:50] = rng.integers(50, 200, len(listed[:n_tickers:50]))
+    tickers = [f"T{k:03d}" for k in range(n_tickers)] + ["SPY"]
+    return tickers, prices, listed
+
+
+def stock_leg(dev, server_mod, small: bool = False) -> tuple:
+    """(d) The stock template at S&P-500 width: ``STOCK_TICKERS`` tickers
+    and SPY, ``STOCK_DAYS`` trading days of planted prices
+    (:func:`stock_panel`, seed 13; at most 150,300 ``price`` events) on a
+    fresh memory store; ``pio train`` of the quickstart's engine.json
+    with the regression strategy (periods 1, 5 and 22 over a 250-day
+    window, l2 1e-4) first and momentum (window 5) second; the regression
+    weights, one batched solve on the card, within ``STOCK_F64_TOL`` ·
+    max|w| of per-ticker f64 numpy ridge solves of the same (f32) inputs;
+    32 day queries through ``/queries.json``, each ticker's score the f64
+    host product of its features and weights (rtol 1e-12) and the tickers
+    scored those with every indicator defined; ``pio eval`` with
+    ``BacktestingEvaluator`` over days 270-298 (``evalFromIdx`` 270,
+    ``evalDays`` 29) for both strategies (``STOCK_EVAL_MODULE``),
+    EVALCOMPLETED, its one-liner stored and printed, 29 daily rows dated.
+    Returns (max error, stats)."""
+    from datetime import datetime, timedelta, timezone
+
+    from incubator_predictionio_tpu_torch.cli import commands
+    from incubator_predictionio_tpu_torch.data.datamap import DataMap
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.models.stock import engine as stock
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    n_tickers = 20 if small else STOCK_TICKERS
+    app = "stock-app"
+    walls: dict = {}
+    stats: dict = {"tickers": n_tickers + 1, "days": STOCK_DAYS,
+                   "walls_s": walls}
+    with memory_store(), tempfile.TemporaryDirectory(
+            prefix="pio_stock_") as work:
+        t0 = time.perf_counter()
+        app_id = new_app(app)
+        tickers, prices, listed = stock_panel(n_tickers, STOCK_DAYS)
+        day0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
+        events = [Event(event="price", entity_type="ticker",
+                        entity_id=tickers[j],
+                        properties=DataMap({"price": float(prices[d, j])}),
+                        event_time=day0 + timedelta(days=d))
+                  for d in range(STOCK_DAYS) for j in range(len(tickers))
+                  if d >= listed[j]]
+        stats["events"] = len(events)
+        insert_events(events, app_id)
+        del events
+        walls["import"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        variant = quickstart_variant("stock", {"appName": app}, [
+            {"name": "regression", "params": {}},
+            {"name": "momentum", "params": {"window": 5}}])
+        fits: list = []
+        with captured_calls(stock, "linreg_fit", fits):
+            iid = pio_train(work, dev, variant, stats)
+        sync(dev)
+        walls["train"] = time.perf_counter() - t0
+
+        (x, y), kw, w_dev, _s = fits[0]
+        xa = np.concatenate([x.double().cpu().numpy(),
+                             np.ones(x.shape[:2] + (1,))], axis=2)
+        gram = np.einsum("nsk,nsl->nkl", xa, xa) \
+            + kw["l2"] * np.eye(xa.shape[2])
+        rhs = np.einsum("nsk,ns->nk", xa, y.double().cpu().numpy())
+        ref = np.linalg.solve(gram, rhs[..., None])[..., 0]
+        w_err = float(np.abs(w_dev.cpu().numpy() - ref).max()
+                      / np.abs(ref).max())
+        if not w_err <= STOCK_F64_TOL:
+            raise AssertionError(f"stock: regression weights off the f64 "
+                                 f"solves by {w_err} of max|w|")
+
+        t0 = time.perf_counter()
+        eng, ep = commands.engine_from_variant(variant)
+        models = CoreWorkflow.load_models(iid, eng, ep,
+                                          ctx=RuntimeContext(device=dev))
+        model = models[0]
+        td = model.td
+        if td.tickers != tuple(sorted(tickers)) or len(td.times) \
+                != STOCK_DAYS:
+            raise AssertionError(f"stock: panel {len(td.tickers)} × "
+                                 f"{len(td.times)}")
+        w64 = model.weights.double().cpu().numpy()
+        rng = np.random.default_rng(15)
+        days = sorted(rng.choice(np.arange(30, STOCK_DAYS),
+                                 TEMPLATE_SIDE_QUERIES, replace=False))
+        docs = [{"idx": int(d)} for d in days]
+        answers, http_ms = serve_docs(dev, server_mod, eng, ep,
+                                      models, docs)
+        walls["serve"] = time.perf_counter() - t0
+        score_err = 0.0
+        for doc, body in zip(docs, answers):
+            feats, ok = stock._row_log_returns(td.prices, td.active,
+                                               doc["idx"], (1, 5, 22))
+            aug = np.concatenate([feats, np.ones((len(ok), 1))], axis=1)
+            want = (aug * w64).sum(axis=1)
+            want = {t: float(want[j]) for j, t in enumerate(td.tickers)
+                    if ok[j]}
+            got = body["scores"]
+            if set(got) != set(want):
+                raise AssertionError(f"stock: day {doc['idx']} scored "
+                                     f"{len(got)} tickers, want {len(want)}")
+            for t, v in want.items():
+                score_err = max(score_err, abs(got[t] - v))
+                if abs(got[t] - v) > 1e-12 * max(abs(v), 1e-3):
+                    raise AssertionError(f"stock: {t} on day {doc['idx']}: "
+                                         f"{got[t]} against {v}")
+
+        t0 = time.perf_counter()
+        one_liner, result = pio_eval(
+            work, dev, "stock_evaluation", STOCK_EVAL_MODULE.format(
+                app=app, lo=STOCK_EVAL_FROM, days=STOCK_EVAL_DAYS,
+                hi=STOCK_EVAL_FROM + STOCK_EVAL_DAYS - 1))
+        walls["eval"] = time.perf_counter() - t0
+        daily = result["daily"]
+        if len(daily) != STOCK_EVAL_DAYS or daily[0]["time"] != str(
+                td.times[STOCK_EVAL_FROM]) or not one_liner.startswith(
+                    "ret="):
+            raise AssertionError(f"stock: backtest {one_liner}, "
+                                 f"{len(daily)} days from {daily[:1]}")
+    stats.update(weights_vs_f64=w_err, max_abs_w=float(np.abs(ref).max()),
+                 score_err=score_err, eval=one_liner,
+                 overall=result["overall"],
+                 http_p50_ms=statistics.median(http_ms))
+    return max(score_err, w_err), stats
+
+
+def templates_phase(dev, runtime, server_mod, small: bool = False) -> tuple:
+    """The classification, regression, friendrecommendation and stock
+    templates (:func:`classification_leg`, :func:`regression_leg`,
+    :func:`friendrec_leg`, :func:`stock_leg`), each on a fresh memory
+    store, each leg's wall printed as it ends (``templates-a:`` to
+    ``templates-d:``). None of them runs a hand-written kernel (their
+    device work is PyTorch products, solves and Adam steps, as it is XLA
+    work in the JAX package): the launch counts are read and returned, all
+    0. Returns (launches by kernel, max error, stats)."""
+    t_phase = time.perf_counter()
+    runtime.reset_launch_counts()
+    stats: dict = {}
+    err = 0.0
+    for tag, name, leg in (("a", "classification", classification_leg),
+                           ("b", "regression", regression_leg),
+                           ("c", "friendrec", friendrec_leg),
+                           ("d", "stock", stock_leg)):
+        t0 = time.perf_counter()
+        leg_err, stats[name] = leg(dev, server_mod, small)
+        stats[name]["wall_s"] = time.perf_counter() - t0
+        err = max(err, leg_err)
+        print(f"templates-{tag}: {name} {stats[name]['wall_s']:.1f} s",
+              flush=True)
+    launches = runtime.launch_counts()
+    stats["launches"] = launches
+    stats["wall_s"] = time.perf_counter() - t_phase
+    return launches, err, stats
+
+
 def topk_only(dev, kernels, planted) -> int:
     """``--topk``: the score+top-k kernel alone (its cases, the edge cases,
     then its timings), for an A/B of two copies of the package."""
@@ -7561,7 +8489,7 @@ def main() -> int:
     print(f"build-native: {note_wall('build-native', t0):.1f} s", flush=True)
     mode = sys.argv[1:]
     if mode not in ([], ["--flash"], ["--topk"], ["--als"], ["--mips"],
-                    ["--eval"], ["--similar"]):
+                    ["--eval"], ["--similar"], ["--templates"]):
         print(f"chip_smoke: unknown arguments {mode}", file=sys.stderr)
         return 2
     if mode in ([], ["--flash"]):
@@ -7590,10 +8518,12 @@ def main() -> int:
         print(json.dumps({"mips_ok": True, "max_score_err": err,
                           "kind": torch.cuda.get_device_name(0)}))
         return 0
-    if mode in (["--eval"], ["--similar"]):
+    if mode in (["--eval"], ["--similar"], ["--templates"]):
         t0 = time.perf_counter()
         if mode == ["--eval"]:
             _l, err, one_stats = eval_phase(dev, runtime, kernels)
+        elif mode == ["--templates"]:
+            _l, err, one_stats = templates_phase(dev, runtime, server_mod)
         else:
             _l, err, one_stats = similar_phase(
                 dev, runtime, kernels, als, planted, params_mod, context,
@@ -7769,6 +8699,12 @@ def main() -> int:
     print(f"similar: {json.dumps(sim_stats)} "
           f"({note_wall('similar', t0):.1f} s)", flush=True)
     print(f"similar-card: {card_line()}", flush=True)
+    t0 = time.perf_counter()
+    tmpl_launches, _err, tmpl_stats = templates_phase(dev, runtime,
+                                                      server_mod)
+    print(f"templates: {json.dumps(tmpl_stats)} "
+          f"({note_wall('templates', t0):.1f} s)", flush=True)
+    print(f"templates-card: {card_line()}", flush=True)
 
     t0 = time.perf_counter()
     shapes = topk_timings(kernels, planted, dev)
@@ -7799,7 +8735,7 @@ def main() -> int:
         + store_launches["score_topk"] + qs_launches["score_topk"]
         + rt_cli_launches["score_topk"] + log_launches["score_topk"]
         + speed_launches["score_topk"] + eval_launches["score_topk"]
-        + sim_launches["score_topk"],
+        + sim_launches["score_topk"] + tmpl_launches.get("score_topk", 0),
         "max_abs_err": max(err_k, err_p, err_load, err_mips, err_t, err_sa,
                            err_qs, err_rt, err_log, err_speed, err_eval,
                            err_sim),
@@ -7825,7 +8761,8 @@ def main() -> int:
             "launches": train_stats["launches"][entry]
             + store_launches.get(entry, 0) + qs_launches.get(entry, 0)
             + rt_cli_launches.get(entry, 0) + rt_loop_launches.get(entry, 0)
-            + log_launches.get(entry, 0) + eval_launches.get(entry, 0),
+            + log_launches.get(entry, 0) + eval_launches.get(entry, 0)
+            + tmpl_launches.get(entry, 0),
             "max_abs_err": max([als_errs[entry]]
                                + [r["max_abs_err"] for r in rows]),
             "ms": first["ms"],
@@ -7918,7 +8855,7 @@ def main() -> int:
         "source": "incubator_predictionio_tpu_torch/csrc/flash_attention.cu",
         "replaces": fa.REPLACES,
         "launches": seq_launches + wide_launches + seq_train_launches
-        + store_seq_launches,
+        + store_seq_launches + tmpl_launches.get("flash_attention", 0),
         "max_abs_err": err_f,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

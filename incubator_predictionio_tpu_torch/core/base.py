@@ -236,6 +236,13 @@ class FirstServing(Serving[Q, P]):
         return predictions[0]
 
 
+class AverageServing(Serving[Q, float]):
+    """Average numeric predictions (controller/LAverageServing.scala)."""
+
+    def serve(self, query: Q, predictions: Sequence[float]) -> float:
+        return sum(predictions) / len(predictions)
+
+
 class Evaluator(_Component, Generic[EI, Q, P, A, R]):
     """Scores evaluation output (core/BaseEvaluator.scala:52): every
     candidate's ``[(eval_info, [(query, prediction, actual)])]``."""

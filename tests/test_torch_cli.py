@@ -341,19 +341,19 @@ def test_train_missing_engine_json(tmp_path, monkeypatch):
 def test_factory_without_a_counterpart_raises(tmp_path, monkeypatch,
                                               capsys):
     for factory, why in (
-            ("incubator_predictionio_tpu.models.classification:"
-             "ClassificationEngine", "no counterpart in the PyTorch port"),
+            ("incubator_predictionio_tpu.parallel.mesh:"
+             "MeshEngine", "no counterpart in the PyTorch port"),
             ("incubator_predictionio_tpu_torch.models.recommendation:"
              "NoSuchEngine", "has no attribute"),
             ("nosuchmodule:Engine", "Cannot import")):
         with pytest.raises(commands.CommandError, match=why):
             commands.resolve_engine_factory(factory)
     (tmp_path / "engine.json").write_text(json.dumps({
-        "engineFactory": "incubator_predictionio_tpu.models.stock:"
-                         "StockEngine"}))
+        "engineFactory": "incubator_predictionio_tpu.obs.profile:"
+                         "ProfileEngine"}))
     monkeypatch.chdir(tmp_path)
     assert main(["build"]) == 1
-    assert "incubator_predictionio_tpu.models.stock" in capsys.readouterr().err
+    assert "incubator_predictionio_tpu.obs.profile" in capsys.readouterr().err
 
 
 def test_undeploy_nothing_running(capsys):
