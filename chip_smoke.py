@@ -9,14 +9,17 @@ checkpoint → ``load_models`` → /queries.json, and the speed layer behind
 ecommerce template's implicit fold-in, two-stage MIPS serving at
 1,048,576 items, ``pio eval`` (evaluation and its metrics), the
 similarproduct template (implicit ALS, its item-side overlay into the MIPS
-index, DIMSUM and the recommended-user engine), and the classification,
-regression, friendrecommendation and stock templates.
+index, DIMSUM and the recommended-user engine), the classification,
+regression, friendrecommendation and stock templates, and the main path
+across processes behind ``pio storageserver``.
 
     python3 chip_smoke.py
 
 Every phase prints its wall as it ends (flushed, so a cut run still shows
 how far it got), and the line before the report's JSON is ``walls:``, each
-phase's seconds and the total. Depth cuts for the run's time limit, each
+phase's seconds and the total. The host's distinct counts at 20M keys go
+through a sort (:func:`n_distinct`), never numpy 2.3's hash ``np.unique``.
+Depth cuts for the run's time limit, each
 at full width and with its checks kept: store-als imports 250,000 planted
 ratings (from 1,000,000; still every ML-20M user and item, and the same
 ratings feed cpplog's ``pio import``, the speed phase's log and the
@@ -271,6 +274,21 @@ Phases, each of which fails the run on any error or mismatch:
              Prints the poll wall by part, fold-ins, hit rate, cursor lag,
              freshness p95, HTTP p50 of overlay and base users, and the
              card's line again.
+    remote — the main path across four processes on the same log, after
+             ``speed`` (:func:`remote_phase`; that hook's second part):
+             the recommendation read of the log in this process, the log
+             closed; ``pio storageserver`` as a child (routed: metadata
+             SQLite, events the log, models localfs), and from then on
+             metadata and events only through it (``remote``); the same
+             read through the wire, equal byte for byte; ``pio
+             eventserver`` as a child; ``pio train`` over the wire, which
+             continues and launches the fused and R-row kernels; ``pio
+             deploy`` as a child with the speed layer: 32 known users
+             against the plain top-k; 32 new users × 8 ratings through the
+             event server child, each answered from its fold-in (held to
+             the plain fold-in) within 30 s; ``pio_freshness_seconds`` p95
+             and ``kernelLaunches`` from the deploy child; every child
+             exits 0. Prints ``remote:`` with the walls.
 16. eval  — ``pio eval`` through the port's CLI in this process
              (:func:`eval_phase`) on a fresh SQLite store: 4,096 users ×
              26,744 items × 32 preference-biased planted ratings (seed 7,
@@ -334,8 +352,9 @@ Phases, each of which fails the run on any error or mismatch:
 
 ``python3 chip_smoke.py --flash`` runs only the build, the flash-kernel
 phase and the flash timings; ``--topk`` the score+top-k cases and timings;
-``--mips`` the mips phase; ``--eval``, ``--similar`` and ``--templates``
-those phases;
+``--mips`` the mips phase; ``--eval``, ``--similar``, ``--templates`` and
+``--remote`` those phases (``--remote`` on a cpplog store of store-als's
+ratings and one trained instance of its own, :func:`remote_alone`);
 ``--als`` the ALS cases, every ALS entry timed at the ML-20M bucket
 shapes D 8 to 32,768, f32 and bf16, and the narrow-bucket cell behind
 ``ops/als.py``'s routing constants (:func:`narrow_timings`). Run one from the root and from a
@@ -1817,6 +1836,16 @@ def same_rows(a, b, what: str) -> int:
     return rows
 
 
+def n_distinct(keys: np.ndarray) -> int:
+    """How many distinct values ``keys`` holds, by a sort. Not
+    ``len(np.unique(keys))``: numpy 2.3's ``np.unique`` without ``return_*``
+    arguments takes a hash-table path that spent 33-49 s on 20M int64
+    keys on the card's host (numpy 2.3.5), where ``np.sort`` took 0.34 s
+    (PERF.md §6)."""
+    k = np.sort(keys)
+    return int(len(k) and 1 + np.count_nonzero(k[1:] != k[:-1]))
+
+
 def numpy_latest_wins(users, items, n_items: int) -> np.ndarray:
     """The plain version of ``ops/sparse.latest_wins``, the JAX
     preparator's route: one ``np.unique`` over the reversed packed keys,
@@ -1882,7 +1911,7 @@ def host_routes(dev, als, engine, ctx, td, pd, trees, n_dups: int = 2_000_000,
     dup_numpy_s = time.perf_counter() - t0
     if not np.array_equal(keep_dev, keep_np):
         raise AssertionError("dedup routes differ on repeated pairs")
-    distinct = len(np.unique(users.astype(np.int64) * n_items + items))
+    distinct = n_distinct(users.astype(np.int64) * n_items + items)
     if len(keep_dev) != distinct:
         raise AssertionError(f"dedup kept {len(keep_dev)} of {distinct} "
                              "distinct pairs")
@@ -2979,8 +3008,10 @@ def distinct_new_pairs(rng, users, items, n_users, n_items, n: int,
     """``n`` (user, item) pairs, none among (``users``, ``items``) nor
     repeated, in draw order; ``draw(m)`` gives m candidate pairs (default:
     uniform over ``n_users`` × ``n_items``)."""
-    taken = np.unique(np.asarray(users, np.int64) * n_items
-                      + np.asarray(items, np.int64))
+    # sorted, for membership by searchsorted (a repeat is harmless); not
+    # np.unique: see n_distinct
+    taken = np.sort(np.asarray(users, np.int64) * n_items
+                    + np.asarray(items, np.int64))
     if draw is None:
         def draw(m):
             return rng.integers(0, n_users, m), rng.integers(0, n_items, m)
@@ -3328,7 +3359,8 @@ def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
     byte to the one before it. ``sqlite``: store-als's triples and fit.
     ``then(log)``, where given, runs last on the same store, ``log`` a dict
     of what the phase made (the app's name, id and access key, the
-    continued instance, the ratings); its wall is not the phase's.
+    continued instance, the ratings, the work and engine directories, the
+    engine.json, the first train's fit); its wall is not the phase's.
     Returns (launches by kernel, max score error, stats, what ``then``
     returned)."""
     from datetime import timedelta
@@ -3660,7 +3692,9 @@ def cpplog_phase(dev, runtime, kernels, als, planted, sqlite: dict,
             after = None if then is None else then(dict(
                 name=name, app_id=app_id, key=key,
                 instance=second["instance"], users=users, items=items,
-                n_users=n_users, n_items=n_items, rank=rank))
+                n_users=n_users, n_items=n_items, rank=rank, work=work,
+                engine_dir=engine_dir, variant=variant,
+                first_fit=first["fit_rmse"]))
             then_s = time.perf_counter() - t_then
     finally:
         traincache.MIN_NNZ = min_nnz
@@ -4828,6 +4862,442 @@ def ecommerce_leg(dev, runtime, als, ak, planted, es_url: str, post,
         server.stop()
     stats["launches"] = launches
     return launches, 0.0, stats
+
+
+# -- remote: the main path across processes through pio storageserver -------
+
+#: new users the remote phase posts through the separate event server, and
+#: half-star ratings each (one native-leg body)
+REMOTE_NEW_USERS, REMOTE_EVENTS_PER_USER = 32, 8
+#: known users' queries to the deploy child
+REMOTE_QUERIES = 32
+#: seconds a new user may take to be answered from their fold-in
+REMOTE_FOLD_DEADLINE_S = 30.0
+
+
+def metrics_histogram(text: str, name: str, labels: str) -> tuple:
+    """(bucket bounds, per-bucket counts with +Inf last) of one histogram
+    series of a Prometheus text exposition; ``labels`` its label pairs
+    before ``le``, as exposed."""
+    pat = re.compile(re.escape(name) + r"_bucket\{" + re.escape(labels)
+                     + r',le="([^"]+)"\} (\d+)')
+    bounds, cum = [], []
+    for m in pat.finditer(text):
+        if m.group(1) != "+Inf":
+            bounds.append(float(m.group(1)))
+        cum.append(int(m.group(2)))
+    counts = [c - p for c, p in zip(cum, [0] + cum[:-1])]
+    return bounds, counts
+
+
+def remote_phase(dev, runtime, kernels, als, ak, log: dict,
+                 small: bool = False) -> tuple:
+    """The README main path across four processes on the cpplog phase's
+    store (``log``: its app, key, engine directory and continued
+    instance), after the speed phase, whose servers are stopped:
+
+    1. the recommendation data source's read (``rate`` + ``buy``) of the
+       log in this process, then the log closed (``Storage.reset()``): a
+       log is never open in two live processes;
+    2. ``pio storageserver --ip 127.0.0.1 --port 0`` as a child in routed
+       mode on the phase's stores (metadata SQLite, events the log, models
+       localfs), its port from its announcement; ``GET /`` names the three
+       sources;
+    3. from here on this process and every other child reach metadata and
+       events only through it (``PIO_STORAGE_SOURCES_SHARED_TYPE=remote``);
+       models stay on the shared localfs directory, since a rank-128
+       ML-20M model (~84.6 MB) is above the storage server's 64 MiB cap on
+       a request body (``utils/http.MAX_BODY_BYTES``);
+    4. the same read through the wire (``RemoteEvents.scan_interactions``),
+       equal to the local one byte for byte;
+    5. ``pio eventserver`` as a child over ``remote``;
+    6. ``pio train`` in this process over ``remote``: it continues from
+       the latest COMPLETED instance (``mode=continue``), the fused and
+       R-row kernels launch, its model holds every user and item of the
+       read, and its fit RMSE is within the retrain rule (1.15 × + 0.02)
+       of the cpplog phase's first train;
+    7. ``pio deploy`` as a child over ``remote`` with the speed layer on
+       (``PIO_SPEED_POLL_S`` 1): 32 known users' answers against the plain
+       top-k on the instance's decoded factors;
+    8. 32 new users × 8 half-star ratings in one body to the event server
+       child's native batch leg; ``/queries.json`` polled until each is
+       answered from its fold-in (30 s deadline); each answer against the
+       top-k of the fused kernel's fold-in of the posted ratings computed
+       here (scores rtol 1e-5), that fold-in held to the plain fold-in
+       (:func:`hold_foldin`), and the answer to the plain top-k of the
+       plain fold-in within its near-tie band (rtol 1e-3);
+       ``pio_freshness_seconds`` p95 from the deploy child's ``/metrics``;
+    9. the deploy child's ``GET /`` ``kernelLaunches``: the fused entry
+       above 0 (the fold-ins), score+top-k at least once a query answered;
+    10. ``pio undeploy``, SIGTERM to the event and storage servers: every
+        child exits 0.
+
+    Returns (launches by kernel, max score error, stats)."""
+    from incubator_predictionio_tpu_torch.data.storage import (
+        Storage,
+        remote,
+    )
+    from incubator_predictionio_tpu_torch.data.storage import base as sbase
+    from incubator_predictionio_tpu_torch.data.store import EventStore
+    from incubator_predictionio_tpu_torch.models.recommendation import (
+        engine,
+    )
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.speed import foldin
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    t_phase = time.perf_counter()
+    name, key, work = log["name"], log["key"], log["work"]
+    dsp = engine.DataSourceParams(app_name=name)
+
+    def read():
+        t0 = time.perf_counter()
+        got = EventStore.interactions(
+            app_name=name, entity_type="user", target_entity_type="item",
+            event_names=("rate", "buy"), value_prop="rating",
+            event_values={"buy": dsp.buy_rating})
+        return got, time.perf_counter() - t0
+
+    stats: dict = {}
+    walls: dict = {}
+    children = []
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("PIO_STORAGE_") or k == "PIO_SPEED_POLL_S"}
+    cwd = os.getcwd()
+    try:
+        # -- 1. the local read, then the log closed ------------------------
+        local, walls["local_read_s"] = read()
+        Storage.reset()
+
+        # -- 2. pio storageserver, routed ----------------------------------
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        ss = Child("storageserver", ["storageserver", "--ip", "127.0.0.1",
+                                     "--port", "0"], work, env)
+        children.append(ss)
+        store_url = "http://127.0.0.1:%d" % int(ss.wait_line(
+            r"Storage Server running on http://[^:]+:(\d+)", 120).group(1))
+        status, info = http_json("GET", f"{store_url}/")
+        want = {"METADATA": "SQL", "EVENTDATA": "LOG", "MODELDATA": "FS"}
+        if status != 200 or info.get("repositories") != want:
+            raise AssertionError(f"remote: storage server GET / {status} "
+                                 f"{info}")
+        walls["server_up_s"] = time.perf_counter() - t0
+
+        # -- 3. metadata and events through it from here on ---------------
+        os.environ.update({
+            "PIO_STORAGE_SOURCES_SHARED_TYPE": "remote",
+            "PIO_STORAGE_SOURCES_SHARED_URL": store_url,
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SHARED",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SHARED"})
+        Storage.reset()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+        env["PIO_SPEED_POLL_S"] = "1"
+        es = Child("eventserver-remote", [
+            "eventserver", "--ip", "127.0.0.1", "--port", "0",
+            "--batch-cap", "500"], work, env)
+        children.append(es)
+
+        # -- 4. the read through the wire ----------------------------------
+        if not isinstance(Storage.get_events(), remote.RemoteEvents):
+            raise AssertionError("remote: events are not on the wire")
+        wired, walls["wire_read_s"] = read()
+        if not same_interactions(local, wired) or len(wired) != len(local):
+            raise AssertionError(f"remote: the read through the wire "
+                                 f"({len(wired)} rows) differs from the "
+                                 f"local read ({len(local)} rows)")
+        stats["read"] = {"rows": len(local), "users": len(local.user_ids),
+                         "items": len(local.item_ids)}
+
+        # -- 6. pio train over remote: it continues ------------------------
+        os.chdir(log["engine_dir"])
+        try:
+            with LogLines("incubator_predictionio_tpu_torch.models."
+                          "recommendation.engine") as lines:
+                runtime.reset_launch_counts()
+                sync(dev)
+                t0 = time.perf_counter()
+                out = cli("train")
+                sync(dev)
+                walls["train_s"] = time.perf_counter() - t0
+                counts = runtime.launch_counts()
+        finally:
+            os.chdir(cwd)
+        iid = re.search(r"Engine instance ID: (\S+)", out).group(1)
+        said = [m for m in map(re.compile(
+            r"ALS continuation retrain: .* (\d+) sweeps \(mode=(\w+), "
+            r"delta=(\S+)\)").search, lines) if m]
+        if len(said) != 1 or said[0].group(2) != "continue":
+            raise AssertionError(f"remote: pio train logged {lines}")
+        conf = Storage.get_meta_data_engine_instances().get(iid).runtime_conf
+        phases = {k: float(v) for k, v in conf.items()
+                  if k.startswith("phase.")}
+        if "phase.continue_seed_s" not in phases:
+            raise AssertionError("remote: no continue_seed phase")
+        train_launches = {e: counts[e] for e in ROUTE_ENTRY.values()}
+        if dev.type == "cuda" and (
+                train_launches["als_fused_solve_cg"] <= 0
+                or train_launches["als_solve_cg_rows8"] <= 0):
+            raise AssertionError(f"remote: pio train launched "
+                                 f"{train_launches}")
+        model = CoreWorkflow.load_models(iid)[0]
+        if (len(model.user_bimap), len(model.item_bimap)) != (
+                len(local.user_ids), len(local.item_ids)):
+            raise AssertionError(
+                f"remote: the model holds {len(model.user_bimap)} × "
+                f"{len(model.item_bimap)}, the read "
+                f"{len(local.user_ids)} × {len(local.item_ids)}")
+        ctx = RuntimeContext(device=dev)
+        pd = engine.RecommendationPreparator().prepare(
+            ctx, engine.TrainingData(interactions=wired))
+        uf_t = torch.as_tensor(model.user_factors).to(dev)
+        items_t = torch.as_tensor(model.item_factors).to(dev)
+        # the read's rows to the model's (a continued model keeps the
+        # previous instance's ids first)
+        u_map, i_map = (np.array([bm[pm.inverse[k]] for k in range(len(pm))],
+                                 np.int64)
+                        for bm, pm in ((model.user_bimap, pd.user_bimap),
+                                       (model.item_bimap, pd.item_bimap)))
+        fit = als.rmse(als.ALSState(user_factors=uf_t, item_factors=items_t),
+                       u_map[pd.users], i_map[pd.items], pd.ratings)
+        bound = 1.15 * log["first_fit"] + 0.02
+        if not fit <= bound:
+            raise AssertionError(f"remote: fit RMSE {fit!r} above "
+                                 f"{bound!r} (the first train's "
+                                 f"{log['first_fit']!r})")
+        stats["train"] = {"instance": iid, "phases_s": phases,
+                          "sweeps_used": int(said[0].group(1)),
+                          "launches": train_launches, "fit_rmse": fit,
+                          "fit_bound": bound}
+
+        # -- 7. pio deploy over remote, the speed layer on -----------------
+        t_dep = time.perf_counter()
+        dep = Child("deploy-remote", ["deploy", "--variant", log["variant"],
+                                      "--ip", "127.0.0.1", "--port", "0"],
+                    work, env, cwd=log["engine_dir"])
+        children.append(dep)
+        port = int(dep.wait_line(r"deployed on http://[^:]+:(\d+)",
+                                 600).group(1))
+        base = f"http://127.0.0.1:{port}"
+        es_url = "http://127.0.0.1:%d" % int(es.wait_line(
+            r"running on http://[^:]+:(\d+)", 120).group(1))
+        rng = np.random.default_rng(29)
+        inv_users = model.user_bimap.inverse
+        inv_items = model.item_bimap.inverse
+        n_queries = 8 if small else REMOTE_QUERIES
+        queries = [{"user": inv_users[int(r)], "num": 10} for r in
+                   rng.choice(len(model.user_bimap), n_queries,
+                              replace=False)]
+        err, q_walls = 0.0, []
+        for k, doc in enumerate(queries):
+            t1 = time.perf_counter()
+            status, body = http_json("POST", f"{base}/queries.json", doc)
+            q_walls.append(time.perf_counter() - t1)
+            if status != 200:
+                raise AssertionError(f"remote: query {doc}: {status} {body}")
+            if k == 0:
+                walls["deploy_to_first_answer_s"] = (time.perf_counter()
+                                                     - t_dep)
+            err = max(err, check_answer(kernels, dev, uf_t, items_t, doc,
+                                        None, body, f"remote query {k}",
+                                        model=model))
+
+        # -- 8. new users through the separate event server ----------------
+        n_new = 4 if small else REMOTE_NEW_USERS
+        n_items = len(model.item_bimap)
+        posted, docs = {}, []
+        for j in range(n_new):
+            uid = f"remote-new-{j}"
+            its = rng.choice(n_items, REMOTE_EVENTS_PER_USER,
+                             replace=False).astype(np.int32)
+            rs = (rng.integers(1, 11, len(its)) / 2.0).astype(np.float32)
+            posted[uid] = (its, rs)
+            docs += [rating_doc(uid, inv_items[int(i)], float(r))
+                     for i, r in zip(its, rs)]
+        body = json.dumps(docs).encode()
+        if sbase.uniform_interactions_from_body(body, 500) is None:
+            raise AssertionError("remote: the new users' body left the "
+                                 "native leg")
+        t_post = time.perf_counter()
+        status, got = http_json(
+            "POST", f"{es_url}/batch/events.json?accessKey={key}", body)
+        if status != 200 or any(g.get("status") != 201 for g in got):
+            raise AssertionError(f"remote: the new users' body got "
+                                 f"{status} {got!r:.300}")
+        answers: dict = {}
+        deadline = t_post + REMOTE_FOLD_DEADLINE_S
+        while len(answers) < n_new and time.perf_counter() < deadline:
+            for uid in posted:
+                if uid in answers:
+                    continue
+                doc = {"user": uid, "num": 10}
+                status, body = http_json("POST", f"{base}/queries.json", doc)
+                if status != 200:
+                    raise AssertionError(f"remote: {uid}: {status} {body}")
+                if body["itemScores"]:
+                    answers[uid] = (doc, body)
+            time.sleep(0.05)
+        walls["all_folded_s"] = time.perf_counter() - t_post
+        if len(answers) < n_new:
+            raise AssertionError(f"remote: {n_new - len(answers)} of "
+                                 f"{n_new} new users unanswered after "
+                                 f"{REMOTE_FOLD_DEADLINE_S} s")
+        keys = sorted(posted)
+        rows = [posted[u] for u in keys]
+        with open(log["variant"]) as f:
+            l2 = float(json.load(f)["algorithms"][0]["params"]["lambda"])
+        got_v = foldin.FoldInSolver(items_t, l2=l2).solve(rows)
+        ref_v = foldin.FoldInSolver(items_t.cpu(), l2=l2).solve(rows)
+        stats["foldin_vs_plain"] = hold_foldin(
+            ak, als, items_t, rows, got_v, ref_v, l2, False, 1.0,
+            "remote: the new users' fold-ins")
+        items_cpu = items_t.cpu()
+        for r, uid in enumerate(keys):
+            doc, body = answers[uid]
+            err = max(err, check_vec_answer(
+                kernels, dev, got_v[r], items_t, None, doc, body,
+                f"remote: {uid}'s answer", model))
+            ref_s, ref_i = kernels.score_topk_plain(
+                torch.from_numpy(ref_v[r:r + 1]), items_cpu, None,
+                doc["num"] + 1)
+            check_topk(np.array([[x["score"] for x in body["itemScores"]]]),
+                       np.array([[model.item_bimap[x["item"]]
+                                  for x in body["itemScores"]]]),
+                       ref_s.numpy(), ref_i.numpy(), doc["num"],
+                       f"remote: {uid}'s answer against the plain "
+                       "fold-in", rtol=1e-3)
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as resp:
+            text = resp.read().decode()
+        bounds, hist = metrics_histogram(text, "pio_freshness_seconds",
+                                         'engine="recommendation"')
+        stats["freshness"] = {
+            "observations": sum(hist),
+            "p50_s": hist_quantile(bounds, hist, 0.5),
+            "p95_s": hist_quantile(bounds, hist, 0.95)}
+        if sum(hist) < n_new:
+            raise AssertionError(f"remote: {sum(hist)} freshness "
+                                 f"observations for {n_new} new users")
+
+        # -- 9. the deploy child's launches --------------------------------
+        status, info = http_json("GET", f"{base}/")
+        served = info["kernelLaunches"]
+        launches = dict(train_launches)
+        launches["score_topk"] = served.get("score_topk", 0)
+        launches["foldin"] = served.get("als_fused_solve_cg", 0)
+        n_answered = len(queries) + len(answers)
+        if status != 200 or info["engineInstanceId"] != iid or (
+                dev.type == "cuda" and (launches["foldin"] <= 0 or
+                                        launches["score_topk"]
+                                        < n_answered)):
+            raise AssertionError(f"remote: GET / {status}, launches "
+                                 f"{served}, {n_answered} answers")
+        stats["launches"] = launches
+
+        # -- 10. every child stops with exit 0 -----------------------------
+        cli("undeploy", "--ip", "127.0.0.1", "--port", str(port))
+        dep.wait_exit()
+        for child in (es, ss):
+            child.proc.send_signal(signal.SIGTERM)
+            child.wait_exit()
+        stats["queries"] = {"known": len(queries), "new": len(answers),
+                            "http_p50_ms": 1e3 * statistics.median(q_walls)}
+    finally:
+        os.chdir(cwd)
+        for child in children:
+            child.kill()
+        for k in [k for k in os.environ
+                  if k.startswith("PIO_STORAGE_") or k == "PIO_SPEED_POLL_S"]:
+            del os.environ[k]
+        os.environ.update(saved)
+        Storage.reset()
+    walls["wall_s"] = time.perf_counter() - t_phase
+    stats["walls_s"] = walls
+    return launches, err, stats
+
+
+def remote_alone(dev, runtime, kernels, als, ak, planted,
+                 small: bool = False) -> tuple:
+    """:func:`remote_phase` alone (``--remote``): a cpplog store
+    (:func:`cpplog_store`) holding store-als's ratings (one ``eventTime``
+    each, 1 ms apart, as the cpplog phase imports them) under ``pio app
+    new``'s app, one ``pio train`` of the cpplog phase's engine.json, its
+    fit RMSE, then the phase. Returns what the phase returns."""
+    from datetime import timedelta
+
+    from incubator_predictionio_tpu_torch.data.interactions import (
+        Interactions,
+    )
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+    from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    users, items, ratings, n_users, n_items = store_als_ratings(planted,
+                                                                small)
+    rank = 16 if small else ML20M["rank"]
+    base_ms = parse_iso8601(STORE_T0).timestamp() * 1e3
+    saved = os.environ.get("PIO_DEVICE")
+    if dev.type == "cpu":
+        os.environ["PIO_DEVICE"] = "cpu"
+    cwd = os.getcwd()
+    try:
+        with cpplog_store(), \
+                tempfile.TemporaryDirectory(prefix="pio_remote_") as work:
+            key = re.search(r"Access Key: (\S+)",
+                            cli("app", "new", "LogApp")).group(1)
+            app_id = Storage.get_meta_data_apps().get_by_name("LogApp").id
+            Storage.get_events().import_interactions(Interactions(
+                user_idx=np.asarray(users, np.int32),
+                item_idx=np.asarray(items, np.int32),
+                values=np.asarray(ratings, np.float32),
+                user_ids=[f"u{k}" for k in range(n_users)],
+                item_ids=[f"i{k}" for k in range(n_items)]), app_id,
+                times=np.int64(base_ms) + np.arange(len(users)))
+            engine_dir = os.path.join(work, "engine")
+            os.makedirs(engine_dir)
+            variant = os.path.join(engine_dir, "engine.json")
+            with open(variant, "w") as f:
+                json.dump({
+                    "id": "default",
+                    "engineFactory": "incubator_predictionio_tpu_torch."
+                                     "models.recommendation:"
+                                     "RecommendationEngine",
+                    "datasource": {"params": {"appName": "LogApp"}},
+                    "algorithms": [{"name": "als", "params": {
+                        "rank": rank, "numIterations": 4, "lambda": 0.03,
+                        "bf16Sweeps": 2, "seed": 3}}],
+                }, f)
+            os.chdir(engine_dir)
+            try:
+                out = cli("train")
+            finally:
+                os.chdir(cwd)
+            iid = re.search(r"Engine instance ID: (\S+)", out).group(1)
+            model = CoreWorkflow.load_models(iid)[0]
+            u_row = np.array([model.user_bimap[f"u{k}"] for k in users])
+            i_row = np.array([model.item_bimap[f"i{k}"] for k in items])
+            fit = als.rmse(als.ALSState(
+                user_factors=torch.as_tensor(model.user_factors).to(dev),
+                item_factors=torch.as_tensor(model.item_factors).to(dev)),
+                u_row, i_row, ratings)
+            return remote_phase(dev, runtime, kernels, als, ak, dict(
+                name="LogApp", app_id=app_id, key=key, instance=iid,
+                work=work, engine_dir=engine_dir, variant=variant,
+                first_fit=fit), small)
+    finally:
+        if saved is None:
+            os.environ.pop("PIO_DEVICE", None)
+        else:
+            os.environ["PIO_DEVICE"] = saved
 
 
 def retrain_loop_leg(dev, runtime, als, planted, pd, trained, small=False,
@@ -8489,7 +8959,8 @@ def main() -> int:
     print(f"build-native: {note_wall('build-native', t0):.1f} s", flush=True)
     mode = sys.argv[1:]
     if mode not in ([], ["--flash"], ["--topk"], ["--als"], ["--mips"],
-                    ["--eval"], ["--similar"], ["--templates"]):
+                    ["--eval"], ["--similar"], ["--templates"],
+                    ["--remote"]):
         print(f"chip_smoke: unknown arguments {mode}", file=sys.stderr)
         return 2
     if mode in ([], ["--flash"]):
@@ -8518,9 +8989,12 @@ def main() -> int:
         print(json.dumps({"mips_ok": True, "max_score_err": err,
                           "kind": torch.cuda.get_device_name(0)}))
         return 0
-    if mode in (["--eval"], ["--similar"], ["--templates"]):
+    if mode in (["--eval"], ["--similar"], ["--templates"], ["--remote"]):
         t0 = time.perf_counter()
-        if mode == ["--eval"]:
+        if mode == ["--remote"]:
+            _l, err, one_stats = remote_alone(dev, runtime, kernels, als, ak,
+                                              planted)
+        elif mode == ["--eval"]:
             _l, err, one_stats = eval_phase(dev, runtime, kernels)
         elif mode == ["--templates"]:
             _l, err, one_stats = templates_phase(dev, runtime, server_mod)
@@ -8659,11 +9133,15 @@ def main() -> int:
         retrain_read_s=rt_cli["phases_s"].get("phase.read_s"),
         retrain_train_s=rt_cli["train_s"])
     t0 = time.perf_counter()
-    log_launches, err_log, log_stats, speed_out = cpplog_phase(
+    log_launches, err_log, log_stats, (speed_out, remote_out) = cpplog_phase(
         dev, runtime, kernels, als, planted, sqlite_ref,
-        then=lambda log: speed_phase(dev, runtime, kernels, als, ak, planted,
-                                     log))
+        then=lambda log: (
+            speed_phase(dev, runtime, kernels, als, ak, planted, log),
+            remote_phase(dev, runtime, kernels, als, ak, log)))
+    remote_launches, err_remote, remote_stats = remote_out
+    WALLS["remote"] = remote_stats["walls_s"]["wall_s"]
     note_wall("cpplog+speed", t0)
+    WALLS["cpplog+speed"] -= WALLS["remote"]
     print(f"cpplog: {json.dumps(log_stats)} ({log_stats['wall_s']:.1f} s)",
           flush=True)
     print(f"cpplog-card: {card_line()}", flush=True)
@@ -8675,6 +9153,9 @@ def main() -> int:
     print(f"speed: {json.dumps(speed_stats)} ({speed_stats['wall_s']:.1f} s)",
           flush=True)
     print(f"speed-card: {card_line()}", flush=True)
+    print(f"remote: {json.dumps(remote_stats)} ({WALLS['remote']:.1f} s)",
+          flush=True)
+    print(f"remote-card: {card_line()}", flush=True)
 
     t0 = time.perf_counter()
     rt_loop_launches, rt_loop = retrain_loop_leg(
@@ -8734,11 +9215,12 @@ def main() -> int:
         + trained_launches
         + store_launches["score_topk"] + qs_launches["score_topk"]
         + rt_cli_launches["score_topk"] + log_launches["score_topk"]
-        + speed_launches["score_topk"] + eval_launches["score_topk"]
+        + speed_launches["score_topk"] + remote_launches["score_topk"]
+        + eval_launches["score_topk"]
         + sim_launches["score_topk"] + tmpl_launches.get("score_topk", 0),
         "max_abs_err": max(err_k, err_p, err_load, err_mips, err_t, err_sa,
-                           err_qs, err_rt, err_log, err_speed, err_eval,
-                           err_sim),
+                           err_qs, err_rt, err_log, err_speed, err_remote,
+                           err_eval, err_sim),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
@@ -8761,8 +9243,8 @@ def main() -> int:
             "launches": train_stats["launches"][entry]
             + store_launches.get(entry, 0) + qs_launches.get(entry, 0)
             + rt_cli_launches.get(entry, 0) + rt_loop_launches.get(entry, 0)
-            + log_launches.get(entry, 0) + eval_launches.get(entry, 0)
-            + tmpl_launches.get(entry, 0),
+            + log_launches.get(entry, 0) + remote_launches.get(entry, 0)
+            + eval_launches.get(entry, 0) + tmpl_launches.get(entry, 0),
             "max_abs_err": max([als_errs[entry]]
                                + [r["max_abs_err"] for r in rows]),
             "ms": first["ms"],
@@ -8822,7 +9304,8 @@ def main() -> int:
         "source": "incubator_predictionio_tpu_torch/csrc/als_solve.cu",
         "replaces": ak.REPLACES["als_fused_solve_cg"],
         "launches": speed_launches["als_fused_solve_cg"]
-        + ecom_launches["als_fused_solve_cg"] + sim_launches["foldin"],
+        + ecom_launches["als_fused_solve_cg"] + remote_launches["foldin"]
+        + sim_launches["foldin"],
         "max_abs_err": max(r["max_abs_err"] for r in foldin_rows),
         "ms": fold_head["ms"],
         "graph_ms": fold_head["graph_ms"],
@@ -8838,8 +9321,11 @@ def main() -> int:
                      "(speed/foldin.py: ladder widths 8-512, pow2 batches "
                      "up to 64, cold CG), launched by the overlays' polls "
                      "in the speed phase (recommendation explicit, "
-                     "ecommerce implicit) and in the similar phase "
-                     "(similarproduct's item side, implicit)",
+                     "ecommerce implicit), by the pio deploy child's "
+                     "overlay in the remote phase (recommendation "
+                     "explicit, over the storage server) and in the "
+                     "similar phase (similarproduct's item side, "
+                     "implicit)",
         "shapes": foldin_rows,
     })
     flash_rows = flash_timings(fa, dev)

@@ -4,12 +4,12 @@ cli.main <verb>``.
 The port's counterpart of incubator_predictionio_tpu/cli/main.py (Console.
 scala:153-600): version / status / app {new,list,show,delete,data-delete,
 channel-new,channel-delete} / accesskey {new,list,delete} / build /
-unregister / train / eval / deploy / undeploy / eventserver / export /
-import / upgrade. ``train``, ``eval`` and ``deploy`` run in process on the
-CUDA device; ``PIO_DEVICE=cpu`` is the one switch that runs them on the
-CPU (the JAX package's ``JAX_PLATFORMS=cpu``). Nothing picks the CPU
-because no card was found: without the switch, a process with no CUDA
-device refuses them (:func:`_ensure_accelerator`). The other verbs never
+unregister / train / eval / deploy / undeploy / eventserver /
+storageserver / export / import / upgrade. ``train``, ``eval`` and
+``deploy`` run in process on the CUDA device; ``PIO_DEVICE=cpu`` is the one
+switch that runs them on the CPU (the JAX package's ``JAX_PLATFORMS=cpu``).
+Nothing picks the CPU because no card was found: without the switch, a
+process with no CUDA device refuses them (:func:`_ensure_accelerator`). The other verbs never
 touch the device. ``deploy`` serves ``/queries.json`` through the
 continuous-batching scheduler (``serving/scheduler.py``), set by the same
 environment as the JAX package's: ``PIO_SERVE_MAX_BATCH`` (the ladder cap,
@@ -26,10 +26,18 @@ main.py:456-491) resolves both objects as ``train`` resolves a factory
 its objects would run there and not here (the port's twin of
 ``examples/recommendation-quickstart/evaluation.py`` is in the README).
 
+``storageserver`` (JAX main.py:561-575) exports this box's storage to
+other boxes over ``POST /rpc``: by default each repository routes to its
+own configured source (``--source NAME`` exports one), and the verbs of
+other processes reach it through ``PIO_STORAGE_SOURCES_<N>_TYPE=remote``;
+it prints ``Storage Server running on http://<ip>:<port>`` once bound
+(``--port 0`` binds a free port) and stops with exit 0 on SIGTERM. Like
+``eventserver``, it never initialises CUDA.
+
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
-item: ``adminserver`` and ``dashboard`` (item 8), ``storageserver`` (item
-1.6b), ``train``/``eval``/``deploy --hosts`` (the pod launch) and ``train
---model-parallelism`` above 1 (item 9), and ``deploy --feedback`` /
+item: ``adminserver`` and ``dashboard`` (item 8), ``train``/``eval``/
+``deploy --hosts`` (the pod launch) and ``train --model-parallelism``
+above 1 (item 9), and ``deploy --feedback`` /
 ``--log-url`` (item 8, raised by the prediction server; the options that
 only those use, ``--event-server-ip``, ``--event-server-port``,
 ``--accesskey`` and ``--log-prefix``, come with them and are not accepted
@@ -175,11 +183,22 @@ def build_parser() -> argparse.ArgumentParser:
         "--batch-cap", type=_positive_int, default=None, metavar="N",
         help="max events per POST /batch/events.json (default 50 — the "
              "reference's wire contract; raise for bulk loaders)")
-    for name, port in (("adminserver", 7071), ("dashboard", 9000),
-                       ("storageserver", 7077)):
+    for name, port in (("adminserver", 7071), ("dashboard", 9000)):
         p = sub.add_parser(name, help="not ported yet")
         p.add_argument("--ip", default="127.0.0.1")
         p.add_argument("--port", type=int, default=port)
+    p = sub.add_parser(
+        "storageserver",
+        help="export this box's storage source to other boxes "
+             "(point their PIO_STORAGE_SOURCES_<N>_TYPE=remote at it)")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=7077)
+    p.add_argument("--source", default=None,
+                   help="export ONE PIO_STORAGE_SOURCES_<NAME>; default "
+                        "routes by repository (metadata/eventdata/"
+                        "modeldata each to its configured source)")
+    p.add_argument("--auth-key", default=None,
+                   help="shared key clients must send (X-Pio-Storage-Key)")
 
     # -- data --------------------------------------------------------------
     p = sub.add_parser("export",
@@ -214,8 +233,6 @@ def _confirm(prompt: str, force: bool) -> bool:
 _NOT_PORTED = {
     "adminserver": "the admin server, ROADMAP.md Queue 1 item 8",
     "dashboard": "the dashboard, ROADMAP.md Queue 1 item 8",
-    "storageserver": "the remote storage backends, ROADMAP.md Queue 1 "
-                     "item 1.6b",
 }
 
 
@@ -300,7 +317,7 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
     if cmd in ("status", "train", "eval", "deploy") \
             and runtime.requested_device() != "cpu":
         _ensure_accelerator(_accel_timeout_s())
-    if cmd in ("deploy", "eventserver"):
+    if cmd in ("deploy", "eventserver", "storageserver"):
         # long-running server verbs log one JSON span line per request on
         # stderr (PIO_TRACE_LOG=off disables)
         from incubator_predictionio_tpu_torch.obs.trace import (
@@ -491,6 +508,22 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
         _serve_until_signalled(
             server, f"Event Server running on http://{args.ip}:{{port}}")
         print("Event Server stopped.")
+        return 0
+
+    if cmd == "storageserver":
+        from incubator_predictionio_tpu_torch.data.storage.server import (
+            StorageServer,
+        )
+
+        server = StorageServer.from_env(
+            source=args.source, host=args.ip, port=args.port,
+            auth_key=args.auth_key)
+        # announced after the bind with the port the kernel gave: with
+        # `--port 0` a parent parses this line instead of racing others
+        # for a pre-picked "free" port
+        _serve_until_signalled(
+            server, f"Storage Server running on http://{args.ip}:{{port}}")
+        print("Storage Server stopped.")
         return 0
 
     if cmd == "export":

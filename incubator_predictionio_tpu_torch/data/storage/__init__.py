@@ -1,15 +1,16 @@
 """Storage registry — env-driven backend selection and DAO factory: the
 port's own copy of incubator_predictionio_tpu/data/storage/__init__.py. It
-registers ``memory``, ``sqlite``, ``localfs`` and ``cpplog`` (the native
+registers ``memory``, ``sqlite``, ``localfs``, ``cpplog`` (the native
 event log: events only, so metadata and models stay on sqlite, memory or
-localfs, as in the JAX package); ``remote`` and ``gcs`` raise until their
-slice of the port (ROADMAP.md, Queue 1, item 1.6b).
+localfs, as in the JAX package), ``remote`` (the client of a shared
+``pio storageserver``, ``remote.py`` and ``server.py``) and ``gcs`` (model
+blobs in a GCS bucket).
 
 Parity: data/.../storage/Storage.scala:117-407. Configuration comes from the
 same env-var scheme as the reference:
 
 - ``PIO_STORAGE_SOURCES_<NAME>_TYPE``  — backend type (memory | sqlite | localfs
-  | cpplog)
+  | cpplog | remote | gcs)
 - ``PIO_STORAGE_SOURCES_<NAME>_<KEY>`` — backend properties (e.g. ``PATH``)
 - ``PIO_STORAGE_REPOSITORIES_<REPO>_NAME`` / ``_SOURCE`` for
   ``<REPO>`` ∈ {METADATA, EVENTDATA, MODELDATA}
@@ -57,6 +58,7 @@ __all__ = [
     "EvaluationInstance",
     "EvaluationInstances", "Events", "Model", "Models", "Storage", "is_valid_channel_name",
     "StorageClientConfig", "StorageError", "UNSET", "BaseStorageClient",
+    "UnsupportedMethodError", "AmbiguousWriteError",
 ]
 
 #: backend type name -> module path providing StorageClient + DATA_OBJECTS
@@ -66,17 +68,31 @@ _BACKENDS: Dict[str, str] = {
     "localfs": "incubator_predictionio_tpu_torch.data.storage.localfs",
     # native append-only event log (the HBase-driver role; events only)
     "cpplog": "incubator_predictionio_tpu_torch.data.storage.cpplog",
-}
-
-#: backends of the JAX package that this package has not ported yet
-_NOT_PORTED: Dict[str, str] = {
-    "remote": "the network client of a shared StorageServer",
-    "gcs": "the GCS model-blob store",
+    # network client for a shared StorageServer (the multi-box topology —
+    # the role PostgreSQL/HBase play for the reference)
+    "remote": "incubator_predictionio_tpu_torch.data.storage.remote",
+    # GCS bucket model-blob store (the HDFSModels role)
+    "gcs": "incubator_predictionio_tpu_torch.data.storage.gcs",
 }
 
 MetaDataRepository = "METADATA"
 EventDataRepository = "EVENTDATA"
 ModelDataRepository = "MODELDATA"
+
+
+class UnsupportedMethodError(StorageError):
+    """An optional DAO capability this backend does not implement (e.g.
+    columnar ``insert_interactions`` on a backend without a columnar
+    write path). Crosses the remote-storage wire typed, so callers can
+    cache the capability answer instead of retrying per request."""
+
+
+class AmbiguousWriteError(StorageError):
+    """A non-idempotent remote write whose response was lost AFTER the
+    request hit the wire: the write may or may not have been applied.
+    Raised instead of retrying (a retry could double-apply); callers must
+    surface the ambiguity — falling back to a different write path would
+    silently duplicate the data."""
 
 
 def register_backend(type_name: str, module_path: str) -> None:
@@ -181,12 +197,6 @@ class Storage:
             else:
                 type_name, config = cls._source_config(source_name)
             module_path = _BACKENDS.get(type_name)
-            if type_name in _NOT_PORTED and module_path is None:
-                raise StorageError(
-                    f"storage backend {type_name!r} "
-                    f"({_NOT_PORTED[type_name]}) is not ported yet: it is "
-                    "queued in ROADMAP.md, Queue 1, item 1.6b (use memory, "
-                    "sqlite, localfs or cpplog)")
             if module_path is None:
                 raise StorageError(
                     f"Unknown storage backend type {type_name!r} "

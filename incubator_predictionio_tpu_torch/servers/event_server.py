@@ -28,7 +28,12 @@ declared flags as the JAX server does: ``FAST_LOCAL`` (memory) ingests on
 the event loop, ``GROUP_COMMIT`` (cpplog) sends every ingest route to the
 pool so concurrent batches merge into one native append, whose counters
 ``GET /stats.json`` shows as ``groupCommit``; ``POST /reload`` syncs a
-store whose client can (cpplog's fdatasync).
+store whose client can (cpplog's fdatasync). Over a ``remote`` store the
+two answers of the JAX server hold: a storage server whose backend has no
+columnar insert answers ``UnsupportedMethodError`` once and the columnar
+legs stay off for the process; an ``AmbiguousWriteError`` (the response of
+a write lost after the request was sent) is a 500 with its message, never a
+retry on another path, so a batch is stored at most once.
 
 Auth (EventServer.scala:93-131): ``accessKey`` query param (with optional
 ``channel``), or HTTP Basic where the username is the access key. 401
@@ -45,7 +50,11 @@ from typing import Any, Optional, Tuple
 
 from incubator_predictionio_tpu_torch.data import webhooks
 from incubator_predictionio_tpu_torch.data.event import Event, EventValidationError
-from incubator_predictionio_tpu_torch.data.storage import Storage
+from incubator_predictionio_tpu_torch.data.storage import (
+    AmbiguousWriteError,
+    Storage,
+    UnsupportedMethodError,
+)
 from incubator_predictionio_tpu_torch.data.webhooks import ConnectorError
 from incubator_predictionio_tpu_torch.obs import metrics as obs_metrics
 from incubator_predictionio_tpu_torch.obs.http import add_metrics_route
@@ -124,6 +133,9 @@ class EventServer:
         self.channels = Storage.get_meta_data_channels()
         self.stats = Stats()
         self.plugin_context = plugin_context or PluginContext()
+        # set once a remote store answers UnsupportedMethodError to a
+        # columnar insert: the batch fast paths stay off for the process
+        self._columnar_unsupported = False
         self.router = self._build_router()
         self.http = HttpServer.from_conf(self.router, config.ip, config.port,
                                          name="event")
@@ -199,6 +211,21 @@ class EventServer:
                 inter, auth.app_id, auth.channel_id, entity_type=etype,
                 target_entity_type=tetype, event_name=name,
                 value_prop=vprop, times=times)
+        except UnsupportedMethodError:
+            # a remote box without a columnar write path answers this
+            # (once — the proxy caches it); stay on the generic path for
+            # the rest of the process, quietly
+            self._columnar_unsupported = True
+            logger.info(
+                "event store has no columnar insert; batch fast path off")
+            return None
+        except AmbiguousWriteError as e:
+            # the remote write MAY have been applied (response lost after
+            # the request hit the wire) — re-inserting via the generic
+            # path would duplicate the whole batch, so surface the
+            # ambiguity instead; the client decides whether to re-POST
+            logger.warning("columnar batch insert ambiguous: %s", e)
+            return Response(500, {"message": str(e)})
         except Exception:
             logger.exception(
                 "columnar batch insert failed; using the generic path")
@@ -386,6 +413,7 @@ class EventServer:
             # keeps small-batch storage behavior identical.
             if (not self.plugin_context.input_blockers
                     and not self.plugin_context.input_sniffers
+                    and not self._columnar_unsupported
                     and hasattr(self.events, "insert_interactions")):
                 from incubator_predictionio_tpu_torch.data.storage.base import (
                     uniform_interactions_from_body,
@@ -425,7 +453,8 @@ class EventServer:
             if (len(items) >= 8
                     and not self.plugin_context.input_blockers
                     and not self.plugin_context.input_sniffers
-                    and hasattr(self.events, "insert_interactions")):
+                    and hasattr(self.events, "insert_interactions")
+                    and not self._columnar_unsupported):
                 resp = self._batch_fast_path(auth, items)
                 if resp is not None:
                     return resp
@@ -473,6 +502,16 @@ class EventServer:
                     ids = self.events.insert_batch(
                         [e for _, e, _ in pending], auth.app_id,
                         auth.channel_id)
+                except AmbiguousWriteError as e:
+                    # the remote write MAY have been applied — a per-event
+                    # retry would duplicate the whole batch; fail the
+                    # pending slots honestly and let the client decide
+                    logger.warning("bulk insert ambiguous: %s", e)
+                    for idx, event, _info in pending:
+                        results[idx] = {"status": 500, "message": str(e)}
+                        self._book(auth, 500, event.event,
+                                   route=self._BATCH_ROUTE)
+                    pending = []
                 except Exception:
                     # Best-effort recovery window (documented): the failed
                     # bulk attempt rolls back its auto-id inserts, but a
@@ -527,7 +566,8 @@ class EventServer:
             client = getattr(self.events, "client", None)
             sync = getattr(client, "sync", None)
             if sync is None:
-                # sqlite and memory: no buffered appends to push; the
+                # sqlite, memory and remote (durability is the storage
+                # server's concern): no buffered appends to push; the
                 # drain itself was the reload
                 return Response(200, {"message": "Reloaded",
                                       "synced": False})

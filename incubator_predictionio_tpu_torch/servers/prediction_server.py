@@ -64,11 +64,12 @@ event log's tail on a thread of its own (``PIO_SPEED_POLL_S``). Calling
 :meth:`load_models` again (``POST /reload``) is the hot swap: the new
 overlays adopt the old ones' keys, and the old ones are emptied and
 stopped. A tenant's own deploy serves its model of record, with no
-overlay, as in the JAX package. The writer of the log must be this
-process (an ``EventServer`` on the same store): one cpplog log is never
-opened by two live processes, and the remote backend that lets ``pio
-deploy`` read another process's log is not ported (ROADMAP.md Queue 1
-item 1.6b).
+overlay, as in the JAX package. The overlay reads the log's tail
+through the event store, so its writer may be another process: over a
+``remote`` store (``pio storageserver`` owning the log) a separate ``pio
+eventserver`` writes and ``pio deploy`` folds the new events in; on a
+local cpplog log the writer is an ``EventServer`` in this process, since
+one log is never opened by two live processes.
 
 Not ported yet: ``/knobs``, ``/plugins*``, ``/recorder``, the feedback
 loop and ``--log-url`` (ROADMAP.md Queue 1 item 8; given either of the

@@ -364,7 +364,6 @@ def test_undeploy_nothing_running(capsys):
     (["eval", "--hosts", "h1", "evaluation:evaluation"], "item 9"),
     (["adminserver"], "item 8"),
     (["dashboard"], "item 8"),
-    (["storageserver"], "item 1.6"),
     (["train", "--hosts", "h1,h2"], "item 9"),
     (["deploy", "--hosts", "h1"], "item 9"),
 ])

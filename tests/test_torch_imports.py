@@ -649,3 +649,83 @@ def test_mips_modules_import_nothing_of_jax(module):
         assert len(out["recall"]) == 3
         assert min(out["recall"]) >= 0.95, out["recall"]
         assert out["daemon"] is True
+
+
+_REMOTE_ISOLATED = textwrap.dedent('''
+    import importlib, importlib.abc, json, os, sys
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if (name == "incubator_predictionio_tpu"
+                    or name.startswith("incubator_predictionio_tpu.")):
+                raise ImportError("imported " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    sys.path.insert(0, os.getcwd())
+    importlib.import_module(sys.argv[1])
+    out = {}
+    if sys.argv[1].endswith("storage.server"):
+        # a storage server over a memory store, a remote client, a model
+        # on the GCS emulator, and a deprecated batch view
+        import warnings
+        from incubator_predictionio_tpu_torch.data import view
+        from incubator_predictionio_tpu_torch.data.storage import (
+            App, Model, StorageClientConfig, gcs, memory, remote, server)
+        cfg = StorageClientConfig(test=True, properties={})
+        srv = server.StorageServer(memory, memory.StorageClient(cfg), cfg,
+                                   host="127.0.0.1", port=0)
+        port = srv.start_background()
+        rc = remote.StorageClient(StorageClientConfig(
+            properties={"URL": "http://127.0.0.1:%d" % port}))
+        apps = remote.RemoteApps(rc, rc.config, prefix="m_")
+        out["app"] = apps.get(apps.insert(App(0, "a"))).name
+        rc.close()
+        srv.stop()
+        emu = gcs.EmulatorServer()
+        gcfg = StorageClientConfig(properties={
+            "BUCKET": "b",
+            "EMULATOR_HOST": "127.0.0.1:%d" % emu.start_background()})
+        gclient = gcs.StorageClient(gcfg)
+        models = gcs.GCSModels(gclient, gcfg)
+        models.insert(Model("m", b"x"))
+        out["model"] = models.get("m").models.decode()
+        gclient.close()
+        emu.stop()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            out["view"] = len(view.data_view([]))
+    out["leaked"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None and (
+            m in ("jax", "jaxlib") or m == "incubator_predictionio_tpu"
+            or m.startswith("incubator_predictionio_tpu.")))
+    print(json.dumps(out))
+''')
+
+
+@pytest.mark.parametrize("module", [
+    "incubator_predictionio_tpu_torch.data.storage.wire",
+    "incubator_predictionio_tpu_torch.data.storage.remote",
+    "incubator_predictionio_tpu_torch.data.storage.gcs",
+    "incubator_predictionio_tpu_torch.data.view",
+    "incubator_predictionio_tpu_torch.data.storage.server",
+    "chip_smoke",
+])
+def test_remote_storage_modules_and_chip_smoke_import_nothing_of_jax(module):
+    """The remote and GCS storage modules, the batch views and
+    ``chip_smoke.py`` import with JAX and the JAX package blocked; a
+    storage server answers a remote client, and the GCS emulator stores a
+    model."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _REMOTE_ISOLATED, module],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=repo)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    if module.endswith("storage.server"):
+        assert (out["app"], out["model"], out["view"]) == ("a", "x", 0)

@@ -358,10 +358,19 @@ def quiet_shed(monkeypatch):
     monkeypatch.setenv("PIO_SERVE_SHED", "0")
 
 
-def test_concurrent_queries_fuse_and_match_jax(pair, quiet_shed):
+def test_concurrent_queries_fuse_and_match_jax(pair, quiet_shed,
+                                             monkeypatch):
     """One query holds the dispatcher while fifteen more queue; once the
     gate opens they drain up the pow2 ladder (1, 1, 2, 4, 8), and every
-    client gets its own answer, the JAX package's for its query."""
+    client gets its own answer, the JAX package's for its query.
+
+    The age bound is off here (``PIO_SERVE_MAX_WAIT_MS`` 0): on a loaded
+    host the fifteen can take longer than its 250 ms to queue behind the
+    gate, and the bound then drains the whole backlog as one batch
+    (``plan_dispatch``, the JAX scheduler's rule too: widths [1, 15]). The
+    ladder is what this case holds; the bound is held by
+    tests/test_torch_scheduler.py."""
+    monkeypatch.setenv("PIO_SERVE_MAX_WAIT_MS", "0")
     jalgo, jmodel, *_ = pair
     srv, port, gate = _gated_server(pair)
     try:

@@ -7,7 +7,10 @@ exactly: ``scan_interactions`` (ids, triple order, values, the time window,
 value resolution, and the generic Event-object scan that backends without a
 columnar path take), ``find`` and ``find_by_entity`` (filters, newest
 first, limit) and ``aggregate_properties``. Parametrised over the backends
-both packages have, as tests/test_storage_conformance.py is.
+both packages have, as tests/test_storage_conformance.py is; ``remote`` is
+each package's client against its own ``StorageServer`` over its memory
+store. The ``gcs`` model store runs tests/test_storage_conformance.py's
+cases against the port's emulator and the JAX package's.
 """
 
 from datetime import timedelta
@@ -22,7 +25,10 @@ from incubator_predictionio_tpu.data.storage import (
 )
 from incubator_predictionio_tpu.data.storage import base as jbase
 from incubator_predictionio_tpu.data.storage import cpplog as jcpplog
+from incubator_predictionio_tpu.data.storage import gcs as jgcs
 from incubator_predictionio_tpu.data.storage import memory as jmemory
+from incubator_predictionio_tpu.data.storage import remote as jremote
+from incubator_predictionio_tpu.data.storage import server as jserver
 from incubator_predictionio_tpu.data.storage import sqlite as jsqlite
 from incubator_predictionio_tpu.utils.times import parse_iso8601 as jparse
 from incubator_predictionio_tpu_torch.data.datamap import DataMap
@@ -33,7 +39,10 @@ from incubator_predictionio_tpu_torch.data.storage import (
 )
 from incubator_predictionio_tpu_torch.data.storage import base as tbase
 from incubator_predictionio_tpu_torch.data.storage import cpplog as tcpplog
+from incubator_predictionio_tpu_torch.data.storage import gcs as tgcs
 from incubator_predictionio_tpu_torch.data.storage import memory as tmemory
+from incubator_predictionio_tpu_torch.data.storage import remote as tremote
+from incubator_predictionio_tpu_torch.data.storage import server as tserver
 from incubator_predictionio_tpu_torch.data.storage import sqlite as tsqlite
 from incubator_predictionio_tpu_torch.utils.times import parse_iso8601
 
@@ -93,20 +102,33 @@ def _events(specs, event_cls, datamap_cls, parse):
 
 
 _BACKENDS = {"memory": (jmemory, tmemory), "sqlite": (jsqlite, tsqlite),
-             "cpplog": (jcpplog, tcpplog)}
+             "cpplog": (jcpplog, tcpplog), "remote": (jremote, tremote)}
+#: each package's StorageServer module and config class, for ``remote``
+_SERVERS = ((jserver, jmemory, JConfig), (tserver, tmemory,
+                                          StorageClientConfig))
 
 
 @pytest.fixture(params=sorted(_BACKENDS))
 def pair(request, tmp_path):
     """(JAX Events DAO, the port's Events DAO), one backend type, each on
     its own fresh store (cpplog: a log directory of its own under
-    ``tmp_path``)."""
+    ``tmp_path``; remote: each package's client against its own
+    package's ``StorageServer`` over a memory store)."""
     jmod, tmod = _BACKENDS[request.param]
-    jpath = tpath = ":memory:"
+    props = [{"PATH": ":memory:"}, {"PATH": ":memory:"}]
+    servers = []
     if request.param == "cpplog":
-        jpath, tpath = str(tmp_path / "jax"), str(tmp_path / "port")
-    jconf = JConfig(test=True, properties={"PATH": jpath})
-    tconf = StorageClientConfig(test=True, properties={"PATH": tpath})
+        props = [{"PATH": str(tmp_path / "jax")},
+                 {"PATH": str(tmp_path / "port")}]
+    elif request.param == "remote":
+        for k, (srv_mod, mem, conf_cls) in enumerate(_SERVERS):
+            back = conf_cls(test=True, properties={})
+            srv = srv_mod.StorageServer(mem, mem.StorageClient(back), back,
+                                        host="127.0.0.1", port=0)
+            props[k] = {"URL": f"http://127.0.0.1:{srv.start_background()}"}
+            servers.append(srv)
+    jconf = JConfig(test=True, properties=props[0])
+    tconf = StorageClientConfig(test=True, properties=props[1])
     jclient, tclient = jmod.StorageClient(jconf), tmod.StorageClient(tconf)
     jdao = jmod.DATA_OBJECTS["Events"](jclient, jconf, prefix="t_")
     tdao = tmod.DATA_OBJECTS["Events"](tclient, tconf, prefix="t_")
@@ -115,6 +137,8 @@ def pair(request, tmp_path):
     yield jdao, tdao
     jclient.close()
     tclient.close()
+    for srv in servers:
+        srv.stop()
 
 
 def _fill(pair, seed, one_by_one=False):
@@ -291,17 +315,131 @@ def test_import_interactions_round_trips_like_jax(pair):
 
 
 @pytest.mark.parametrize("kind", ["remote", "gcs"])
-def test_unported_backends_raise_naming_the_queue(tmp_path, monkeypatch,
-                                                  kind):
-    from incubator_predictionio_tpu_torch.data.storage import Storage
+def test_remote_and_gcs_types_resolve_to_the_ports_daos(tmp_path,
+                                                        monkeypatch, kind):
+    """``TYPE=remote`` and ``TYPE=gcs`` resolve through the registry to the
+    port's own DAOs (a remote store behind the port's ``StorageServer``, a
+    bucket on the port's GCS emulator), and a write reads back."""
+    from incubator_predictionio_tpu_torch.data.storage import Model, Storage
 
     monkeypatch.setenv("PIO_HOME", str(tmp_path))
+    if kind == "remote":
+        back = StorageClientConfig(test=True, properties={})
+        srv = tserver.StorageServer(tmemory, tmemory.StorageClient(back),
+                                    back, host="127.0.0.1", port=0)
+        env = {"PIO_STORAGE_SOURCES_X_URL":
+               f"http://127.0.0.1:{srv.start_background()}"}
+        expect = tremote.RemoteModels
+    else:
+        srv = tgcs.EmulatorServer()
+        env = {"PIO_STORAGE_SOURCES_X_BUCKET": "b",
+               "PIO_STORAGE_SOURCES_X_EMULATOR_HOST":
+               f"127.0.0.1:{srv.start_background()}"}
+        expect = tgcs.GCSModels
     Storage.configure({"PIO_STORAGE_SOURCES_X_TYPE": kind,
-                       "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "ev",
-                       "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "X"})
+                       "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "md",
+                       "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "X",
+                       **env})
     try:
-        with pytest.raises(StorageError, match="Queue 1, item 1.6b"):
-            Storage.get_events()
+        models = Storage.get_model_data_models()
+        assert isinstance(models, expect)
+        models.insert(Model("m1", b"\x00blob"))
+        assert Storage.get_model_data_models().get("m1").models == \
+            b"\x00blob"
+    finally:
+        Storage.reset()
+        srv.stop()
+
+
+# -- gcs: tests/test_storage_conformance.py's TestGCSModels ------------------
+
+_EMULATORS = {"jax": jgcs.EmulatorServer, "port": tgcs.EmulatorServer}
+
+
+@pytest.fixture(params=sorted(_EMULATORS))
+def emulator(request):
+    """The port's GCS client's other end: the JAX package's emulator or
+    the port's."""
+    srv = _EMULATORS[request.param]()
+    port = srv.start_background()
+    yield srv, port
+    srv.stop()
+
+
+def _gcs_models(port, gcs=tgcs, conf_cls=StorageClientConfig, prefix="pio_",
+                base_path=""):
+    config = conf_cls(properties={"BUCKET": "models-bucket",
+                                  "BASE_PATH": base_path,
+                                  "EMULATOR_HOST": f"127.0.0.1:{port}"})
+    client = gcs.StorageClient(config)
+    return gcs.GCSModels(client, config, prefix=prefix), client
+
+
+@pytest.mark.parametrize("client_pkg", ["jax", "port"])
+def test_gcs_conformance(emulator, client_pkg):
+    """Upload, download, overwrite, a missing id, delete (twice): the same
+    answers from either package's client on either emulator."""
+    from incubator_predictionio_tpu.data.storage import Model as JModel
+    from incubator_predictionio_tpu_torch.data.storage import Model
+
+    _srv, port = emulator
+    if client_pkg == "jax":
+        models, client = _gcs_models(port, jgcs, JConfig)
+        model_cls = JModel
+    else:
+        models, client = _gcs_models(port)
+        model_cls = Model
+    blob = b"\x00\x01binary\xff" * 100
+    models.insert(model_cls("m1", blob))
+    assert models.get("m1").models == blob
+    models.insert(model_cls("m1", b"new"))          # overwrite = upsert
+    assert models.get("m1").models == b"new"
+    assert models.get("absent") is None
+    models.delete("m1")
+    assert models.get("m1") is None
+    models.delete("m1")                              # idempotent delete
+    client.close()
+
+
+def test_gcs_base_path_and_object_layout(emulator):
+    from incubator_predictionio_tpu_torch.data.storage import Model
+
+    srv, port = emulator
+    models, client = _gcs_models(port, base_path="pio/models")
+    models.insert(Model("inst-1", b"x"))
+    # the blob lands under the configured key space, where either
+    # package's client finds it
+    assert srv.objects["models-bucket"]["pio/models/pio_inst-1"] == b"x"
+    jmodels, jclient = _gcs_models(port, jgcs, JConfig,
+                                   base_path="pio/models")
+    assert jmodels.get("inst-1").models == b"x"
+    client.close()
+    jclient.close()
+
+
+def test_gcs_registry_wiring(emulator):
+    """TYPE=gcs resolves through the port's storage registry, whichever
+    emulator answers."""
+    from incubator_predictionio_tpu_torch.data.storage import Model, Storage
+
+    _, port = emulator
+    Storage.reset()
+    Storage.configure({
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_SOURCES_GCS_TYPE": "gcs",
+        "PIO_STORAGE_SOURCES_GCS_BUCKET": "models-bucket",
+        "PIO_STORAGE_SOURCES_GCS_EMULATOR_HOST": f"127.0.0.1:{port}",
+        "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "m",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "e",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio_model_",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "GCS",
+    })
+    try:
+        models = Storage.get_model_data_models()
+        models.insert(Model("wired", b"ok"))
+        assert models.get("wired").models == b"ok"
     finally:
         Storage.reset()
 
