@@ -5,7 +5,7 @@ The port's counterpart of incubator_predictionio_tpu/cli/main.py (Console.
 scala:153-600): version / status / app {new,list,show,delete,data-delete,
 channel-new,channel-delete} / accesskey {new,list,delete} / build /
 unregister / train / eval / deploy / undeploy / eventserver /
-storageserver / export / import / upgrade. ``train``, ``eval`` and
+storageserver / dashboard / export / import / upgrade. ``train``, ``eval`` and
 ``deploy`` run in process on the CUDA device; ``PIO_DEVICE=cpu`` is the one
 switch that runs them on the CPU (the JAX package's ``JAX_PLATFORMS=cpu``).
 Nothing picks the CPU because no card was found: without the switch, a
@@ -34,11 +34,16 @@ it prints ``Storage Server running on http://<ip>:<port>`` once bound
 (``--port 0`` binds a free port) and stops with exit 0 on SIGTERM. Like
 ``eventserver``, it never initialises CUDA.
 
+``dashboard`` (JAX main.py:553-558) serves the completed evaluations and
+the live latency, SLO and tenant panels (``servers/dashboard.py``); it
+prints ``Dashboard running on http://<ip>:<port>`` once bound and stops
+with exit 0 on SIGTERM, and never initialises CUDA.
+
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
-item: ``adminserver`` and ``dashboard`` (item 8), ``train``/``eval``/
+item: ``adminserver`` (item 8b), ``train``/``eval``/
 ``deploy --hosts`` (the pod launch) and ``train --model-parallelism``
 above 1 (item 9), and ``deploy --feedback`` /
-``--log-url`` (item 8, raised by the prediction server; the options that
+``--log-url`` (item 8c, raised by the prediction server; the options that
 only those use, ``--event-server-ip``, ``--event-server-port``,
 ``--accesskey`` and ``--log-prefix``, come with them and are not accepted
 yet). ``pio train`` continues from the last COMPLETED instance, as the JAX
@@ -183,10 +188,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--batch-cap", type=_positive_int, default=None, metavar="N",
         help="max events per POST /batch/events.json (default 50 — the "
              "reference's wire contract; raise for bulk loaders)")
-    for name, port in (("adminserver", 7071), ("dashboard", 9000)):
-        p = sub.add_parser(name, help="not ported yet")
-        p.add_argument("--ip", default="127.0.0.1")
-        p.add_argument("--port", type=int, default=port)
+    p = sub.add_parser("adminserver", help="not ported yet")
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=7071)
+    p = sub.add_parser("dashboard", help="start the evaluation dashboard")
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=9000)
     p = sub.add_parser(
         "storageserver",
         help="export this box's storage source to other boxes "
@@ -231,8 +238,7 @@ def _confirm(prompt: str, force: bool) -> bool:
 #: verbs of the JAX package that the port has not ported, with the ROADMAP
 #: item that ports each
 _NOT_PORTED = {
-    "adminserver": "the admin server, ROADMAP.md Queue 1 item 8",
-    "dashboard": "the dashboard, ROADMAP.md Queue 1 item 8",
+    "adminserver": "the admin server, ROADMAP.md Queue 1 item 8b",
 }
 
 
@@ -317,7 +323,7 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
     if cmd in ("status", "train", "eval", "deploy") \
             and runtime.requested_device() != "cpu":
         _ensure_accelerator(_accel_timeout_s())
-    if cmd in ("deploy", "eventserver", "storageserver"):
+    if cmd in ("deploy", "eventserver", "storageserver", "dashboard"):
         # long-running server verbs log one JSON span line per request on
         # stderr (PIO_TRACE_LOG=off disables)
         from incubator_predictionio_tpu_torch.obs.trace import (
@@ -524,6 +530,17 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
         _serve_until_signalled(
             server, f"Storage Server running on http://{args.ip}:{{port}}")
         print("Storage Server stopped.")
+        return 0
+
+    if cmd == "dashboard":
+        from incubator_predictionio_tpu_torch.servers.dashboard import (
+            DashboardServer,
+        )
+
+        _serve_until_signalled(
+            DashboardServer(args.ip, args.port),
+            f"Dashboard running on http://{args.ip}:{{port}}")
+        print("Dashboard stopped.")
         return 0
 
     if cmd == "export":

@@ -18,9 +18,9 @@ ingest stays columnar end-to-end. Optional shared-key auth via the
 Start via ``pio storageserver`` (cli) or embed :class:`StorageServer`.
 
 The port's copy of incubator_predictionio_tpu/data/storage/server.py, on
-the port's storage, HTTP layer and metrics. ``GET /recorder`` (the flight
-recorder, ROADMAP.md Queue 1 item 8) is not ported: the router serves
-``POST /rpc``, ``GET /`` and ``GET /metrics``.
+the port's storage, HTTP layer and metrics. The router serves ``POST
+/rpc``, ``GET /``, ``GET /metrics`` and ``GET /recorder`` (the flight
+recorder's window, obs/recorder.py).
 """
 
 from __future__ import annotations
@@ -464,9 +464,12 @@ class StorageServer:
 
         from incubator_predictionio_tpu_torch.obs.http import (
             add_metrics_route,
+            add_recorder_route,
         )
 
         add_metrics_route(r)
+        # the flight recorder's window: every server records
+        add_recorder_route(r)
         return r
 
     # -- find cursor protocol ---------------------------------------------

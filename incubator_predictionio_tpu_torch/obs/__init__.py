@@ -1,9 +1,12 @@
 """Telemetry: the process-wide metrics registry (:mod:`.metrics`), request
-trace ids and span logs (:mod:`.trace`), the ``GET /metrics`` route
-(:mod:`.http`), the SLO burn-rate engine whose ``serve_p99`` objective the
-serving scheduler sheds against (:mod:`.slo`) and the state-provider seam
-(:mod:`.recorder`). The port's copy of the part of incubator_predictionio_tpu/
-obs/ that its servers use; the flight recorder itself, the ``/slo`` and
-``/recorder`` routes, federation, capacity, the knobs and the device
-profiler are still to be ported (ROADMAP.md Queue 1 item 8).
+trace ids and span logs (:mod:`.trace`), the SLO burn-rate engine whose
+``serve_p99`` objective the serving scheduler sheds against (:mod:`.slo`),
+the exposition parser (:mod:`.expofmt`), fleet federation under an
+``instance`` label (:mod:`.federate`), the flight recorder and its
+incident bundles (:mod:`.recorder`), the ``PIO_PROFILE`` device profiler
+on CUDA events with its ``torch.profiler`` capture (:mod:`.profile`), the
+end-to-end freshness tracker (:mod:`.freshness`) and the HTTP routes and
+status-page panels over all of them (:mod:`.http`). The port's copy of
+incubator_predictionio_tpu/obs/; capacity, the freshness controller and
+the knobs are still to be ported (ROADMAP.md Queue 1 item 8b).
 """

@@ -29,8 +29,17 @@ every bucket takes the plain route, as the JAX package's kernels take
 only CG) and ``PIO_ALS_CG_TOL`` (the CG's residual early exit on the
 plain route and the split rows; 0, the default, is the fixed budget).
 
+Under ``PIO_PROFILE=1`` (obs/profile.py) a ``_mixed_run`` books one
+dispatch, as the JAX package's does (als.py:2048-2117): ``als_fused``
+where the run's buckets go to the kernel entries (``use_kernel`` after
+the solver's rule, as JAX's interpret mode counts as its kernel path),
+``als_train`` on the plain route, both at :func:`train_flops` over
+:func:`tree_nnz`. ``als_train_implicit`` books one dispatch the same way
+(the JAX package's implicit trainer books none), at the doubled CG
+budget its solves run.
+
 Not ported: the sharded trainer (``als_train_placed`` :1566, ROADMAP
-Queue 1 item 9) and the ``PIO_PROFILE`` device-time attribution.
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from incubator_predictionio_tpu_torch.obs import profile as _profile
 from incubator_predictionio_tpu_torch.ops import als_kernels
 from incubator_predictionio_tpu_torch.ops.sparse import (
     HeavySegments,
@@ -592,6 +602,7 @@ def _mixed_run(state: ALSState, u_tree, i_tree, l2: float, iterations: int,
     entry and its gather at every ML-20M bucket, the item side's 70.9 MB
     user table read from HBM included (PERF.md §6), so the TPU's VMEM rule
     (``als_fused_fits``) and its L2 stand-in are gone."""
+    _prof_t0 = _profile.t0()
     lo = min(max(int(bf16_sweeps), 0), int(iterations))
     common = _route_kw(use_kernel, kernel_min_d, use_fused)
     if lo:
@@ -604,6 +615,17 @@ def _mixed_run(state: ALSState, u_tree, i_tree, l2: float, iterations: int,
             state, u_tree, i_tree, l2, 0.0, iterations - lo,
             iterations - lo, reg_nnz, compute_dtype, user_heavy, item_heavy,
             **common)
+    if _prof_t0 is not None:
+        # flops_fn defers the trees' mask sums until after the wall is
+        # read, so their launches and copies stay out of it
+        _profile.record(
+            _prof_t0, "train",
+            "als_fused" if common["use_kernel"] else "als_train",
+            result=state,
+            flops_fn=lambda: train_flops(
+                tree_nnz(u_tree, user_heavy),
+                state.user_factors.shape[0], state.item_factors.shape[0],
+                state.user_factors.shape[1], iterations, lo))
     return state
 
 
@@ -621,20 +643,45 @@ def _route_kw(use_kernel: bool, kernel_min_d: int,
 
 
 def train_flops(nnz: int, n_users: int, n_items: int, rank: int,
-                iterations: int, bf16_sweeps: int = 0) -> float:
-    """Analytic FLOPs of one training run (als.py:1955): per half-sweep
-    the Gram 4·nnz·K², the rhs 2·nnz·K, and per row iters·2·K² of CG
-    (warm starts add one matvec); useful work only."""
+                iterations: int, bf16_sweeps: int = 0,
+                cg_iters: Optional[int] = None) -> float:
+    """THE analytic FLOP count of one training run (als.py:1955): the one
+    formula the live ``pio_mfu{phase="train"}`` gauge (obs/profile.py)
+    divides by. Per half-sweep over ``nnz`` observations at rank K: the
+    Gram 4·nnz·K², the rhs 2·nnz·K, and per row the solve, ~iters·2·K²
+    of CG (bf16 sweeps at ``CG_ITERS_BF16``, a warm start one matvec
+    more) or K³/3 + 2·K² under the Cholesky solver. Both sides a sweep,
+    ``iterations`` sweeps; useful work only (padding shows as lower MFU).
+    The solve term follows ``PIO_ALS_SOLVER``; ``cg_iters`` is the full
+    CG budget (``CG_ITERS`` unless a trainer runs another)."""
     k, nnz = float(rank), float(nnz)
-    bf16 = min(max(int(bf16_sweeps), 0), int(iterations))
-    iters = (bf16 * min(CG_ITERS_BF16, CG_ITERS)
-             + (int(iterations) - bf16) * CG_ITERS) / max(int(iterations), 1)
-    if CG_WARMSTART:
-        iters += 1.0
+    cg_iters = CG_ITERS if cg_iters is None else int(cg_iters)
     per_side_gram = 2.0 * nnz * k * k * 2.0
     per_side_rhs = 2.0 * nnz * k
-    solves = (int(n_users) + int(n_items)) * iters * 2.0 * k * k
+    if _solver() == "cg":
+        bf16 = min(max(int(bf16_sweeps), 0), int(iterations))
+        iters = (bf16 * min(CG_ITERS_BF16, cg_iters)
+                 + (int(iterations) - bf16) * cg_iters) / max(
+                     int(iterations), 1)
+        if CG_WARMSTART:
+            iters += 1.0  # the warm start's initial-residual matvec
+        per_solve = iters * 2.0 * k * k
+    else:
+        per_solve = k ** 3 / 3.0 + 2.0 * k * k
+    solves = (int(n_users) + int(n_items)) * per_solve
     return (2.0 * per_side_gram + 2.0 * per_side_rhs + solves) * int(iterations)
+
+
+def tree_nnz(tree, heavy=None) -> int:
+    """Observed interaction count of one side's device trees (als.py:2006):
+    mask sums, a few reductions and copies. Only the ``PIO_PROFILE=1``
+    path calls it."""
+    total = 0.0
+    for _row_ids, _cols, _vals, mask in tree:
+        total += float(mask.sum())
+    if heavy is not None:
+        total += float(heavy[4].sum())
+    return int(total)
 
 
 def rmse(state: ALSState, users, items, ratings, chunk: int = 1 << 20
@@ -734,10 +781,19 @@ def als_train_implicit(users: np.ndarray, items: np.ndarray,
                      n_items, rank, device=dev)
     _sync(dev)
     t1 = time.perf_counter()
+    _prof_t0 = _profile.t0()
+    route_kw = _route_kw(use_kernel, 0, None)
     state, _, _ = _als_run_converge(
         state, u_tree, i_tree, l2, 0.0, iterations, iterations, True,
-        torch.float32, u_hv, i_hv, implicit=True, alpha=alpha,
-        **_route_kw(use_kernel, 0, None))
+        torch.float32, u_hv, i_hv, implicit=True, alpha=alpha, **route_kw)
+    if _prof_t0 is not None:
+        _profile.record(
+            _prof_t0, "train",
+            "als_fused" if route_kw["use_kernel"] else "als_train",
+            result=state,
+            flops_fn=lambda: train_flops(
+                tree_nnz(u_tree, u_hv), n_users, n_items, rank, iterations,
+                cg_iters=2 * CG_ITERS))
     _sync(dev)
     if stats is not None:
         stats["als.prep"] = t1 - t0

@@ -51,8 +51,10 @@ with.
 
 Left out here: the mesh-sharded index and its serving twin
 (``_two_stage`` under ``shard_map``, ``_mips_sharded_jit``; ROADMAP.md
-Queue 1 item 9: a sharded table raises), the knob registration and
-``obs/profile`` (item 8).
+Queue 1 item 9: a sharded table raises) and the knob registration (item
+8b). Each serving entry books one ``serve_topk_mips`` /
+``serve_topk_mips_batch`` dispatch with ``obs/profile`` under
+``PIO_PROFILE=1``, at the JAX package's FLOP count.
 
 Knobs (all read at call time): ``PIO_SERVE_MIPS`` (off|auto|on),
 ``PIO_SERVE_MIPS_NPROBE``, ``PIO_SERVE_MIPS_CANDIDATES``,
@@ -75,6 +77,7 @@ import numpy as np
 import torch
 
 from incubator_predictionio_tpu_torch.obs import metrics as obs_metrics
+from incubator_predictionio_tpu_torch.obs import profile as _profile
 from incubator_predictionio_tpu_torch.ops.kernels import NEG_INF
 
 logger = logging.getLogger(__name__)
@@ -1938,9 +1941,13 @@ def mips_score_and_top_k(
     """Two-stage twin of ``ops.topk.score_and_top_k`` → packed [2, k]
     on the table's device."""
     nprobe, n_cand, coarse, rerank = _quotas(index, k)
+    _pt0 = _profile.t0()
     uv = _queries(user_vector, table).reshape(1, -1)
     packed = _two_stage(uv, table, index, k, exclude, nprobe,
                         n_cand)[:, 0, :]
+    _profile.record(_pt0, "serve", "serve_topk_mips",
+                    2.0 * (index.c_total + coarse + rerank) * index.rank,
+                    packed)
     _book_scan(index, 1, coarse, rerank)
     return _host_stage(index, packed, lambda: _host(uv[0]), k, exclude,
                        nprobe)
@@ -1957,9 +1964,13 @@ def mips_score_user_and_top_k(
     """Two-stage twin of ``ops.topk.score_user_and_top_k`` → packed
     [2, k] on the table's device."""
     nprobe, n_cand, coarse, rerank = _quotas(index, k)
+    _pt0 = _profile.t0()
     uv = _queries(user_factors[int(user_idx)], table).reshape(1, -1)
     packed = _two_stage(uv, table, index, k, exclude, nprobe,
                         n_cand)[:, 0, :]
+    _profile.record(_pt0, "serve", "serve_topk_mips",
+                    2.0 * (index.c_total + coarse + rerank) * index.rank,
+                    packed)
     _book_scan(index, 1, coarse, rerank)
     return _host_stage(index, packed, lambda: _host(uv[0]), k, exclude,
                        nprobe)
@@ -1976,9 +1987,13 @@ def mips_batch_score_top_k(
     the table's device."""
     nprobe, n_cand, coarse, rerank = _quotas(index, k)
     rows_np = np.asarray(rows, np.int64).ravel()
+    _pt0 = _profile.t0()
     idx = torch.from_numpy(rows_np).to(user_factors.device)
     uv = _queries(user_factors.index_select(0, idx), table)
     packed = _two_stage(uv, table, index, k, None, nprobe, n_cand)
+    _profile.record(_pt0, "serve", "serve_topk_mips_batch",
+                    2.0 * len(rows_np) * (index.c_total + coarse + rerank)
+                    * index.rank, packed)
     _book_scan(index, len(rows_np), coarse, rerank)
     return _host_stage(index, packed, lambda: _host(uv), k, None, nprobe)
 

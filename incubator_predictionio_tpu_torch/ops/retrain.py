@@ -20,6 +20,11 @@ port of the single-device part of incubator_predictionio_tpu/ops/retrain.py.
    ``index_put_``), and only rows that changed class (or appeared) are
    rebuilt into small appended buckets.
 
+Under ``PIO_PROFILE=1`` a retrain that ran sweeps books one dispatch
+(obs/profile.py), as in the JAX package (retrain.py:1248-1320):
+``als_fused`` on the kernel entries, ``als_retrain`` on the plain route,
+at ``als.train_flops`` over the sweeps actually run.
+
 Correctness never depends on the reuse: whatever the plan cannot prove
 equivalent (a prefix digest mismatch, as when the preparator's
 latest-wins dedup moved a re-rated pair; split rows; a row outgrowing
@@ -52,6 +57,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from incubator_predictionio_tpu_torch.obs import profile as _profile
 from incubator_predictionio_tpu_torch.ops import als
 from incubator_predictionio_tpu_torch.ops.sparse import (
     PaddedRows,
@@ -483,21 +489,31 @@ def als_retrain(users: np.ndarray, items: np.ndarray, vals: np.ndarray,
         state = als.als_init(torch.Generator().manual_seed(int(seed)),
                              n_users, n_items, rank, device=dev)
 
+    _prof_t0 = _profile.t0()
     route_kw = als._route_kw(use_kernel, 0, None)
     lo = 0 if implicit else min(max(int(bf16_sweeps), 0), int(iterations))
-    sweeps, delta = 0, float("inf")
+    sweeps, delta, bf16_used = 0, float("inf"), 0
     if lo:
         state, n, delta = _converge_leg(
             state, u_tree, i_tree, l2, 0.0, tol, lo, min(floor, lo),
             reg_nnz, torch.bfloat16, False, u_hv, i_hv,
             min(als.CG_ITERS_BF16, als.CG_ITERS), route_kw)
         sweeps += n
+        bf16_used = n
     if iterations - lo > 0:
         state, n, delta = _converge_leg(
             state, u_tree, i_tree, l2, alpha, tol, iterations - lo,
             max(floor - sweeps, 1), reg_nnz, compute_dtype, implicit, u_hv,
             i_hv, als.CG_ITERS, route_kw)
         sweeps += n
+    if _prof_t0 is not None and sweeps:
+        # over the sweeps actually run (the early stop makes the count
+        # data-dependent; nnz is in hand, so no mask sums are needed)
+        _profile.record(
+            _prof_t0, "train",
+            "als_fused" if route_kw["use_kernel"] else "als_retrain",
+            als.train_flops(len(vals), n_users, n_items, rank, sweeps,
+                            bf16_used), state)
     stats.update(sweeps_used=sweeps, mode=mode, final_delta=delta)
     _book_sweeps(mode, sweeps)
     return state

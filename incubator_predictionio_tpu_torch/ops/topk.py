@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from incubator_predictionio_tpu_torch import runtime
+from incubator_predictionio_tpu_torch.obs import profile as _profile
 from incubator_predictionio_tpu_torch.ops import kernels
 from incubator_predictionio_tpu_torch.ops import mips as _mips
 from incubator_predictionio_tpu_torch.ops.kernels import NEG_INF
@@ -132,7 +133,10 @@ def _exhaustive_top_k(user_vector: torch.Tensor, item_factors: torch.Tensor,
     allowed = _allowed(n_items, item_factors.device, exclude, allowed_mask,
                        valid_items)
     q = user_vector.reshape(1, -1).to(item_factors.dtype).contiguous()
+    _pt0 = _profile.t0()  # None on the PIO_PROFILE=0 default hot path
     out = _score_top_k(q, item_factors, min(int(k), n_items), allowed)[:, 0]
+    _profile.record(_pt0, "serve", "serve_topk",
+                    2.0 * n_items * item_factors.shape[1], out)
     if allowed_mask is not None:
         return out
     return _mips.merge_published_fallback(
@@ -238,7 +242,10 @@ def batch_score_top_k(
     idx = torch.from_numpy(rows_np).to(user_factors.device)
     queries = user_factors.index_select(0, idx).to(item_factors.dtype)
     allowed = _fold_valid_mask(None, n_items, valid_items, dev)
+    _pt0 = _profile.t0()  # None on the PIO_PROFILE=0 default hot path
     out = _score_top_k(queries.contiguous(), item_factors, k_pad, allowed)
+    _profile.record(_pt0, "serve", "serve_topk_batch",
+                    2.0 * b * user_factors.shape[1] * n_items, out)
     return _mips.merge_published_fallback(
         item_factors, out,
         lambda: queries.detach().to("cpu", torch.float32).numpy(), k_pad,

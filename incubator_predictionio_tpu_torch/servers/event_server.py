@@ -15,10 +15,11 @@ Route/contract parity with data/.../api/EventServer.scala:148-530 on :7070:
 - ``GET  /plugins.json`` and ``/plugins/...`` plugin passthrough
 - ``POST /reload``                  → sync the store (ingest front door)
 - ``GET  /metrics``                 → Prometheus exposition
+- ``GET  /recorder``                → the flight recorder's window
+  (obs/recorder.py)
 
 The port's copy of incubator_predictionio_tpu/servers/event_server.py, on
-the port's storage, HTTP layer and native body parser. ``GET /recorder``
-(the flight recorder, ROADMAP.md Queue 1 item 8) is not ported. A batch of
+the port's storage, HTTP layer and native body parser. A batch of
 8 or more uniform interactions takes the native body parse
 (``uniform_interactions_from_body``) and one columnar insert where the
 event store has one (the port's SQLite and cpplog stores have; a missing
@@ -57,7 +58,10 @@ from incubator_predictionio_tpu_torch.data.storage import (
 )
 from incubator_predictionio_tpu_torch.data.webhooks import ConnectorError
 from incubator_predictionio_tpu_torch.obs import metrics as obs_metrics
-from incubator_predictionio_tpu_torch.obs.http import add_metrics_route
+from incubator_predictionio_tpu_torch.obs.http import (
+    add_metrics_route,
+    add_recorder_route,
+)
 from incubator_predictionio_tpu_torch.servers.plugins import EventInfo, PluginContext
 from incubator_predictionio_tpu_torch.servers.stats import Stats
 from incubator_predictionio_tpu_torch.data.storage.base import UNSET as _UNSET_Q
@@ -668,6 +672,7 @@ class EventServer:
             )
 
         add_metrics_route(r)
+        add_recorder_route(r)
         return r
 
     # -- lifecycle ----------------------------------------------------------

@@ -29,15 +29,25 @@ asyncio, as the event server):
   instance (or ``?tenant=X``: that tenant's own deploy, 404 for an
   unknown tenant) restored and warmed before it replaces the served one;
 - ``POST /stop``         → shut down;
-- ``GET  /metrics``      → Prometheus text (``obs/http.add_metrics_route``).
+- ``GET  /plugins.json`` → the output plugins, ``GET /plugins/...`` → a
+  plugin's own REST handler (JAX :1082-1111);
+- ``GET  /metrics``      → Prometheus text (``obs/http.add_metrics_route``);
+- ``GET  /recorder``     → the flight recorder's window
+  (``obs/http.add_recorder_route``: its sampler starts with the router,
+  and with ``PIO_INCIDENT_DIR`` set the server captures its own breaches
+  into incident bundles).
 
 ``/reload`` and ``/stop`` take ``accessKey`` = the server key, else
 server.conf's key when it enforces one (401 otherwise).
 
 Queries are served in batches by :meth:`_handle_batch`, which keeps the
 reference's split between the rendered-bytes fast path
-(``batch_serve_json``) and the object path. ``ServerConfig.micro_batch``
-is the scheduler's ladder cap (``PIO_SERVE_MAX_BATCH``, default 512); 0
+(``batch_serve_json``) and the object path. The output plugins
+(``plugin_context``: explicit, or ``PIO_PLUGINS``) run on the object
+path: each blocker may rewrite or veto an answer, each sniffer sees it;
+the fast path is taken only when there are none (JAX :589-712).
+``ServerConfig.micro_batch`` is the scheduler's ladder cap
+(``PIO_SERVE_MAX_BATCH``, default 512); 0
 turns the scheduler off, and each query is then one call of
 :meth:`_handle_batch` on the HTTP layer's thread pool.
 ``PIO_SERVE_WORKERS`` dispatcher threads (default 1) drain the queues;
@@ -71,9 +81,9 @@ eventserver`` writes and ``pio deploy`` folds the new events in; on a
 local cpplog log the writer is an ``EventServer`` in this process, since
 one log is never opened by two live processes.
 
-Not ported yet: ``/knobs``, ``/plugins*``, ``/recorder``, the feedback
-loop and ``--log-url`` (ROADMAP.md Queue 1 item 8; given either of the
-last two, :class:`PredictionServer` raises ``NotImplementedError``).
+Not ported yet: ``POST /knobs`` (answers 501, naming ROADMAP.md Queue 1
+item 8b), the feedback loop and ``--log-url`` (item 8c; given either of the last two,
+:class:`PredictionServer` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -102,9 +112,13 @@ from incubator_predictionio_tpu_torch.data.storage import (
     Storage,
 )
 from incubator_predictionio_tpu_torch.obs import metrics as obs_metrics
-from incubator_predictionio_tpu_torch.obs.http import add_metrics_route
+from incubator_predictionio_tpu_torch.obs.http import (
+    add_metrics_route,
+    add_recorder_route,
+)
 from incubator_predictionio_tpu_torch.ops import mips, mips_daemon
 from incubator_predictionio_tpu_torch.parallel.context import RuntimeContext
+from incubator_predictionio_tpu_torch.servers.plugins import PluginContext
 from incubator_predictionio_tpu_torch.serving import tenancy
 from incubator_predictionio_tpu_torch.serving.scheduler import (
     BatchScheduler,
@@ -177,7 +191,7 @@ class ServerConfig:
     """What ``pio deploy`` passes (CreateServer.scala:89-113 ServerConfig;
     the JAX package's, without the feedback loop's event-server address
     and access key and the log shipper's prefix, ROADMAP.md Queue 1 item
-    8)."""
+    8c)."""
 
     ip: str = "0.0.0.0"
     port: int = 8000
@@ -209,23 +223,26 @@ class PredictionServer:
     here, or, with ``models`` None, the stored engine instance that
     ``config`` names, restored when the server starts. With a ``config``
     the server binds to its ``ip`` and ``port``, else to ``host`` and
-    ``port``."""
+    ``port``. ``plugin_context`` holds the output plugins (default: those
+    ``PIO_PLUGINS`` names)."""
 
     def __init__(self, engine: Engine,
                  engine_params: Optional[EngineParams] = None,
                  models: Optional[List[Any]] = None, device=None,
                  host: str = "127.0.0.1", port: int = 0, *,
-                 config: Optional[ServerConfig] = None):
+                 config: Optional[ServerConfig] = None,
+                 plugin_context: Optional[PluginContext] = None):
         if config is not None and config.feedback:
             raise NotImplementedError(
                 "deploy --feedback (the feedback loop) is not ported yet: "
-                "ROADMAP.md Queue 1 item 8")
+                "ROADMAP.md Queue 1 item 8c")
         if config is not None and config.log_url:
             raise NotImplementedError(
                 "deploy --log-url (query-error shipping) is not ported "
-                "yet: ROADMAP.md Queue 1 item 8")
+                "yet: ROADMAP.md Queue 1 item 8c")
         self.engine = engine
         self.config = config or ServerConfig(ip=host, port=port)
+        self.plugin_context = plugin_context or PluginContext()
         self.ctx = RuntimeContext(device=device)
         self.engine_instance: Optional[EngineInstance] = None
         self.engine_params = engine_params
@@ -574,10 +591,10 @@ class PredictionServer:
                    if tenant != tenancy.DEFAULT_TENANT else None)
             if dep is not None:
                 algorithms, serving = dep["algorithms"], dep["serving"]
-                models = dep["models"]
+                models, instance = dep["models"], dep["engine_instance"]
             else:
                 algorithms, serving = self.algorithms, self.serving
-                models = self.models
+                models, instance = self.models, self.engine_instance
         n = len(bodies)
         if not algorithms:
             return [HttpError(503, "No engine instance deployed.")] * n
@@ -591,10 +608,14 @@ class PredictionServer:
                 results[idx] = e
         # rendered-bytes fast path: only where the bytes equal the object
         # path's — one algorithm, first-prediction serving declared on the
-        # serving's own class, and the identity supplement
+        # serving's own class, the identity supplement, and no output
+        # plugin that needs the answer as an object
+        blockers = self.plugin_context.output_blockers
+        sniffers = self.plugin_context.output_sniffers
         if (len(algorithms) == 1
                 and type(serving).__dict__.get("FIRST_PREDICTION_ONLY", False)
-                and type(serving).supplement is Serving.supplement):
+                and type(serving).supplement is Serving.supplement
+                and not blockers and not sniffers):
             try:
                 fast = algorithms[0].batch_serve_json(
                     models[0],
@@ -607,21 +628,22 @@ class PredictionServer:
             for idx, payload in enumerate(fast or ()):
                 if payload is not None and results[idx] is None:
                     results[idx] = payload
-        parsed: List[Any] = []  # [idx, query, supplemented]
+        parsed: List[Any] = []  # [idx, raw, query, supplemented]
         for idx in range(n):
             if results[idx] is not None:
                 continue
             try:
                 query = (json_codec.extract(query_class, raws[idx])
                          if query_class is not None else raws[idx])
-                parsed.append((idx, query, serving.supplement(query)))
+                parsed.append((idx, raws[idx], query,
+                               serving.supplement(query)))
             except Exception as e:
                 results[idx] = e
         # one prediction per algorithm per live query; a batch of more
         # than one goes through the algorithm's batched path
-        preds = {idx: [] for idx, _q, _s in parsed}
+        preds = {idx: [] for idx, _r, _q, _s in parsed}
         for a, m in zip(algorithms, models):
-            live = [(idx, supp) for idx, _q, supp in parsed
+            live = [(idx, supp) for idx, _r, _q, supp in parsed
                     if results[idx] is None]
             if not live:
                 break
@@ -642,13 +664,25 @@ class PredictionServer:
                     preds[idx].append(a.predict(m, supp))
                 except Exception as e:
                     results[idx] = e
-        for idx, query, _supp in parsed:
+        variant = (instance.engine_variant if instance is not None
+                   else self.config.engine_variant)
+        for idx, raw, query, _supp in parsed:
             if results[idx] is not None:
                 continue
             try:
                 # serve sees the ORIGINAL query (CreateServer.scala:526)
-                results[idx] = json_codec.to_jsonable(
+                result = json_codec.to_jsonable(
                     serving.serve(query, preds[idx]))
+                for blocker in blockers.values():
+                    result = blocker.process(variant, raw, result,
+                                             self.plugin_context)
+                for sniffer in sniffers.values():
+                    try:
+                        sniffer.process(variant, raw, result,
+                                        self.plugin_context)
+                    except Exception:
+                        logger.exception("output sniffer failed")
+                results[idx] = result
             except Exception as e:
                 results[idx] = e
         dt = time.perf_counter() - t0
@@ -814,7 +848,34 @@ class PredictionServer:
             timer.start()
             return Response(200, {"message": "Shutting down."})
 
+        @r.post("/knobs")
+        def knobs(request: Request) -> Response:
+            return Response(501, {"message": (
+                "POST /knobs (the knob controller's fan-out) is not "
+                "ported yet: ROADMAP.md Queue 1 item 8b")})
+
+        @r.get("/plugins.json")
+        def plugins_list(request: Request) -> Response:
+            ctx = self.plugin_context
+            return Response(200, {"plugins": {
+                "outputblockers": {n: {"name": n}
+                                   for n in ctx.output_blockers},
+                "outputsniffers": {n: {"name": n}
+                                   for n in ctx.output_sniffers},
+            }})
+
+        @r.get("/plugins/{tail...}")
+        def plugins_rest(request: Request) -> Response:
+            parts = request.path_params["tail"].split("/")
+            plugin = self.plugin_context.plugin(parts[0])
+            if plugin is None:
+                return Response(404, {"message": "Not Found"})
+            return Response(200, plugin.handle_rest("/".join(parts[1:]),
+                                                    dict(request.query)))
+
         add_metrics_route(r)
+        # the worker's own metric history, which an incident capture pulls
+        add_recorder_route(r)
         return r
 
     def _prepare(self) -> None:

@@ -10,9 +10,11 @@ compile cache has no counterpart (a CUDA kernel takes any B);
 ``pio_serve_compile_cache_size`` reads the count of distinct padded
 ``(B, k)`` dispatch shapes that ``ops/topk`` keeps, which a warm ladder
 holds flat. ``apply_knobs`` is copied, but its caller, ``POST /knobs``,
-is not ported yet (ROADMAP.md Queue 1 item 8), nor is the flight
-recorder that reads :meth:`BatchScheduler.snapshot` through
-``obs/recorder.register_state_provider``.
+is not ported yet (ROADMAP.md Queue 1 item 8b). The flight recorder
+reads :meth:`BatchScheduler.snapshot` through
+``obs/recorder.register_state_provider`` into its dumps and incident
+bundles, and each dispatch re-installs one member's trace id, so the
+latency histogram's exemplars name a real query of the batch.
 
 - **Admission queues, per engine.** Every in-flight query lands in its
   engine's FIFO queue (one engine's burst never pads another's

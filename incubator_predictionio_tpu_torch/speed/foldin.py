@@ -18,8 +18,10 @@ bounded by the ladder whatever the traffic (``foldin_compile_cache_size``
 counts the distinct ones). Histories longer than the widest bucket keep
 their most recent entries.
 
-Not ported: the ``obs/profile`` attribution of each dispatch
-(ROADMAP.md Queue 1 item 8) and the mesh-sharded frozen table (item 9).
+Under ``PIO_PROFILE=1`` each bucket launch books one ``foldin_solve``
+dispatch (``obs/profile``) at :func:`foldin_flops`, as in the JAX
+package. Not ported: the mesh-sharded frozen table (ROADMAP.md Queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from incubator_predictionio_tpu_torch import runtime
+from incubator_predictionio_tpu_torch.obs import profile as _profile
 from incubator_predictionio_tpu_torch.ops import als as _als
 from incubator_predictionio_tpu_torch.ops import als_kernels
 
@@ -183,7 +186,14 @@ class FoldInSolver:
                     cols[r, :len(c)] = c
                     vals[r, :len(v)] = v
                     mask[r, :len(c)] = 1.0
-                sols.append(self._dispatch(cols, vals, mask)[:b])
+                _pt0 = _profile.t0()
+                sol = self._dispatch(cols, vals, mask)
+                _profile.record(
+                    _pt0, "foldin", "foldin_solve",
+                    foldin_flops([len(c) for _s, c, _v in chunk],
+                                 self.rank, self.cg_iters)
+                    if _pt0 is not None else 0.0, sol)
+                sols.append(sol[:b])
                 slots.extend(slot for slot, _c, _v in chunk)
         if sols:
             # one device-to-host copy for every bucket of the call

@@ -349,11 +349,12 @@ def test_factory_without_a_counterpart_raises(tmp_path, monkeypatch,
         with pytest.raises(commands.CommandError, match=why):
             commands.resolve_engine_factory(factory)
     (tmp_path / "engine.json").write_text(json.dumps({
-        "engineFactory": "incubator_predictionio_tpu.obs.profile:"
-                         "ProfileEngine"}))
+        "engineFactory": "incubator_predictionio_tpu.utils.compile_cache:"
+                         "CacheEngine"}))
     monkeypatch.chdir(tmp_path)
     assert main(["build"]) == 1
-    assert "incubator_predictionio_tpu.obs.profile" in capsys.readouterr().err
+    assert "incubator_predictionio_tpu.utils.compile_cache" in \
+        capsys.readouterr().err
 
 
 def test_undeploy_nothing_running(capsys):
@@ -362,8 +363,7 @@ def test_undeploy_nothing_running(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["eval", "--hosts", "h1", "evaluation:evaluation"], "item 9"),
-    (["adminserver"], "item 8"),
-    (["dashboard"], "item 8"),
+    (["adminserver"], "item 8b"),
     (["train", "--hosts", "h1,h2"], "item 9"),
     (["deploy", "--hosts", "h1"], "item 9"),
 ])
@@ -380,7 +380,7 @@ def test_deploy_options_not_ported_raise(tmp_path, monkeypatch, flag,
         "engineFactory": PORT_FACTORY,
         "datasource": {"params": {"appName": "A"}}}))
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8c"):
         main(["deploy", flag] + ([value] if value else []))
 
 

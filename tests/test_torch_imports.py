@@ -729,3 +729,95 @@ def test_remote_storage_modules_and_chip_smoke_import_nothing_of_jax(module):
     assert out["leaked"] == []
     if module.endswith("storage.server"):
         assert (out["app"], out["model"], out["view"]) == ("a", "x", 0)
+
+
+_OBSERVING_ISOLATED = textwrap.dedent('''
+    import importlib, importlib.abc, json, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if (name == "incubator_predictionio_tpu"
+                    or name.startswith("incubator_predictionio_tpu.")):
+                raise ImportError("the port imported " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    importlib.import_module(sys.argv[1])
+    out = {}
+    if sys.argv[1].endswith("dashboard"):
+        # the observing plane together: the dashboard's routes, a
+        # profiled dispatch, a torch.profiler capture, a federated merge
+        # of the process exposition and a manual incident bundle
+        import urllib.request
+        import torch
+        for k, v in {"PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+                     "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "m",
+                     "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+                     "PIO_PROFILE": "1"}.items():
+            os.environ[k] = v
+        from incubator_predictionio_tpu_torch.obs import (
+            expofmt, federate, metrics, profile, recorder)
+        from incubator_predictionio_tpu_torch.ops import topk
+        from incubator_predictionio_tpu_torch.servers.dashboard import (
+            DashboardServer)
+        srv = DashboardServer(ip="127.0.0.1", port=0)
+        port = srv.start_background()
+        try:
+            for route in ("/", "/metrics", "/recorder", "/slo"):
+                with urllib.request.urlopen(
+                        "http://127.0.0.1:%d%s" % (port, route),
+                        timeout=30) as resp:
+                    out[route] = resp.status
+        finally:
+            srv.stop()
+        topk.score_and_top_k(torch.ones(4), torch.ones(9, 4), 3)
+        out["booked"] = profile.DEVICE_DISPATCHES.labels(
+            op="serve_topk").value
+        cap = tempfile.mkdtemp()
+        profile.capture_trace(0.1, cap)
+        with open(os.path.join(cap, profile.TRACE_FILE)) as f:
+            out["trace"] = "traceEvents" in json.load(f)
+        text = metrics.REGISTRY.expose()
+        snap = federate.FederatedSnapshot([federate.ScrapeResult(
+            target=federate.Target("w", "http://w"), ok=True, wall_s=0.0,
+            families=expofmt.parse_families(text))])
+        out["federated"] = snap.get("pio_device_dispatches_total").total()
+        bundle = recorder.IncidentCapture(
+            directory=cap, targets_fn=lambda: []).capture_now("manual")
+        out["bundle"] = os.path.exists(bundle["path"])
+    out["leaked"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None and (
+            m in ("jax", "jaxlib") or m == "incubator_predictionio_tpu"
+            or m.startswith("incubator_predictionio_tpu.")))
+    print(json.dumps(out))
+''')
+
+
+@pytest.mark.parametrize("module", [
+    "incubator_predictionio_tpu_torch.obs.expofmt",
+    "incubator_predictionio_tpu_torch.obs.federate",
+    "incubator_predictionio_tpu_torch.obs.recorder",
+    "incubator_predictionio_tpu_torch.obs.profile",
+    "incubator_predictionio_tpu_torch.obs.http",
+    "incubator_predictionio_tpu_torch.servers.dashboard",
+])
+def test_observing_modules_import_nothing_of_jax(module):
+    """The observation plane imports with JAX and the JAX package
+    blocked; the dashboard serves its routes, a profiled top-k books its
+    dispatch, a capture writes its trace, the exposition federates and an
+    incident bundle is written."""
+    proc = subprocess.run([sys.executable, "-c", _OBSERVING_ISOLATED,
+                           module],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    if module.endswith("dashboard"):
+        assert [out[r] for r in ("/", "/metrics", "/recorder", "/slo")] == \
+            [200] * 4
+        assert out["booked"] == 1 and out["federated"] == 1
+        assert out["trace"] and out["bundle"]

@@ -2,13 +2,15 @@
 package's, on the CPU.
 
 Mirrors the cases of tests/test_slo.py that need neither ``obs/profile``
-nor ``obs/federate`` nor the admin server: each one plants the same
-observations in both packages' registries, each under its own
-``FakeClock``, and requires the same evaluation (burn rates, budgets,
-breach flags, window coverage). ``tenant_specs`` and the scheduler's
-shed threshold (``serve_objective_s``) read the same declared objective.
-The fleet-mode reset clamp and ``GET /slo`` wait for the admin server
-(ROADMAP.md Queue 1 item 8).
+nor the admin server: each one plants the same observations in both
+packages' registries, each under its own ``FakeClock``, and requires the
+same evaluation (burn rates, budgets, breach flags, window coverage).
+``tenant_specs`` and the scheduler's shed threshold
+(``serve_objective_s``) read the same declared objective; the fleet-mode
+reset clamp reads through both packages' federation shapes. The profiler
+cases are in tests/test_torch_profile.py, ``GET /slo`` on the dashboard
+in tests/test_torch_dashboard.py; its admin-server half waits for
+ROADMAP.md Queue 1 item 8b.
 """
 
 import pytest
@@ -282,3 +284,55 @@ def test_shed_threshold_is_the_declared_objective(monkeypatch, raw):
     got = scheduler.serve_objective_s()
     assert got == jsched.serve_objective_s()
     assert got == {None: 0.25, "0.05": 0.05, "2.5": 2.5, "junk": 0.25}[raw]
+
+
+class _ShrinkingFleet:
+    """Registry-shaped fleet stub (tests/test_slo.py's) on package
+    ``fed``'s federation: the histogram family RESETS between reads (a
+    worker restarted between two ticks)."""
+
+    def __init__(self, fed, xfmt):
+        self.fed, self.xfmt, self.reads = fed, xfmt, 0
+
+    def get(self, name):
+        self.reads += 1
+        m = self.fed.FederatedMetric(name, "histogram")
+        if self.reads == 1:
+            child = self.xfmt.HistogramChild(
+                buckets=[(1.0, 50.0), (2.0, 50.0)], sum=500.0, count=150.0)
+        else:
+            child = self.xfmt.HistogramChild(
+                buckets=[(1.0, 10.0), (2.0, 10.0)], sum=5.0, count=10.0)
+        m.absorb("w0", self.xfmt.Family(name=name, kind="histogram",
+                                        histograms={frozenset(): child}))
+        return m
+
+
+def test_counter_reset_clamps_fleet_mode():
+    from incubator_predictionio_tpu.obs import expofmt as jexpofmt
+    from incubator_predictionio_tpu.obs import federate as jfederate
+    from incubator_predictionio_tpu_torch.obs import expofmt, federate
+
+    mods = {"port": (federate, expofmt), "jax": (jfederate, jexpofmt)}
+
+    def scenario(pkg):
+        _reg_cls, slo, clock_cls = PKGS[pkg]
+        clock = clock_cls()
+        spec = slo.SLOSpec(name="t", metric="t_fleet_seconds",
+                           threshold=1.0, target=0.99)
+        eng = slo.SLOEngine(specs=(spec,), registry=_ShrinkingFleet(
+            *mods[pkg]), clock=clock, fast_window_s=60.0,
+            slow_window_s=600.0, min_tick_interval_s=0.0,
+            export_gauges=False)
+        eng.tick(force=True)
+        clock.advance(10)
+        return eng.evaluate()[0]
+
+    out = _both(scenario)
+    for w in ("fast", "slow"):
+        win = out["windows"][w]
+        assert win["burnRate"] >= 0.0 and win["badFraction"] >= 0.0
+        assert win["observations"] >= 0
+    assert out["windows"]["fast"]["burnRate"] == 0.0
+    assert out["breached"] is False
+    assert 0.0 <= out["errorBudgetRemaining"] <= 1.0
