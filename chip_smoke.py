@@ -5309,7 +5309,7 @@ def metrics_histogram(text: str, name: str, labels: str) -> tuple:
 
 
 def remote_phase(dev, runtime, kernels, als, ak, log: dict,
-                 small: bool = False) -> tuple:
+                 small: bool = False, control=None) -> tuple:
     """The README main path across four processes on the cpplog phase's
     store (``log``: its app, key, engine directory and continued
     instance), after the speed phase, whose servers are stopped:
@@ -5349,6 +5349,11 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
        above 0 (the fold-ins), score+top-k at least once a query answered;
     10. ``pio undeploy``, SIGTERM to the event and storage servers: every
         child exits 0.
+
+    ``control`` (the ``control`` phase, :func:`control_phase`) adds a
+    second ``pio deploy`` child at step 7, started with the first, and is
+    called before step 10 with the fleet (both deploys, the stores, the
+    continued instance); what it returns is the stats' ``control``.
 
     Returns (launches by kernel, max score error, stats)."""
     from incubator_predictionio_tpu_torch.data.storage import (
@@ -5502,6 +5507,14 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
                                       "--ip", "127.0.0.1", "--port", "0"],
                     work, env, cwd=log["engine_dir"])
         children.append(dep)
+        deps = [dep]
+        if control is not None:
+            # the control phase's second worker, started with the first
+            deps.append(Child(
+                "deploy-remote-2", ["deploy", "--variant", log["variant"],
+                                    "--ip", "127.0.0.1", "--port", "0"],
+                work, env, cwd=log["engine_dir"]))
+            children.append(deps[-1])
         port = int(dep.wait_line(r"deployed on http://[^:]+:(\d+)",
                                  600).group(1))
         base = f"http://127.0.0.1:{port}"
@@ -5619,9 +5632,18 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
                                  f"{served}, {n_answered} answers")
         stats["launches"] = launches
 
+        if control is not None:
+            ports = [port] + [int(d.wait_line(
+                r"deployed on http://[^:]+:(\d+)", 600).group(1))
+                for d in deps[1:]]
+            stats["control"] = control(dict(
+                log, ports=ports, instance=iid, model=model, read=read,
+                env=env))
+
         # -- 10. every child stops with exit 0 -----------------------------
-        cli("undeploy", "--ip", "127.0.0.1", "--port", str(port))
-        dep.wait_exit()
+        for d, p in zip(deps, ports if control is not None else [port]):
+            cli("undeploy", "--ip", "127.0.0.1", "--port", str(p))
+            d.wait_exit()
         for child in (es, ss):
             child.proc.send_signal(signal.SIGTERM)
             child.wait_exit()
@@ -5641,13 +5663,778 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
     return launches, err, stats
 
 
+#: closed-loop keep-alive client of the control phase, standard library
+#: only, run as ``python -c CONTROL_CLIENT <config JSON>``: ``threads``
+#: clients POST ``{"user": <id>, "num": num}`` for random ids of the
+#: ``users`` file until the ``stop`` file exists, and write one record
+#: per answer to ``out``: [time.monotonic() at the request, status,
+#: seconds, user, body of a 200 or None].
+CONTROL_CLIENT = r'''
+import http.client, json, os, random, sys, threading, time
+cfg = json.loads(sys.argv[1])
+with open(cfg["users"]) as f:
+    users = json.load(f)
+records, lock = [], threading.Lock()
+
+def client(tid):
+    rng = random.Random(cfg["seed"] * 100003 + tid)
+    conn = http.client.HTTPConnection("127.0.0.1", cfg["port"], timeout=120)
+    mine = []
+    while not os.path.exists(cfg["stop"]):
+        user = rng.choice(users)
+        body = json.dumps({"user": user, "num": cfg["num"]})
+        t_at, t0 = time.monotonic(), time.perf_counter()
+        try:
+            conn.request("POST", "/queries.json", body,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            status = resp.status
+        except (OSError, http.client.HTTPException):
+            conn.close()
+            conn = http.client.HTTPConnection("127.0.0.1", cfg["port"],
+                                              timeout=120)
+            status, data = -1, b""
+        mine.append([t_at, status, time.perf_counter() - t0, user,
+                     data.decode() if status == 200 else None])
+    conn.close()
+    with lock:
+        records.extend(mine)
+
+threads = [threading.Thread(target=client, args=(t,))
+           for t in range(cfg["threads"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+with open(cfg["out"], "w") as f:
+    json.dump(records, f)
+'''
+
+#: the control phase's clients through the front door: the freshness leg
+#: (across the rolling reload) and the knob leg, in that many processes
+CONTROL_CLIENTS = (12, 32)
+CONTROL_CLIENT_PROCS = (2, 4)
+#: the controllers' cadence and gates on the card, through their own env
+#: settings (obs/controller.py ControllerConfig, obs/knobs.py KnobConfig)
+CONTROL_ENV = {
+    "PIO_CONTROLLER_INTERVAL_S": "0.5",
+    "PIO_CONTROLLER_HYSTERESIS": "2",
+    "PIO_CONTROLLER_COOLDOWN_S": "600",
+    "PIO_KNOBS_INTERVAL_S": "0.5",
+    "PIO_KNOBS_HYSTERESIS": "2",
+    "PIO_KNOBS_COOLDOWN_S": "30",
+    "PIO_KNOBS_WINDOW_S": "2",
+}
+#: the knobs the phase's controller registers (obs/knobs.py names)
+CONTROL_KNOBS = ("max_batch", "max_wait_ms", "shed", "foldin_budget")
+#: the knob leg's planted serve objective (seconds), far below any answer
+#: through the door: the controller steps the scheduler family down
+CONTROL_SERVE_OBJECTIVE_S = 1e-4
+#: the served instance's least age (seconds) before the staleness bound is
+#: planted one second below it
+CONTROL_MIN_AGE_S = 12.0
+#: seconds the controllers get for each awaited event
+CONTROL_DEADLINE_S = 180.0
+#: answers through the door checked against the new instance's top-k
+CONTROL_CHECKED = 16
+#: fault 3's fold-in (ROADMAP Queue 3): rows of one width, one implicit
+#: launch of the fused kernel (``PIO_SPEED_WIDTHS``/``PIO_SPEED_MAX_BATCH``)
+STREAM_ROWS = 8192
+STREAM_WIDTH = 2048
+STREAM_TRIALS = 3
+#: a dispatch beside that fold-in books below this share of its seconds
+#: (on an H100, scripts/stream_isolation_ab.py: 0.23-0.29 of them with
+#: every thread on the one default stream, 0.01-0.02 on streams of their
+#: own)
+STREAM_SHARE = 0.1
+
+
+class ControlClients:
+    """:data:`CONTROL_CLIENT` processes through ``port`` until
+    :meth:`stop`; ``records`` then holds every answer."""
+
+    def __init__(self, port: int, users: list, clients: int, procs: int,
+                 work: str, seed: int, num: int = 10):
+        self.stop_path = os.path.join(work, f"control-stop-{seed}")
+        users_path = os.path.join(work, f"control-users-{seed}.json")
+        with open(users_path, "w") as f:
+            json.dump(users, f)
+        self.children = []
+        for p in range(procs):
+            out = os.path.join(work, f"control-{seed}-{p}.json")
+            cfg = dict(port=port, users=users_path, num=num,
+                       threads=clients // procs + (p < clients % procs),
+                       seed=seed * 64 + p, stop=self.stop_path, out=out)
+            self.children.append((out, subprocess.Popen(
+                [sys.executable, "-c", CONTROL_CLIENT, json.dumps(cfg)])))
+        self.records: list = []
+
+    def stop(self) -> list:
+        with open(self.stop_path, "w"):
+            pass
+        for out, proc in self.children:
+            if proc.wait(120) != 0:
+                raise AssertionError(f"control: a client process exited "
+                                     f"{proc.returncode}")
+            with open(out) as f:
+                self.records += json.load(f)
+        self.children = []
+        return self.records
+
+    def kill(self) -> None:
+        for _out, proc in self.children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def latency_ms(records: list, lo: float = -1e18, hi: float = 1e18) -> dict:
+    """Answers, p50 and p99 (ms) of the records started in [lo, hi)."""
+    walls = sorted(r[2] for r in records if lo <= r[0] < hi)
+    if not walls:
+        return {"answers": 0, "p50_ms": None, "p99_ms": None}
+    return {"answers": len(walls),
+            "p50_ms": 1e3 * walls[len(walls) // 2],
+            "p99_ms": 1e3 * walls[min(int(0.99 * len(walls)),
+                                      len(walls) - 1)]}
+
+
+def gauge_value(text: str, name: str):
+    """The first sample of an unlabeled gauge in an exposition (None)."""
+    m = re.search(r"^" + re.escape(name) + r" (\S+)$", text, re.MULTILINE)
+    return float(m.group(1)) if m else None
+
+
+def plain_histogram(text: str, name: str) -> dict:
+    """{upper bound: cumulative count} of an unlabeled histogram."""
+    return {float(b.replace("+Inf", "inf")): int(c) for b, c in re.findall(
+        re.escape(name) + r'_bucket\{le="([^"]+)"\} (\d+)', text)}
+
+
+def batch_widths(before: dict, after: dict) -> dict:
+    """The fused batches between two scrapes of ``pio_serve_batch_size``:
+    how many, their mean bucket, and the largest bucket that grew."""
+    bounds = sorted(after)
+    counts, prev_a, prev_b = {}, 0, 0
+    for ub in bounds:
+        counts[ub] = (after[ub] - prev_a) - (before.get(ub, 0) - prev_b)
+        prev_a, prev_b = after[ub], before.get(ub, 0)
+    n = sum(counts.values())
+    return {"batches": n,
+            "max_le": max((ub for ub, c in counts.items() if c > 0),
+                          default=None),
+            "mean_le": (sum(ub * c for ub, c in counts.items()
+                            if ub != float("inf")) / n if n else None)}
+
+
+def worker_state(base: str) -> dict:
+    """One worker's ``GET /`` and ``/metrics`` as the phase reads them."""
+    status, info = http_json("GET", f"{base}/")
+    if status != 200:
+        raise AssertionError(f"control: {base} GET / answered {status}")
+    with urllib.request.urlopen(f"{base}/metrics", timeout=60) as resp:
+        text = resp.read().decode()
+    return {"instance": info["engineInstanceId"],
+            "cap": info["scheduler"]["cap"],
+            "launches": info["kernelLaunches"],
+            "staleness_s": gauge_value(text, "pio_model_staleness_seconds"),
+            "batches": plain_histogram(text, "pio_serve_batch_size")}
+
+
+def wait_for(what: str, fn, deadline_s: float = CONTROL_DEADLINE_S,
+             period: float = 0.02):
+    """Poll ``fn`` until it returns something true; raise after
+    ``deadline_s``."""
+    end = time.monotonic() + deadline_s
+    while True:
+        got = fn()
+        if got:
+            return got
+        if time.monotonic() > end:
+            raise AssertionError(f"control: no {what} within "
+                                 f"{deadline_s:.0f} s")
+        time.sleep(period)
+
+
+def stream_isolation(dev, runtime, server_mod, engine, params_mod, convert,
+                     uf: np.ndarray, items: np.ndarray,
+                     rows: int = STREAM_ROWS, width: int = STREAM_WIDTH,
+                     trials: int = STREAM_TRIALS) -> dict:
+    """ROADMAP Queue 3 fault 3's pin: ``pio_device_seconds`` of a dispatch
+    are its own. ``PIO_PROFILE=1``; an in-process server (the scheduler
+    on, one dispatcher) over ``uf`` × ``items``; a long-lived fold-in
+    thread, as the overlay's poller is, folds ``rows`` implicit rows of
+    ``width`` in one launch of the fused kernel (the budget knob
+    ``PIO_SPEED_MAX_BATCH`` at ``rows``). The moment that launch is
+    counted, one query through the server:
+
+    - ``excludeSeen`` of a user with no seen list: the object path,
+      whose dispatch copies nothing to the card before its ``serve_topk``
+      stamp. It must book below :data:`STREAM_SHARE` of the fold-in's
+      ``foldin_solve`` seconds. On one stream shared by both threads its
+      event waits behind the fold-in kernel and books most of it.
+    - a plain query: the fast path, whose row ids cross to the card
+      before its ``serve_topk_batch`` stamp. On a shared stream that copy
+      waits behind the fold-in, so the wait lands in the query's wall,
+      not in its booking. Reported, not checked.
+
+    Returns each trial's seconds by query kind."""
+    import concurrent.futures
+
+    from incubator_predictionio_tpu_torch.obs import profile
+    from incubator_predictionio_tpu_torch.speed import foldin
+
+    n_users, n_items = uf.shape[0], items.shape[0]
+    model = convert.als_model_from_numpy(
+        uf, items, [f"u{i}" for i in range(n_users)],
+        [f"i{i}" for i in range(n_items)], device=dev)
+    eng = engine.RecommendationEngine().apply()
+    ep = params_mod.EngineParams(algorithm_params_list=[
+        ("als", engine.ALSAlgorithmParams(rank=uf.shape[1]))])
+    env = {"PIO_PROFILE": "1", "PIO_SPEED_WIDTHS": str(width),
+           "PIO_SPEED_MAX_BATCH": str(rows)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    rng = np.random.default_rng(37)
+    cols = rng.integers(0, n_items, (rows, width)).astype(np.int32)
+    vals = rng.random((rows, width), dtype=np.float32)
+    fold_rows = [(cols[r], vals[r]) for r in range(rows)]
+    srv = server_mod.PredictionServer(
+        eng, ep, [model], device=dev,
+        config=server_mod.ServerConfig(ip="127.0.0.1", port=0,
+                                       micro_batch=64, serve_workers=1))
+    poller = concurrent.futures.ThreadPoolExecutor(
+        1, thread_name_prefix="pio-stream-check-foldin")
+    kinds = {"object": ("serve_topk", {"excludeSeen": True}),
+             "fast": ("serve_topk_batch", {})}
+    out: dict = {kind: [] for kind in kinds}
+    try:
+        port = srv.start_background()
+        solver = foldin.FoldInSolver(model.item_factors, l2=0.03,
+                                     implicit=True, alpha=1.0)
+        poller.submit(solver.solve, fold_rows).result()  # warm, untimed
+        for _op, extra in kinds.values():
+            post(port, {"user": "u3", "num": 10, **extra})
+        seconds = profile.DEVICE_SECONDS
+        for t in range(trials):
+            for kind, (op, extra) in kinds.items():
+                serve0 = seconds.labels(op=op).value
+                fold0 = seconds.labels(op="foldin_solve").value
+                n0 = runtime.launch_counts()["als_fused_solve_cg"]
+                t0 = time.perf_counter()
+                fut = poller.submit(solver.solve, fold_rows)
+                while runtime.launch_counts()["als_fused_solve_cg"] == n0 \
+                        and not fut.done():
+                    time.sleep(0.0002)
+                queued_s = time.perf_counter() - t0
+                t_q = time.perf_counter()
+                post(port, {"user": f"u{t}", "num": 10, **extra})
+                query_s = time.perf_counter() - t_q
+                fut.result()
+                out[kind].append({
+                    "serve_s": seconds.labels(op=op).value - serve0,
+                    "foldin_s": seconds.labels(op="foldin_solve").value
+                    - fold0,
+                    "foldin_wall_s": time.perf_counter() - t0,
+                    "launched_after_s": queued_s, "query_wall_s": query_s})
+    finally:
+        poller.shutdown()
+        srv.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    bad = [r for r in out["object"]
+           if not r["serve_s"] < STREAM_SHARE * r["foldin_s"]]
+    if bad:
+        raise AssertionError(
+            f"fault 3: {len(bad)} of {trials} dispatches beside a fold-in "
+            f"booked serve_topk seconds above {STREAM_SHARE} of the "
+            f"fold-in's foldin_solve seconds, their wait covering the "
+            f"fold-in's work: {json.dumps(out)}")
+    return {"rows": rows, "width": width, "trials": out}
+
+
+def control_phase(dev, runtime, kernels, als, server_mod, engine,
+                  params_mod, convert, fleet: dict) -> tuple:
+    """The control plane on the ``remote`` phase's fleet (``fleet``: two
+    ``pio deploy`` children over the storage server, the continued
+    instance, its engine directory): in this process a ``FrontDoor``
+    over both workers and an ``AdminServer`` (port 0) hosting a
+    ``FreshnessController`` (``workflow_retrain_fn``: the continuation
+    retrain on the phase's store; ``http_reload_fn`` at the door's
+    ``/reload``) and a ``KnobController`` (``http_knobs_fn`` at the
+    door's ``/knobs``), ``PIO_FLEET_TARGETS`` naming both workers, the
+    cadence and gates from :data:`CONTROL_ENV`.
+
+    1. Freshness, mode ``act``, under :data:`CONTROL_CLIENTS` [0]
+       clients through the door: ``PIO_SLO_STALENESS_S`` planted one
+       second below the instance's age; at the hysteresis count one
+       decision retrains (the fused and R-row kernels launch here, a new
+       COMPLETED instance, its fit within 1.15 × + 0.02 of the first
+       train's) and reloads (the door's rolling reload: both workers, no
+       drop); every answer a 200; each worker then names the new
+       instance, its staleness under the bound, and
+       :data:`CONTROL_CHECKED` answers through the door equal the plain
+       top-k of the new factors; an evaluation in the cooldown holds
+       fire (``pio_controller_skips_total{reason="cooldown"}``); ``GET
+       /controller`` and an incident bundle (``POST /incident``) show
+       the decision with its outcome and trace id.
+    2. Knobs, mode ``act`` (``POST /knobs``), under
+       :data:`CONTROL_CLIENTS` [1] clients, the serve objective planted
+       at :data:`CONTROL_SERVE_OBJECTIVE_S`: one step on the scheduler
+       family fans out to both workers (each answers its applied vector
+       and its scheduler's new values); the breach that the recorder's
+       SLO evaluation raises inside the step's cooldown rolls the vector
+       back (``pio_knob_rollbacks_total`` 1); between step and rollback
+       no worker fuses a batch above the new cap and each one's
+       score+top-k launches rise; a vector naming an unknown variable is
+       refused by each worker (400) and applied by none.
+    3. The kill switch: ``POST /controller {"mode": "off"}`` stops the
+       evaluations, ``observe`` on both records decisions that act on
+       nothing; a bad mode is a 400.
+    4. On the card, fault 3's pin (:func:`stream_isolation`) on the new
+       instance's factors.
+
+    Returns ({"als_fused_solve_cg", "als_solve_cg_rows8"} of the retrain
+    and the workers' {"score_topk", "foldin"} launches, max score error,
+    stats)."""
+    from incubator_predictionio_tpu_torch.cli import commands
+    from incubator_predictionio_tpu_torch.core.params import WorkflowParams
+    from incubator_predictionio_tpu_torch.data.storage import Storage
+    from incubator_predictionio_tpu_torch.obs import (
+        controller as obs_controller,
+    )
+    from incubator_predictionio_tpu_torch.obs import federate
+    from incubator_predictionio_tpu_torch.obs import knobs as obs_knobs
+    from incubator_predictionio_tpu_torch.obs import recorder
+    from incubator_predictionio_tpu_torch.obs import slo as obs_slo
+    from incubator_predictionio_tpu_torch.parallel.context import (
+        RuntimeContext,
+    )
+    from incubator_predictionio_tpu_torch.servers.admin import AdminServer
+    from incubator_predictionio_tpu_torch.serving.frontdoor import (
+        FrontDoor,
+        FrontDoorConfig,
+    )
+    from incubator_predictionio_tpu_torch.utils.times import (
+        ensure_aware,
+        now_utc,
+    )
+    from incubator_predictionio_tpu_torch.workflow.workflow import (
+        CoreWorkflow,
+    )
+
+    t_phase = time.perf_counter()
+    work = fleet["work"]
+    bases = [f"http://127.0.0.1:{p}" for p in fleet["ports"]]
+    stats: dict = {}
+    walls: dict = {}
+    instances = Storage.get_meta_data_engine_instances()
+    old_iid = fleet["instance"]
+    age0 = (now_utc() - ensure_aware(instances.get(old_iid).end_time)
+            ).total_seconds()
+    if age0 < CONTROL_MIN_AGE_S:
+        time.sleep(CONTROL_MIN_AGE_S - age0)
+        age0 = CONTROL_MIN_AGE_S
+    bound = round(age0 - 1.0, 3)
+    incidents = tempfile.mkdtemp(prefix="pio-control-incidents-")
+    env = dict(CONTROL_ENV,
+               PIO_FLEET_TARGETS=",".join(
+                   f"w{i}=127.0.0.1:{p}" for i, p in enumerate(
+                       fleet["ports"])),
+               PIO_SLO_STALENESS_S=str(bound),
+               PIO_SLO_SERVE_P99_S=str(CONTROL_SERVE_OBJECTIVE_S),
+               PIO_RECORDER_HZ="5", PIO_INCIDENT_DIR=incidents,
+               PIO_CONTROLLER="act")
+    saved = {k: os.environ.get(k) for k in (*env, "PIO_KNOBS")}
+    os.environ.update(env)
+    os.environ.pop("PIO_KNOBS", None)  # the knob loop starts off
+
+    def reset_planes():
+        federate.reset_fleet_engine()
+        obs_slo.reset_engine()
+        recorder.reset_recorder()
+        obs_controller.reset_controller()
+        obs_knobs.reset_knob_controller()
+
+    reset_planes()
+    with open(fleet["variant"]) as f:
+        variant = json.load(f)
+    eng, ep = commands.engine_from_variant(variant)
+    retrain = obs_controller.workflow_retrain_fn(
+        eng, ep,
+        engine_id=commands.engine_id_for_variant_path(fleet["variant"],
+                                                      variant),
+        engine_version=variant.get("version", "NOT_VERSIONED"),
+        engine_variant=variant.get("id", "default"),
+        engine_factory=variant.get("engineFactory", ""),
+        params=WorkflowParams(runtime_conf={"seed": "0"}), device=dev)
+    old_model = fleet["model"]
+    users = [old_model.user_bimap.inverse[int(r)] for r in
+             np.random.default_rng(41).choice(
+                 len(old_model.user_bimap),
+                 min(4096, len(old_model.user_bimap)), replace=False)]
+    start = {b: worker_state(b) for b in bases}
+    door = admin = clients = None
+    err = 0.0
+    try:
+        door = FrontDoor([("127.0.0.1", p) for p in fleet["ports"]],
+                         FrontDoorConfig(probe_interval_s=0.25))
+        door_url = "http://127.0.0.1:%d" % door.start_background()
+        ctl = obs_controller.FreshnessController(
+            retrain_fn=retrain,
+            reload_fn=obs_controller.http_reload_fn(f"{door_url}/reload"))
+        # the knobs this fleet serves with: the scheduler's, the shed's
+        # and the fold-in budget (its catalogue is below the MIPS floor,
+        # and this process's MIPS gauges are the mips phase's)
+        knb = obs_knobs.KnobController(
+            specs=tuple(s for s in obs_knobs.default_knobs()
+                        if s.name in CONTROL_KNOBS),
+            apply_fn=obs_knobs.http_knobs_fn(f"{door_url}/knobs"),
+            apply_scope="fleet")
+        admin = AdminServer("127.0.0.1", 0, controller=ctl, knobs=knb)
+
+        # -- 1. freshness: retrain and a rolling reload under clients ------
+        clients = ControlClients(int(door_url.rsplit(":", 1)[1]), users,
+                                 CONTROL_CLIENTS[0],
+                                 CONTROL_CLIENT_PROCS[0], work, 1)
+        time.sleep(1.0)  # the clients' first answers: the "before" window
+        with LogLines("incubator_predictionio_tpu_torch.models."
+                      "recommendation.engine") as lines:
+            runtime.reset_launch_counts()
+            t_admin = time.monotonic()
+            admin_url = "http://127.0.0.1:%d" % admin.start_background()
+            acted = wait_for("freshness action", lambda: next(
+                (d for d in ctl.decisions(limit=256)
+                 if d.get("action") == "retrain+reload"
+                 and not d["outcome"].get("inFlight")), None))
+            t_done = time.monotonic()
+            retrain_launches = {e: runtime.launch_counts()[e] for e in
+                                ("als_fused_solve_cg", "als_solve_cg_rows8")}
+        time.sleep(1.0)  # the "after" window
+        records = clients.stop()
+        clients = None
+        outcome = acted["outcome"]
+        reload = outcome.get("reload", {})
+        result = reload.get("result") or {}
+        walls["retrain_s"] = outcome.get("retrain", {}).get("wallS")
+        walls["reload_s"] = reload.get("wallS")
+        walls["action_s"] = outcome.get("wallS")
+        earlier = [d for d in ctl.decisions(limit=256)
+                   if d.get("kind") == "evaluation" and d["id"] < acted["id"]]
+        if not (outcome.get("retrain", {}).get("ok") and reload.get("ok")):
+            raise AssertionError(f"control: the freshness action failed: "
+                                 f"{outcome}")
+        if acted["reason"] not in ("staleness_projection", "staleness_burn") \
+                or acted["streak"] != int(CONTROL_ENV[
+                    "PIO_CONTROLLER_HYSTERESIS"]) \
+                or [d["reason"] for d in earlier] != ["hysteresis"]:
+            raise AssertionError(f"control: acted on {acted['reason']} at "
+                                 f"streak {acted.get('streak')} after "
+                                 f"{[d['reason'] for d in earlier]}")
+        if result.get("reloaded") != len(bases) or result.get("dropped") \
+                or result.get("failed"):
+            raise AssertionError(f"control: the rolling reload {result}")
+        new_iid = outcome["retrain"]["instance"]
+        new = instances.get(new_iid)
+        if new_iid == old_iid or new is None or new.status != "COMPLETED":
+            raise AssertionError(f"control: the retrain's instance {new_iid}"
+                                 f" ({getattr(new, 'status', None)})")
+        said = [m for m in map(re.compile(
+            r"ALS continuation retrain: .* (\d+) sweeps \(mode=(\w+)").search,
+            lines) if m]
+        if len(said) != 1 or said[0].group(2) != "continue":
+            raise AssertionError(f"control: the retrain logged {lines}")
+        if dev.type == "cuda" and min(retrain_launches.values()) <= 0:
+            raise AssertionError(f"control: the retrain launched "
+                                 f"{retrain_launches}")
+        bad = [r for r in records if r[1] != 200]
+        if bad or not records:
+            raise AssertionError(f"control: {len(bad)} of {len(records)} "
+                                 f"answers across the reload were not 200: "
+                                 f"{[r[1] for r in bad][:20]}")
+        model = CoreWorkflow.load_models(new_iid)[0]
+        interactions, _wall = fleet["read"]()
+        pd = engine.RecommendationPreparator().prepare(
+            RuntimeContext(device=dev),
+            engine.TrainingData(interactions=interactions))
+        uf_t = torch.as_tensor(model.user_factors).to(dev)
+        items_t = torch.as_tensor(model.item_factors).to(dev)
+        u_map, i_map = (np.array([bm[pm.inverse[k]] for k in range(len(pm))],
+                                 np.int64)
+                        for bm, pm in ((model.user_bimap, pd.user_bimap),
+                                       (model.item_bimap, pd.item_bimap)))
+        fit = als.rmse(als.ALSState(user_factors=uf_t, item_factors=items_t),
+                       u_map[pd.users], i_map[pd.items], pd.ratings)
+        fit_bound = 1.15 * fleet["first_fit"] + 0.02
+        if not fit <= fit_bound:
+            raise AssertionError(f"control: the retrain's fit {fit!r} above "
+                                 f"{fit_bound!r}")
+        after = {b: worker_state(b) for b in bases}
+        for b, st in after.items():
+            if st["instance"] != new_iid or not st["staleness_s"] < bound:
+                raise AssertionError(
+                    f"control: {b} serves {st['instance']} (staleness "
+                    f"{st['staleness_s']} s, bound {bound} s) after the "
+                    f"reload to {new_iid}")
+        rng = np.random.default_rng(43)
+        for k, r in enumerate(rng.choice(len(model.user_bimap),
+                                         CONTROL_CHECKED, replace=False)):
+            doc = {"user": model.user_bimap.inverse[int(r)], "num": 10}
+            status, body = http_json("POST", f"{door_url}/queries.json", doc)
+            if status != 200:
+                raise AssertionError(f"control: {doc} answered {status}")
+            err = max(err, check_answer(kernels, dev, uf_t, items_t, doc,
+                                        None, body, f"control answer {k}",
+                                        model=model))
+        wait_for("cooldown skip", lambda: any(
+            d.get("reason") == "cooldown" for d in ctl.decisions(limit=8)))
+        status, got = http_json("GET", f"{admin_url}/controller")
+        shown = next((d for d in got.get("decisions", ())
+                      if d.get("id") == acted["id"]), None)
+        if status != 200 or shown is None or not shown.get("traceId", "") \
+                .startswith("ctl-") or shown["outcome"] != outcome \
+                or not got["recorder"]["armed"]:
+            raise AssertionError(f"control: GET /controller {status}, "
+                                 f"decision {shown}")
+        with urllib.request.urlopen(f"{admin_url}/metrics",
+                                    timeout=60) as resp:
+            admin_text = resp.read().decode()
+        cooldown_skips = float(re.search(
+            r'pio_controller_skips_total\{reason="cooldown"\} (\S+)',
+            admin_text).group(1))
+        if cooldown_skips < 1:
+            raise AssertionError("control: no cooldown skip counted")
+        t_reload = t_done - (walls["reload_s"] or 0.0)
+        t_retrain = t_reload - (walls["retrain_s"] or 0.0)
+        stats["freshness"] = {
+            "bound_s": bound, "age_s": age0,
+            "decisions": [{k: d.get(k) for k in ("id", "action", "reason",
+                                                  "streak", "traceId")}
+                          for d in reversed(ctl.decisions(limit=256))
+                          if d.get("kind") == "evaluation"][:8],
+            "instance": new_iid, "fit_rmse": fit, "fit_bound": fit_bound,
+            "phases_s": {k: float(v) for k, v in
+                         new.runtime_conf.items() if k.startswith("phase.")},
+            "sweeps_used": int(said[0].group(1)),
+            "launches": retrain_launches,
+            "reload": {k: result.get(k) for k in ("reloaded", "dropped",
+                                                  "failed", "drainS")},
+            "answers": len(records),
+            "before": latency_ms(records, hi=t_retrain),
+            "retrain": latency_ms(records, t_retrain, t_reload),
+            "reload_window": latency_ms(records, t_reload, t_done),
+            "after": latency_ms(records, lo=t_done),
+            "staleness_after_s": [after[b]["staleness_s"] for b in bases],
+            "cooldown_skips": cooldown_skips,
+            "admin_start_to_done_s": t_done - t_admin}
+
+        # -- 2. knobs: one step on the scheduler family, then a rollback ----
+        clients = ControlClients(int(door_url.rsplit(":", 1)[1]), users,
+                                 CONTROL_CLIENTS[1],
+                                 CONTROL_CLIENT_PROCS[1], work, 2)
+        time.sleep(1.0)
+        vector0 = knb.values()
+        status, got = http_json("POST", f"{admin_url}/knobs",
+                                {"mode": "act"})
+        if status != 200 or got.get("mode") != "act":
+            raise AssertionError(f"control: POST /knobs act {status} {got}")
+        step = wait_for("knob step", lambda: next(
+            (d for d in knb.decisions(limit=64)
+             if d.get("action") in ("step_up", "step_down")
+             and not d["outcome"].get("inFlight")), None))
+        at_step = {b: worker_state(b) for b in bases}
+        vector1 = knb.values()
+        rollback = wait_for("knob rollback", lambda: next(
+            (d for d in knb.decisions(limit=64)
+             if d.get("action") == "rollback"
+             and not d["outcome"].get("inFlight")), None))
+        at_rollback = {b: worker_state(b) for b in bases}
+        vector2 = knb.values()
+        fan = step["outcome"].get("apply", {}).get("result") or {}
+        if step["knob"] not in ("max_batch", "max_wait_ms") \
+                or not step["outcome"].get("actuated") \
+                or fan.get("applied") != len(bases) or fan.get("failed"):
+            raise AssertionError(f"control: the knob step {step}")
+        env_var = next(s.env for s in knb.specs if s.name == step["knob"])
+        for name, res in fan["results"].items():
+            if res["applied"].get(env_var) != step["to"] or \
+                    res["scheduler"] is None:
+                raise AssertionError(f"control: {name} answered {res}")
+        if step["knob"] == "max_batch" and any(
+                res["scheduler"]["cap"] != step["to"]
+                for res in fan["results"].values()):
+            raise AssertionError(f"control: a scheduler's cap after the "
+                                 f"step: {fan['results']}")
+        if not rollback["outcome"].get("actuated") \
+                or rollback["reason"] != "incident" \
+                or rollback["toVector"] != vector0 or vector2 != vector0:
+            raise AssertionError(f"control: the rollback {rollback}")
+        widths = {}
+        for b in bases:
+            w = batch_widths(at_step[b]["batches"], at_rollback[b]["batches"])
+            widths[b] = {"before": batch_widths(start[b]["batches"],
+                                                at_step[b]["batches"]),
+                         "after": w}
+            cap = step["to"] if step["knob"] == "max_batch" else \
+                vector1["PIO_SERVE_MAX_BATCH"]
+            if w["max_le"] is not None and w["max_le"] > cap:
+                raise AssertionError(f"control: {b} fused a batch of up to "
+                                     f"{w['max_le']} above the cap {cap}")
+            if dev.type == "cuda" and not \
+                    at_rollback[b]["launches"]["score_topk"] > \
+                    at_step[b]["launches"]["score_topk"]:
+                raise AssertionError(f"control: {b}'s score+top-k launches "
+                                     f"stopped after the step")
+        with urllib.request.urlopen(f"{admin_url}/metrics",
+                                    timeout=60) as resp:
+            admin_text = resp.read().decode()
+        rollbacks = gauge_value(admin_text, "pio_knob_rollbacks_total")
+        if rollbacks != 1:
+            raise AssertionError(f"control: pio_knob_rollbacks_total "
+                                 f"{rollbacks}")
+        bogus = {"values": {"PIO_SERVE_MAX_BATCH": 64,
+                            "PIO_NO_SUCH_KNOB": 1}}
+        status, got = http_json("POST", f"{door_url}/knobs", bogus)
+        if status != 200 or got.get("applied") != 0 or \
+                sorted(got.get("failed", ())) != sorted(
+                    f"w{i}" for i in range(len(bases))):
+            raise AssertionError(f"control: the door's fan-out of an "
+                                 f"unknown knob: {status} {got}")
+        for b in bases:
+            status, got = http_json("POST", f"{b}/knobs", bogus)
+            st = worker_state(b)
+            if status != 400 or st["cap"] != at_rollback[b]["cap"]:
+                raise AssertionError(f"control: {b} answered {status} "
+                                     f"{got} to an unknown knob, cap "
+                                     f"{st['cap']}")
+        records = clients.stop()
+        clients = None
+        bad = [r for r in records if r[1] != 200]
+        if bad or not records:
+            raise AssertionError(f"control: {len(bad)} of {len(records)} "
+                                 f"answers of the knob leg were not 200")
+        stats["knobs"] = {
+            "vector_before": vector0, "vector_at_step": vector1,
+            "vector_after_rollback": vector2,
+            "step": {k: step.get(k) for k in ("knob", "action", "from", "to",
+                                               "reason", "traceId")},
+            "fanout": {k: fan.get(k) for k in ("workers", "applied",
+                                               "failed")},
+            "schedulers": {n: r["scheduler"]
+                           for n, r in fan["results"].items()},
+            "rollback": {k: rollback.get(k) for k in ("reason", "incident",
+                                                      "traceId")},
+            "rollbacks_total": rollbacks,
+            "fused_widths": {f"w{i}": widths[b]
+                             for i, b in enumerate(bases)},
+            "answers": len(records), "latency": latency_ms(records)}
+
+        # -- 3. the kill switch --------------------------------------------
+        status, _got = http_json("POST", f"{admin_url}/knobs",
+                                 {"mode": "sideways"})
+        if status != 400:
+            raise AssertionError(f"control: a bad mode answered {status}")
+        k0, c0 = (knb.stats()["decisionsRecorded"],
+                  ctl.stats()["decisionsRecorded"])
+        a0, r0, n0 = (knb.stats()["adjustments"], knb.stats()["rollbacks"],
+                      ctl.stats()["actions"])
+        for route in ("controller", "knobs"):
+            status, got = http_json("POST", f"{admin_url}/{route}",
+                                    {"mode": "observe"})
+            if status != 200 or got.get("mode") != "observe":
+                raise AssertionError(f"control: POST /{route} observe: "
+                                     f"{status} {got}")
+        pause = 4 * float(CONTROL_ENV["PIO_KNOBS_INTERVAL_S"])
+        time.sleep(pause)
+        observed = {
+            name: [d for d in c.decisions(limit=64)
+                   if d["id"] > first and d.get("kind") == "evaluation"]
+            for name, c, first in (("controller", ctl, c0),
+                                   ("knobs", knb, k0))}
+        status, got = http_json("POST", f"{admin_url}/controller",
+                                {"mode": "off"})
+        if status != 200 or got.get("mode") != "off":
+            raise AssertionError(f"control: POST /controller off: {status}")
+        n_off = ctl.stats()["decisionsRecorded"]
+        time.sleep(pause)
+        latest = instances.get_latest_completed(
+            commands.engine_id_for_variant_path(fleet["variant"], variant),
+            variant.get("version", "NOT_VERSIONED"),
+            variant.get("id", "default"))
+        acted_on = [d for ds in observed.values() for d in ds
+                    if (d.get("outcome") or {}).get("actuated")]
+        if not all(observed.values()) or acted_on or \
+                ctl.stats()["decisionsRecorded"] != n_off or \
+                knb.stats()["adjustments"] != a0 or \
+                knb.stats()["rollbacks"] != r0 or \
+                ctl.stats()["actions"] != n0 or latest.id != new_iid:
+            raise AssertionError(
+                f"control: after the kill switch: {ctl.stats()} "
+                f"{knb.stats()}, observed "
+                f"{ {k: len(v) for k, v in observed.items()} }, acted "
+                f"{acted_on}, latest {latest.id}")
+        stats["kill_switch"] = {
+            "observed": {k: [d.get("reason") for d in v]
+                         for k, v in observed.items()},
+            "off_decisions": ctl.stats()["decisionsRecorded"] - n_off}
+        status, bundle = http_json("POST", f"{admin_url}/incident",
+                                   {"reason": "control-phase"})
+        if status != 200:
+            raise AssertionError(f"control: POST /incident {status}")
+        with open(bundle["path"]) as f:
+            frozen = json.load(f)
+        if not any(d.get("id") == acted["id"] and d.get("traceId") ==
+                   acted["traceId"] for d in frozen.get("decisions", ())) \
+                or not any(d.get("action") == "rollback"
+                           for d in frozen.get("knobs", ())):
+            raise AssertionError("control: the incident bundle lacks the "
+                                 "controllers' decisions")
+
+        # -- 4. fault 3: a dispatch books its own device seconds -----------
+        if dev.type == "cuda":
+            stats["own_streams"] = stream_isolation(
+                dev, runtime, server_mod, engine, params_mod, convert,
+                uf_t.cpu().numpy(), items_t.cpu().numpy())
+        end = {b: worker_state(b) for b in bases}
+        launches = dict(retrain_launches)
+        launches["score_topk"] = sum(
+            end[b]["launches"].get("score_topk", 0)
+            - start[b]["launches"].get("score_topk", 0) for b in bases)
+        launches["foldin"] = sum(
+            end[b]["launches"].get("als_fused_solve_cg", 0)
+            - start[b]["launches"].get("als_fused_solve_cg", 0)
+            for b in bases)
+    finally:
+        if clients is not None:
+            clients.kill()
+        if admin is not None:
+            admin.stop()
+        if door is not None:
+            door.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset_planes()
+    walls["wall_s"] = time.perf_counter() - t_phase
+    stats["walls_s"] = walls
+    stats["launches"] = launches
+    return launches, err, stats
+
+
 def remote_alone(dev, runtime, kernels, als, ak, planted,
-                 small: bool = False) -> tuple:
+                 small: bool = False, control=None) -> tuple:
     """:func:`remote_phase` alone (``--remote``): a cpplog store
     (:func:`cpplog_store`) holding store-als's ratings (one ``eventTime``
     each, 1 ms apart, as the cpplog phase imports them) under ``pio app
     new``'s app, one ``pio train`` of the cpplog phase's engine.json, its
-    fit RMSE, then the phase. Returns what the phase returns."""
+    fit RMSE, then the phase (with ``control``, :func:`remote_phase`'s
+    hook). Returns what the phase returns."""
     from datetime import timedelta
 
     from incubator_predictionio_tpu_torch.data.interactions import (
@@ -5710,7 +6497,7 @@ def remote_alone(dev, runtime, kernels, als, ak, planted,
             return remote_phase(dev, runtime, kernels, als, ak, dict(
                 name="LogApp", app_id=app_id, key=key, instance=iid,
                 work=work, engine_dir=engine_dir, variant=variant,
-                first_fit=fit), small)
+                first_fit=fit), small, control)
     finally:
         if saved is None:
             os.environ.pop("PIO_DEVICE", None)
@@ -9378,7 +10165,7 @@ def main() -> int:
     mode = sys.argv[1:]
     if mode not in ([], ["--flash"], ["--topk"], ["--als"], ["--mips"],
                     ["--eval"], ["--similar"], ["--templates"],
-                    ["--remote"], ["--obs"]):
+                    ["--remote"], ["--obs"], ["--control"]):
         print(f"chip_smoke: unknown arguments {mode}", file=sys.stderr)
         return 2
     if mode in ([], ["--flash"]):
@@ -9405,6 +10192,23 @@ def main() -> int:
         print(f"mips-card: {card_line()} ({note_wall('mips', t0):.1f} s)",
               flush=True)
         print(json.dumps({"mips_ok": True, "max_score_err": err,
+                          "kind": torch.cuda.get_device_name(0)}))
+        return 0
+    if mode == ["--control"]:
+        t0 = time.perf_counter()
+        _l, err, remote_stats = remote_alone(
+            dev, runtime, kernels, als, ak, planted,
+            control=lambda fleet: control_phase(
+                dev, runtime, kernels, als, server_mod, engine, params_mod,
+                convert, fleet))
+        _cl, err_c, control_stats = remote_stats.pop("control")
+        print(f"remote: {json.dumps(remote_stats)}", flush=True)
+        print(f"control: {json.dumps(control_stats)} "
+              f"({control_stats['walls_s']['wall_s']:.1f} s)", flush=True)
+        print(f"control-card: {card_line()} "
+              f"({note_wall('remote+control', t0):.1f} s)", flush=True)
+        print(json.dumps({"control_ok": True,
+                          "max_score_err": max(err, err_c),
                           "kind": torch.cuda.get_device_name(0)}))
         return 0
     if mode in (["--eval"], ["--similar"], ["--templates"], ["--remote"],
@@ -9569,11 +10373,17 @@ def main() -> int:
         dev, runtime, kernels, als, planted, sqlite_ref,
         then=lambda log: (
             speed_phase(dev, runtime, kernels, als, ak, planted, log),
-            remote_phase(dev, runtime, kernels, als, ak, log)))
+            remote_phase(dev, runtime, kernels, als, ak, log,
+                         control=lambda fleet: control_phase(
+                             dev, runtime, kernels, als, server_mod, engine,
+                             params_mod, convert, fleet))))
     remote_launches, err_remote, remote_stats = remote_out
-    WALLS["remote"] = remote_stats["walls_s"]["wall_s"]
+    control_launches, err_control, control_stats = remote_stats.pop(
+        "control")
+    WALLS["control"] = control_stats["walls_s"]["wall_s"]
+    WALLS["remote"] = remote_stats["walls_s"]["wall_s"] - WALLS["control"]
     note_wall("cpplog+speed", t0)
-    WALLS["cpplog+speed"] -= WALLS["remote"]
+    WALLS["cpplog+speed"] -= WALLS["remote"] + WALLS["control"]
     print(f"cpplog: {json.dumps(log_stats)} ({log_stats['wall_s']:.1f} s)",
           flush=True)
     print(f"cpplog-card: {card_line()}", flush=True)
@@ -9588,6 +10398,9 @@ def main() -> int:
     print(f"remote: {json.dumps(remote_stats)} ({WALLS['remote']:.1f} s)",
           flush=True)
     print(f"remote-card: {card_line()}", flush=True)
+    print(f"control: {json.dumps(control_stats)} "
+          f"({WALLS['control']:.1f} s)", flush=True)
+    print(f"control-card: {card_line()}", flush=True)
 
     t0 = time.perf_counter()
     rt_loop_launches, rt_loop = retrain_loop_leg(
@@ -9648,11 +10461,11 @@ def main() -> int:
         + store_launches["score_topk"] + qs_launches["score_topk"]
         + rt_cli_launches["score_topk"] + log_launches["score_topk"]
         + speed_launches["score_topk"] + remote_launches["score_topk"]
-        + eval_launches["score_topk"]
+        + control_launches["score_topk"] + eval_launches["score_topk"]
         + sim_launches["score_topk"] + tmpl_launches.get("score_topk", 0),
         "max_abs_err": max(err_k, err_p, err_load, err_obs, err_mips, err_t,
                            err_sa, err_qs, err_rt, err_log, err_speed,
-                           err_remote, err_eval, err_sim),
+                           err_remote, err_control, err_eval, err_sim),
         "ms": head["ms"],
         "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
@@ -9676,6 +10489,7 @@ def main() -> int:
             + store_launches.get(entry, 0) + qs_launches.get(entry, 0)
             + rt_cli_launches.get(entry, 0) + rt_loop_launches.get(entry, 0)
             + log_launches.get(entry, 0) + remote_launches.get(entry, 0)
+            + control_launches.get(entry, 0)
             + eval_launches.get(entry, 0) + tmpl_launches.get(entry, 0),
             "max_abs_err": max([als_errs[entry]]
                                + [r["max_abs_err"] for r in rows]),
@@ -9737,6 +10551,7 @@ def main() -> int:
         "replaces": ak.REPLACES["als_fused_solve_cg"],
         "launches": speed_launches["als_fused_solve_cg"]
         + ecom_launches["als_fused_solve_cg"] + remote_launches["foldin"]
+        + control_launches["foldin"]
         + sim_launches["foldin"] + obs_launches["foldin"],
         "max_abs_err": max([r["max_abs_err"] for r in foldin_rows]
                            + [obs_stats["foldin"]["max_abs_err"]]),

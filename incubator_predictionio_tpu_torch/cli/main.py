@@ -5,7 +5,7 @@ The port's counterpart of incubator_predictionio_tpu/cli/main.py (Console.
 scala:153-600): version / status / app {new,list,show,delete,data-delete,
 channel-new,channel-delete} / accesskey {new,list,delete} / build /
 unregister / train / eval / deploy / undeploy / eventserver /
-storageserver / dashboard / export / import / upgrade. ``train``, ``eval`` and
+adminserver / storageserver / dashboard / export / import / upgrade. ``train``, ``eval`` and
 ``deploy`` run in process on the CUDA device; ``PIO_DEVICE=cpu`` is the one
 switch that runs them on the CPU (the JAX package's ``JAX_PLATFORMS=cpu``).
 Nothing picks the CPU because no card was found: without the switch, a
@@ -39,8 +39,17 @@ the live latency, SLO and tenant panels (``servers/dashboard.py``); it
 prints ``Dashboard running on http://<ip>:<port>`` once bound and stops
 with exit 0 on SIGTERM, and never initialises CUDA.
 
+``adminserver`` (JAX main.py:545-551) serves app CRUD and hosts the
+freshness and knob controllers (``servers/admin.py``; ``GET/POST
+/controller`` and ``/knobs``, ``/federate``, ``/slo``, ``/incident(s)``,
+``/recorder``, ``/metrics``, ``POST /profile``); it prints ``Admin API
+running on http://<ip>:<port>`` once bound, stops with exit 0 on SIGTERM,
+and never initialises CUDA: as in the JAX package, its freshness
+controller is reload-only (``PIO_CONTROLLER_RELOAD_URL``) unless an
+embedder wires a retrain in (``obs.controller.workflow_retrain_fn``).
+
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
-item: ``adminserver`` (item 8b), ``train``/``eval``/
+item: ``train``/``eval``/
 ``deploy --hosts`` (the pod launch) and ``train --model-parallelism``
 above 1 (item 9), and ``deploy --feedback`` /
 ``--log-url`` (item 8c, raised by the prediction server; the options that
@@ -188,7 +197,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--batch-cap", type=_positive_int, default=None, metavar="N",
         help="max events per POST /batch/events.json (default 50 — the "
              "reference's wire contract; raise for bulk loaders)")
-    p = sub.add_parser("adminserver", help="not ported yet")
+    p = sub.add_parser("adminserver", help="start the admin API server")
     p.add_argument("--ip", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7071)
     p = sub.add_parser("dashboard", help="start the evaluation dashboard")
@@ -233,13 +242,6 @@ def _confirm(prompt: str, force: bool) -> bool:
         return True
     answer = input(f"{prompt} (YES to confirm): ")
     return answer == "YES"
-
-
-#: verbs of the JAX package that the port has not ported, with the ROADMAP
-#: item that ports each
-_NOT_PORTED = {
-    "adminserver": "the admin server, ROADMAP.md Queue 1 item 8b",
-}
 
 
 def _ensure_accelerator(timeout_s: float) -> None:
@@ -309,9 +311,6 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
     if cmd is None:
         build_parser().print_help()
         return 1
-    if cmd in _NOT_PORTED:
-        raise NotImplementedError(
-            f"pio {cmd} is not ported yet: {_NOT_PORTED[cmd]}")
     if cmd in ("train", "eval", "deploy") and args.hosts:
         raise NotImplementedError(
             f"pio {cmd} --hosts (the pod launch) is not ported yet: "
@@ -323,7 +322,8 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
     if cmd in ("status", "train", "eval", "deploy") \
             and runtime.requested_device() != "cpu":
         _ensure_accelerator(_accel_timeout_s())
-    if cmd in ("deploy", "eventserver", "storageserver", "dashboard"):
+    if cmd in ("deploy", "eventserver", "adminserver", "storageserver",
+               "dashboard"):
         # long-running server verbs log one JSON span line per request on
         # stderr (PIO_TRACE_LOG=off disables)
         from incubator_predictionio_tpu_torch.obs.trace import (
@@ -530,6 +530,15 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
         _serve_until_signalled(
             server, f"Storage Server running on http://{args.ip}:{{port}}")
         print("Storage Server stopped.")
+        return 0
+
+    if cmd == "adminserver":
+        from incubator_predictionio_tpu_torch.servers.admin import AdminServer
+
+        _serve_until_signalled(
+            AdminServer(args.ip, args.port),
+            f"Admin API running on http://{args.ip}:{{port}}")
+        print("Admin API stopped.")
         return 0
 
     if cmd == "dashboard":

@@ -20,7 +20,10 @@ Start via ``pio storageserver`` (cli) or embed :class:`StorageServer`.
 The port's copy of incubator_predictionio_tpu/data/storage/server.py, on
 the port's storage, HTTP layer and metrics. The router serves ``POST
 /rpc``, ``GET /``, ``GET /metrics`` and ``GET /recorder`` (the flight
-recorder's window, obs/recorder.py).
+recorder's window, obs/recorder.py). One part differs:
+:meth:`StorageServer.stop` also closes the connections its clients keep
+alive (the JAX package's keeps answering on them from its closed
+backend), so a stopped leader is gone for a follower as a killed one is.
 """
 
 from __future__ import annotations
@@ -563,7 +566,10 @@ class StorageServer:
         await self.http.serve_forever(on_started=on_started)
 
     def stop(self) -> None:
-        self.http.stop()
+        # a stopped storage server answers nothing more: a client's
+        # kept-alive connection must not reach a closed backend (a
+        # follower would read a stopped leader's stale counts)
+        self.http.stop(drop_connections=True)
         if self.replication is not None:
             self.replication.stop()
             self.replication = None

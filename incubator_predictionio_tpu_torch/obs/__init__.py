@@ -6,7 +6,9 @@ the exposition parser (:mod:`.expofmt`), fleet federation under an
 incident bundles (:mod:`.recorder`), the ``PIO_PROFILE`` device profiler
 on CUDA events with its ``torch.profiler`` capture (:mod:`.profile`), the
 end-to-end freshness tracker (:mod:`.freshness`) and the HTTP routes and
-status-page panels over all of them (:mod:`.http`). The port's copy of
-incubator_predictionio_tpu/obs/; capacity, the freshness controller and
-the knobs are still to be ported (ROADMAP.md Queue 1 item 8b).
+status-page panels over all of them (:mod:`.http`), the capacity model
+(:mod:`.capacity`), and the two control loops the admin server hosts:
+the freshness controller (:mod:`.controller`) and the serving-knob
+controller (:mod:`.knobs`). The port's copy of
+incubator_predictionio_tpu/obs/.
 """

@@ -16,9 +16,8 @@ data.
 - ``GET /federate``, ``GET /incidents``, ``GET /incidents/{id}``,
   ``POST /incident`` and ``POST /profile?seconds=N``
   (:func:`add_federate_route`, :func:`add_incident_routes`,
-  :func:`add_profile_route`) — mounted on the admin server in the JAX
-  package, which is not ported yet (ROADMAP.md Queue 1 item 8b); the
-  routes are here for it. ``POST /profile`` captures a ``torch.profiler``
+  :func:`add_profile_route`) — mounted on the admin server
+  (servers/admin.py). ``POST /profile`` captures a ``torch.profiler``
   Chrome trace (obs/profile.py) where the JAX package took a
   ``jax.profiler`` xplane capture.
 - :func:`render_latency_panels`, :func:`render_slo_panel` and

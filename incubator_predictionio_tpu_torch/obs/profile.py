@@ -23,14 +23,15 @@ route), ``foldin_solve`` (one speed-layer fold-in bucket launch),
 
 Where the JAX package calls ``jax.block_until_ready(result)``,
 :func:`record` records a CUDA event on the current stream of each device
-``result``'s tensors live on and waits for that event. Every dispatch of
-the port runs on the legacy default stream, which all its threads share,
-so the event also waits for whatever other threads queued before it (the
-speed layer's poller's fold-in above all), as a device-wide
-``torch.cuda.synchronize()`` would: under concurrent device work
-``pio_device_seconds{op}`` includes that work. The wall is read after
-the wait: dispatch plus device, as in the JAX package. A result on the
-CPU (or a numpy array, already copied back) needs no wait.
+``result``'s tensors live on and waits for that event. Each long-lived
+device thread of the port runs its work on a stream of its own
+(``runtime.own_stream``: the serving dispatchers, the speed layer's
+poller, the MIPS rebuild daemon), so the event waits for that thread's
+work alone, never for another thread's queued fold-in or rebuild: under
+concurrent device work ``pio_device_seconds{op}`` books the op's own
+wall. The wall is read after the wait: dispatch plus device, as in the
+JAX package. A result on the CPU (or a numpy array, already copied back)
+needs no wait.
 
 OFF is the contract: with ``PIO_PROFILE`` unset, a call site pays one
 :func:`t0` env read returning None and one :func:`record` None-check —
@@ -136,8 +137,9 @@ def _cuda_devices(result: Any, out: set) -> set:
 def wait(result: Any) -> None:
     """Wait until the work that produced ``result`` is done on the
     device: one CUDA event on the current stream of each of its devices,
-    and that event's ``synchronize()`` (on the shared default stream,
-    other threads' earlier work included). Nothing for a CPU result."""
+    and that event's ``synchronize()``. The current stream is the calling
+    thread's own (``runtime.own_stream``), so the wait covers that
+    thread's work only. Nothing for a CPU result."""
     devices = _cuda_devices(result, set())
     if not devices:
         return

@@ -1,10 +1,10 @@
 """Flight recorder — bounded metric history + automatic incident capture.
 
 The port's own copy of incubator_predictionio_tpu/obs/recorder.py, its
-imports pointed at this package. One part differs: the freshness and knob
-controllers (obs/controller.py, obs/knobs.py) are not ported yet
-(ROADMAP.md Queue 1 item 8b), so a bundle's ``decisions`` and ``knobs``
-blocks are always empty lists here (see :func:`_peek_controller_decisions`).
+imports pointed at this package. A bundle's ``decisions`` and ``knobs``
+blocks are the freshness and knob controllers' rings (obs/controller.py,
+obs/knobs.py), peeked without creating a controller, or the admin
+server's hosted controllers' rings (servers/admin.py ``_wire_capture``).
 
 A ``/metrics`` scrape is a point-in-time truth: when a fleet SLO
 breaches, nothing on any server can answer "what did p99, queue depth
@@ -485,20 +485,18 @@ class FlightRecorder:
 def _peek_controller_decisions(limit: int = 256) -> List[Dict[str, Any]]:
     """The controller ring WITHOUT creating a controller: an incident
     bundle on a process that never ran one records an empty audit
-    trail, not a fresh controller as a side effect.
+    trail, not a fresh controller as a side effect."""
+    from incubator_predictionio_tpu_torch.obs import controller as obs_controller
 
-    The freshness controller (obs/controller.py) is not ported yet
-    (ROADMAP.md Queue 1 item 8b), so no process of the port can have run
-    one: the ring is empty, exactly what the JAX package answers on such
-    a process. The bundle keeps its ``decisions`` key."""
-    return []
+    return obs_controller.peek_decisions(limit=limit)
 
 
 def _peek_knob_decisions(limit: int = 256) -> List[Dict[str, Any]]:
-    """Same contract for the knob controller's ring (obs/knobs.py, not
-    ported yet: ROADMAP.md Queue 1 item 8b): peek, never instantiate,
-    and so the empty list. The bundle keeps its ``knobs`` key."""
-    return []
+    """Same contract for the knob controller's ring (obs/knobs.py):
+    peek, never instantiate."""
+    from incubator_predictionio_tpu_torch.obs import knobs as obs_knobs
+
+    return obs_knobs.peek_knob_decisions(limit=limit)
 
 
 def _peek_tenants() -> Optional[Dict[str, Any]]:

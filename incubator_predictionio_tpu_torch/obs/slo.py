@@ -4,8 +4,9 @@ The port's own copy of incubator_predictionio_tpu/obs/slo.py, its imports
 pointed at this package. In the port the serving scheduler reads its shed
 threshold here (``serving/scheduler.serve_objective_s``) and the scrape
 collector refreshes the gauges; ``GET /slo`` (obs/http.add_slo_route)
-answers on the dashboard, and on the admin server once it is ported
-(ROADMAP.md Queue 1 item 8b).
+answers on the dashboard and the admin server, and the freshness
+controller (obs/controller.py) evaluates the same objectives, fleet-wide
+under ``PIO_FLEET_TARGETS``.
 
 The system makes three quantitative promises — serving p99 latency,
 end-to-end freshness p95, and a model-staleness bound — and this module

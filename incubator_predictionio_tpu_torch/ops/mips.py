@@ -51,10 +51,10 @@ with.
 
 Left out here: the mesh-sharded index and its serving twin
 (``_two_stage`` under ``shard_map``, ``_mips_sharded_jit``; ROADMAP.md
-Queue 1 item 9: a sharded table raises) and the knob registration (item
-8b). Each serving entry books one ``serve_topk_mips`` /
-``serve_topk_mips_batch`` dispatch with ``obs/profile`` under
-``PIO_PROFILE=1``, at the JAX package's FLOP count.
+Queue 1 item 9: a sharded table raises). Its knobs are registered with
+the knob controller (obs/knobs.py). Each serving entry books one
+``serve_topk_mips`` / ``serve_topk_mips_batch`` dispatch with
+``obs/profile`` under ``PIO_PROFILE=1``, at the JAX package's FLOP count.
 
 Knobs (all read at call time): ``PIO_SERVE_MIPS`` (off|auto|on),
 ``PIO_SERVE_MIPS_NPROBE``, ``PIO_SERVE_MIPS_CANDIDATES``,

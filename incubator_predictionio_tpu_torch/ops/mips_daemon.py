@@ -41,6 +41,8 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from incubator_predictionio_tpu_torch import runtime
+
 logger = logging.getLogger(__name__)
 
 _POLL_S_DEFAULT = 5.0
@@ -195,7 +197,11 @@ class _RebuildDaemon:
         trace_id = new_trace_id()
         t0 = time.perf_counter()
         try:
-            new = mips.rebuild_index(table, trigger=trigger)
+            # the daemon's own stream: a rebuild never queues ahead of a
+            # dispatcher's query; the build finishes its work on it
+            # before the swap (ops/mips.py ``_sync``)
+            with runtime.own_stream(getattr(table, "device", None)):
+                new = mips.rebuild_index(table, trigger=trigger)
         except Exception:
             with self._lock:
                 self.failures += 1

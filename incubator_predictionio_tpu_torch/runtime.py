@@ -13,6 +13,7 @@ build failure raises, and so does a kernel whose launch fails.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -22,7 +23,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Union
 
 import torch
 
@@ -84,6 +85,54 @@ def requested_device() -> Optional[str]:
     counterpart of the JAX package's ``JAX_PLATFORMS=cpu``), else None,
     which :func:`default_device` takes for CUDA."""
     return os.environ.get("PIO_DEVICE") or None
+
+
+_THREAD_STREAMS = threading.local()
+
+
+@contextlib.contextmanager
+def own_stream(device: Union[None, str, torch.device],
+               serving: bool = False) -> Iterator[Optional[torch.cuda.Stream]]:
+    """Run the block on this thread's own CUDA stream of ``device`` (made
+    on the thread's first use, then kept): a long-lived device thread —
+    a serving dispatcher, the speed layer's poller, the MIPS rebuild
+    daemon — queues its kernels behind its own work only, never behind
+    another thread's. So an event recorded on the current stream
+    (``obs/profile.wait``) waits for this thread's work alone, as JAX's
+    ``block_until_ready`` waits for one result's buffers. ``serving``
+    streams take a higher priority (-1) than the others (0): the block
+    scheduler dispatches a query's blocks ahead of a background
+    fold-in's or rebuild's pending ones. Nothing for a CPU device (or
+    None).
+
+    The streams are not synchronized with the legacy default stream: a
+    thread that hands device tensors to another thread finishes its
+    work on them first (``PredictionServer.load_models``, the MIPS
+    build's ``_sync``)."""
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda":
+        yield None
+        return
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    streams = getattr(_THREAD_STREAMS, "streams", None)
+    if streams is None:
+        streams = _THREAD_STREAMS.streams = {}
+    stream = streams.get((dev.index, serving))
+    if stream is None:
+        stream = streams[(dev.index, serving)] = torch.cuda.Stream(
+            dev, priority=-1 if serving else 0)
+    with torch.cuda.stream(stream):
+        yield stream
+
+
+def finish_current_stream(device: Union[None, str, torch.device]) -> None:
+    """Wait for the work this thread queued on ``device``'s current
+    stream: a producer calls it before handing device tensors to threads
+    that read them on streams of their own (:func:`own_stream`)."""
+    dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
 
 
 _SMS: Dict[int, int] = {}

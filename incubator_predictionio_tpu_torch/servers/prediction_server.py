@@ -37,7 +37,7 @@ asyncio, as the event server):
   and with ``PIO_INCIDENT_DIR`` set the server captures its own breaches
   into incident bundles).
 
-``/reload`` and ``/stop`` take ``accessKey`` = the server key, else
+``/reload``, ``/knobs`` and ``/stop`` take ``accessKey`` = the server key, else
 server.conf's key when it enforces one (401 otherwise).
 
 Queries are served in batches by :meth:`_handle_batch`, which keeps the
@@ -81,9 +81,14 @@ eventserver`` writes and ``pio deploy`` folds the new events in; on a
 local cpplog log the writer is an ``EventServer`` in this process, since
 one log is never opened by two live processes.
 
-Not ported yet: ``POST /knobs`` (answers 501, naming ROADMAP.md Queue 1
-item 8b), the feedback loop and ``--log-url`` (item 8c; given either of the last two,
-:class:`PredictionServer` raises ``NotImplementedError``).
+``POST /knobs`` applies the knob controller's vector (obs/knobs.py)
+through the front door's fan-out: the env is written and the scheduler
+re-reads its knobs (``BatchScheduler.apply_knobs``); a vector naming a
+variable outside ``KNOB_ENV_VARS`` is refused whole with 400.
+
+Not ported yet: the feedback loop and ``--log-url`` (ROADMAP.md Queue 1
+item 8c; given either, :class:`PredictionServer` raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -406,6 +411,9 @@ class PredictionServer:
             self._warm_models(algorithms, models)
         overlays = self._build_speed_overlays(engine_params, algorithms,
                                               models)
+        # the dispatchers read the new tables on streams of their own:
+        # everything queued on them here is finished before the swap
+        runtime.finish_current_stream(self.ctx.device)
         with self._lock:
             self.engine_instance = instance
             self.engine_params = engine_params
@@ -449,6 +457,7 @@ class PredictionServer:
         algorithms, serving = self.engine.components(engine_params)
         if warm_before_swap:
             self._warm_models(algorithms, models)
+        runtime.finish_current_stream(self.ctx.device)
         with self._lock:
             self._deploys[tenant_id] = {
                 "engine_instance": instance,
@@ -584,7 +593,18 @@ class PredictionServer:
         ``engine`` and ``tenant`` have no defaults, so the scheduler's
         arity detection passes each batch's queue key (JAX :584-600): a
         batch is one tenant's, and serves from that tenant's own deploy
-        when it has one."""
+        when it has one.
+
+        The calling thread (a scheduler dispatcher, or a request thread
+        with ``micro_batch=0``) runs the batch's device work on its own
+        serving stream (``runtime.own_stream``): the batch never waits
+        behind the speed layer's fold-ins or another dispatcher's work,
+        and its booked ``pio_device_seconds`` are its own."""
+        with runtime.own_stream(self.ctx.device, serving=True):
+            return self._serve_batch(bodies, engine, tenant)
+
+    def _serve_batch(self, bodies: List[bytes], engine: str,
+                     tenant: str) -> List[Any]:
         t0 = time.perf_counter()
         with self._lock:
             dep = (self._deploys.get(tenant)
@@ -849,10 +869,39 @@ class PredictionServer:
             return Response(200, {"message": "Shutting down."})
 
         @r.post("/knobs")
-        def knobs(request: Request) -> Response:
-            return Response(501, {"message": (
-                "POST /knobs (the knob controller's fan-out) is not "
-                "ported yet: ROADMAP.md Queue 1 item 8b")})
+        def post_knobs(request: Request) -> Response:
+            # the worker half of the audited knob seam (obs/knobs.py):
+            # the knob controller's front-door fan-out lands here with
+            # the decision's trace headers. Every registered knob is a
+            # call-time env read, so writing the env + one scheduler
+            # refresh applies the vector without restart or drain: the
+            # next dispatch plans its score+top-k launch under the new
+            # rung cap, and the next fold-in batches to the new budget.
+            self._check_server_key(request)
+            from incubator_predictionio_tpu_torch.obs import knobs as obs_knobs
+
+            try:
+                payload = json.loads(request.body or b"{}")
+                values = payload.get("values") or {}
+                items = {str(k): int(v) for k, v in values.items()}
+            except (ValueError, TypeError, AttributeError) as e:
+                return Response(400, {"message": f"bad knob body: {e}"})
+            unknown = sorted(set(items) - obs_knobs.KNOB_ENV_VARS)
+            if unknown:
+                # reject the WHOLE vector: a partial apply would leave
+                # the fleet on a vector no decision record describes
+                return Response(400, {
+                    "message": "unregistered knob env vars",
+                    "unknown": unknown,
+                })
+            applied = {}
+            for env, v in sorted(items.items()):
+                os.environ[env] = str(v)
+                applied[env] = v
+            scheduler = (self._batcher.apply_knobs()
+                         if self._batcher is not None else None)
+            return Response(200, {"applied": applied,
+                                  "scheduler": scheduler})
 
         @r.get("/plugins.json")
         def plugins_list(request: Request) -> Response:

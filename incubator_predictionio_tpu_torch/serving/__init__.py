@@ -6,9 +6,12 @@ prediction server's ``/queries.json`` handler enqueues, the scheduler
 coalesces (queue-depth-adaptive pow2 batching onto the score+top-k
 kernel's ladder) and sheds (SLO-projected 503 + Retry-After).
 ``serving.tenancy`` maps access keys to tenants, and its tenant block
-rides the flight recorder's incident bundles (obs/recorder.py). The
-front door (``serving.frontdoor``: one address fanned across worker
-processes) is not ported yet (ROADMAP.md Queue 1 item 8b).
+rides the flight recorder's incident bundles (obs/recorder.py).
+
+``serving.frontdoor`` is the layer above: ONE address fanned across N
+worker processes with queue-depth-aware placement, circuit-breaker
+health, budgeted retry, rolling drain-reload choreography and the
+fleet-wide ``POST /knobs`` fan-out.
 """
 
 from incubator_predictionio_tpu_torch.serving.scheduler import (  # noqa: F401
@@ -18,3 +21,15 @@ from incubator_predictionio_tpu_torch.serving.scheduler import (  # noqa: F401
     max_wait_s,
     plan_dispatch,
 )
+
+
+def __getattr__(name: str):
+    """Lazy ``FrontDoor``/``FrontDoorConfig`` re-export: importing the
+    frontdoor module registers the pio_frontdoor_* metric families, and
+    a plain prediction WORKER (which imports serving.scheduler) must
+    not grow empty front-door series on its /metrics."""
+    if name in ("FrontDoor", "FrontDoorConfig"):
+        from incubator_predictionio_tpu_torch.serving import frontdoor
+
+        return getattr(frontdoor, name)
+    raise AttributeError(name)

@@ -9,8 +9,10 @@ whole batch padded to the next power of two. The JAX package's XLA
 compile cache has no counterpart (a CUDA kernel takes any B);
 ``pio_serve_compile_cache_size`` reads the count of distinct padded
 ``(B, k)`` dispatch shapes that ``ops/topk`` keeps, which a warm ladder
-holds flat. ``apply_knobs`` is copied, but its caller, ``POST /knobs``,
-is not ported yet (ROADMAP.md Queue 1 item 8b). The flight recorder
+holds flat. ``apply_knobs`` is called by the prediction server's
+``POST /knobs``, where the knob controller's fan-out lands (obs/knobs.py):
+the new rung cap sets the width of the next score+top-k launch. The
+flight recorder
 reads :meth:`BatchScheduler.snapshot` through
 ``obs/recorder.register_state_provider`` into its dumps and incident
 bundles, and each dispatch re-installs one member's trace id, so the

@@ -2,10 +2,11 @@
 
 The port's own copy of incubator_predictionio_tpu/serving/tenancy.py, its
 imports pointed at this package. Of the planes named below, the port has
-the prediction server's, the scheduler's, the metric labels and the
+all: the prediction server's, the scheduler's, the metric labels and the
 per-tenant SLO specs, and the incident bundles, whose tenant block
-:func:`export_tenants_fn` fills (obs/recorder.py); the front door and the
-admin server are not ported yet (ROADMAP.md Queue 1 item 8b).
+:func:`export_tenants_fn` fills (obs/recorder.py), the front door's
+query-path auth (serving/frontdoor.py) and the admin server's bundle
+wiring (servers/admin.py).
 
 The reference PredictionIO is a multi-app server: app ids + access keys
 multiplex event ingest AND engine deployments through one address. Our

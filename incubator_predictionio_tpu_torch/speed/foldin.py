@@ -174,30 +174,33 @@ class FoldInSolver:
             by_width.setdefault(self._bucket_width(d, widths), []).append(
                 (slot, cols, vals))
         slots, sols = [], []
-        for width, members in sorted(by_width.items()):
-            for s in range(0, len(members), max_b):
-                chunk = members[s:s + max_b]
-                b = len(chunk)
-                b_pad = min(1 << max(b - 1, 0).bit_length(), max_b)
-                cols = np.zeros((b_pad, width), np.int32)
-                vals = np.zeros((b_pad, width), np.float32)
-                mask = np.zeros((b_pad, width), np.float32)
-                for r, (_slot, c, v) in enumerate(chunk):
-                    cols[r, :len(c)] = c
-                    vals[r, :len(v)] = v
-                    mask[r, :len(c)] = 1.0
-                _pt0 = _profile.t0()
-                sol = self._dispatch(cols, vals, mask)
-                _profile.record(
-                    _pt0, "foldin", "foldin_solve",
-                    foldin_flops([len(c) for _s, c, _v in chunk],
-                                 self.rank, self.cg_iters)
-                    if _pt0 is not None else 0.0, sol)
-                sols.append(sol[:b])
-                slots.extend(slot for slot, _c, _v in chunk)
-        if sols:
-            # one device-to-host copy for every bucket of the call
-            out[np.asarray(slots)] = torch.cat(sols).cpu().numpy()
+        # the calling thread's own stream (the overlay's poller, a hand
+        # poll): a fold-in never queues ahead of a dispatcher's query
+        with runtime.own_stream(self.device):
+            for width, members in sorted(by_width.items()):
+                for s in range(0, len(members), max_b):
+                    chunk = members[s:s + max_b]
+                    b = len(chunk)
+                    b_pad = min(1 << max(b - 1, 0).bit_length(), max_b)
+                    cols = np.zeros((b_pad, width), np.int32)
+                    vals = np.zeros((b_pad, width), np.float32)
+                    mask = np.zeros((b_pad, width), np.float32)
+                    for r, (_slot, c, v) in enumerate(chunk):
+                        cols[r, :len(c)] = c
+                        vals[r, :len(v)] = v
+                        mask[r, :len(c)] = 1.0
+                    _pt0 = _profile.t0()
+                    sol = self._dispatch(cols, vals, mask)
+                    _profile.record(
+                        _pt0, "foldin", "foldin_solve",
+                        foldin_flops([len(c) for _s, c, _v in chunk],
+                                     self.rank, self.cg_iters)
+                        if _pt0 is not None else 0.0, sol)
+                    sols.append(sol[:b])
+                    slots.extend(slot for slot, _c, _v in chunk)
+            if sols:
+                # one device-to-host copy for every bucket of the call
+                out[np.asarray(slots)] = torch.cat(sols).cpu().numpy()
         return out
 
     def warmup(self) -> None:

@@ -1,7 +1,9 @@
 """Asyncio HTTP/1.1 micro-framework — the spray/akka replacement.
 
 The port's own copy of incubator_predictionio_tpu/utils/http.py,
-its imports pointed at this package.
+its imports pointed at this package. One part differs:
+``HttpServer.stop(drop_connections=True)`` also closes the open
+connections, which the storage server's stop asks for.
 
 The reference runs four spray-can servers (EventServer :7070, PredictionServer
 :8000, Dashboard :9000, AdminAPI :7071) on akka actors. Here one small
@@ -401,6 +403,9 @@ class HttpServer:
         self._loop: Optional[asyncio.AbstractEventLoop] = None  # pio-lint: publish-only
         self._thread: Optional[threading.Thread] = None
         self._started = threading.Event()
+        #: the open connections' writers (loop thread only), which
+        #: ``stop(drop_connections=True)`` closes
+        self._writers: set = set()
 
     @classmethod
     def from_conf(cls, router: Router, host: str = "0.0.0.0",
@@ -418,6 +423,7 @@ class HttpServer:
     async def _handle_conn(
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
     ) -> None:
+        self._writers.add(writer)
         try:
             while True:
                 try:
@@ -448,6 +454,7 @@ class HttpServer:
         except Exception:
             logger.exception("connection handler error")
         finally:
+            self._writers.discard(writer)
             try:
                 writer.close()
                 await writer.wait_closed()
@@ -658,11 +665,22 @@ class HttpServer:
                 f"http server failed to start: {self._start_error}")
         return self.port
 
-    def stop(self) -> None:
+    def stop(self, drop_connections: bool = False) -> None:
+        """Close the listener. ``drop_connections`` also closes every
+        open connection, as a killed process would: asyncio's
+        ``Server.close`` leaves kept-alive connections open, and this
+        server would go on answering on them."""
         loop, server = self._loop, self._server
         if loop is not None and server is not None:
+
+            def close() -> None:
+                server.close()
+                if drop_connections:
+                    for writer in list(self._writers):
+                        writer.close()
+
             try:
-                loop.call_soon_threadsafe(server.close)
+                loop.call_soon_threadsafe(close)
             except RuntimeError:
                 pass  # loop already closed (server stopped itself)
 

@@ -2,12 +2,14 @@
 """How often a ``torch.profiler`` capture on the card loses kernels.
 
     python3 scripts/profiler_capture_probe.py [--procs 8] [--sessions 12]
-        [--threads 2] [--seconds 0.4]
+        [--threads 2] [--seconds 0.4] [--caller threads|main]
 
 Starts ``--procs`` processes side by side on one card. Each runs
 ``--threads`` threads that launch small matmuls without pause, then takes
 ``--sessions`` captures of ``--seconds`` each through the port's
-``obs.profile.capture_trace``, from two caller threads in turn. Prints
+``obs.profile.capture_trace``, from two caller threads in turn
+(``--caller threads``, as a server's executor calls it) or all from the
+process's main thread (``--caller main``). Prints
 one JSON object a process: for each session its kernel events and kernel
 launches, or ``"lost"`` with the capture's error where
 ``obs.profile.lost_kernels`` refused the trace. Then one summary line:
@@ -56,8 +58,11 @@ def child(args) -> None:
                                 and "LaunchKernel" in e.get("name", "")
                                 for e in events)}
 
-    sessions = [callers[i % 2].submit(capture, i).result()
-                for i in range(args.sessions)]
+    if args.caller == "main":
+        sessions = [capture(i) for i in range(args.sessions)]
+    else:
+        sessions = [callers[i % 2].submit(capture, i).result()
+                    for i in range(args.sessions)]
     stop.set()
     print(json.dumps({"torch": torch.__version__, "sessions": sessions}),
           flush=True)
@@ -69,6 +74,8 @@ def main() -> int:
     ap.add_argument("--sessions", type=int, default=12)
     ap.add_argument("--threads", type=int, default=2)
     ap.add_argument("--seconds", type=float, default=0.4)
+    ap.add_argument("--caller", choices=("threads", "main"),
+                    default="threads")
     ap.add_argument("--child", action="store_true")
     args = ap.parse_args()
     if args.child:
@@ -76,7 +83,7 @@ def main() -> int:
         return 0
     cmd = [sys.executable, os.path.abspath(__file__), "--child",
            "--sessions", str(args.sessions), "--threads", str(args.threads),
-           "--seconds", str(args.seconds)]
+           "--seconds", str(args.seconds), "--caller", args.caller]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
              for _ in range(args.procs)]
     first_lost, lost = [], 0
@@ -90,7 +97,7 @@ def main() -> int:
         marks = [i for i, s in enumerate(sessions) if "lost" in s]
         lost += len(marks)
         first_lost.append(marks[0] if marks else None)
-    print(json.dumps({"processes": len(procs),
+    print(json.dumps({"caller": args.caller, "processes": len(procs),
                       "processes_with_a_loss": sum(
                           m is not None for m in first_lost),
                       "sessions_lost": lost,

@@ -363,13 +363,76 @@ def test_undeploy_nothing_running(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["eval", "--hosts", "h1", "evaluation:evaluation"], "item 9"),
-    (["adminserver"], "item 8b"),
     (["train", "--hosts", "h1,h2"], "item 9"),
     (["deploy", "--hosts", "h1"], "item 9"),
 ])
 def test_verbs_not_ported_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         main(argv)
+
+
+def test_adminserver_serves_its_routes(tmp_path):
+    """``pio adminserver --port 0`` on the port: it names its bound
+    address, serves ``GET /``, ``/controller`` and ``/knobs`` (both loops
+    off, the controller reload-only with no URL set, no capacity guard:
+    the repo's records are TPU runs), and stops with exit 0 on SIGTERM,
+    without the card."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import urllib.request
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, **MEMORY, "PIO_HOME": str(tmp_path),
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            "")}
+    for k in ("PIO_DEVICE", "PIO_CONTROLLER", "PIO_KNOBS",
+              "PIO_CONTROLLER_RELOAD_URL", "PIO_KNOBS_URL",
+              "PIO_FLEET_TARGETS", "PIO_INCIDENT_DIR"):
+        env.pop(k, None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "incubator_predictionio_tpu_torch.cli.main",
+         "adminserver", "--ip", "127.0.0.1", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(tmp_path), env=env)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("Admin API running on http://127.0.0.1:"), \
+            (line, proc.stderr.read() if proc.poll() is not None else "")
+        port = int(line.rsplit(":", 1)[1])
+
+        def get(path):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=60) as resp:
+                return resp.status, json.loads(resp.read())
+
+        assert get("/") == (200, {"status": "alive",
+                                  "description": "PredictionIO-TPU Admin "
+                                                 "API"})
+        status, ctl = get("/controller")
+        assert status == 200 and ctl["mode"] == "off" and ctl["running"]
+        assert ctl["actuators"] == {"retrain": False, "reload": False,
+                                    "capacityGuard": False}
+        status, knobs = get("/knobs")
+        assert status == 200 and knobs["mode"] == "off"
+        assert knobs["actuators"] == {"apply": True, "scope": "local",
+                                      "capacityGuard": False}
+        assert set(knobs["values"]) == {
+            "PIO_SERVE_MIPS_NPROBE", "PIO_SERVE_MIPS_CANDIDATES",
+            "PIO_SERVE_MAX_BATCH", "PIO_SERVE_MAX_WAIT_MS",
+            "PIO_SERVE_SHED", "PIO_SPEED_MAX_BATCH", "PIO_SERVE_MIPS_PQ_M",
+            "PIO_SERVE_MIPS_PQ_CANDIDATES", "PIO_MIPS_REBUILD_TAIL",
+            "PIO_MIPS_REBUILD_AGE_S"}
+        assert get("/cmd/app") == (200, [])
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+        assert proc.returncode == 0, err[-2000:]
+        assert "Admin API stopped." in out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
 
 
 @pytest.mark.parametrize("flag,value", [("--feedback", None),

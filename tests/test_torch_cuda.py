@@ -1424,3 +1424,31 @@ def test_mips_rebuild_swap_on_the_daemon_while_dispatchers_serve(
         recalls[served is index].append(rec)
     assert recalls[True] and recalls[False]
     assert min(np.mean(recalls[True]), np.mean(recalls[False])) >= 0.95
+
+
+def test_a_dispatch_books_its_own_device_seconds_beside_a_foldin(dev):
+    """ROADMAP Queue 3 fault 3's pin (``chip_smoke.stream_isolation``):
+    with ``PIO_PROFILE=1``, an object-path query dispatched the moment a
+    long fold-in (8,192 implicit rows of 2,048, one fused launch) is
+    queued on a thread of its own books ``serve_topk`` seconds below a
+    tenth of the fold-in's ``foldin_solve`` seconds: the dispatcher's
+    stream is its own, so its wait never covers the fold-in's work."""
+    import chip_smoke
+
+    from incubator_predictionio_tpu_torch.core import params as params_mod
+    from incubator_predictionio_tpu_torch.models.recommendation import (
+        convert,
+        engine,
+    )
+    from incubator_predictionio_tpu_torch.servers import (
+        prediction_server as server_mod,
+    )
+
+    rng = np.random.default_rng(5)
+    uf = (0.1 * rng.standard_normal((20_000, 128))).astype(np.float32)
+    items = (0.1 * rng.standard_normal((26_744, 128))).astype(np.float32)
+    out = chip_smoke.stream_isolation(dev, runtime, server_mod, engine,
+                                      params_mod, convert, uf, items)
+    assert len(out["trials"]["object"]) == chip_smoke.STREAM_TRIALS
+    for row in out["trials"]["object"]:
+        assert row["serve_s"] < chip_smoke.STREAM_SHARE * row["foldin_s"]

@@ -9,7 +9,7 @@ statuses; CORS answers and the OPTIONS preflight. The status-page panels
 render the same HTML in both packages for the same tenant registry. ``pio
 dashboard`` runs through the port's CLI as a child process: it prints
 its address once bound, serves, and exits 0 on SIGTERM. The admin-API
-test waits for the admin server (ROADMAP.md Queue 1 item 8b).
+twin is tests/test_torch_admin.py's app CRUD case.
 """
 
 import json

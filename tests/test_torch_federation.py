@@ -7,8 +7,9 @@ sums, the federated exposition's round trip under ``instance`` labels,
 per-instance degradation (``pio_federate_up``), and the two-process end
 to end: two worker processes of the port (tests/torch_fleet_worker.py)
 scraped through ``GET /federate`` and ``GET /slo?fleet=1`` mounted on a
-bare ``Router`` (the JAX package mounts them on its admin server, which
-waits for ROADMAP.md Queue 1 item 8b), and one trace id across the
+bare ``Router`` (tests/test_torch_admin.py holds them on the port's
+admin server, and the front door as a federation target), and one trace
+id across the
 port's event server and a storage server in a child process. Parity: both
 packages' ``federate`` merge of the same two scraped texts gives
 byte-equal expositions.

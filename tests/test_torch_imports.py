@@ -821,3 +821,114 @@ def test_observing_modules_import_nothing_of_jax(module):
             [200] * 4
         assert out["booked"] == 1 and out["federated"] == 1
         assert out["trace"] and out["bundle"]
+
+
+_CONTROL_ISOLATED = textwrap.dedent('''
+    import importlib, importlib.abc, json, os, sys
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if (name == "incubator_predictionio_tpu"
+                    or name.startswith("incubator_predictionio_tpu.")):
+                raise ImportError("the port imported " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    importlib.import_module(sys.argv[1])
+    out = {}
+    if sys.argv[1].endswith("admin"):
+        # the control plane together: an admin server hosting both
+        # controllers, a front door over a prediction server, the knob
+        # vector fanned through the door, the capacity guards absent
+        import urllib.request
+        import numpy as np
+        for k, v in {"PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+                     "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "m",
+                     "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+                     "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "e",
+                     "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+                     "PIO_RECORDER": "0"}.items():
+            os.environ[k] = v
+        from incubator_predictionio_tpu_torch.core.params import (
+            EngineParams)
+        from incubator_predictionio_tpu_torch.models.recommendation import (
+            convert, engine)
+        from incubator_predictionio_tpu_torch.obs import (
+            capacity, controller, knobs)
+        from incubator_predictionio_tpu_torch.servers.admin import (
+            AdminServer)
+        from incubator_predictionio_tpu_torch.servers.prediction_server import (
+            PredictionServer)
+        from incubator_predictionio_tpu_torch.serving.frontdoor import (
+            FrontDoor)
+        rng = np.random.default_rng(0)
+        model = convert.als_model_from_numpy(
+            rng.standard_normal((5, 4)), rng.standard_normal((9, 4)),
+            [f"u{i}" for i in range(5)], [f"i{i}" for i in range(9)],
+            device="cpu")
+        ps = PredictionServer(engine.RecommendationEngine().apply(),
+                              EngineParams(), [model], device="cpu")
+        door = FrontDoor([("127.0.0.1", ps.start_background())])
+        dport = door.start_background()
+        admin = AdminServer(ip="127.0.0.1", port=0, knobs=knobs.KnobController(
+            apply_fn=knobs.http_knobs_fn(f"127.0.0.1:{dport}/knobs"),
+            mode="act"))
+        aport = admin.start_background()
+        try:
+            def get(port, path, data=None):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}{path}", data=data,
+                    method="POST" if data is not None else "GET")
+                with urllib.request.urlopen(req, timeout=30) as resp:
+                    return json.loads(resp.read())
+            out["controller"] = get(aport, "/controller")["mode"]
+            out["knobs"] = get(aport, "/knobs")["mode"]
+            out["fanout"] = admin.knobs._apply_fn(
+                {"PIO_SERVE_MAX_WAIT_MS": 40})["applied"]
+            out["answer"] = len(get(dport, "/queries.json",
+                                    b'{"user": "u2", "num": 3}')[
+                                        "itemScores"])
+        finally:
+            admin.stop()
+            door.stop()
+            ps.stop()
+        out["guards"] = [controller.capacity_budget_fn(rows=1e6)(),
+                         knobs.capacity_caps_fn()()]
+        out["cards"] = len(capacity.card_records(
+            capacity.load_trajectory(".")))
+    out["leaked"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None and (
+            m in ("jax", "jaxlib") or m == "incubator_predictionio_tpu"
+            or m.startswith("incubator_predictionio_tpu.")))
+    print(json.dumps(out))
+''')
+
+
+@pytest.mark.parametrize("module", [
+    "incubator_predictionio_tpu_torch.obs.capacity",
+    "incubator_predictionio_tpu_torch.obs.controller",
+    "incubator_predictionio_tpu_torch.obs.knobs",
+    "incubator_predictionio_tpu_torch.serving.frontdoor",
+    "incubator_predictionio_tpu_torch.servers.admin",
+])
+def test_control_modules_import_nothing_of_jax(module):
+    """The control plane imports with JAX and the JAX package blocked;
+    the admin server hosts both controllers and answers its routes, the
+    knob vector reaches a prediction server through the front door, a
+    query answers through it, and the capacity guards fit no record of
+    the repo (they are TPU runs)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _CONTROL_ISOLATED, module],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=repo)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    if module.endswith("admin"):
+        assert (out["controller"], out["knobs"]) == ("off", "act")
+        assert out["fanout"] == 1 and out["answer"] == 3
+        assert out["guards"] == [None, None] and out["cards"] == 0

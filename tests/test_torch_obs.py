@@ -15,6 +15,7 @@ by hand before it is read, so no case waits on the clock.
 
 import dataclasses
 import json
+import os
 import threading
 import urllib.error
 import urllib.request
@@ -394,7 +395,29 @@ def test_dashboard_panels_and_slo(stack):
     assert _call(stack["dashboard"], "GET", "/slo?fleet=1")[0] == 400
 
 
-def test_prediction_server_refuses_knobs_naming_the_item(stack):
+def test_prediction_server_applies_a_knob_vector_and_refuses_an_unknown_one(
+        stack, monkeypatch):
+    """``POST /knobs``: a vector of registered variables is written to
+    the env and the scheduler re-reads its knobs (the answer names both);
+    a vector naming one unknown variable is refused whole with 400 and
+    changes nothing."""
+    for env in ("PIO_SERVE_MAX_BATCH", "PIO_SERVE_MAX_WAIT_MS",
+                "PIO_SPEED_MAX_BATCH"):
+        monkeypatch.setenv(env, os.environ.get(env, ""))
+    # the scheduler's defaults, so the module's later cases see no change
+    vector = {"PIO_SERVE_MAX_BATCH": 512, "PIO_SERVE_MAX_WAIT_MS": 250,
+              "PIO_SPEED_MAX_BATCH": 32}
     status, _h, body = _call(stack["prediction"], "POST", "/knobs",
-                             {"values": {}})
-    assert status == 501 and "item 8b" in json.loads(body)["message"]
+                             {"values": vector})
+    out = json.loads(body)
+    assert status == 200 and out["applied"] == vector
+    assert out["scheduler"]["cap"] == 512
+    assert out["scheduler"]["waitBoundS"] == pytest.approx(0.25)
+    assert os.environ["PIO_SPEED_MAX_BATCH"] == "32"
+    status, _h, body = _call(stack["prediction"], "POST", "/knobs", {
+        "values": {"PIO_SPEED_MAX_BATCH": 8, "PIO_NOT_A_KNOB": 1}})
+    assert status == 400
+    assert json.loads(body)["unknown"] == ["PIO_NOT_A_KNOB"]
+    assert os.environ["PIO_SPEED_MAX_BATCH"] == "32"
+    assert _call(stack["prediction"], "POST", "/knobs",
+                 {"values": {"PIO_SPEED_MAX_BATCH": "many"}})[0] == 400

@@ -3,8 +3,8 @@ the JAX package's, on the CPU.
 
 Twins of tests/test_slo.py's five profiler tests and of its
 ``test_profile_route_validation``, the route mounted on a bare ``Router``
-(the JAX package mounts ``POST /profile`` on its admin server, which
-waits for ROADMAP.md Queue 1 item 8b). Then one test per op label of
+(tests/test_torch_admin.py holds the route on the port's admin
+server). Then one test per op label of
 this slice: the same workload, on the same inputs made from a seed with
 numpy, through both packages with the profiler on, books the same
 dispatches and the same ``pio_device_flops_total`` under the same label:

@@ -428,7 +428,24 @@ def _report_check(path):
                           capture_output=True, text=True, timeout=60)
 
 
-def test_planted_breach_exactly_one_bundle_cooldown_pinned(tmp_path):
+def test_planted_breach_exactly_one_bundle_cooldown_pinned(tmp_path,
+                                                          monkeypatch):
+    from incubator_predictionio_tpu_torch.obs import knobs as obs_knobs
+
+    # the process knob controller, which the capture's default knobs_fn
+    # peeks: one mode change, then one evaluation (no recorder: no_data)
+    monkeypatch.setenv("PIO_RECORDER", "0")
+    obs_knobs.reset_knob_controller()
+    knb = obs_knobs.get_knob_controller()
+    knb.set_mode("observe")
+    assert knb.evaluate_once()["reason"] == "no_data"
+    try:
+        _planted_breach_bundles(tmp_path)
+    finally:
+        obs_knobs.reset_knob_controller()
+
+
+def _planted_breach_bundles(tmp_path):
     reg = Registry()
     h = reg.histogram("pio_query_latency_seconds", "q")
     clock = FakeClock(1000.0)
@@ -462,9 +479,11 @@ def test_planted_breach_exactly_one_bundle_cooldown_pinned(tmp_path):
     assert bundle["exemplars"]["traceIds"]
     assert bundle["decisions"] == [{"id": 1, "kind": "evaluation",
                                     "ts": 995.0, "action": "none"}]
-    # the knob ring is empty on the port (no knob controller before
-    # ROADMAP.md Queue 1 item 8b); the key stays
-    assert bundle["knobs"] == [] and bundle["knobsTotal"] == 0
+    # the knob ring through the recorder's peek (the capture's default
+    # knobs_fn): the process knob controller's decisions, one evaluation
+    assert [d["kind"] for d in bundle["knobs"]] == ["evaluation",
+                                                    "mode_change"]
+    assert bundle["knobsTotal"] == 2
     clock.advance(200.0)
     for _ in range(20):
         h.observe(0.5)

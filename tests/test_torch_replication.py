@@ -190,3 +190,37 @@ def test_follower_resyncs_after_leader_compaction(
     finally:
         fc.close()
         follower.stop()
+
+
+def test_a_stopped_leader_answers_nothing_on_a_kept_alive_connection(
+        leader):
+    """``StorageServer.stop`` closes the connections its clients keep
+    alive, as a killed leader would: a request on one after the stop
+    fails (a fresh connection is refused), instead of being answered
+    from the stopped server's closed log with its stale counts, which
+    once let a follower's ``wait_caught_up`` report no lag before it had
+    the restarted leader's new events."""
+    import http.client
+    import time
+
+    server, _revents, lport, _dir, _client = leader
+    conn = http.client.HTTPConnection("127.0.0.1", lport, timeout=10)
+    conn.request("GET", "/")
+    resp = conn.getresponse()
+    assert resp.status == 200 and resp.getheader("Connection") != "close"
+    resp.read()
+    server.stop()
+    deadline = time.monotonic() + 10.0
+    answered = 0
+    while time.monotonic() < deadline:
+        try:
+            conn.request("GET", "/")
+            conn.getresponse().read()
+            answered += 1
+        except (OSError, http.client.HTTPException):
+            break
+        time.sleep(0.01)
+    else:
+        raise AssertionError(f"the stopped server answered {answered} "
+                             "requests on a kept-alive connection for 10 s")
+    conn.close()

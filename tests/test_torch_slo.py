@@ -9,8 +9,8 @@ same evaluation (burn rates, budgets, breach flags, window coverage).
 (``serve_objective_s``) read the same declared objective; the fleet-mode
 reset clamp reads through both packages' federation shapes. The profiler
 cases are in tests/test_torch_profile.py, ``GET /slo`` on the dashboard
-in tests/test_torch_dashboard.py; its admin-server half waits for
-ROADMAP.md Queue 1 item 8b.
+in tests/test_torch_dashboard.py; its admin-server half is in
+tests/test_torch_admin.py.
 """
 
 import pytest
