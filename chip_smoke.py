@@ -287,8 +287,15 @@ Phases, each of which fails the run on any error or mismatch:
              against the plain top-k; 32 new users × 8 ratings through the
              event server child, each answered from its fold-in (held to
              the plain fold-in) within 30 s; ``pio_freshness_seconds`` p95
-             and ``kernelLaunches`` from the deploy child; every child
-             exits 0. Prints ``remote:`` with the walls.
+             and ``kernelLaunches`` from the deploy child; the feedback
+             leg (:func:`feedback_leg`) on a second ``pio deploy`` child
+             started with the first, ``--feedback`` to the event server
+             child and ``--log-url`` to a collector here: 64 known users'
+             answers against the plain top-k, their 64 ``pio_pr`` predict
+             events read back within 30 s, a malformed body's one shipped
+             error line, 0 dropped, and both children's HTTP p50/p99 on
+             the same queries; every child exits 0. Prints ``remote:``
+             with the walls.
 16. eval  — ``pio eval`` through the port's CLI in this process
              (:func:`eval_phase`) on a fresh SQLite store: 4,096 users ×
              26,744 items × 32 preference-biased planted ratings (seed 7,
@@ -5291,6 +5298,122 @@ REMOTE_NEW_USERS, REMOTE_EVENTS_PER_USER = 32, 8
 REMOTE_QUERIES = 32
 #: seconds a new user may take to be answered from their fold-in
 REMOTE_FOLD_DEADLINE_S = 30.0
+#: the feedback leg: known users' queries to the feedback child, and the
+#: seconds their predict events may take to be read back
+FEEDBACK_QUERIES, FEEDBACK_DEADLINE_S = 64, 30.0
+#: the prefix the feedback child puts before each shipped error line
+FEEDBACK_LOG_PREFIX = "PIOLOG "
+
+
+def feedback_leg(dev, kernels, uf_t, items_t, model, iid: str, key: str,
+                 plain_base: str, fb, es_url: str, shipped: list,
+                 small: bool = False) -> tuple:
+    """The feedback leg of the remote phase on its ``pio deploy
+    --feedback`` child ``fb`` (started with ``--log-url`` to the
+    collector whose received bodies are ``shipped``):
+
+    - 64 known users' queries (``num`` 10), each to the plain deploy child
+      at ``plain_base`` and to the feedback child; every feedback answer a
+      200 equal to the plain top-k on the instance's factors, through the
+      object path (feedback turns the fast path off);
+    - one malformed body: a 400, and exactly one line behind
+      :data:`FEEDBACK_LOG_PREFIX` with a stack trace and the instance at
+      the collector;
+    - the 64 ``predict`` events of entityType ``pio_pr`` read back through
+      the event server (``GET /events.json?accessKey=...&event=predict``,
+      newest first) within 30 s, each with the instance id, its query and
+      the answer it was served;
+    - the feedback child's ``GET /``: ``feedbackEventsDropped`` 0, and on
+      the card a score+top-k launch for each answer (its count read before
+      the queries and after them).
+
+    Records, without a gate, the HTTP p50/p99 of both children on the same
+    queries and the seconds until the last event was read back.
+
+    Returns (max score error, stats)."""
+    t_leg = time.perf_counter()
+    fport = int(fb.wait_line(r"deployed on http://[^:]+:(\d+)",
+                             600).group(1))
+    fbase = f"http://127.0.0.1:{fport}"
+    ready_s = time.perf_counter() - t_leg
+    rng = np.random.default_rng(31)
+    inv_users = model.user_bimap.inverse
+    n = 8 if small else FEEDBACK_QUERIES
+    queries = [{"user": inv_users[int(r)], "num": 10} for r in
+               rng.choice(len(model.user_bimap), n, replace=False)]
+    err, served = 0.0, {}
+    walls = {"plain": [], "feedback": []}
+    # the child's launches before the leg (its warm-up's), read again after
+    status, info = http_json("GET", f"{fbase}/")
+    warm = info["kernelLaunches"].get("score_topk", 0)
+    for k, doc in enumerate(queries):
+        for name, url in (("plain", plain_base), ("feedback", fbase)):
+            t0 = time.perf_counter()
+            status, body = http_json("POST", f"{url}/queries.json", doc)
+            walls[name].append(time.perf_counter() - t0)
+            if status != 200:
+                raise AssertionError(f"feedback: {name} child, query {doc}: "
+                                     f"{status} {body}")
+        err = max(err, check_answer(kernels, dev, uf_t, items_t, doc, None,
+                                    body, f"feedback query {k}",
+                                    model=model))
+        served[doc["user"]] = body
+    t_posted = time.perf_counter()
+    status, body = http_json("POST", f"{fbase}/queries.json", {"bogus": 1})
+    if status != 400:
+        raise AssertionError(f"feedback: a malformed body got {status} "
+                             f"{body}")
+    events = []
+    deadline = t_posted + FEEDBACK_DEADLINE_S
+    while time.perf_counter() < deadline:
+        status, got = http_json(
+            "GET", f"{es_url}/events.json?accessKey={key}&event=predict"
+                   f"&entityType=pio_pr&limit={n + 1}&reversed=true")
+        events = got if status == 200 else []
+        if len(events) >= n and shipped:
+            break
+        time.sleep(0.1)
+    read_back_s = time.perf_counter() - t_posted
+    if len(events) != n:
+        raise AssertionError(f"feedback: {len(events)} predict events read "
+                             f"back for {n} answers")
+    for ev in events:
+        props = ev["properties"]
+        user = props["query"].get("user")
+        if (ev["event"], ev["entityType"]) != ("predict", "pio_pr") or \
+                props["engineInstanceId"] != iid or \
+                props["query"] != {"user": user, "num": 10} or \
+                props["prediction"] != served.get(user):
+            raise AssertionError(f"feedback: predict event {ev!r:.500}")
+    if len({ev["properties"]["query"]["user"] for ev in events}) != n:
+        raise AssertionError("feedback: the predict events repeat a query")
+    lines = [b for b in shipped if b.startswith(FEEDBACK_LOG_PREFIX)]
+    if len(lines) != 1 or len(shipped) != 1:
+        raise AssertionError(f"feedback: {len(shipped)} shipped lines, "
+                             f"{len(lines)} behind the prefix")
+    doc = json.loads(lines[0][len(FEEDBACK_LOG_PREFIX):])
+    if doc["engineInstance"]["id"] != iid or \
+            "Stack Trace" not in doc["message"]:
+        raise AssertionError(f"feedback: shipped line {lines[0]!r:.500}")
+    status, info = http_json("GET", f"{fbase}/")
+    launches = info["kernelLaunches"].get("score_topk", 0) - warm
+    if status != 200 or info["feedbackEventsDropped"] != 0 or (
+            dev.type == "cuda" and launches < n):
+        raise AssertionError(
+            f"feedback: GET / {status}, dropped "
+            f"{info.get('feedbackEventsDropped')}, score_topk launches "
+            f"{launches} for {n} answers")
+    stats = {
+        "queries": n, "events_read_back": len(events),
+        "shipped_lines": len(shipped), "dropped": 0,
+        "score_topk_launches": launches,
+        "http_ms": {name: {"p50": 1e3 * statistics.median(w),
+                           "p99": 1e3 * sorted(w)[min(int(0.99 * len(w)),
+                                                      len(w) - 1)]}
+                    for name, w in walls.items()},
+        "walls_s": {"ready_after_remote_s": ready_s,
+                    "read_back_s": read_back_s}}
+    return fport, err, stats
 
 
 def metrics_histogram(text: str, name: str, labels: str) -> tuple:
@@ -5336,7 +5459,10 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
        of the cpplog phase's first train;
     7. ``pio deploy`` as a child over ``remote`` with the speed layer on
        (``PIO_SPEED_POLL_S`` 1): 32 known users' answers against the plain
-       top-k on the instance's decoded factors;
+       top-k on the instance's decoded factors; a second ``pio deploy``
+       child, started with it, runs the feedback loop (``--feedback`` to
+       the event server child, ``--log-url`` to a collector in this
+       process, the speed layer off);
     8. 32 new users × 8 half-star ratings in one body to the event server
        child's native batch leg; ``/queries.json`` polled until each is
        answered from its fold-in (30 s deadline); each answer against the
@@ -5347,6 +5473,8 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
        ``pio_freshness_seconds`` p95 from the deploy child's ``/metrics``;
     9. the deploy child's ``GET /`` ``kernelLaunches``: the fused entry
        above 0 (the fold-ins), score+top-k at least once a query answered;
+       then the feedback leg (:func:`feedback_leg`) on the feedback child,
+       which is undeployed after it;
     10. ``pio undeploy``, SIGTERM to the event and storage servers: every
         child exits 0.
 
@@ -5369,6 +5497,12 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
         RuntimeContext,
     )
     from incubator_predictionio_tpu_torch.speed import foldin
+    from incubator_predictionio_tpu_torch.utils.http import (
+        HttpServer,
+        Request,
+        Response,
+        Router,
+    )
     from incubator_predictionio_tpu_torch.workflow.workflow import (
         CoreWorkflow,
     )
@@ -5391,6 +5525,7 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
     saved = {k: v for k, v in os.environ.items()
              if k.startswith("PIO_STORAGE_") or k == "PIO_SPEED_POLL_S"}
     cwd = os.getcwd()
+    collector = None
     try:
         # -- 1. the local read, then the log closed ------------------------
         local, walls["local_read_s"] = read()
@@ -5502,11 +5637,35 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
                           "fit_bound": bound}
 
         # -- 7. pio deploy over remote, the speed layer on -----------------
+        es_port = int(es.wait_line(r"running on http://[^:]+:(\d+)",
+                                   120).group(1))
+        es_url = f"http://127.0.0.1:{es_port}"
+        shipped: list = []
+        router = Router()
+
+        @router.post("/collect")
+        def collect(request: Request) -> Response:
+            shipped.append(request.body.decode())
+            return Response(200, {})
+
+        collector = HttpServer(router, "127.0.0.1", 0)
+        collector_port = collector.start_background()
         t_dep = time.perf_counter()
         dep = Child("deploy-remote", ["deploy", "--variant", log["variant"],
                                       "--ip", "127.0.0.1", "--port", "0"],
                     work, env, cwd=log["engine_dir"])
         children.append(dep)
+        # the feedback leg's child, started with the first so that their
+        # start-ups overlap; its speed layer is off, so the fold-ins of
+        # step 8 stay the first child's alone
+        fb = Child("deploy-feedback", [
+            "deploy", "--variant", log["variant"], "--ip", "127.0.0.1",
+            "--port", "0", "--feedback", "--event-server-ip", "127.0.0.1",
+            "--event-server-port", str(es_port), "--accesskey", key,
+            "--log-url", f"http://127.0.0.1:{collector_port}/collect",
+            "--log-prefix", FEEDBACK_LOG_PREFIX],
+            work, dict(env, PIO_SPEED_LAYER="0"), cwd=log["engine_dir"])
+        children.append(fb)
         deps = [dep]
         if control is not None:
             # the control phase's second worker, started with the first
@@ -5518,8 +5677,6 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
         port = int(dep.wait_line(r"deployed on http://[^:]+:(\d+)",
                                  600).group(1))
         base = f"http://127.0.0.1:{port}"
-        es_url = "http://127.0.0.1:%d" % int(es.wait_line(
-            r"running on http://[^:]+:(\d+)", 120).group(1))
         rng = np.random.default_rng(29)
         inv_users = model.user_bimap.inverse
         inv_items = model.item_bimap.inverse
@@ -5632,6 +5789,16 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
                                  f"{served}, {n_answered} answers")
         stats["launches"] = launches
 
+        # -- 9b. the feedback leg, its child stopped before control --------
+        t_fb = time.perf_counter()
+        fport, fb_err, stats["feedback"] = feedback_leg(
+            dev, kernels, uf_t, items_t, model, iid, key, base, fb, es_url,
+            shipped, small)
+        err = max(err, fb_err)
+        cli("undeploy", "--ip", "127.0.0.1", "--port", str(fport))
+        fb.wait_exit()
+        walls["feedback_leg_s"] = time.perf_counter() - t_fb
+
         if control is not None:
             ports = [port] + [int(d.wait_line(
                 r"deployed on http://[^:]+:(\d+)", 600).group(1))
@@ -5653,6 +5820,8 @@ def remote_phase(dev, runtime, kernels, als, ak, log: dict,
         os.chdir(cwd)
         for child in children:
             child.kill()
+        if collector is not None:
+            collector.stop()
         for k in [k for k in os.environ
                   if k.startswith("PIO_STORAGE_") or k == "PIO_SPEED_POLL_S"]:
             del os.environ[k]

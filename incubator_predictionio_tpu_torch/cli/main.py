@@ -5,7 +5,8 @@ The port's counterpart of incubator_predictionio_tpu/cli/main.py (Console.
 scala:153-600): version / status / app {new,list,show,delete,data-delete,
 channel-new,channel-delete} / accesskey {new,list,delete} / build /
 unregister / train / eval / deploy / undeploy / eventserver /
-adminserver / storageserver / dashboard / export / import / upgrade. ``train``, ``eval`` and
+adminserver / storageserver / dashboard / export / import / upgrade / run /
+template {get,list}. ``train``, ``eval`` and
 ``deploy`` run in process on the CUDA device; ``PIO_DEVICE=cpu`` is the one
 switch that runs them on the CPU (the JAX package's ``JAX_PLATFORMS=cpu``).
 Nothing picks the CPU because no card was found: without the switch, a
@@ -16,7 +17,17 @@ environment as the JAX package's: ``PIO_SERVE_MAX_BATCH`` (the ladder cap,
 512; 0 serves one query a call), ``PIO_SERVE_WORKERS``,
 ``PIO_SERVE_MAX_WAIT_MS``, ``PIO_SERVE_SHED`` and ``PIO_SLO_SERVE_P99_S``;
 ``PIO_TENANTS`` names the tenants whose access keys it takes; ``POST
-/reload`` swaps in the latest trained instance while it serves.
+/reload`` swaps in the latest trained instance while it serves. ``deploy
+--feedback`` posts every answer back to the event server at
+``--event-server-ip``/``--event-server-port`` as a ``predict`` event
+under ``--accesskey``, and ``--log-url`` ships query errors to a
+collector, each prefixed with ``--log-prefix`` (JAX main.py:107-115,
+501-514).
+
+``run <module:attr> [args...]`` (JAX main.py:590-595) resolves its target
+as ``train`` resolves a factory, calls it with the arguments and prints a
+result that is not None; ``template {get,list}`` prints the notice that
+the command is deprecated (JAX main.py:597-600).
 
 ``eval <module:Evaluation> [<module:EngineParamsGenerator>]`` (JAX
 main.py:456-491) resolves both objects as ``train`` resolves a factory
@@ -51,11 +62,7 @@ embedder wires a retrain in (``obs.controller.workflow_retrain_fn``).
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
 item: ``train``/``eval``/
 ``deploy --hosts`` (the pod launch) and ``train --model-parallelism``
-above 1 (item 9), and ``deploy --feedback`` /
-``--log-url`` (item 8c, raised by the prediction server; the options that
-only those use, ``--event-server-ip``, ``--event-server-port``,
-``--accesskey`` and ``--log-prefix``, come with them and are not accepted
-yet). ``pio train`` continues from the last COMPLETED instance, as the JAX
+above 1 (item 9). ``pio train`` continues from the last COMPLETED instance, as the JAX
 package's does (``ops/retrain.py``). The JAX package's storage-verb platform pin, its private-API backend
 probe and its persistent compile cache have no counterpart: nothing here
 initialises CUDA unless a verb needs it, and the kernels' build cache is
@@ -156,10 +163,15 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--ip", default="0.0.0.0")
             p.add_argument("--port", type=int, default=8000)
             p.add_argument("--engine-instance-id")
+            p.add_argument("--event-server-ip", default="0.0.0.0")
+            p.add_argument("--event-server-port", type=int, default=7070)
+            p.add_argument("--accesskey", default=None)
             p.add_argument("--feedback", action="store_true")
             p.add_argument("--server-key", default=None)
             p.add_argument("--log-url", default=None,
                            help="POST query errors to this collector URL")
+            p.add_argument("--log-prefix", default="",
+                           help="prefix prepended to each shipped log line")
 
     sub.add_parser("unregister",
                    help="unregister the engine in the current directory")
@@ -229,6 +241,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--channel")
     p.add_argument("--format", choices=("json", "parquet"), default="json")
 
+    # -- misc --------------------------------------------------------------
+    p = sub.add_parser("run", help="run an arbitrary main in the engine env")
+    p.add_argument("main_class")
+    p.add_argument("args", nargs="*")
+    tpl = sub.add_parser("template", help="(deprecated)").add_subparsers(
+        dest="template_command"
+    )
+    tpl.add_parser("get")
+    tpl.add_parser("list")
     p = sub.add_parser(
         "upgrade", help="rewrite event stores in the current format")
     p.add_argument("app", nargs="?", default=None,
@@ -478,9 +499,13 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
                                                           variant),
             engine_version=variant.get("version", "NOT_VERSIONED"),
             engine_variant=variant.get("id", "default"),
+            event_server_ip=args.event_server_ip,
+            event_server_port=args.event_server_port,
+            access_key=args.accesskey,
             feedback=args.feedback,
             server_key=args.server_key,
             log_url=args.log_url,
+            log_prefix=args.log_prefix,
         ))
         print(f"Deploying on http://{args.ip}:{args.port} ...", flush=True)
         server.serve_forever(on_started=lambda port: print(
@@ -560,6 +585,18 @@ def dispatch(args: argparse.Namespace) -> int:  # noqa: C901
     if cmd == "import":
         commands.import_events(args.app_name, args.input, args.channel,
                                format=args.format)
+        return 0
+
+    if cmd == "run":
+        target = commands.resolve_engine_factory(args.main_class)
+        result = target(*args.args) if callable(target) else None
+        if result is not None:
+            print(result)
+        return 0
+
+    if cmd == "template":
+        print("The template command is deprecated; browse the template "
+              "gallery instead (reference: commands/Template.scala:38-83).")
         return 0
 
     if cmd == "upgrade":

@@ -86,9 +86,20 @@ through the front door's fan-out: the env is written and the scheduler
 re-reads its knobs (``BatchScheduler.apply_knobs``); a vector naming a
 variable outside ``KNOB_ENV_VARS`` is refused whole with 400.
 
-Not ported yet: the feedback loop and ``--log-url`` (ROADMAP.md Queue 1
-item 8c; given either, :class:`PredictionServer` raises
-``NotImplementedError``).
+The feedback loop (``ServerConfig.feedback``, ``pio deploy --feedback``;
+JAX :147-256, :718-803, CreateServer.scala:449-460, 534-604): every
+answer on the object path is posted back to the event server at
+``event_server_ip:event_server_port`` as a ``predict`` event of
+entityType ``pio_pr`` (properties ``engineInstanceId``, ``query`` and
+``prediction``) under ``access_key``, by a bounded poster of its own;
+feedback turns the rendered-bytes fast path off, since it needs each
+answer as an object. ``log_url`` ships every query error that is not an
+:class:`HttpError`, prefixed with ``log_prefix``, through a second, small
+poster. Neither poster ever blocks a dispatcher: a post that finds its
+queue full is dropped and counted (``feedbackEventsDropped`` on ``GET
+/``). A refused connection and a 503 are retried (honouring
+``Retry-After``); anything else is tried once, so no event is applied
+twice.
 """
 
 from __future__ import annotations
@@ -100,8 +111,11 @@ import gc
 import json
 import logging
 import os
+import queue
+import secrets
 import threading
 import time
+import traceback
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -117,6 +131,7 @@ from incubator_predictionio_tpu_torch.data.storage import (
     Storage,
 )
 from incubator_predictionio_tpu_torch.obs import metrics as obs_metrics
+from incubator_predictionio_tpu_torch.obs import trace as obs_trace
 from incubator_predictionio_tpu_torch.obs.http import (
     add_metrics_route,
     add_recorder_route,
@@ -135,11 +150,15 @@ from incubator_predictionio_tpu_torch.utils.http import (
     HttpServer,
     Request,
     Response,
+    RetryableError,
+    RetryPolicy,
     Router,
+    parse_retry_after,
     sync,
 )
 from incubator_predictionio_tpu_torch.utils.times import (
     ensure_aware,
+    format_iso8601,
     now_utc,
 )
 from incubator_predictionio_tpu_torch.workflow.workflow import CoreWorkflow
@@ -194,9 +213,7 @@ _STALENESS = obs_metrics.REGISTRY.gauge(
 @dataclasses.dataclass
 class ServerConfig:
     """What ``pio deploy`` passes (CreateServer.scala:89-113 ServerConfig;
-    the JAX package's, without the feedback loop's event-server address
-    and access key and the log shipper's prefix, ROADMAP.md Queue 1 item
-    8c)."""
+    JAX :110-136)."""
 
     ip: str = "0.0.0.0"
     port: int = 8000
@@ -204,9 +221,16 @@ class ServerConfig:
     engine_id: str = "default"
     engine_version: str = "NOT_VERSIONED"
     engine_variant: str = "default"
+    #: where the feedback loop posts its predict events, and the app's key
+    event_server_ip: str = "0.0.0.0"
+    event_server_port: int = 7070
+    access_key: Optional[str] = None
     feedback: bool = False
     server_key: Optional[str] = None  # auth for /stop and /reload
+    #: ship query errors to a remote collector, each line prefixed with
+    #: ``log_prefix`` (CreateServer.scala:449-460)
     log_url: Optional[str] = None
+    log_prefix: str = ""
     #: LADDER CAP of the continuous-batching scheduler (0 turns it off:
     #: one query a call, as the reference serves them,
     #: CreateServer.scala:523). The scheduler picks each dispatch's width
@@ -220,6 +244,101 @@ class ServerConfig:
     serve_workers: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get("PIO_SERVE_WORKERS",
                                                    "1")))
+
+
+#: retries of the fire-and-forget posters (feedback events, ``log_url``
+#: shipping): jittered exponential backoff under a deadline, honouring
+#: ``Retry-After`` on a 503 (JAX :147-153)
+_POST_RETRY = RetryPolicy(attempts=3, base_delay_s=0.5, max_delay_s=5.0,
+                          deadline_s=20.0)
+
+
+def _post_with_retries(url: str, payload: bytes,
+                       headers: Dict[str, str], what: str,
+                       expect_status: Optional[int] = None) -> None:
+    """One JSON POST under :data:`_POST_RETRY`, on a poster's worker
+    thread (JAX :156-191). Only a refused connection (the body never left)
+    and a 503 (the receiver shed it unprocessed, and says when to come
+    back) are retried; a 4xx, another 5xx or a timeout mid-flight is
+    tried once, since the event may have been applied and a poster must
+    never apply training data twice. Failures are logged, never
+    raised."""
+    def attempt() -> None:
+        req = urllib.request.Request(url, data=payload, headers=headers,
+                                     method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                if expect_status is not None and resp.status != expect_status:
+                    logger.error("%s POST returned status %d", what,
+                                 resp.status)
+        except urllib.error.HTTPError as e:
+            if e.code == 503:
+                raise RetryableError(
+                    e, retry_after_s=parse_retry_after(
+                        e.headers.get("Retry-After"))) from e
+            raise
+        except urllib.error.URLError as e:
+            if isinstance(e.reason, ConnectionRefusedError):
+                raise RetryableError(e) from e
+            raise
+
+    try:
+        _POST_RETRY.call(attempt)
+    except Exception as e:
+        logger.error("%s failed: %s", what, e)
+
+
+class _AsyncPoster:
+    """A bounded pool of worker threads for fire-and-forget posts (JAX
+    :194-256), named ``pio-torch-poster-<name>-<i>``. A post that finds
+    the queue full is dropped and counted instead of waited on, so an
+    outage of the receiver never stalls a dispatcher. Feedback and log
+    shipping get posters of their own, so a hung log collector never
+    starves feedback, which is training data."""
+
+    def __init__(self, name: str, workers: int = 2, maxsize: int = 1024):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=maxsize)
+        self.dropped = 0  # read by GET / (feedback is data)
+        self._dropped_lock = threading.Lock()
+        self._threads = [
+            threading.Thread(target=self._run, daemon=True,
+                             name=f"pio-torch-poster-{name}-{i}")
+            for i in range(max(workers, 1))
+        ]
+        for t in self._threads:
+            t.start()
+
+    def submit(self, fn, what: str) -> None:
+        """Queue ``fn``; never blocks (it runs on a dispatcher thread)."""
+        try:
+            self._queue.put_nowait(fn)
+        except queue.Full:
+            with self._dropped_lock:
+                self.dropped += 1
+                n = self.dropped
+            logger.error("async post queue full; dropping %s (%d dropped "
+                         "total)", what, n)
+
+    def stop(self) -> None:
+        """One sentinel per worker, after the posts already queued; a
+        queue still full after 5 s leaves a worker draining on its own."""
+        for _ in self._threads:
+            try:
+                self._queue.put(None, timeout=5)
+            except queue.Full:
+                logger.warning(
+                    "async post queue still full at stop; a worker may "
+                    "keep draining in the background")
+
+    def _run(self) -> None:
+        while True:
+            fn = self._queue.get()
+            if fn is None:
+                return
+            try:
+                fn()
+            except Exception:
+                logger.exception("async post failed")
 
 
 class PredictionServer:
@@ -237,14 +356,6 @@ class PredictionServer:
                  host: str = "127.0.0.1", port: int = 0, *,
                  config: Optional[ServerConfig] = None,
                  plugin_context: Optional[PluginContext] = None):
-        if config is not None and config.feedback:
-            raise NotImplementedError(
-                "deploy --feedback (the feedback loop) is not ported yet: "
-                "ROADMAP.md Queue 1 item 8c")
-        if config is not None and config.log_url:
-            raise NotImplementedError(
-                "deploy --log-url (query-error shipping) is not ported "
-                "yet: ROADMAP.md Queue 1 item 8c")
         self.engine = engine
         self.config = config or ServerConfig(ip=host, port=port)
         self.plugin_context = plugin_context or PluginContext()
@@ -320,6 +431,11 @@ class PredictionServer:
 
         obs_metrics.REGISTRY.register_collector(
             "prediction_model_staleness", _collect_staleness)
+        # feedback is training data: a deep queue, so only a sustained
+        # outage of the event server drops (counted on GET /); the log
+        # shipper's diagnostics stay shallow and lossy (JAX :339-344)
+        self._feedback_poster = _AsyncPoster("feedback", maxsize=16384)
+        self._log_poster = _AsyncPoster("log", workers=1, maxsize=256)
 
     # -- tenancy ------------------------------------------------------------
     def register_queue_collector(self) -> None:
@@ -628,13 +744,15 @@ class PredictionServer:
                 results[idx] = e
         # rendered-bytes fast path: only where the bytes equal the object
         # path's — one algorithm, first-prediction serving declared on the
-        # serving's own class, the identity supplement, and no output
-        # plugin that needs the answer as an object
+        # serving's own class, the identity supplement, and nothing that
+        # needs the answer as an object (the feedback loop, an output
+        # plugin)
         blockers = self.plugin_context.output_blockers
         sniffers = self.plugin_context.output_sniffers
         if (len(algorithms) == 1
                 and type(serving).__dict__.get("FIRST_PREDICTION_ONLY", False)
                 and type(serving).supplement is Serving.supplement
+                and not self.config.feedback
                 and not blockers and not sniffers):
             try:
                 fast = algorithms[0].batch_serve_json(
@@ -693,6 +811,8 @@ class PredictionServer:
                 # serve sees the ORIGINAL query (CreateServer.scala:526)
                 result = json_codec.to_jsonable(
                     serving.serve(query, preds[idx]))
+                if self.config.feedback:
+                    result = self._feedback(instance, raw, result)
                 for blocker in blockers.values():
                     result = blocker.process(variant, raw, result,
                                              self.plugin_context)
@@ -705,6 +825,13 @@ class PredictionServer:
                 results[idx] = result
             except Exception as e:
                 results[idx] = e
+        if self.config.log_url:
+            for idx, res in enumerate(results):
+                if isinstance(res, Exception) and not isinstance(
+                        res, HttpError):
+                    self._remote_log(
+                        f"Query:\n{bodies[idx][:2048]!r}\n\nStack Trace:\n"
+                        + "".join(traceback.format_exception(res)))
         dt = time.perf_counter() - t0
         with self._lock:
             self.request_count += n
@@ -717,6 +844,70 @@ class PredictionServer:
         _QUERY_LATENCY.labels(
             tenant=tenancy.get_registry().label(tenant)).observe(dt, n)
         return results
+
+    def _remote_log(self, message: str) -> None:
+        """POST a query error to ``log_url``, prefixed with ``log_prefix``
+        (remoteLog, CreateServer.scala:449-460; JAX :743-767), through the
+        log poster; a collector's failure is only logged here."""
+        with self._lock:
+            instance = self.engine_instance
+        payload = (self.config.log_prefix or "") + json.dumps({
+            "engineInstance": {
+                "id": instance.id if instance else None,
+                "engineId": instance.engine_id if instance else None,
+                "engineVariant": (
+                    instance.engine_variant if instance else None),
+            },
+            "message": message,
+        })
+        # captured here: the poster's thread has none of the request's
+        # context variables
+        trace_headers = obs_trace.client_headers()
+        self._log_poster.submit(
+            lambda: _post_with_retries(
+                self.config.log_url, payload.encode(),
+                {"Content-Type": "application/json", **trace_headers},
+                "remote log"),
+            "remote log")
+
+    def _feedback(self, instance: Optional[EngineInstance],
+                  query_json: Any, prediction_json: Any) -> Any:
+        """Post the answer back to the event server as a ``predict`` event
+        of entityType ``pio_pr`` (CreateServer.scala:534-604; JAX
+        :769-803). Its entity id is the prediction's ``prId``, else a
+        fresh one; a query's ``prId`` rides as the event's. The answer
+        carries the id only when the prediction has a ``prId`` field."""
+        pr_id = prediction_json.get("prId") if isinstance(
+            prediction_json, dict) else None
+        if not pr_id:
+            pr_id = secrets.token_hex(32)
+        data = {
+            "event": "predict",
+            "eventTime": format_iso8601(now_utc()),
+            "entityType": "pio_pr",
+            "entityId": pr_id,
+            "properties": {
+                "engineInstanceId": instance.id if instance else None,
+                "query": query_json,
+                "prediction": prediction_json,
+            },
+        }
+        if isinstance(query_json, dict) and query_json.get("prId"):
+            data["prId"] = query_json["prId"]
+        url = (f"http://{self.config.event_server_ip}:"
+               f"{self.config.event_server_port}/events.json"
+               f"?accessKey={self.config.access_key or ''}")
+        # captured before the hop to the poster's thread (see _remote_log)
+        trace_headers = obs_trace.client_headers()
+        self._feedback_poster.submit(
+            lambda: _post_with_retries(
+                url, json.dumps(data).encode(),
+                {"Content-Type": "application/json", **trace_headers},
+                "feedback event", expect_status=201),
+            "feedback event")
+        if isinstance(prediction_json, dict) and "prId" in prediction_json:
+            prediction_json = dict(prediction_json, prId=pr_id)
+        return prediction_json
 
     def _tenant_status_locked(self) -> Optional[Dict[str, Any]]:
         """``GET /``'s per-tenant block (the caller holds the lock; JAX
@@ -771,6 +962,8 @@ class PredictionServer:
                 "servingSecP95": _QUERY_LATENCY.quantile(0.95) or 0.0,
                 "servingSecP99": _QUERY_LATENCY.quantile(0.99) or 0.0,
                 "maxBatchServed": self.max_batch_served,
+                # feedback events lost to a full poster queue
+                "feedbackEventsDropped": self._feedback_poster.dropped,
                 # this process's kernel launches by kernel (a deployed
                 # server is its own process: its counts are read here)
                 "kernelLaunches": runtime.launch_counts(),
@@ -965,16 +1158,21 @@ class PredictionServer:
 
     def stop(self) -> None:
         """Stop the scheduler (queued queries get a 503), then the speed
-        overlays' pollers and the HTTP server."""
+        overlays' pollers, the feedback and log posters (after what they
+        hold) and the HTTP server."""
         if self._batcher is not None:
             self._batcher.stop()
         with self._lock:
             held, self._mips_daemon_held = self._mips_daemon_held, False
+            overlays = list(self._speed_overlays)
         if held:
             mips_daemon.release()
-        for ov in self._speed_overlays:
+        # stopped outside the lock: a poller's stop joins its thread
+        for ov in overlays:
             if ov is not None:
                 ov.stop()
+        self._feedback_poster.stop()
+        self._log_poster.stop()
         self.http.stop()
         self._stopped.set()
 

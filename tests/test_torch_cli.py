@@ -3,7 +3,8 @@ CPU, against the JAX package's: ``tests/test_cli.py``'s app, access key,
 import / export, build / train and ``undeploy`` cases run through both
 CLIs on stores of their own, with the same outputs (keys and ids aside);
 the verbs the port has not ported raise ``NotImplementedError`` naming
-their ROADMAP item; ``train`` and ``deploy`` run on the CPU only with the
+their ROADMAP item; ``deploy``'s feedback and log options reach the
+server; ``run`` and ``template`` print what the JAX CLI prints; ``train`` and ``deploy`` run on the CPU only with the
 switch (``PIO_DEVICE=cpu``, set here for every test)."""
 
 import json
@@ -435,16 +436,93 @@ def test_adminserver_serves_its_routes(tmp_path):
             proc.communicate(timeout=30)
 
 
-@pytest.mark.parametrize("flag,value", [("--feedback", None),
-                                        ("--log-url", "http://x")])
-def test_deploy_options_not_ported_raise(tmp_path, monkeypatch, flag,
-                                         value):
+def _deployed_server(tmp_path, monkeypatch, argv):
+    """The ``PredictionServer`` that ``pio deploy <argv>`` builds, its
+    serving loop stubbed out (nothing is trained, loaded or bound), with
+    its posters stubbed to run a post at once and ``_post_with_retries``
+    to record (url, payload) instead of posting."""
+    from incubator_predictionio_tpu_torch.servers import prediction_server
+
     (tmp_path / "engine.json").write_text(json.dumps({
         "engineFactory": PORT_FACTORY,
         "datasource": {"params": {"appName": "A"}}}))
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        main(["deploy", flag] + ([value] if value else []))
+    built, posts = [], []
+    monkeypatch.setattr(prediction_server.PredictionServer, "serve_forever",
+                        lambda self, on_started=None: built.append(self))
+    monkeypatch.setattr(
+        prediction_server, "_post_with_retries",
+        lambda url, payload, headers, what, expect_status=None:
+        posts.append((url, payload.decode())))
+    assert main(["deploy", "--port", "0"] + argv) == 0
+    (server,) = built
+    for poster in (server._feedback_poster, server._log_poster):
+        monkeypatch.setattr(poster, "submit", lambda fn, what: fn())
+    return server, posts
+
+
+@pytest.mark.parametrize("flag,value,field,expect", [
+    ("--feedback", None, "feedback", True),
+    ("--event-server-ip", "10.1.2.3", "event_server_ip", "10.1.2.3"),
+    ("--event-server-port", "7171", "event_server_port", 7171),
+    ("--accesskey", "fb-key", "access_key", "fb-key"),
+    ("--log-url", "http://collector:1/c", "log_url", "http://collector:1/c"),
+    ("--log-prefix", "PIOLOG ", "log_prefix", "PIOLOG "),
+])
+def test_deploy_feedback_and_log_options_reach_the_server(
+        tmp_path, monkeypatch, flag, value, field, expect):
+    """Each of ``pio deploy``'s six feedback and log options (JAX
+    main.py:107-115) lands in the ``ServerConfig`` the server is built
+    with, and the server reads it: the predict event's URL carries the
+    event server's address and key, the shipped error line goes to the
+    log URL behind the prefix."""
+    server, posts = _deployed_server(
+        tmp_path, monkeypatch, [flag] + ([value] if value else []))
+    assert getattr(server.config, field) == expect
+    if field == "feedback":
+        # a query served on the object path is posted back as a predict
+        # event; a body that does not parse posts nothing
+        class Algo:
+            query_class = None
+
+            def predict(self, model, query):
+                return {"itemScores": [{"item": "i1", "score": 1.0}]}
+
+        class FirstServing:
+            def supplement(self, query):
+                return query
+
+            def serve(self, query, predictions):
+                return predictions[0]
+
+        server.algorithms, server.models = [Algo()], [None]
+        server.serving = FirstServing()
+        answers = server._serve_batch([b'{"user": "u1"}', b"not json"],
+                                      "default", "default")
+        assert answers[0] == {"itemScores": [{"item": "i1", "score": 1.0}]}
+        assert isinstance(answers[1], ValueError)
+        ((url, payload),) = posts
+        event = json.loads(payload)
+        assert (event["event"], event["entityType"]) == ("predict", "pio_pr")
+        assert event["properties"]["query"] == {"user": "u1"}
+        assert event["properties"]["prediction"] == answers[0]
+        return
+    if field in ("event_server_ip", "event_server_port", "access_key"):
+        server._feedback(None, {"user": "u1"}, {"itemScores": []})
+        ((url, payload),) = posts
+        assert url == (f"http://{server.config.event_server_ip}:"
+                       f"{server.config.event_server_port}/events.json"
+                       f"?accessKey={server.config.access_key or ''}")
+        assert str(expect) in url
+        assert json.loads(payload)["entityType"] == "pio_pr"
+        return
+    server.config.log_url = server.config.log_url or "http://c/collect"
+    server._remote_log("boom")
+    ((url, payload),) = posts
+    assert url == server.config.log_url
+    assert payload.startswith(server.config.log_prefix)
+    assert json.loads(payload[len(server.config.log_prefix):])[
+        "message"] == "boom"
 
 
 def test_train_model_parallelism_above_one_raises(tmp_path, monkeypatch):
@@ -455,17 +533,29 @@ def test_train_model_parallelism_above_one_raises(tmp_path, monkeypatch):
         main(["train", "--model-parallelism", "2"])
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("--event-server-ip", "127.0.0.1"), ("--event-server-port", "7070"),
-    ("--accesskey", "k"), ("--log-prefix", "p")])
-def test_deploy_feedback_options_are_refused(capsys, flag, value):
-    """The options only the feedback loop and the log shipper read (not
-    ported, item 8) are not accepted: argparse refuses them (exit 2)
-    instead of ignoring them."""
-    with pytest.raises(SystemExit) as e:
-        main(["deploy", flag, value])
-    assert e.value.code == 2
-    assert flag in capsys.readouterr().err
+def test_run_calls_its_target_with_the_arguments(tmp_path, monkeypatch,
+                                                capsys):
+    """``pio run module:attr a b`` (JAX main.py:590-595) resolves the
+    target from the working directory, calls it with the arguments and
+    prints its result, as the JAX CLI does; a None result prints
+    nothing."""
+    (tmp_path / "pio_run_target.py").write_text(
+        "def joined(*args):\n"
+        "    return '+'.join(args)\n"
+        "\n"
+        "def quiet(*args):\n"
+        "    return None\n")
+    monkeypatch.chdir(tmp_path)
+    assert _both(capsys, "run", "pio_run_target:joined", "a", "b") == "a+b\n"
+    assert _both(capsys, "run", "pio_run_target:quiet", "x") == ""
+
+
+@pytest.mark.parametrize("verb", ["list", "get"])
+def test_template_prints_the_deprecation_notice(capsys, verb):
+    """``pio template {get,list}`` prints the JAX CLI's notice (JAX
+    main.py:597-600) and exits 0."""
+    out = _both(capsys, "template", verb)
+    assert "deprecated" in out
 
 
 # -- the native event log (cpplog) under the CLI ----------------------------

@@ -932,3 +932,118 @@ def test_control_modules_import_nothing_of_jax(module):
         assert (out["controller"], out["knobs"]) == ("off", "act")
         assert out["fanout"] == 1 and out["answer"] == 3
         assert out["guards"] == [None, None] and out["cards"] == 0
+
+
+_LINT_ISOLATED = textwrap.dedent('''
+    import contextlib, importlib, importlib.abc, io, json, os, sys, time
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if (name == "incubator_predictionio_tpu"
+                    or name.startswith("incubator_predictionio_tpu.")):
+                raise ImportError("the port imported " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    importlib.import_module(sys.argv[1])
+    from incubator_predictionio_tpu_torch.analysis import __main__ as lint
+    out = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["rules"] = lint.main(["--list-rules"])
+    out["n_rules"] = len(buf.getvalue().splitlines())
+    if sys.argv[1].endswith(".analysis"):
+        # the whole port under its own baseline, then the feedback loop:
+        # a query's predict event read back from an event server
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out["lint"] = lint.main(["--baseline"])
+        out["lint_out"] = buf.getvalue()[-2000:]
+        import urllib.request
+        import numpy as np
+        for k, v in {"PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+                     "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "m",
+                     "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+                     "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "e",
+                     "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+                     "PIO_RECORDER": "0"}.items():
+            os.environ[k] = v
+        from incubator_predictionio_tpu_torch.core.params import (
+            EngineParams)
+        from incubator_predictionio_tpu_torch.data.storage import (
+            AccessKey, App, Storage)
+        from incubator_predictionio_tpu_torch.models.recommendation import (
+            convert, engine)
+        from incubator_predictionio_tpu_torch.servers.event_server import (
+            EventServer, EventServerConfig)
+        from incubator_predictionio_tpu_torch.servers.prediction_server import (
+            PredictionServer, ServerConfig)
+        app_id = Storage.get_meta_data_apps().insert(App(0, "fb"))
+        Storage.get_meta_data_access_keys().insert(AccessKey("fbkey", app_id))
+        es = EventServer(EventServerConfig(ip="127.0.0.1", port=0))
+        es_port = es.start_background()
+        rng = np.random.default_rng(0)
+        model = convert.als_model_from_numpy(
+            rng.standard_normal((5, 4)), rng.standard_normal((9, 4)),
+            [f"u{i}" for i in range(5)], [f"i{i}" for i in range(9)],
+            device="cpu")
+        ps = PredictionServer(
+            engine.RecommendationEngine().apply(), EngineParams(), [model],
+            device="cpu", config=ServerConfig(
+                ip="127.0.0.1", port=0, feedback=True,
+                event_server_ip="127.0.0.1", event_server_port=es_port,
+                access_key="fbkey"))
+        port = ps.start_background()
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/queries.json",
+                data=b'{"user": "u2", "num": 3}', method="POST")
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                answer = json.loads(resp.read())
+            events, deadline = [], time.time() + 30
+            while not events and time.time() < deadline:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{es_port}/events.json"
+                        "?accessKey=fbkey&event=predict", timeout=30) as r:
+                    events = json.loads(r.read())
+                time.sleep(0.05)
+            out["predicted"] = [e["properties"]["prediction"] == answer
+                                for e in events]
+        finally:
+            ps.stop()
+            es.stop()
+    out["leaked"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None and (
+            m in ("jax", "jaxlib") or m == "incubator_predictionio_tpu"
+            or m.startswith("incubator_predictionio_tpu.")))
+    print(json.dumps(out))
+''')
+
+
+@pytest.mark.parametrize("module", [
+    "incubator_predictionio_tpu_torch.analysis",
+    "incubator_predictionio_tpu_torch.analysis.engine",
+    "incubator_predictionio_tpu_torch.analysis.rules",
+    "incubator_predictionio_tpu_torch.analysis.concur",
+    "incubator_predictionio_tpu_torch.analysis.__main__",
+])
+def test_lint_and_feedback_import_nothing_of_jax(module):
+    """The port's pio-lint imports with JAX and the JAX package blocked
+    and lists its 23 rules; the whole package lints clean under its own
+    baseline, and the feedback loop posts a query's answer back to an
+    event server as a predict event."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _LINT_ISOLATED, module],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=repo)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    assert (out["rules"], out["n_rules"]) == (0, 23)
+    if module.endswith(".analysis"):
+        assert out["lint"] == 0, out["lint_out"]
+        assert out["predicted"] == [True]
